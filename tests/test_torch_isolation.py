@@ -1,0 +1,111 @@
+"""The port stands alone: no jax, no whisper_tpu, no tiktoken; and its copies
+of the JAX package's host-only modules behave the same."""
+
+import ast
+import pathlib
+import struct
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "whisper_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "whisper_tpu", "tiktoken", "triton")
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_import_isolation_subprocess():
+    """Importing the package, every submodule and chip_smoke loads none of
+    the forbidden modules."""
+    code = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {str(REPO)!r})
+import whisper_tpu_torch
+for m in pkgutil.walk_packages(whisper_tpu_torch.__path__, "whisper_tpu_torch."):
+    importlib.import_module(m.name)
+importlib.import_module("chip_smoke")
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in {FORBIDDEN!r})
+print("LOADED", bad)
+assert not bad, bad
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_forbidden_import_statements(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, f"{path}: imports {n}"
+
+
+def test_config_copy_matches():
+    from whisper_tpu import config as jc
+    from whisper_tpu import tokenizer as jt
+    from whisper_tpu_torch import config as tc
+
+    assert tc.PRESETS == jc.PRESETS
+    assert tc.LANGUAGES == jt.LANGUAGES and tc.TO_LANGUAGE_CODE == jt.TO_LANGUAGE_CODE
+    for name in ("tiny", "turbo", "test-nano"):
+        a, b = tc.get_config(name), jc.get_config(name)
+        assert a.to_json() == b.to_json()
+        assert a.sot_sequence("yue" if a.num_languages == 100 else "zh", "translate") == \
+            b.sot_sequence("yue" if b.num_languages == 100 else "zh", "translate")
+
+
+def test_text_copy_matches():
+    from whisper_tpu import text as jt
+    from whisper_tpu_torch import text as tt
+
+    assert tt.T2S == jt.T2S and tt.T2S_PHRASES == jt.T2S_PHRASES
+    for s, lang in (("乾隆皇帝著名的著作，頭髮", "zh"), (" hello, world ", "en"),
+                    ("發展經濟", "yue")):
+        assert tt.postprocess(s, lang) == jt.postprocess(s, lang)
+
+
+def test_longform_copy_matches():
+    from whisper_tpu import longform as jl
+    from whisper_tpu_torch import longform as tl
+
+    for n in (100, 480000, 480001, 1_000_000):
+        assert [(c.start, c.length) for c in tl.plan_chunks(n, overlap_samples=32000)] == \
+            [(c.start, c.length) for c in jl.plan_chunks(n, overlap_samples=32000)]
+    texts = ["the quick brown fox jumps", "fox jumps over the lazy dog", "", "dog sleeps"]
+    for lang in ("en", "zh"):
+        assert tl.merge_texts(texts, lang) == jl.merge_texts(texts, lang)
+
+
+def test_audio_copy_matches(tmp_path):
+    from whisper_tpu.ops import audio as ja
+    from whisper_tpu_torch.ops import audio as ta
+
+    rng = np.random.default_rng(0)
+    stereo = (rng.standard_normal((2, 800)) * 0.2).clip(-1, 1)
+    pcm = (stereo.T * 32767).astype("<i2").tobytes()
+    wav = (b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVE"
+           + b"fmt " + struct.pack("<IHHIIHH", 16, 1, 2, 8000, 8000 * 4, 4, 16)
+           + b"data" + struct.pack("<I", len(pcm)) + pcm)
+    a, b = ta.parse_wav(wav), ja.parse_wav(wav)
+    np.testing.assert_array_equal(a[0], b[0])
+    assert a[1] == b[1] == 8000
+    np.testing.assert_array_equal(ta.resample(ta.to_mono(a[0]), 8000),
+                                  ja.resample(ja.to_mono(b[0]), 8000))
+    path = tmp_path / "x.wav"
+    path.write_bytes(wav)
+    # the JAX load_audio's numpy branch (its native loader is not ported)
+    np.testing.assert_array_equal(ta.load_audio(str(path)),
+                                  ja.resample(ja.to_mono(ja.parse_wav(wav)[0]), 8000))

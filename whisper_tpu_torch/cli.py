@@ -1,0 +1,64 @@
+"""Command-line front end of the port.
+
+Usage:
+    python -m whisper_tpu_torch.cli --wav demo.wav --model_type tiny --language zh --device cuda
+    python -m whisper_tpu_torch.cli --wav a.wav b.wav --model_type turbo --dtype bfloat16 \
+        --quantize --w8a8 --kv_quant --self_kv_quant --max_tokens 64
+
+Weights are the port's seeded random init (checkpoint loading is not ported
+yet), so the text is gibberish; the RTF line shows the path ran end to end.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser("whisper_tpu_torch", description="Whisper ASR on PyTorch/CUDA")
+    p.add_argument("--wav", "-w", nargs="+", required=True, help="input WAV file(s)")
+    p.add_argument("--model_type", "-t", default="tiny",
+                   help="tiny|base|small|medium|large-v3|turbo|...")
+    p.add_argument("--language", "-l", default="zh", help="language code")
+    p.add_argument("--task", default="transcribe", choices=["transcribe", "translate"])
+    p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--seed", type=int, default=0, help="seed of the random init")
+    p.add_argument("--quantize", action="store_true",
+                   help="int8-quantize attention/MLP weights")
+    p.add_argument("--quantize_logits", action="store_true",
+                   help="int8 copy of the logits embedding")
+    p.add_argument("--w8a8", action="store_true",
+                   help="int8 activations x int8 weights in the encoder (needs --quantize)")
+    p.add_argument("--gelu", default="erf", choices=["erf", "tanh"])
+    p.add_argument("--kv_quant", action="store_true", help="int8 cross-attention KV")
+    p.add_argument("--self_kv_quant", action="store_true", help="int8 self-attention KV cache")
+    p.add_argument("--max_tokens", type=int, default=None,
+                   help="cap on generated tokens (default: model ctx limit)")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = get_args(argv)
+    from .pipeline import WhisperPipeline
+
+    t0 = time.perf_counter()
+    pipe = WhisperPipeline(
+        model=args.model_type, language=args.language, task=args.task,
+        compute_dtype=args.dtype, seed=args.seed, max_tokens=args.max_tokens,
+        quantize=args.quantize, quantize_logits=args.quantize_logits, w8a8=args.w8a8,
+        gelu=args.gelu, kv_quant=args.kv_quant, self_kv_quant=args.self_kv_quant,
+        device=args.device)
+    print(f"Init model cost: {time.perf_counter() - t0:.3f}s", file=sys.stderr)
+    results = pipe.transcribe_batch(args.wav)
+    for path, r in zip(args.wav, results):
+        print(f"{path}\t[{r.language}]\t{r.text}")
+        print(f"  audio {r.audio_seconds:.2f}s  wall {r.wall_seconds:.2f}s  RTF {r.rtf:.4f}",
+              file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

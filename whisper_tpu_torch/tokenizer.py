@@ -1,0 +1,216 @@
+"""Whisper tokenizer for the port, without tiktoken.
+
+Reads the byte-level BPE rank table (``assets/multilingual.tiktoken``: one
+base64 token and its rank per line) itself:
+
+- decoding is a bytes lookup per id, joined and UTF-8 decoded with
+  replacement, as tiktoken does; timestamp ids are dropped by ``decode`` and
+  rendered as ``<|t.tt|>`` by ``decode_with_timestamps``;
+- special ids follow the rank table in the same order as the JAX package's
+  tokenizer (eot, sot, the language tokens, task and control tokens, then
+  1501 timestamps);
+- encoding is plain rank-ordered byte-pair merging over the whole string,
+  with no GPT-2 pre-tokenizer. That is exact for the short symbol strings
+  behind :attr:`Tokenizer.non_speech_tokens` (one optional space followed by
+  punctuation is one pre-tokenizer piece); arbitrary text such as an
+  ``initial_prompt`` is not supported yet.
+"""
+
+from __future__ import annotations
+
+import base64
+import os
+from dataclasses import dataclass, field
+from functools import cached_property, lru_cache
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from .config import LANGUAGES, TO_LANGUAGE_CODE
+
+_ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "assets")
+
+
+def find_vocab_file(explicit: Optional[str] = None) -> str:
+    """Locate ``multilingual.tiktoken``: an explicit path, else
+    ``<repo>/assets/``."""
+    for c in (explicit, os.path.join(_ASSETS, "multilingual.tiktoken")):
+        if c and os.path.exists(c):
+            return os.path.abspath(c)
+    raise FileNotFoundError(
+        "multilingual.tiktoken not found in the repository's assets/ "
+        "directory; pass vocab_path")
+
+
+@lru_cache(maxsize=2)
+def _load_ranks(path: str) -> Dict[bytes, int]:
+    ranks = {}
+    with open(path, "rb") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            tok, rank = line.split()
+            ranks[base64.b64decode(tok)] = int(rank)
+    return ranks
+
+
+def special_token_names(num_languages: int) -> List[str]:
+    """Special tokens in id order after the rank table."""
+    names = ["<|endoftext|>", "<|startoftranscript|>"]
+    names += [f"<|{code}|>" for code in list(LANGUAGES)[:num_languages]]
+    names += ["<|translate|>", "<|transcribe|>", "<|startoflm|>",
+              "<|startofprev|>", "<|nospeech|>", "<|notimestamps|>"]
+    names += [f"<|{i * 0.02:.2f}|>" for i in range(1501)]
+    return names
+
+
+def bpe_encode(data: bytes, ranks: Dict[bytes, int]) -> List[int]:
+    """Byte-pair merge ``data``: repeatedly merge the adjacent pair whose
+    concatenation has the lowest rank, until no pair is in the table."""
+    parts = [data[i:i + 1] for i in range(len(data))]
+    while len(parts) > 1:
+        best, best_rank = -1, None
+        for i in range(len(parts) - 1):
+            r = ranks.get(parts[i] + parts[i + 1])
+            if r is not None and (best_rank is None or r < best_rank):
+                best, best_rank = i, r
+        if best < 0:
+            break
+        parts[best:best + 2] = [parts[best] + parts[best + 1]]
+    return [ranks[p] for p in parts]
+
+
+@dataclass
+class Tokenizer:
+    """Whisper tokenizer with task/language context (multilingual vocab)."""
+
+    ranks: Dict[bytes, int] = field(repr=False)
+    num_languages: int = 99
+    language: Optional[str] = None
+    task: Optional[str] = None
+
+    @cached_property
+    def _specials(self) -> Dict[str, int]:
+        base = len(self.ranks)
+        return {name: base + i
+                for i, name in enumerate(special_token_names(self.num_languages))}
+
+    @cached_property
+    def _id_bytes(self) -> Dict[int, bytes]:
+        out = {r: b for b, r in self.ranks.items()}
+        out.update({i: name.encode() for name, i in self._specials.items()})
+        return out
+
+    def encode(self, text: str) -> List[int]:
+        return bpe_encode(text.encode("utf-8"), self.ranks)
+
+    def _decode_bytes(self, ids: Sequence[int]) -> str:
+        table = self._id_bytes
+        return b"".join(table[int(t)] for t in ids).decode("utf-8", errors="replace")
+
+    def decode(self, token_ids: Sequence[int]) -> str:
+        return self._decode_bytes(
+            [int(t) for t in token_ids if int(t) < self.timestamp_begin])
+
+    def decode_with_timestamps(self, token_ids: Sequence[int]) -> str:
+        parts: List[str] = []
+        run: List[int] = []
+        for t in token_ids:
+            t = int(t)
+            if t >= self.timestamp_begin:
+                if run:
+                    parts.append(self._decode_bytes(run))
+                    run = []
+                parts.append(f"<|{(t - self.timestamp_begin) * 0.02:.2f}|>")
+            else:
+                run.append(t)
+        if run:
+            parts.append(self._decode_bytes(run))
+        return "".join(parts)
+
+    # ---- special-token accessors ----
+    @property
+    def eot(self) -> int:
+        return self._specials["<|endoftext|>"]
+
+    @property
+    def sot(self) -> int:
+        return self._specials["<|startoftranscript|>"]
+
+    @property
+    def transcribe(self) -> int:
+        return self._specials["<|transcribe|>"]
+
+    @property
+    def translate(self) -> int:
+        return self._specials["<|translate|>"]
+
+    @property
+    def sot_lm(self) -> int:
+        return self._specials["<|startoflm|>"]
+
+    @property
+    def sot_prev(self) -> int:
+        return self._specials["<|startofprev|>"]
+
+    @property
+    def no_speech(self) -> int:
+        return self._specials["<|nospeech|>"]
+
+    @property
+    def no_timestamps(self) -> int:
+        return self._specials["<|notimestamps|>"]
+
+    @property
+    def timestamp_begin(self) -> int:
+        return self._specials["<|0.00|>"]
+
+    def to_language_token(self, language: str) -> int:
+        return self._specials[f"<|{language}|>"]
+
+    @cached_property
+    def sot_sequence(self) -> Tuple[int, ...]:
+        seq = [self.sot]
+        if self.language is not None:
+            seq.append(self.to_language_token(self.language))
+        if self.task is not None:
+            seq.append(self.transcribe if self.task == "transcribe" else self.translate)
+        return tuple(seq)
+
+    @cached_property
+    def non_speech_tokens(self) -> Tuple[int, ...]:
+        """Token ids to suppress so decoding never emits bracketed/markup
+        non-speech annotations (OpenAI Whisper's public symbol list): a
+        symbol is suppressed in bare and space-prefixed form when it is one
+        token, and musical notes by their first token even when multi-token.
+        """
+        single_chars = '"#()*+/:;<=>@[\\]^_`{|}~「」『』'
+        multi_chars = (
+            "<< >> <<< >>> -- --- -( -[ (' (\" (( )) ((( ))) [[ ]] {{ }} ♪♪ ♪♪♪"
+        ).split()
+        notes = "♩♪♫♬♭♮♯"
+        ids = {self.encode(" -")[0], self.encode(" '")[0]}
+        for sym in [*single_chars, *multi_chars, *notes]:
+            for variant in (sym, " " + sym):
+                toks = self.encode(variant)
+                if len(toks) == 1 or sym in notes:
+                    ids.add(toks[0])
+        return tuple(sorted(ids))
+
+
+def get_tokenizer(
+    *,
+    num_languages: int = 99,
+    language: Optional[str] = None,
+    task: Optional[str] = None,
+    vocab_path: Optional[str] = None,
+) -> Tokenizer:
+    """Multilingual tokenizer (the English-only ``.en`` vocab is not ported)."""
+    if language is not None:
+        language = language.lower()
+        if language not in LANGUAGES:
+            if language in TO_LANGUAGE_CODE:
+                language = TO_LANGUAGE_CODE[language]
+            else:
+                raise ValueError(f"unsupported language: {language}")
+    ranks = _load_ranks(find_vocab_file(vocab_path))
+    return Tokenizer(ranks=ranks, num_languages=num_languages,
+                     language=language, task=task)
