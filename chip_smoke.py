@@ -3,12 +3,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``whisper_tpu_torch/csrc/`` (nvcc,
-sm_90a), holds each against its plain PyTorch version at the main path's
-shapes, drives the main path (``WhisperPipeline.transcribe_batch``, turbo at
-full width, batch 64, 64 new tokens, bf16, int8 weights + W8A8 encoder + int8
-cross- and self-KV, seeded random weights) while counting kernel launches,
-and checks a small fp32 transcription on the card against the same pipeline
-on the CPU. Prints JSON lines; the last is
+sm_90a), holds each against its plain PyTorch version at the shapes of the
+two paths below, and drives both while counting kernel launches:
+
+- the offline path, ``WhisperPipeline.transcribe_batch``: turbo at full
+  width, batch 64, 64 new tokens, bf16, int8 weights + W8A8 encoder + int8
+  cross- and self-KV, seeded random weights;
+- the serving path: the port's HTTP server in-process on 127.0.0.1 under the
+  server's zero-flag defaults (turbo, 8 slots, 32 steps per sync, 224-token
+  budget, W8A8 + int8 cross- and self-KV, bf16), answering 24 seeded noise
+  clips of 2-30 s from 24 client threads.
+
+Then it checks small fp32 runs of both paths on the card against the
+pipeline on the CPU. Prints JSON lines; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Needs a CUDA card: without one it exits 1 and prints no result.
 """
@@ -16,9 +23,15 @@ Needs a CUDA card: without one it exits 1 and prints no result.
 from __future__ import annotations
 
 import json
+import math
+import struct
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -41,9 +54,18 @@ N_TOKENS = 64
 #  K1 fp32: fp32 summation order only;
 #  K2 bf16: both compute in fp32 and round to bf16; one bf16 ulp at |out|<1
 #    is <= 2^-8 = 3.9e-3;
-#  K2 fp32: fp32 summation order only.
+#  K2 fp32: fp32 summation order only;
+#  K3 bf16 (|V| <= 1): both compute in fp32 and round to bf16, at most one
+#    bf16 ulp apart below 1 (<= 2^-8 = 3.9e-3);
+#  K3 fp32: fp32 summation order only.
 TOL = {"flash_attention_btd/bf16": 8e-3, "flash_attention_btd/fp32": 1e-4,
-       "cross_attention_decode_fd/bf16": 4e-3, "cross_attention_decode_fd/fp32": 1e-4}
+       "cross_attention_decode_fd/bf16": 4e-3, "cross_attention_decode_fd/fp32": 1e-4,
+       "self_attention_decode/bf16": 4e-3, "self_attention_decode/fp32": 1e-5}
+# K3's shapes: (batch, self-KV positions, offsets drawn from [lo, hi]) of the
+# offline path (prompt of 4, 64 new tokens, cache bucketed to 128) and of
+# the serving path (8 slots, 224-token budget, cache bucketed to 256)
+K3_SHAPES = {"offline": (B, 128, 4, 4 + N_TOKENS - 1), "serving": (8, 256, 4, 4 + 224 - 1)}
+L2_BYTES = 50e6
 
 
 def emit(obj) -> None:
@@ -62,6 +84,27 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean time on the card per call of ``fn``: the summed durations of the
+    kernels it launches (CUPTI, through torch.profiler), without the gaps
+    between launches. For a kernel of a few microseconds a loop timed by
+    CUDA events measures the host's launch rate instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    if total <= 0:
+        raise AssertionError("torch.profiler recorded no time on the card")
+    return total / 1e3 / reps
 
 
 def check(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -154,6 +197,78 @@ def kernel_k2(dev, gen) -> dict:
             "library_ms": None, "library": "none: no single PyTorch call computes it"}
 
 
+def kernel_k3(dev, gen) -> dict:
+    """K3 on both cache layouts at both paths' shapes, against its plain
+    version; times cycle through enough cache copies to exceed the 50 MB L2,
+    as the decode step finds its layer view cold. The bound counts the bytes
+    of each row's visible window (what the kernel must read), not all of T."""
+    from whisper_tpu_torch.models.model import quantize_kv_heads
+    from whisper_tpu_torch.ops.decode_attention import (
+        self_attention_decode, self_attention_decode_int8, self_attention_decode_int8_plain,
+        self_attention_decode_plain)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(5)
+    out = {}
+    for path, (b, T, lo, hi) in K3_SHAPES.items():
+        offsets = torch.from_numpy(rng.integers(lo, hi + 1, b)).to(dev)
+        n_vis = float((offsets.clamp(max=T - 1) + 1).sum()) * H_TEXT  # visible (row, head) keys
+        q = torch.randn((b, H_TEXT, 1, DH), generator=gen, device=dev)
+        k = torch.randn((b, H_TEXT, T, DH), generator=gen, device=dev)
+        v = torch.rand((b, H_TEXT, T, DH), generator=gen, device=dev) * 2 - 1  # |V| <= 1
+        kv_q, kv_s = (t.contiguous() for t in quantize_kv_heads(k, v))
+        layouts = {
+            "int8": (self_attention_decode_int8, self_attention_decode_int8_plain,
+                     lambda dt: (kv_q, kv_s), 2.0 * DH + 2 * 4.0),
+            "float": (self_attention_decode, self_attention_decode_plain,
+                      lambda dt: (k.transpose(-1, -2).contiguous().to(dt),
+                                  v.transpose(-1, -2).contiguous().to(dt)), 2.0 * DH * 2),
+        }
+        for layout, (fn, plain, cache, bytes_per_key) in layouts.items():
+            res = {}
+            for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                qd, c = q.to(dt), cache(dt)
+                res[tag] = check(f"self_attention_decode/{tag}", fn(qd, *c, offsets),
+                                 plain(qd, *c, offsets))
+            qd, c = q.to(torch.bfloat16), cache(torch.bfloat16)
+            full = sum(t.numel() * t.element_size() for t in c)
+            sets = [c] + [tuple(t.clone() for t in c)
+                          for _ in range(max(1, math.ceil(2 * L2_BYTES / full)) - 1)]
+            calls = {"ms": lambda: [fn(qd, *cs, offsets) for cs in sets],
+                     "plain_ms": lambda: [plain(qd, *cs, offsets) for cs in sets]}
+            if layout == "float":
+                vis = (torch.arange(T, device=dev)[None, :] <= offsets[:, None])[:, None, None, :]
+                calls["library_ms"] = lambda: [sdpa(qd, cs[0].transpose(-1, -2),
+                                                    cs[1].transpose(-1, -2), attn_mask=vis)
+                                               for cs in sets]
+            times = {key: device_ms(call, reps=10) / len(sets) for key, call in calls.items()}
+            times["events_ms"] = {key: cuda_ms(call, reps=10) / len(sets)
+                                  for key, call in calls.items()}
+            times.setdefault("library_ms", None)
+            nbytes = n_vis * bytes_per_key + 2 * 2.0 * b * H_TEXT * DH + 8.0 * b
+            flops = n_vis * 4.0 * DH
+            del sets
+            out[f"{path}/{layout}"] = {
+                "shape": f"q ({b},{H_TEXT},1,{DH}) bf16, cache T={T} {layout}, offsets "
+                         f"{lo}..{hi} (mean {n_vis / b / H_TEXT:.1f} visible keys)",
+                "max_abs_err": res["bf16"]["max_abs_err"], "tol_abs": res["bf16"]["tol_abs"],
+                "fp32_check": res["fp32"], **times, "times": "ms, plain_ms, library_ms: "
+                "kernel time on the card (torch.profiler); events_ms: CUDA events around a "
+                "loop of calls, host launch gaps included",
+                "bound_ms": 1e3 * max(flops / PEAK_FP32, nbytes / PEAK_BYTES),
+                "bound_by": "bytes" if nbytes / PEAK_BYTES > flops / PEAK_FP32 else "operations",
+                "bound_count": "visible window",
+                "library": ("F.scaled_dot_product_attention(q, k^T, v^T, attn_mask=vis)"
+                            if layout == "float" else "none: no single PyTorch call computes it")}
+    main = out["offline/int8"]
+    return {"name": "self_attention_decode_int8", "route": "cuda",
+            "source": "whisper_tpu_torch/csrc/self_attention_decode.cu",
+            "replaces": "whisper_tpu/ops/decode_attention.py:60",
+            **{k: main[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "bound_peaks": "3.35 TB/s, 67 TFLOP/s fp32", "cases": out}
+
+
 def end_to_end(counters) -> dict:
     """The main path: turbo B64 / 64 tokens / kvq+skvq+w8a8 / bf16."""
     from whisper_tpu_torch.config import N_SAMPLES
@@ -199,9 +314,10 @@ def end_to_end(counters) -> dict:
     if launches["flash_attention_btd"] != cfg.n_audio_layer:
         raise AssertionError(f"K1 ran {launches['flash_attention_btd']} times, "
                              f"expected {cfg.n_audio_layer} per encoder pass")
-    if launches["cross_attention_decode_fd"] != cfg.n_text_layer * dec.steps:
-        raise AssertionError(f"K2 ran {launches['cross_attention_decode_fd']} times over "
-                             f"{dec.steps} steps, expected {cfg.n_text_layer} per step")
+    for name in ("cross_attention_decode_fd", "self_attention_decode_int8"):
+        if launches[name] != cfg.n_text_layer * dec.steps:
+            raise AssertionError(f"{name} ran {launches[name]} times over {dec.steps} steps, "
+                                 f"expected {cfg.n_text_layer} per step")
     audio_s = B * N_SAMPLES / 16000
     stages = breakdown(pipe, clips, dec.steps)
     return {"phase": "end_to_end", "model": "turbo", "batch": B, "max_tokens": N_TOKENS,
@@ -259,6 +375,149 @@ def breakdown(pipe, clips, steps: int) -> dict:
             "top_kernels_ms": [[name[:90], ms, n] for name, (ms, n) in top]}
 
 
+def _wav(x: np.ndarray) -> bytes:
+    """16-bit PCM WAV bytes of mono 16 kHz audio."""
+    pcm = np.round(np.clip(x, -1, 1) * 32767).astype("<i2").tobytes()
+    return (b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVE"
+            + b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, 16000, 32000, 2, 16)
+            + b"data" + struct.pack("<I", len(pcm)) + pcm)
+
+
+def _post(url: str, clip: np.ndarray, multipart: bool) -> tuple:
+    """(status, reply, seconds) of one POST /asr."""
+    if multipart:
+        body = (b"--B\r\nContent-Disposition: form-data; name=\"wav\"; filename=\"a.wav\"\r\n"
+                b"Content-Type: audio/wav\r\n\r\n" + _wav(clip) + b"\r\n--B--\r\n")
+        headers = {"Content-Type": "multipart/form-data; boundary=B"}
+    else:
+        body, headers = clip.astype("<f4").tobytes(), {"Content-Type": "application/octet-stream"}
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=body, headers=headers),
+                                    timeout=600) as r:
+            return r.status, json.load(r), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, {"error": e.read().decode()}, time.perf_counter() - t0
+
+
+N_REQUESTS, N_MULTIPART = 24, 4
+
+
+def serving(counters) -> dict:
+    """The serving path: ``python -m whisper_tpu_torch.serving``'s engine
+    under the server's zero-flag defaults, in-process on 127.0.0.1, one warm
+    request, then 24 seeded noise clips of 2-30 s from 24 client threads
+    (every sixth as multipart WAV, the rest as f32 PCM)."""
+    from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
+    from whisper_tpu_torch.serving.server import make_server
+
+    args = parse_args(["--model_type", "turbo", "--host", "127.0.0.1", "--port", "0"])
+    t0 = time.perf_counter()
+    engine, phases = build_engine(args)
+    engine.start()
+    srv = make_server(engine, args.host, args.port, request_timeout_s=600)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/asr"
+    try:
+        rng = np.random.default_rng(2)
+        clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
+                 for s in rng.uniform(2.0, 30.0, N_REQUESTS)]
+        code, reply, _ = _post(url, clips[0][:16000 * 3], False)  # warm: cuBLAS, allocator
+        if code != 200:
+            raise AssertionError(f"warm request answered {code}: {reply}")
+        startup_s = time.perf_counter() - t0
+        st0 = engine.stats.snapshot()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(N_REQUESTS) as pool:
+            replies = list(pool.map(lambda i: _post(url, clips[i], i % 6 == 0),
+                                    range(N_REQUESTS)))
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        st1 = engine.stats.snapshot()
+        with urllib.request.urlopen(url.replace("/asr", "/metrics"), timeout=30) as r:
+            metrics = json.load(r)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.stop()
+        server.join(timeout=30)
+    bad = [(code, reply) for code, reply, _ in replies
+           if code != 200 or not reply.get("success") or not isinstance(reply.get("text"), str)
+           or not 0 <= reply.get("tokens", -1) <= args.max_tokens]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {N_REQUESTS} replies failed: {bad[:3]}")
+    cfg = engine.cfg
+    steps = st1["steps_total"] - st0["steps_total"]
+    batches = st1["encode_batches_total"] - st0["encode_batches_total"]
+    want = {"flash_attention_btd": cfg.n_audio_layer * batches,
+            "cross_attention_decode_fd": cfg.n_text_layer * steps,
+            "self_attention_decode_int8": cfg.n_text_layer * steps}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"serving: {name} ran {launches[name]} times, expected {n} "
+                                 f"({steps} steps stepped, {batches} admission batches)")
+    lat = np.array([sec for _, _, sec in replies])
+    audio_s = sum(len(c) for c in clips) / 16000
+    return {"phase": "serving", "model": "turbo", "flags": "server defaults: "
+            "--slots 8 --steps_per_sync 32 --max_tokens 224, w8a8 + kv_quant + "
+            "self_kv_quant, bfloat16", "requests": N_REQUESTS, "multipart": N_MULTIPART,
+            "answered_200": N_REQUESTS - len(bad), "startup_s": startup_s,
+            "startup_phases": phases, "kernel_build_s": engine.stats.warmup_seconds,
+            "wall_s": wall, "requests_per_s": N_REQUESTS / wall,
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p95_s": float(np.percentile(lat, 95)),
+            "audio_s": audio_s, "audio_s_per_s": audio_s / wall,
+            "tokens": [reply["tokens"] for _, reply, _ in replies],
+            "ticks": st1["ticks_total"] - st0["ticks_total"], "steps": steps,
+            "admission_batches": batches, "launches": launches, "metrics": metrics}
+
+
+def serving_reference_check() -> dict:
+    """A small fp32 engine (tiny, kvq + skvq) on the card, rounds driven one
+    tick at a time through its kernels, must give the CPU pipeline's tokens
+    (plain versions) for the same clips."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    class IdText:
+        """The real tokenizer's suppressed set; decodes to the ids, so a
+        reply carries its tokens."""
+        non_speech_tokens = get_tokenizer(num_languages=99).non_speech_tokens
+
+        def decode(self, ids):
+            return " ".join(str(int(t)) for t in ids)
+
+    rng = np.random.default_rng(4)
+    clips = [(rng.standard_normal(16000 * s) * 0.1).astype(np.float32) for s in (4, 9, 2)]
+    # the same CPU-drawn weights on both sides (CPU and CUDA generators differ)
+    params = init_params(get_config("tiny"), seed=3, device="cpu")
+    engine = ContinuousBatchingEngine(
+        init_params(get_config("tiny"), seed=3, device="cpu").to_device("cuda"), IdText(),
+        max_slots=4, compute_dtype=torch.float32, steps_per_sync=4, max_tokens=12,
+        kv_quant=True, self_kv_quant=True, no_speech_threshold=None, logprob_threshold=None,
+        compression_ratio_threshold=None)
+    futs = [engine.submit(Request(audio=c)) for c in clips]
+    for _ in range(50):
+        if all(f.done() for f in futs):
+            break
+        engine._tick()
+    got = [[int(t) for t in f.result(0)["text"].split()] for f in futs]
+    pipe = WhisperPipeline(device="cpu", compute_dtype="float32", kv_quant=True,
+                           self_kv_quant=True, max_tokens=12, params=params)
+    want = [r.tokens.tolist() for r in pipe.transcribe_batch(clips)]
+    if got != want:
+        raise AssertionError(f"engine tokens on the card differ from the CPU pipeline's: "
+                             f"{got} vs {want}")
+    return {"phase": "serving_reference", "model": "tiny", "dtype": "float32",
+            "tokens_equal_cpu_pipeline": True, "tokens": got}
+
+
 def reference_check() -> dict:
     """A small fp32 transcription (tiny, kvq + skvq) on the card through both
     kernels must give the CPU pipeline's tokens (plain versions)."""
@@ -286,7 +545,8 @@ def main() -> int:
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
     from whisper_tpu_torch.ops import _build
-    from whisper_tpu_torch.ops.decode_attention import cross_attention_decode_fd
+    from whisper_tpu_torch.ops.decode_attention import (
+        cross_attention_decode_fd, self_attention_decode, self_attention_decode_int8)
     from whisper_tpu_torch.ops.flash_attention import flash_attention_btd
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 checks run in full fp32
@@ -302,21 +562,27 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = [kernel_k1(dev, gen), kernel_k2(dev, gen)]
+    kernels = [kernel_k1(dev, gen), kernel_k2(dev, gen), kernel_k3(dev, gen)]
     for k in kernels:
         emit({"phase": "kernel", **k})
     torch.cuda.empty_cache()
 
-    counters = (flash_attention_btd, cross_attention_decode_fd)
+    counters = (flash_attention_btd, cross_attention_decode_fd, self_attention_decode_int8,
+                self_attention_decode)
     e2e, stages = end_to_end(counters)
     emit(e2e)
     emit(stages)
+    torch.cuda.empty_cache()
+    served = serving(counters)
+    emit(served)
     emit(reference_check())
+    emit(serving_reference_check())
 
     for k in kernels:
         k["launches"] = e2e["launches"][k["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+        k["serving_launches"] = served["launches"][k["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "serving_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     emit({"kernels": [{key: k[key] for key in keys} for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The port's two kernel modules against the JAX Pallas kernels.
+"""The port's kernel modules against the JAX Pallas kernels.
 
 On the CPU each wrapper runs its plain PyTorch version; it is held against
 the Pallas kernel in interpret mode at the tolerances of
@@ -12,11 +12,19 @@ import pytest
 import torch
 
 from whisper_tpu.models.model import attention_int8kv as jax_attention_int8kv
+from whisper_tpu.models.model import attention_int8kv_perpos as jax_perpos
+from whisper_tpu.models.model import attention_kvt as jax_attention_kvt
 from whisper_tpu.models.model import quantize_cross_kv as jax_quantize_cross_kv
+from whisper_tpu.models.model import quantize_kv_heads as jax_quantize_kv_heads
 from whisper_tpu.ops.decode_attention import cross_attention_decode_fd as jax_fd
+from whisper_tpu.ops.decode_attention import self_attention_decode as jax_self_decode
 from whisper_tpu.ops.flash_attention import flash_attention_btd as jax_btd
 from whisper_tpu_torch.models.model import attention_int8kv
-from whisper_tpu_torch.ops.decode_attention import cross_attention_decode_fd
+from whisper_tpu_torch.ops.decode_attention import (
+    cross_attention_decode_fd,
+    self_attention_decode,
+    self_attention_decode_int8,
+)
 from whisper_tpu_torch.ops.flash_attention import flash_attention_btd
 
 torch.set_num_threads(2)
@@ -66,9 +74,82 @@ def test_cross_attention_decode_fd_matches_pallas_and_int8kv():
     np.testing.assert_allclose(attention_int8kv(*targs).numpy(), ref_xla, rtol=2e-4, atol=2e-4)
 
 
+def _self_inputs(seed, B=4, H=3, T=32, dh=64):
+    """q (B, H, 1, dh); k, v (B, H, T, dh) in the TPU kernel's layout."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, 1, dh)).astype(np.float32)
+    k = rng.standard_normal((B, H, T, dh)).astype(np.float32)
+    v = rng.standard_normal((B, H, T, dh)).astype(np.float32)
+    return q, k, v
+
+
+# ragged per-row offsets (0 = one visible key, T-1 = all) and a scalar
+OFFSETS = [np.array([0, 5, 31, 17]), 9]
+SELF_TOL = 1e-5  # fp32 on both sides; sums in another order
+
+
+@pytest.mark.parametrize("offsets", OFFSETS, ids=["ragged", "scalar"])
+def test_self_attention_decode_matches_pallas(offsets):
+    """The float-cache entry point, fed the port's position-minor cache,
+    against the Pallas kernel (interpret mode) fed the same cache in its
+    (B, H, T, dh) layout."""
+    q, k, v = _self_inputs(2)
+    ref = np.asarray(jax_self_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     jnp.asarray(offsets, jnp.int32), interpret=True))
+    toff = torch.from_numpy(offsets) if isinstance(offsets, np.ndarray) else offsets
+    before = self_attention_decode.launches
+    got = self_attention_decode(torch.from_numpy(q), torch.from_numpy(k.swapaxes(-1, -2).copy()),
+                                torch.from_numpy(v.swapaxes(-1, -2).copy()), toff)
+    assert self_attention_decode.launches == before  # the plain version is no launch
+    assert got.shape == ref.shape == (4, 3, 1, 64)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=SELF_TOL)
+
+
+def _vis(offsets, pads, B, T):
+    key = np.arange(T)[None, :]
+    vis = key <= np.broadcast_to(np.asarray(offsets), (B,))[:, None]
+    if pads is not None:
+        vis &= key >= pads[:, None]
+    return vis[:, None, None, :]
+
+
+@pytest.mark.parametrize("use_pads", [False, True], ids=["nopad", "pad"])
+@pytest.mark.parametrize("offsets", OFFSETS, ids=["ragged", "scalar"])
+def test_self_attention_decode_matches_model_attention(offsets, use_pads):
+    """Both entry points against the JAX decode step's own attentions,
+    attention_kvt (float cache) and attention_int8kv_perpos (int8 cache,
+    quantized by the JAX quantize_kv_heads), under the same mask."""
+    q, k, v = _self_inputs(3)
+    B, T = 4, 32
+    pads = np.array([0, 2, 7, 17]) if use_pads else None
+    mask = jnp.asarray(_vis(offsets, pads, B, T))
+    toff = torch.from_numpy(offsets) if isinstance(offsets, np.ndarray) else offsets
+    tpads = torch.from_numpy(pads) if use_pads else None
+    k_t, v_t = k.swapaxes(-1, -2).copy(), v.swapaxes(-1, -2).copy()
+
+    ref = np.asarray(jax_attention_kvt(jnp.asarray(q), jnp.asarray(k_t), jnp.asarray(v_t),
+                                       mask=mask))
+    got = self_attention_decode(torch.from_numpy(q), torch.from_numpy(k_t),
+                                torch.from_numpy(v_t), toff, tpads)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=SELF_TOL)
+
+    kv_q, kv_s = jax_quantize_kv_heads(jnp.asarray(k), jnp.asarray(v))
+    ref8 = np.asarray(jax_perpos(jnp.asarray(q), kv_q, kv_s, mask=mask))
+    before = self_attention_decode_int8.launches
+    got8 = self_attention_decode_int8(torch.from_numpy(q), torch.from_numpy(np.array(kv_q)),
+                                      torch.from_numpy(np.array(kv_s)), toff, tpads)
+    assert self_attention_decode_int8.launches == before
+    np.testing.assert_allclose(got8.numpy(), ref8, rtol=0, atol=SELF_TOL)
+
+
 def test_wrappers_refuse_other_devices():
     meta = torch.empty((1, 8, 128), device="meta")
     with pytest.raises(ValueError):
         flash_attention_btd(meta, meta, meta, 2)
     with pytest.raises(ValueError):
         cross_attention_decode_fd(torch.empty((1, 2, 1, 64), device="meta"), *([meta] * 4))
+    q = torch.empty((1, 2, 1, 64), device="meta")
+    with pytest.raises(ValueError):
+        self_attention_decode(q, meta, meta, 0)
+    with pytest.raises(ValueError):
+        self_attention_decode_int8(q, meta, meta, 0)

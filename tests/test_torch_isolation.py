@@ -109,3 +109,37 @@ def test_audio_copy_matches(tmp_path):
     # the JAX load_audio's numpy branch (its native loader is not ported)
     np.testing.assert_array_equal(ta.load_audio(str(path)),
                                   ja.resample(ja.to_mono(ja.parse_wav(wav)[0]), 8000))
+
+
+def test_pcm_copy_matches():
+    from whisper_tpu.ops import audio as ja
+    from whisper_tpu_torch.ops import audio as ta
+
+    body = np.random.default_rng(1).standard_normal(333).astype("<f4").tobytes()
+    np.testing.assert_array_equal(ta.pcm_f32_from_bytes(body), ja.pcm_f32_from_bytes(body))
+    for mod in (ta, ja):
+        with pytest.raises(mod.WavFormatError):
+            mod.pcm_f32_from_bytes(body[:-1])
+
+
+def test_multipart_copy_matches():
+    from whisper_tpu.serving import wire as jw
+    from whisper_tpu_torch.serving import wire as tw
+
+    boundary = "XBOUND"
+    body = (
+        f"--{boundary}\r\n"
+        'Content-Disposition: form-data; name="language"\r\n\r\n'
+        "en\r\n"
+        f"--{boundary}\r\n"
+        'Content-Disposition: form-data; name="wav"; filename="a.wav"\r\n'
+        "Content-Type: audio/wav\r\n\r\n"
+    ).encode() + b"BINARY\x00DATA" + f"\r\n--{boundary}--\r\n".encode()
+    for ctype in (f"multipart/form-data; boundary={boundary}",
+                  f'multipart/form-data; boundary="{boundary}"'):
+        got = tw.parse_multipart(body, ctype)
+        assert got == jw.parse_multipart(body, ctype)
+        assert got == {"language": "en", "wav": b"BINARY\x00DATA"}
+    for mod in (tw, jw):
+        with pytest.raises(ValueError):
+            mod.parse_multipart(body, "multipart/form-data")

@@ -216,3 +216,86 @@ def test_logits_int8_embedding(fp_params):
     ref = np.asarray(jm._logits(jnp.asarray(x), jp["decoder"], jnp.float32))
     got = tm._logits(torch.from_numpy(x), model.decoder, torch.float32).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
+def _seeded_caches(self_quant, B, T, seed=6):
+    """The same random cache contents on both sides (JAX, port)."""
+    rng = np.random.default_rng(seed)
+    L, H, dh = CFG.n_text_layer, CFG.n_text_head, CFG.head_dim_text
+    if self_quant:
+        q = rng.integers(-127, 128, (L, B, H, 2, dh, T)).astype(np.int8)
+        s = rng.uniform(0.005, 0.02, (L, B, H, 2, T)).astype(np.float32)
+        return (jm.QKVCache(jnp.asarray(q), jnp.asarray(s)),
+                tm.QKVCache(torch.from_numpy(q.copy()), torch.from_numpy(s.copy())))
+    k, v = (rng.standard_normal((L, B, H, dh, T)).astype(np.float32) for _ in range(2))
+    return (jm.KVCache(jnp.asarray(k), jnp.asarray(v)),
+            tm.KVCache(torch.from_numpy(k.copy()), torch.from_numpy(v.copy())))
+
+
+def _near_ties(kh, vh, eps=1e-5) -> np.ndarray:
+    """(B, H, 2, dh) bool: x / s within ``eps`` of a .5 tie in
+    quantize_kv_heads for a (B, H, 1, dh) step input."""
+    x = torch.stack([kh, vh], dim=2).to(torch.float32)[..., 0, :]  # (B, H, 2, dh)
+    r = (x / (torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-12) / 127.0)).abs().numpy()
+    return np.abs(r - np.floor(r) - 0.5) < eps
+
+
+MULTIPOS = [(sq, kq) for sq in (False, True) for kq in (False, True)]
+
+
+@pytest.mark.parametrize("self_quant,kv_quant", MULTIPOS,
+                         ids=[f"{'qkv' if a else 'kv'}-{'int8x' if b else 'fpx'}"
+                              for a, b in MULTIPOS])
+@pytest.mark.parametrize("use_pads", [False, True], ids=["nopad", "pad"])
+def test_decoder_step_multipos_matches_jax(params, monkeypatch, self_quant, kv_quant, use_pads):
+    """One step with every row at its own offset, from the same cache on
+    both sides: 0 (one visible key), ragged ones, T-1, and T, whose write
+    falls outside the cache and is dropped. Logits within 1e-4. Positions
+    not written stay equal; the written float entries (|x| up to ~3) agree
+    within 1e-6 + 2e-6 |x|, a few fp32 ulps of summation order through the
+    layer below; the written int8 entries are equal but for +-1 where the
+    quantizer's x / s sits within 1e-5 of a .5 tie."""
+    jp, model = params
+    jkv, _ = _cross_kv(params, seed=7)
+    if kv_quant:
+        jkv = jm.quantize_cross_kv(jkv)
+    jkv = tuple(a[:, [0, 1, 0, 1, 0]] for a in jkv)  # 5 rows over the 2 clips
+    tkv = tuple(torch.from_numpy(np.array(a)) for a in jkv)
+    B, T = 5, 16
+    offsets = np.array([0, 3, 9, 15, 16], np.int32)
+    pads = np.array([0, 1, 4, 0, 2], np.int32) if use_pads else None
+    toks = np.random.default_rng(8).integers(0, 50000, B).astype(np.int32)
+    jcache, tcache = _seeded_caches(self_quant, B, T)
+    before = [a.numpy().copy() for a in tcache]
+
+    seen = []
+    if self_quant:
+        real = tm.quantize_kv_heads
+        monkeypatch.setattr(tm, "quantize_kv_heads",
+                            lambda kh, vh: seen.append((kh, vh)) or real(kh, vh))
+    jl, jcache = jm.decoder_step_multipos(jp, jnp.asarray(toks), jnp.asarray(offsets), jcache,
+                                          jkv, CFG, pads=None if pads is None else jnp.asarray(pads))
+    tl, tcache = tm.decoder_step_multipos(model, torch.from_numpy(toks).long(),
+                                          torch.from_numpy(offsets).long(), tcache, tkv,
+                                          pads=None if pads is None else torch.from_numpy(pads).long())
+    assert tl.shape == (B, CFG.n_vocab)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
+    got = [a.numpy() for a in tcache]
+    want = [np.asarray(a) for a in jcache]
+    written = np.zeros((B, T), bool)
+    written[np.arange(4), offsets[:4]] = True  # row 4's write (at T) is dropped
+    for g, w, b in zip(got, want, before):
+        np.testing.assert_array_equal(np.moveaxis(g, -1, 2)[:, ~written],
+                                      np.moveaxis(b, -1, 2)[:, ~written])
+        np.testing.assert_array_equal(np.moveaxis(w, -1, 2)[:, ~written],
+                                      np.moveaxis(b, -1, 2)[:, ~written])
+    if not self_quant:
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=2e-6, atol=1e-6)
+        return
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6, atol=0)
+    diff = got[0].astype(np.int32) - want[0].astype(np.int32)
+    assert np.abs(diff).max() <= 1
+    for layer, (kh, vh) in enumerate(seen):
+        d = diff[layer][np.arange(4), ..., offsets[:4]]  # (4, H, 2, dh)
+        assert not (d != 0)[~_near_ties(kh, vh)[:4]].any(), f"layer {layer}: +-1 off a tie"

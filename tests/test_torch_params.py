@@ -13,6 +13,7 @@ from whisper_tpu_torch.config import get_config as port_config
 from whisper_tpu_torch.models.model import KVCache, QKVCache
 from whisper_tpu_torch.ops.quant import QTensor, quantize_logits_emb, quantize_params
 from whisper_tpu_torch.params import from_jax_params, init_params
+from whisper_tpu_torch.sampling import RuleState
 
 torch.set_num_threads(2)
 
@@ -157,12 +158,14 @@ def test_init_params_is_seeded():
     assert not torch.equal(a.decoder.tok_emb, c.decoder.tok_emb)
 
 
-@pytest.mark.parametrize("builder", ["init_params", "from_jax_params", "KVCache", "QKVCache"])
+@pytest.mark.parametrize("builder", ["init_params", "from_jax_params", "KVCache", "QKVCache",
+                                     "RuleState"])
 def test_builders_require_a_device(jax_params, builder):
     """No builder picks a device for its caller."""
     build = {"init_params": lambda: init_params(PCFG, seed=0),
              "from_jax_params": lambda: from_jax_params(_np_tree(jax_params), PCFG),
              "KVCache": lambda: KVCache.create(PCFG, 1),
-             "QKVCache": lambda: QKVCache.create(PCFG, 1)}[builder]
+             "QKVCache": lambda: QKVCache.create(PCFG, 1),
+             "RuleState": lambda: RuleState.create(1)}[builder]
     with pytest.raises(TypeError, match="device"):
         build()

@@ -1,12 +1,13 @@
 """whisper_tpu_torch: the PyTorch/CUDA port of whisper_tpu for NVIDIA Hopper.
 
-Offline batched greedy transcription (``pipeline.WhisperPipeline``) with
-hand-written sm_90a kernels for encoder self-attention
-(``ops.flash_attention``) and the decode step's int8 cross-attention
-(``ops.decode_attention``). The kernels build with nvcc at first use; on CPU
-tensors every kernel wrapper runs its plain PyTorch version. Importing the
-package needs neither a card nor nvcc, and imports nothing of ``jax`` or of
-the ``whisper_tpu`` reference package.
+Offline batched greedy transcription (``pipeline.WhisperPipeline``) and the
+continuous-batching HTTP server (``serving``, ``python -m
+whisper_tpu_torch.serving``), with hand-written sm_90a kernels for encoder
+self-attention (``ops.flash_attention``) and the decode step's int8
+cross-attention and self-attention (``ops.decode_attention``). The kernels
+build with nvcc at first use; on CPU tensors every kernel wrapper runs its
+plain PyTorch version. Importing the package needs neither a card nor nvcc,
+and imports nothing of ``jax`` or of the ``whisper_tpu`` reference package.
 """
 
 __all__ = ["__version__"]

@@ -10,13 +10,17 @@ tensor or an int8 :class:`~whisper_tpu_torch.ops.quant.QTensor`.
 The ops are plain functions on tensors. Matmuls run in the compute dtype;
 LayerNorm, softmax and the logits stay fp32 islands, as in the JAX package.
 Encoder self-attention always goes through the hand-written kernel
-:func:`~whisper_tpu_torch.ops.flash_attention.flash_attention_btd`, and the
-decode step's int8 cross-attention through
+:func:`~whisper_tpu_torch.ops.flash_attention.flash_attention_btd`; the
+decode step's self-attention through
+:func:`~whisper_tpu_torch.ops.decode_attention.self_attention_decode` (or its
+``_int8`` twin for the int8 cache), and its int8 cross-attention through
 :func:`~whisper_tpu_torch.ops.decode_attention.cross_attention_decode_fd`.
 
-The KV caches are updated IN PLACE (JAX returns new arrays). A write that
-would fall outside a cache raises: JAX's ``dynamic_update_slice`` clamps the
-start instead, which would silently overwrite other positions.
+The KV caches are updated IN PLACE (JAX returns new arrays). In
+:func:`decoder_forward` a write that would fall outside a cache raises: JAX's
+``dynamic_update_slice`` clamps the start instead, which would silently
+overwrite other positions. In :func:`decoder_step_multipos` a row whose
+write falls outside the cache is dropped, as JAX's scatter drops it.
 """
 
 from __future__ import annotations
@@ -29,7 +33,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import WhisperConfig
-from ..ops.decode_attention import cross_attention_decode_fd
+from ..ops.decode_attention import (
+    cross_attention_decode_fd,
+    self_attention_decode,
+    self_attention_decode_int8,
+)
 from ..ops.flash_attention import flash_attention_btd
 from ..ops.quant import QTensor
 
@@ -427,9 +435,11 @@ def decoder_forward(
     pad[b] positions of stream b are never visible and its positional
     embeddings are indexed ``pos - pad[b]``.
 
-    The decode step's int8 cross-attention (S = 1) runs the hand-written
-    kernel :func:`cross_attention_decode_fd`; prefill (S > 1) takes
-    :func:`attention_int8kv`, as the JAX package does.
+    The decode step (S = 1) runs the hand-written kernels: self-attention
+    :func:`self_attention_decode` (``_int8`` for a :class:`QKVCache`) and,
+    with the int8 cross-KV, :func:`cross_attention_decode_fd`; prefill
+    (S > 1) takes :func:`attention_kvt` / :func:`attention_int8kv_perpos`
+    and :func:`attention_int8kv`, as the JAX package does.
     """
     cfg = model.cfg
     dec = model.decoder
@@ -449,11 +459,13 @@ def decoder_forward(
                           0, dec.pos_emb.shape[0] - 1)
         x = x + dec.pos_emb[idx].to(dt)
 
-    key_pos = torch.arange(T, device=device)[None, :]
-    q_pos = offset + torch.arange(S, device=device)[:, None]
-    vis = (key_pos <= q_pos)[None, None]  # (1, 1, S, T)
-    if pad is not None:
-        vis = vis & (key_pos[None, None] >= pad[:, None, None, None])
+    vis = None
+    if S > 1:
+        key_pos = torch.arange(T, device=device)[None, :]
+        q_pos = offset + torch.arange(S, device=device)[:, None]
+        vis = (key_pos <= q_pos)[None, None]  # (1, 1, S, T)
+        if pad is not None:
+            vis = vis & (key_pos[None, None] >= pad[:, None, None, None])
 
     kv_quant = len(cross_kv) == 4
     self_quant = isinstance(kv, QKVCache)
@@ -464,34 +476,118 @@ def decoder_forward(
         q = _linear(h, a["wq"], a["bq"], dt)
         k_new = _linear(h, a["wk"], None, dt)
         v_new = _linear(h, a["wv"], a["bv"], dt)
-        kh, vh = _split_heads(k_new, n_head), _split_heads(v_new, n_head)
+        kh, vh, qh = (_split_heads(t, n_head) for t in (k_new, v_new, q))
         if self_quant:
             qn, sn = quantize_kv_heads(kh, vh)
             kv.q[layer, ..., window] = qn
             kv.s[layer, ..., window] = sn
-            o = attention_int8kv_perpos(_split_heads(q, n_head), kv.q[layer],
-                                        kv.s[layer], mask=vis)
+            if S == 1:
+                o = self_attention_decode_int8(qh, kv.q[layer], kv.s[layer], offset, pad)
+            else:
+                o = attention_int8kv_perpos(qh, kv.q[layer], kv.s[layer], mask=vis)
         else:
             kv.k[layer, ..., window] = kh.transpose(-1, -2).to(kv.k.dtype)
             kv.v[layer, ..., window] = vh.transpose(-1, -2).to(kv.v.dtype)
-            o = attention_kvt(_split_heads(q, n_head), kv.k[layer].to(dt),
-                              kv.v[layer].to(dt), mask=vis)
+            if S == 1:
+                o = self_attention_decode(qh, kv.k[layer], kv.v[layer], offset, pad)
+            else:
+                o = attention_kvt(qh, kv.k[layer].to(dt), kv.v[layer].to(dt), mask=vis)
         x = x + _linear(_merge_heads(o), a["wo"], a["bo"], dt)
-
-        c = blk.cross
-        h = layer_norm(x, blk.cross_ln["g"], blk.cross_ln["b"])
-        qh = _split_heads(_linear(h, c["wq"], c["bq"], dt), n_head)
-        if kv_quant and S == 1:
-            o = cross_attention_decode_fd(qh, *(t[layer] for t in cross_kv))
-        elif kv_quant:
-            o = attention_int8kv(qh, *(t[layer] for t in cross_kv))
-        else:
-            o = attention(qh, cross_kv[0][layer].to(dt), cross_kv[1][layer].to(dt))
-        x = x + _linear(_merge_heads(o), c["wo"], c["bo"], dt)
-
-        h = layer_norm(x, blk.mlp_ln["g"], blk.mlp_ln["b"])
-        h = _gelu(_linear(h, blk.mlp["w1"], blk.mlp["b1"], dt), gelu)
-        x = x + _linear(h, blk.mlp["w2"], blk.mlp["b2"], dt)
+        x = _cross_and_mlp(x, blk, layer, cross_kv, kv_quant and S == 1, n_head, dt, gelu)
 
     x = layer_norm(x, dec.ln["g"], dec.ln["b"])
     return _logits(x, dec, dt), kv
+
+
+def _cross_and_mlp(x, blk: DecoderBlock, layer: int, cross_kv, decode_kernel: bool,
+                   n_head: int, dt, gelu: str) -> torch.Tensor:
+    """A decoder block after its self-attention: cross-attention (the int8
+    decode kernel where ``decode_kernel``) and the MLP, residuals included."""
+    c = blk.cross
+    h = layer_norm(x, blk.cross_ln["g"], blk.cross_ln["b"])
+    qh = _split_heads(_linear(h, c["wq"], c["bq"], dt), n_head)
+    if decode_kernel:
+        o = cross_attention_decode_fd(qh, *(t[layer] for t in cross_kv))
+    elif len(cross_kv) == 4:
+        o = attention_int8kv(qh, *(t[layer] for t in cross_kv))
+    else:
+        o = attention(qh, cross_kv[0][layer].to(dt), cross_kv[1][layer].to(dt))
+    x = x + _linear(_merge_heads(o), c["wo"], c["bo"], dt)
+    h = layer_norm(x, blk.mlp_ln["g"], blk.mlp_ln["b"])
+    h = _gelu(_linear(h, blk.mlp["w1"], blk.mlp["b1"], dt), gelu)
+    return x + _linear(h, blk.mlp["w2"], blk.mlp["b2"], dt)
+
+
+def _write_rows(cache: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
+                inside: torch.Tensor, new: torch.Tensor) -> None:
+    """cache[rows[b], ..., at[b]] = new[b] for every row b whose position is
+    ``inside`` the cache; the other rows write back the value already there,
+    so their write is dropped (JAX's scatter ``mode="drop"``). ``at`` is
+    clamped into the cache only so that the dropped rows index something;
+    every row writes its own b, so no two writes meet. No host sync."""
+    old = cache[rows, ..., at]
+    keep = inside.reshape(-1, *([1] * (new.dim() - 1)))
+    cache[rows, ..., at] = torch.where(keep, new.to(cache.dtype), old)
+
+
+def decoder_step_multipos(
+    model: Whisper,
+    tokens: torch.Tensor,   # (B,) int64: one token per stream
+    offsets: torch.Tensor,  # (B,) int64: per-stream write/attend position
+    kv,                     # KVCache or QKVCache, updated in place
+    cross_kv,               # (k, v) each (L, B, H, Ta, dh), or the int8 4-tuple
+    compute_dtype=torch.float32,
+    pads: Optional[torch.Tensor] = None,  # (B,) int64 masked left-pad length
+    gelu: str = "erf",
+) -> Tuple[torch.Tensor, object]:
+    """One decode step where every stream sits at its own position: the
+    continuous-batching primitive (port of the JAX
+    ``decoder_step_multipos``).
+
+    Row b writes its K/V at ``offsets[b]`` and attends to positions
+    ``pads[b] <= t <= offsets[b]``; its positional embedding is indexed
+    ``offsets[b] - pads[b]``, clipped to the table. A row whose offset falls
+    outside [0, T) writes nothing (JAX drops it) and attends to the whole
+    cache. Self-attention runs :func:`self_attention_decode` (``_int8`` for
+    a :class:`QKVCache`), the int8 cross-attention
+    :func:`cross_attention_decode_fd`. Returns (logits (B, n_vocab) fp32,
+    kv). Nothing here reads the device from the host.
+    """
+    cfg = model.cfg
+    dec = model.decoder
+    dt = compute_dtype
+    B = tokens.shape[0]
+    T = kv[0].shape[-1]
+    n_head, dh = cfg.n_text_head, cfg.head_dim_text
+    rows = torch.arange(B, device=tokens.device)
+
+    pos_idx = offsets if pads is None else offsets - pads
+    pos_idx = torch.clamp(pos_idx, 0, dec.pos_emb.shape[0] - 1)
+    x = (dec.tok_emb[tokens].to(dt) + dec.pos_emb[pos_idx].to(dt))[:, None, :]  # (B, 1, D)
+    inside = (offsets >= 0) & (offsets < T)
+    at = torch.clamp(offsets, 0, T - 1)
+
+    kv_quant = len(cross_kv) == 4
+    self_quant = isinstance(kv, QKVCache)
+    for layer, blk in enumerate(dec.blocks):
+        a = blk.attn
+        h = layer_norm(x, blk.attn_ln["g"], blk.attn_ln["b"])
+        qh = _split_heads(_linear(h, a["wq"], a["bq"], dt), n_head)
+        kh = _linear(h, a["wk"], None, dt).reshape(B, n_head, dh)
+        vh = _linear(h, a["wv"], a["bv"], dt).reshape(B, n_head, dh)
+        if self_quant:
+            qn, sn = quantize_kv_heads(kh[:, :, None], vh[:, :, None])
+            # advanced indices at dims 0 and 4 of the (B, H, 2, dh, T) view:
+            # the indexed shape is (B, H, 2, dh)
+            _write_rows(kv.q[layer], rows, at, inside, qn[..., 0])
+            _write_rows(kv.s[layer], rows, at, inside, sn[..., 0])
+            o = self_attention_decode_int8(qh, kv.q[layer], kv.s[layer], offsets, pads)
+        else:
+            _write_rows(kv.k[layer], rows, at, inside, kh)
+            _write_rows(kv.v[layer], rows, at, inside, vh)
+            o = self_attention_decode(qh, kv.k[layer], kv.v[layer], offsets, pads)
+        x = x + _linear(_merge_heads(o), a["wo"], a["bo"], dt)
+        x = _cross_and_mlp(x, blk, layer, cross_kv, kv_quant, n_head, dt, gelu)
+
+    x = layer_norm(x, dec.ln["g"], dec.ln["b"])
+    return _logits(x, dec, dt)[:, 0], kv

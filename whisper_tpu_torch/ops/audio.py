@@ -1,7 +1,8 @@
 """Host-side audio IO: WAV/PCM parsing, downmix, resampling.
 
 A copy of ``whisper_tpu/ops/audio.py`` without its native-loader branch: the
-numpy WAV parser and polyphase resampler are the behaviour.
+numpy WAV parser, the polyphase resampler and the raw-PCM wire decoder are
+the behaviour.
 """
 
 from __future__ import annotations
@@ -138,3 +139,11 @@ def load_audio(
     if rate != sample_rate:
         x = resample(x, rate, sample_rate)
     return x
+
+
+def pcm_f32_from_bytes(body: bytes) -> np.ndarray:
+    """Raw little-endian f32 PCM (the C++ server's wire format,
+    cpp/src/WhisperHTTPServer.hpp:103-113). Length must be a multiple of 4."""
+    if len(body) % 4 != 0:
+        raise WavFormatError("PCM byte length must be a multiple of 4")
+    return np.frombuffer(body, dtype="<f4").astype(np.float32)

@@ -1,4 +1,5 @@
-"""Decode-step cross-attention against the int8 cross-KV.
+"""Decode-step attention kernels: int8 cross-attention (K2) and self-attention
+over the KV cache (K3).
 
 ``cross_attention_decode_fd`` is the port of the TPU kernel
 ``whisper_tpu/ops/decode_attention.py:cross_attention_decode_fd``
@@ -9,15 +10,27 @@ softmax is online over T tiles, all in fp32. On a CUDA tensor it launches the
 hand-written Hopper kernel ``whisper_tpu_torch/csrc/cross_attention_decode.cu``
 (see the note there); on a CPU tensor it runs
 :func:`cross_attention_decode_fd_plain`.
+
+``self_attention_decode`` (float cache) and ``self_attention_decode_int8``
+(packed int8 cache) are the port of the TPU kernel
+``whisper_tpu/ops/decode_attention.py:self_attention_decode``
+(``_self_kernel``): one query per (batch, head) against the self-attention
+cache, key position t visible iff ``pads[b] <= t <= offsets[b]``, fp32
+softmax. They read the port's position-minor cache layer views as they lie.
+On a CUDA tensor they launch ``whisper_tpu_torch/csrc/self_attention_decode.cu``;
+on a CPU tensor they run their ``_plain`` versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Union
 
 import torch
 
 from . import _build
+
+NEG = -1e30  # masked score, as the JAX package's jnp.float32(-1e30)
 
 
 def cross_attention_decode_fd_plain(q, k_q, k_s, v_q, v_s) -> torch.Tensor:
@@ -85,3 +98,140 @@ def cross_attention_decode_fd(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Ten
 
 
 cross_attention_decode_fd.launches = 0  # kernel launches; only the CUDA branch counts
+
+
+# ------------------------------------------------------------ self-attention
+def _visible(B: int, T: int, offsets, pads, device) -> torch.Tensor:
+    """(B, 1, 1, T) bool: pads[b] <= t <= offsets[b]."""
+    key = torch.arange(T, device=device)[None, :]
+    vis = key <= torch.as_tensor(offsets, device=device).reshape(-1, 1)
+    if pads is not None:
+        vis = vis & (key >= pads.reshape(-1, 1))
+    return vis.expand(B, T)[:, None, None, :]
+
+
+def self_attention_decode_plain(q, k, v, offsets, pads=None) -> torch.Tensor:
+    """Plain version, all fp32: softmax(q.k * dh^-0.5, masked to -1e30) . v,
+    returned in q's dtype, shape (B, H, 1, dh). k, v (B, H, dh, T)."""
+    B, dh, T = q.shape[0], q.shape[-1], k.shape[-1]
+    s = torch.matmul(q.to(torch.float32), k.to(torch.float32)) * (dh ** -0.5)
+    s = torch.where(_visible(B, T, offsets, pads, q.device), s, torch.full_like(s, NEG))
+    w = torch.softmax(s, dim=-1)
+    return torch.matmul(w, v.to(torch.float32).transpose(-1, -2)).to(q.dtype)
+
+
+def self_attention_decode_int8_plain(q, kv_q, kv_s, offsets, pads=None) -> torch.Tensor:
+    """Plain version, all fp32, of attention_int8kv_perpos for one query:
+    score columns scale by s_k after q.k, softmax (masked to -1e30), weights
+    scale by s_v before w.v. kv_q (B, H, 2, dh, T) int8, kv_s (B, H, 2, T)."""
+    B, dh, T = q.shape[0], q.shape[-1], kv_q.shape[-1]
+    s = torch.matmul(q.to(torch.float32), kv_q[:, :, 0].to(torch.float32))
+    s = s * kv_s[:, :, 0, None, :] * (dh ** -0.5)
+    s = torch.where(_visible(B, T, offsets, pads, q.device), s, torch.full_like(s, NEG))
+    w = torch.softmax(s, dim=-1) * kv_s[:, :, 1, None, :]
+    return torch.matmul(w, kv_q[:, :, 1].to(torch.float32).transpose(-1, -2)).to(q.dtype)
+
+
+_SELF_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                          ctypes.c_void_p]
+_MAX_T = 48 * 1024 // 4  # the window's scores live in shared memory
+
+
+def _self_kernel(symbol: str):
+    fn = getattr(_build.load("self_attention_decode"), symbol)
+    fn.argtypes, fn.restype = _SELF_SIGNATURE, ctypes.c_int
+    return fn
+
+
+def _launch_self(name: str, q: torch.Tensor, cache: tuple, T: int,
+                 offsets: Union[int, torch.Tensor], pads: Optional[torch.Tensor]):
+    """Checks shared by both entry points, then the launch; ``cache`` holds
+    the two cache tensors whose pointers the kernel takes after q."""
+    B, H, S, dh = q.shape
+    if S != 1 or dh != 64:
+        raise ValueError(f"the CUDA kernel takes one query of head dim 64, got {tuple(q.shape)}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA kernel takes a bf16 or fp32 query, not {q.dtype}")
+    if not 0 < T <= _MAX_T:
+        raise ValueError(f"the CUDA kernel takes 1 <= T <= {_MAX_T}, got {T}")
+    rows = []
+    for what, t in (("offsets", offsets), ("pads", pads)):
+        if isinstance(t, torch.Tensor):
+            if t.shape != (B,) or t.dtype != torch.int64:
+                raise ValueError(f"{what} must be a (B,) int64 tensor, got {tuple(t.shape)} "
+                                 f"{t.dtype}")
+            rows.append(t)
+        elif t is not None and what == "pads":
+            raise ValueError("pads must be a (B,) int64 tensor or None")
+    ts = (q, *cache, *rows)
+    if any(t.device != q.device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError("all inputs must be contiguous and on one device")
+    scalar = 0 if isinstance(offsets, torch.Tensor) else int(offsets)
+    off_ptr = offsets.data_ptr() if isinstance(offsets, torch.Tensor) else None
+    pad_ptr = pads.data_ptr() if pads is not None else None
+    out = torch.empty_like(q)
+    tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    err = _self_kernel(f"{name}_{tag}")(
+        q.data_ptr(), cache[0].data_ptr(), cache[1].data_ptr(), out.data_ptr(), off_ptr,
+        pad_ptr, scalar, B * H, H, T, dh ** -0.5, q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def self_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          offsets: Union[int, torch.Tensor],
+                          pads: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Float cache: q (B, H, 1, dh); k, v (B, H, dh, T) (a ``KVCache`` layer
+    view); ``offsets`` one int or a (B,) int64 tensor; ``pads`` None or a
+    (B,) int64 tensor. Key t of row b is visible iff pads[b] <= t <=
+    offsets[b]. Returns (B, H, 1, dh) in q's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (q
+    bf16 or fp32 with k, v of the same dtype, dh = 64, contiguous) or raise.
+    """
+    if q.device.type == "cpu":
+        return self_attention_decode_plain(q, k, v, offsets, pads)
+    if q.device.type != "cuda":
+        raise ValueError(f"self_attention_decode runs on cpu or cuda, not {q.device}")
+    B, H, _, dh = q.shape
+    T = k.shape[-1]
+    if k.shape != (B, H, dh, T) or v.shape != (B, H, dh, T):
+        raise ValueError("k and v must be (B, H, dh, T)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"k and v must have q's dtype {q.dtype}, got {k.dtype}, {v.dtype}")
+    out = _launch_self("self_attention_decode", q, (k, v), T, offsets, pads)
+    self_attention_decode.launches += 1
+    return out
+
+
+def self_attention_decode_int8(q: torch.Tensor, kv_q: torch.Tensor, kv_s: torch.Tensor,
+                               offsets: Union[int, torch.Tensor],
+                               pads: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Int8 cache: q (B, H, 1, dh); kv_q (B, H, 2, dh, T) int8 with K at
+    index 0 and V at 1, kv_s (B, H, 2, T) fp32 (a ``QKVCache`` layer view);
+    ``offsets`` and ``pads`` as in :func:`self_attention_decode`. Returns
+    (B, H, 1, dh) in q's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (q
+    bf16 or fp32, dh = 64, contiguous) or raise.
+    """
+    if q.device.type == "cpu":
+        return self_attention_decode_int8_plain(q, kv_q, kv_s, offsets, pads)
+    if q.device.type != "cuda":
+        raise ValueError(f"self_attention_decode_int8 runs on cpu or cuda, not {q.device}")
+    B, H, _, dh = q.shape
+    T = kv_q.shape[-1]
+    if kv_q.shape != (B, H, 2, dh, T) or kv_q.dtype != torch.int8:
+        raise ValueError("kv_q must be (B, H, 2, dh, T) int8")
+    if kv_s.shape != (B, H, 2, T) or kv_s.dtype != torch.float32:
+        raise ValueError("kv_s must be (B, H, 2, T) fp32")
+    out = _launch_self("self_attention_decode_int8", q, (kv_q, kv_s), T, offsets, pads)
+    self_attention_decode_int8.launches += 1
+    return out
+
+
+self_attention_decode.launches = 0  # kernel launches; only the CUDA branch counts
+self_attention_decode_int8.launches = 0

@@ -38,7 +38,7 @@ class RuleState(NamedTuple):
     n_sampled: torch.Tensor  # tokens sampled after the prompt
 
     @classmethod
-    def create(cls, n: int, device="cpu") -> "RuleState":
+    def create(cls, n: int, *, device) -> "RuleState":
         def full(v):
             return torch.full((n,), v, dtype=torch.int64, device=device)
 

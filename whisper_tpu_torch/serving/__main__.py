@@ -1,0 +1,150 @@
+"""Server entry point: one continuous-batching engine behind the HTTP front
+end, the single-engine path of ``python -m whisper_tpu.serving``.
+
+    python -m whisper_tpu_torch.serving --model_type turbo --port 8000
+    python -m whisper_tpu_torch.serving --model_type test-nano --device cpu \\
+        --dtype float32 --no-w8a8 --port 8000
+
+The zero-flag defaults are the JAX server's benched configuration: 8 slots,
+32 steps per sync, a 224-token budget, W8A8 + int8 cross- and self-KV,
+bf16, on the card. Weights are the port's seeded random init (checkpoint
+loading is not ported). Flags of features not ported yet (``--tp`` > 1,
+``--dp`` > 1, ``--backends``, ``--checkpoint``, ``--timestamps``,
+``--adaptive_sync``, ``--encode_chunks`` > 1, a non-empty
+``--temperature_fallback``) exit non-zero and name the feature.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser("whisper_tpu_torch.serving")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--model_type", "-t", default="tiny")
+    p.add_argument("--checkpoint", "-p", default=None, help="not ported yet")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--slots", type=int, default=8, help="max concurrent decodes")
+    p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--steps_per_sync", type=int, default=32)
+    p.add_argument("--max_tokens", type=int, default=224,
+                   help="per-request generated-token budget; bounds the bucketed "
+                        "self-KV cache (0 = unlimited full-context cache)")
+    p.add_argument("--timestamps", action="store_true", help="not ported yet")
+    p.add_argument("--adaptive_sync", action=argparse.BooleanOptionalAction, default=False,
+                   help="not ported yet")
+    p.add_argument("--kv_quant", action=argparse.BooleanOptionalAction, default=True,
+                   help="int8-quantize the cross-attention KV state")
+    p.add_argument("--self_kv_quant", action=argparse.BooleanOptionalAction, default=True,
+                   help="int8-quantize the self-attention KV slot cache")
+    p.add_argument("--w8a8", action=argparse.BooleanOptionalAction, default=True,
+                   help="int8 weights + dynamic-int8 encoder activations")
+    p.add_argument("--tp", type=int, default=1, help="not ported yet (1 only)")
+    p.add_argument("--dp", type=int, default=1, help="not ported yet (1 only)")
+    p.add_argument("--backends", default=None, help="not ported yet")
+    p.add_argument("--timeout", type=float, default=300.0)
+    p.add_argument("--no_speech_threshold", type=float, default=0.6,
+                   help="silence gate: P(<|nospeech|>) above this (and not "
+                        "confident) returns '' (-1 disables)")
+    p.add_argument("--logprob_threshold", type=float, default=-1.0,
+                   help="avg-logprob quality floor (-1e9 disables)")
+    p.add_argument("--compression_ratio_threshold", type=float, default=2.4,
+                   help="flag repetitive output above this gzip ratio (-1 disables)")
+    p.add_argument("--admit_chunk", type=int, default=None,
+                   help="max newcomers encoded per sync round while slots are "
+                        "active (default slots/4)")
+    p.add_argument("--encode_chunks", type=int, default=1, help="not ported yet (1 only)")
+    p.add_argument("--temperature_fallback", default="",
+                   help="retry-ladder temperatures: not ported yet, so '' only")
+    return p.parse_args(argv)
+
+
+def unported_flags(args: argparse.Namespace):
+    asked = {"--tp > 1 (tensor parallelism)": args.tp > 1,
+             "--dp > 1 (data-parallel replicas)": args.dp > 1,
+             "--backends (router)": bool(args.backends),
+             "--checkpoint (checkpoint loading)": bool(args.checkpoint),
+             "--timestamps": args.timestamps,
+             "--adaptive_sync": args.adaptive_sync,
+             "--encode_chunks > 1 (segmented admission encode)": args.encode_chunks > 1,
+             "--temperature_fallback (retry ladder)": bool(args.temperature_fallback)}
+    return [name for name, on in asked.items() if on]
+
+
+def build_engine(args: argparse.Namespace):
+    """The engine the flags describe, on ``args.device``, not started.
+    Returns (engine, startup phase seconds)."""
+    import torch
+
+    from ..config import get_config
+    from ..ops.quant import quantize_params
+    from ..params import init_params
+    from ..pipeline import resolve_device
+    from ..tokenizer import get_tokenizer
+    from .engine import ContinuousBatchingEngine
+
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    cfg = get_config(args.model_type)
+    model = init_params(cfg, seed=0, device=device)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if args.w8a8:
+        quantize_params(model)
+    t_quant = time.perf_counter() - t0
+    if not cfg.is_multilingual:
+        raise NotImplementedError("English-only (.en) vocabularies are not ported yet")
+    tok = get_tokenizer(num_languages=cfg.num_languages)
+    engine = ContinuousBatchingEngine(
+        model, tok,
+        max_slots=args.slots,
+        compute_dtype={"float32": torch.float32, "bfloat16": torch.bfloat16}[args.dtype],
+        steps_per_sync=args.steps_per_sync,
+        max_tokens=args.max_tokens if args.max_tokens and args.max_tokens > 0 else None,
+        kv_quant=args.kv_quant,
+        self_kv_quant=args.self_kv_quant,
+        w8a8=args.w8a8,
+        no_speech_threshold=None if args.no_speech_threshold < 0 else args.no_speech_threshold,
+        logprob_threshold=None if args.logprob_threshold <= -1e9 else args.logprob_threshold,
+        compression_ratio_threshold=(None if args.compression_ratio_threshold < 0
+                                     else args.compression_ratio_threshold),
+        admit_chunk=args.admit_chunk,
+    )
+    return engine, {"load_s": t_load, "quantize_s": t_quant}
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    asked = unported_flags(args)
+    if asked:
+        print(f"whisper_tpu_torch.serving: not ported yet: {', '.join(asked)}", file=sys.stderr)
+        return 2
+    from .server import make_server
+
+    try:
+        engine, phases = build_engine(args)
+    except RuntimeError as e:  # cuda asked for without a card
+        print(f"whisper_tpu_torch.serving: {e}", file=sys.stderr)
+        return 1
+    engine.start()
+    srv = make_server(engine, args.host, args.port, request_timeout_s=args.timeout)
+    print(f"whisper_tpu_torch server on {args.host}:{srv.server_address[1]} "
+          f"(model={engine.cfg.name}, slots={args.slots}, device={engine.device}) startup: "
+          f"load {phases['load_s']:.1f}s quantize {phases['quantize_s']:.1f}s "
+          f"kernel build {engine.stats.warmup_seconds:.1f}s", file=sys.stderr, flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+        engine.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
