@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``whisper_tpu_torch/csrc/`` (nvcc,
-sm_90a), holds each against its plain PyTorch version at the shapes of the
-two paths below, and drives both while counting kernel launches:
+Builds the port's five CUDA kernels from ``whisper_tpu_torch/csrc/`` (nvcc,
+sm_90a, one process per source, in parallel), holds each against its plain
+PyTorch version at the shapes of the three paths below, and drives each path
+while counting kernel launches:
 
 - the offline path, ``WhisperPipeline.transcribe_batch``: turbo at full
   width, batch 64, 64 new tokens, bf16, int8 weights + W8A8 encoder + int8
@@ -12,10 +13,15 @@ two paths below, and drives both while counting kernel launches:
 - the serving path: the port's HTTP server in-process on 127.0.0.1 under the
   server's zero-flag defaults (turbo, 8 slots, 32 steps per sync, 224-token
   budget, W8A8 + int8 cross- and self-KV, bf16), answering 24 seeded noise
-  clips of 2-30 s from 24 client threads.
+  clips of 2-30 s from 24 client threads;
+- the long-form path, through the CLI entry point in-process
+  (``whisper_tpu_torch.cli.main``: turbo, bf16, int8 weights + W8A8 + int8
+  cross- and self-KV, 64 tokens a window, seek-based ``--longform
+  --timestamps -f json``, condition-on-previous-text on) over four seeded
+  noise WAVs of 60-120 s.
 
-Then it checks small fp32 runs of both paths on the card against the
-pipeline on the CPU. Prints JSON lines; the last is
+Then it checks small fp32 runs of the three paths on the card against the
+CPU. Prints JSON lines; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Needs a CUDA card: without one it exits 1 and prints no result.
 """
@@ -40,10 +46,11 @@ import torch
 # tensor cores, HBM3 bandwidth. Rates at the full 700 W power limit.
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 # main-path shapes: turbo encoder attention and decode cross-attention at B64
-B, T_AUDIO, D_AUDIO, H_AUDIO = 64, 1500, 1280, 20
+B, T_AUDIO, D_AUDIO, H_AUDIO, L_AUDIO = 64, 1500, 1280, 20, 32
 H_TEXT, DH = 20, 64
 N_TOKENS = 64
 
@@ -57,14 +64,28 @@ N_TOKENS = 64
 #  K2 fp32: fp32 summation order only;
 #  K3 bf16 (|V| <= 1): both compute in fp32 and round to bf16, at most one
 #    bf16 ulp apart below 1 (<= 2^-8 = 3.9e-3);
-#  K3 fp32: fp32 summation order only.
+#  K3 fp32: fp32 summation order only;
+#  K7: the raw log10 mel in fp32, sums in another order than cuBLAS's; the
+#    JAX package's golden tolerance for its fused mel kernel
+#    (tests/test_pallas.py);
+#  K8: int32 sums of int8 products are exact: equality.
 TOL = {"flash_attention_btd/bf16": 8e-3, "flash_attention_btd/fp32": 1e-4,
        "cross_attention_decode_fd/bf16": 4e-3, "cross_attention_decode_fd/fp32": 1e-4,
-       "self_attention_decode/bf16": 4e-3, "self_attention_decode/fp32": 1e-5}
-# K3's shapes: (batch, self-KV positions, offsets drawn from [lo, hi]) of the
-# offline path (prompt of 4, 64 new tokens, cache bucketed to 128) and of
-# the serving path (8 slots, 224-token budget, cache bucketed to 256)
-K3_SHAPES = {"offline": (B, 128, 4, 4 + N_TOKENS - 1), "serving": (8, 256, 4, 4 + 224 - 1)}
+       "self_attention_decode/bf16": 4e-3, "self_attention_decode/fp32": 1e-5,
+       "log10_mel": 5e-4, "int8_gemm": 0.0}
+# K3's shapes: (batch, self-KV positions, offsets drawn from [lo, hi], pads
+# drawn from [0, max]) of the offline path (prompt of 4, 64 new tokens,
+# cache bucketed to 128), the serving path (8 slots, 224-token budget, cache
+# bucketed to 256) and the long-form path (prompts of up to 1 + 223 + 3
+# previous-text and sot tokens, left-padded by up to 60, 64 new tokens,
+# cache bucketed to 384)
+K3_SHAPES = {"offline": (B, 128, 4, 4 + N_TOKENS - 1, None),
+             "serving": (8, 256, 4, 4 + 224 - 1, None),
+             "longform": (8, 384, 226, 226 + N_TOKENS - 1, 60)}
+# K8's shapes: the turbo encoder's (K, N) per layer (q, k, v, o; mlp w1;
+# mlp w2) at the offline batch (M = 1500 x 64) and at ragged admission sizes
+K8_KN = ((1280, 1280, 4), (1280, 5120, 1), (5120, 1280, 1))
+K8_M = (T_AUDIO * B, 1500, 4500)
 L2_BYTES = 50e6
 
 
@@ -96,15 +117,18 @@ def device_ms(fn, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    if total <= 0:
-        raise AssertionError("torch.profiler recorded no time on the card")
-    return total / 1e3 / reps
+    # the process's first profiled window can come back without the card's
+    # activity (CUPTI starting up), so an empty window is taken again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        if total > 0:
+            return total / 1e3 / reps
+    raise AssertionError("torch.profiler recorded no time on the card in three windows")
 
 
 def check(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -210,9 +234,11 @@ def kernel_k3(dev, gen) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(5)
     out = {}
-    for path, (b, T, lo, hi) in K3_SHAPES.items():
+    for path, (b, T, lo, hi, max_pad) in K3_SHAPES.items():
         offsets = torch.from_numpy(rng.integers(lo, hi + 1, b)).to(dev)
-        n_vis = float((offsets.clamp(max=T - 1) + 1).sum()) * H_TEXT  # visible (row, head) keys
+        pads = None if max_pad is None else torch.from_numpy(rng.integers(0, max_pad + 1, b)).to(dev)
+        first = 0 if pads is None else pads
+        n_vis = float((offsets.clamp(max=T - 1) + 1 - first).sum()) * H_TEXT  # visible keys
         q = torch.randn((b, H_TEXT, 1, DH), generator=gen, device=dev)
         k = torch.randn((b, H_TEXT, T, DH), generator=gen, device=dev)
         v = torch.rand((b, H_TEXT, T, DH), generator=gen, device=dev) * 2 - 1  # |V| <= 1
@@ -228,16 +254,18 @@ def kernel_k3(dev, gen) -> dict:
             res = {}
             for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
                 qd, c = q.to(dt), cache(dt)
-                res[tag] = check(f"self_attention_decode/{tag}", fn(qd, *c, offsets),
-                                 plain(qd, *c, offsets))
+                res[tag] = check(f"self_attention_decode/{tag}", fn(qd, *c, offsets, pads),
+                                 plain(qd, *c, offsets, pads))
             qd, c = q.to(torch.bfloat16), cache(torch.bfloat16)
             full = sum(t.numel() * t.element_size() for t in c)
             sets = [c] + [tuple(t.clone() for t in c)
                           for _ in range(max(1, math.ceil(2 * L2_BYTES / full)) - 1)]
-            calls = {"ms": lambda: [fn(qd, *cs, offsets) for cs in sets],
-                     "plain_ms": lambda: [plain(qd, *cs, offsets) for cs in sets]}
+            calls = {"ms": lambda: [fn(qd, *cs, offsets, pads) for cs in sets],
+                     "plain_ms": lambda: [plain(qd, *cs, offsets, pads) for cs in sets]}
             if layout == "float":
-                vis = (torch.arange(T, device=dev)[None, :] <= offsets[:, None])[:, None, None, :]
+                key = torch.arange(T, device=dev)[None, :]
+                vis = (key <= offsets[:, None]) & (key >= (0 if pads is None else pads[:, None]))
+                vis = vis[:, None, None, :]
                 calls["library_ms"] = lambda: [sdpa(qd, cs[0].transpose(-1, -2),
                                                     cs[1].transpose(-1, -2), attn_mask=vis)
                                                for cs in sets]
@@ -250,7 +278,8 @@ def kernel_k3(dev, gen) -> dict:
             del sets
             out[f"{path}/{layout}"] = {
                 "shape": f"q ({b},{H_TEXT},1,{DH}) bf16, cache T={T} {layout}, offsets "
-                         f"{lo}..{hi} (mean {n_vis / b / H_TEXT:.1f} visible keys)",
+                         f"{lo}..{hi}, pads {'none' if max_pad is None else f'0..{max_pad}'} "
+                         f"(mean {n_vis / b / H_TEXT:.1f} visible keys)",
                 "max_abs_err": res["bf16"]["max_abs_err"], "tol_abs": res["bf16"]["tol_abs"],
                 "fp32_check": res["fp32"], **times, "times": "ms, plain_ms, library_ms: "
                 "kernel time on the card (torch.profiler); events_ms: CUDA events around a "
@@ -267,6 +296,148 @@ def kernel_k3(dev, gen) -> dict:
             **{k: main[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
             "bound_peaks": "3.35 TB/s, 67 TFLOP/s fp32", "cases": out}
+
+
+def kernel_k7(dev, gen) -> dict:
+    """K7 at the offline path's shape (B 64, turbo's 128 mels) and at tiny's
+    (B 8, 80 mels), on reflect-padded seeded noise. The bound counts the
+    operations the function needs, not those of the TPU kernel's dense DFT
+    matmul: per frame the Hann window, a real FFT of 400 points at the usual
+    2.5 n log2 n, the power of 201 bins, the mel projection over each
+    filter's nonzero bins and the log. The dense algorithm's bound is kept
+    beside it as ``dft_matmul_bound_ms``."""
+    from whisper_tpu_torch.ops.log10_mel import log10_mel, log10_mel_plain
+    from whisper_tpu_torch.ops.mel import mel_filterbank
+
+    out = {}
+    for b, n_mels in ((B, 128), (8, 80)):
+        audio = torch.randn((b, 480000), generator=gen, device=dev) * 0.1
+        x = torch.nn.functional.pad(audio[:, None], (200, 200), mode="reflect")[:, 0].contiguous()
+        got = log10_mel(x, n_mels, 400, 160, 3000)
+        res = check("log10_mel", got, log10_mel_plain(x, n_mels, 400, 160, 3000))
+        nnz = int(np.count_nonzero(mel_filterbank(n_mels, 400)))
+        flops = b * 3000 * (400 + 2.5 * 400 * math.log2(400) + 3 * 201 + 2 * nnz + 2 * n_mels)
+        dft_flops = 2.0 * b * 3000 * 400 * 402 + 2.0 * b * 3000 * 201 * n_mels
+        nbytes = 4.0 * x.numel() + 4.0 * b * n_mels * 3000
+        out[f"B{b}/{n_mels}"] = {
+            **res, "ms": cuda_ms(lambda: log10_mel(x, n_mels, 400, 160, 3000), reps=20),
+            "plain_ms": cuda_ms(lambda: log10_mel_plain(x, n_mels, 400, 160, 3000), reps=5),
+            "bound_ms": 1e3 * max(flops / PEAK_FP32, nbytes / PEAK_BYTES),
+            "bound_by": "operations" if flops / PEAK_FP32 > nbytes / PEAK_BYTES else "bytes",
+            "ops_ms": 1e3 * flops / PEAK_FP32, "bytes_ms": 1e3 * nbytes / PEAK_BYTES,
+            "dft_matmul_bound_ms": 1e3 * max(dft_flops / PEAK_FP32, nbytes / PEAK_BYTES)}
+    main = out[f"B{B}/128"]
+    return {"name": "log10_mel", "route": "cuda", "source": "whisper_tpu_torch/csrc/log10_mel.cu",
+            "replaces": "whisper_tpu/ops/mel_pallas.py:75",
+            "shape": f"audio ({B}, 480400) fp32 -> ({B}, 128, 3000) fp32",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "dft_matmul_bound_ms")},
+            "bound_peaks": "67 TFLOP/s fp32, 3.35 TB/s", "cases": out,
+            "library_ms": None, "library": "none: no single PyTorch call computes it"}
+
+
+def kernel_k8(dev, gen) -> dict:
+    """K8 at every turbo encoder shape: exact against its plain version at
+    the offline batch's M and at ragged admission sizes, timed at the
+    offline batch's M beside torch._int_mm with a column-major weight (the
+    transpose of a contiguous (N, K), the layout K8 reads; ``library_ms``)
+    and with the (K, N) row-major one (the path before K8;
+    ``library_rowmajor_ms``)."""
+    from whisper_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_plain
+
+    def rand8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    cases, layer = {}, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                        "library_rowmajor_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
+    for K, N, per_layer in K8_KN:
+        b = rand8(K, N)
+        b_k = b.t().contiguous().t()  # K-major storage, as QTensor.k_major lays it out
+        for M in K8_M:
+            a = rand8(M, K)
+            got = int8_gemm(a, b_k)
+            torch.cuda.synchronize()
+            if not torch.equal(got, int8_gemm_plain(a, b)):
+                raise AssertionError(f"int8_gemm differs from its plain version at "
+                                     f"M={M}, K={K}, N={N}")
+            del got
+            if M != T_AUDIO * B:
+                continue
+            ops, nbytes = 2.0 * M * K * N, M * K + K * N + 4.0 * M * N
+            case = {"ms": cuda_ms(lambda: int8_gemm(a, b_k), reps=10),
+                    "plain_ms": cuda_ms(lambda: int8_gemm_plain(a, b), reps=2, warmup=1),
+                    "library_ms": cuda_ms(lambda: torch._int_mm(a, b_k), reps=10),
+                    "library_rowmajor_ms": cuda_ms(lambda: torch._int_mm(a, b), reps=10),
+                    "ops_ms": 1e3 * ops / PEAK_INT8, "bytes_ms": 1e3 * nbytes / PEAK_BYTES}
+            case["bound_ms"] = max(case["ops_ms"], case["bytes_ms"])
+            case["bound_by"] = "operations" if case["ops_ms"] > case["bytes_ms"] else "bytes"
+            cases[f"M{M}/K{K}/N{N}"] = case
+            for key in layer:
+                layer[key] += per_layer * case[key]
+            del a
+            torch.cuda.empty_cache()
+    n = sum(p for _, _, p in K8_KN)
+    per_launch = {key: v / n for key, v in layer.items()}
+    return {"name": "int8_gemm", "route": "cuda", "source": "whisper_tpu_torch/csrc/int8_gemm.cu",
+            "replaces": "benchmarks/int8_gemm_probe.py:43",
+            "shape": f"a ({T_AUDIO * B}, K) int8 @ b (K, N) int8, (K, N) in "
+                     f"{[(k, n) for k, n, _ in K8_KN]}; times are the mean per launch of a turbo "
+                     f"encoder layer's {n} GEMMs", "max_abs_err": 0.0, "exact_at_M": list(K8_M),
+            **{k: per_launch[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                          "library_rowmajor_ms")},
+            "bound_by": "operations" if layer["ops_ms"] > layer["bytes_ms"] else "bytes",
+            "per_batch_ms": {k: L_AUDIO * v for k, v in layer.items()},
+            "bound_peaks": "1,979 TOP/s int8, 3.35 TB/s", "cases": cases,
+            "library": "torch._int_mm(a, b) with b column-major; library_rowmajor_ms with b "
+                       "(K, N) row-major, the path before K8"}
+
+
+def w8a8_card_vs_cpu(dev) -> dict:
+    """The W8A8 activation quantization at turbo's width, on the card
+    against the CPU: how many row scales ``amax / 127.0`` (a Python-scalar
+    divisor, which CUDA turns into a product with the reciprocal) puts off
+    the CPU's quotient and how many int8 activations flip as a result; and
+    the port's ``_linear_a8`` (tensor divisor, K8) against the CPU's, which
+    must be equal bit for bit."""
+    from whisper_tpu_torch.models.model import _linear_a8
+    from whisper_tpu_torch.ops.quant import quantize_weight
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, T_AUDIO, D_AUDIO)).astype(np.float32))
+    amax = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    scale_cpu, scale_card = amax / 127.0, (amax.to(dev) / 127.0).cpu()
+
+    def quant(s):
+        return torch.clamp(torch.round(x / s), -127, 127).to(torch.int32)
+
+    ulps = (scale_card.view(torch.int32) - scale_cpu.view(torch.int32)).abs()
+    flips = (quant(scale_card) - quant(scale_cpu)).abs()
+    w = quantize_weight(torch.from_numpy(
+        rng.standard_normal((D_AUDIO, D_AUDIO)).astype(np.float32) * 0.03))
+    xs = x[:, :150]
+    got = _linear_a8(xs.to(dev), w.to(dev), None, torch.float32).cpu()
+    want = _linear_a8(xs, w, None, torch.float32)
+    if not torch.equal(got, want):
+        raise AssertionError(f"_linear_a8 on the card differs from the CPU by "
+                             f"{float((got - want).abs().max())}")
+    return {"phase": "w8a8_vs_cpu", "rows": int(amax.numel()),
+            "scalar_divisor_rows_off": int((ulps > 0).sum()),
+            "scalar_divisor_max_ulps": int(ulps.max()),
+            "scalar_divisor_int8_flipped": int((flips > 0).sum()),
+            "scalar_divisor_int8_max_diff": int(flips.max()),
+            "int8_values": int(x.numel()),
+            "linear_a8_card_equals_cpu": True, "linear_a8_shape": f"(2, 150, {D_AUDIO}) @ "
+            f"({D_AUDIO}, {D_AUDIO})"}
+
+
+def _launches(counters) -> dict:
+    return {fn.__name__: fn.launches for fn in counters}
+
+
+def _expect(path: str, launches: dict, want: dict) -> None:
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{path}: {name} ran {launches[name]} times, expected {n}")
 
 
 def end_to_end(counters) -> dict:
@@ -296,7 +467,7 @@ def end_to_end(counters) -> dict:
     results = pipe.transcribe_batch(clips)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = _launches(counters)
 
     dec = pipe.last_decode
     cfg = pipe.cfg
@@ -311,13 +482,11 @@ def end_to_end(counters) -> dict:
         raise AssertionError("token ids out of the vocabulary")
     if not (torch.isfinite(dec.avg_logprob).all() and torch.isfinite(dec.no_speech_prob).all()):
         raise AssertionError("non-finite log-probabilities")
-    if launches["flash_attention_btd"] != cfg.n_audio_layer:
-        raise AssertionError(f"K1 ran {launches['flash_attention_btd']} times, "
-                             f"expected {cfg.n_audio_layer} per encoder pass")
-    for name in ("cross_attention_decode_fd", "self_attention_decode_int8"):
-        if launches[name] != cfg.n_text_layer * dec.steps:
-            raise AssertionError(f"{name} ran {launches[name]} times over {dec.steps} steps, "
-                                 f"expected {cfg.n_text_layer} per step")
+    _expect("offline", launches, {
+        "log10_mel": 1, "flash_attention_btd": cfg.n_audio_layer,
+        "int8_gemm": 6 * cfg.n_audio_layer,  # q, k, v, o, mlp1, mlp2 per layer
+        "cross_attention_decode_fd": cfg.n_text_layer * dec.steps,
+        "self_attention_decode_int8": cfg.n_text_layer * dec.steps})
     audio_s = B * N_SAMPLES / 16000
     stages = breakdown(pipe, clips, dec.steps)
     return {"phase": "end_to_end", "model": "turbo", "batch": B, "max_tokens": N_TOKENS,
@@ -435,7 +604,7 @@ def serving(counters) -> dict:
             replies = list(pool.map(lambda i: _post(url, clips[i], i % 6 == 0),
                                     range(N_REQUESTS)))
         wall = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in counters}
+        launches = _launches(counters)
         st1 = engine.stats.snapshot()
         with urllib.request.urlopen(url.replace("/asr", "/metrics"), timeout=30) as r:
             metrics = json.load(r)
@@ -452,13 +621,11 @@ def serving(counters) -> dict:
     cfg = engine.cfg
     steps = st1["steps_total"] - st0["steps_total"]
     batches = st1["encode_batches_total"] - st0["encode_batches_total"]
-    want = {"flash_attention_btd": cfg.n_audio_layer * batches,
-            "cross_attention_decode_fd": cfg.n_text_layer * steps,
-            "self_attention_decode_int8": cfg.n_text_layer * steps}
-    for name, n in want.items():
-        if launches[name] != n:
-            raise AssertionError(f"serving: {name} ran {launches[name]} times, expected {n} "
-                                 f"({steps} steps stepped, {batches} admission batches)")
+    _expect(f"serving ({steps} steps, {batches} admission batches)", launches, {
+        "log10_mel": batches, "flash_attention_btd": cfg.n_audio_layer * batches,
+        "int8_gemm": 6 * cfg.n_audio_layer * batches,
+        "cross_attention_decode_fd": cfg.n_text_layer * steps,
+        "self_attention_decode_int8": cfg.n_text_layer * steps})
     lat = np.array([sec for _, _, sec in replies])
     audio_s = sum(len(c) for c in clips) / 16000
     return {"phase": "serving", "model": "turbo", "flags": "server defaults: "
@@ -540,6 +707,108 @@ def reference_check() -> dict:
             "tokens_equal_cpu": True, "tokens": toks["cuda"]}
 
 
+N_LONGFORM = 4
+LONGFORM_ARGS = ["--model_type", "turbo", "--dtype", "bfloat16", "--quantize", "--w8a8",
+                 "--kv_quant", "--self_kv_quant", "--max_tokens", str(N_TOKENS), "--longform",
+                 "--timestamps", "-f", "json"]
+
+
+def _n_samples(seconds: float) -> int:
+    return int(16000 * seconds)
+
+
+def _write_wavs(folder, seconds, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, sec in enumerate(seconds):
+        path = f"{folder}/clip{i}.wav"
+        with open(path, "wb") as f:
+            f.write(_wav(rng.standard_normal(_n_samples(sec)) * 0.1))
+        paths.append(path)
+    return paths
+
+
+def longform(counters) -> dict:
+    """The long-form path through the CLI entry point, in-process: four
+    seeded noise WAVs of 60-120 s to json files. Reads the pipeline's round,
+    window and step counts, checks every file and the kernels' launches."""
+    import tempfile
+
+    from whisper_tpu_torch import cli
+
+    rng = np.random.default_rng(6)
+    seconds = [float(s) for s in rng.uniform(60.0, 120.0, N_LONGFORM)]
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _write_wavs(tmp, seconds, seed=7)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["--wav", *paths, *LONGFORM_ARGS, "-o", f"{tmp}/out"], report=report)
+        cli_wall = time.perf_counter() - t0
+        launches = _launches(counters)
+        docs = []
+        for path in paths:
+            stem = path.rsplit("/", 1)[1][:-4]
+            with open(f"{tmp}/out/{stem}.json") as f:
+                docs.append(json.load(f))
+    if rc != 0 or report["pipeline"].last_seek is None:
+        raise AssertionError(f"cli.main returned {rc}, long-form counts "
+                             f"{report['pipeline'].last_seek}")
+    n_segments, past_end, open_ends = 0, 0, 0
+    for doc, sec in zip(docs, seconds):
+        segs = doc["segments"]
+        starts = [sg["start"] for sg in segs]
+        if abs(doc["audio_seconds"] - _n_samples(sec) / 16000) > 1e-6:
+            raise AssertionError(f"audio_seconds {doc['audio_seconds']} for a {sec} s clip")
+        if starts != sorted(starts) or any(not 0 <= st <= sec + 30 for st in starts):
+            raise AssertionError(f"segment starts out of order or range: {starts}")
+        if any(sg["end"] is not None and sg["end"] < sg["start"] for sg in segs):
+            raise AssertionError("a segment ends before it starts")
+        if not all(isinstance(sg["text"], str) for sg in segs) or not isinstance(doc["text"], str):
+            raise AssertionError("non-string text in the json")
+        n_segments += len(segs)
+        past_end += sum(st > sec for st in starts)
+        open_ends += sum(sg["end"] is None for sg in segs)
+    cfg, stats, wall = report["pipeline"].cfg, report["pipeline"].last_seek, report["transcribe_s"]
+    _expect("longform", launches, {
+        "log10_mel": stats["rounds"], "flash_attention_btd": cfg.n_audio_layer * stats["rounds"],
+        "int8_gemm": 6 * cfg.n_audio_layer * stats["rounds"],
+        "cross_attention_decode_fd": cfg.n_text_layer * stats["steps"],
+        "self_attention_decode_int8": cfg.n_text_layer * stats["steps"]})
+    audio_s = sum(_n_samples(s) / 16000 for s in seconds)
+    return {"phase": "longform", "entry": "whisper_tpu_torch.cli.main",
+            "args": LONGFORM_ARGS + ["-o", "<tmp>"], "clips_s": seconds, "audio_s": audio_s,
+            **stats, "cli_wall_s": cli_wall, "transcribe_wall_s": wall,
+            "rtf": wall / audio_s, "audio_s_per_s": audio_s / wall,
+            "segments": n_segments, "segments_open": open_ends,
+            "segments_starting_past_clip_end": past_end, "launches": launches}
+
+
+def longform_reference_check() -> dict:
+    """Tiny fp32 (kvq + skvq, 12 tokens a window) seek-based long-form of a
+    40 s and a 70 s clip: the card's segments and texts equal the CPU's."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+
+    rng = np.random.default_rng(8)
+    clips = [(rng.standard_normal(16000 * s) * 0.1).astype(np.float32) for s in (40, 70)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        # the same CPU-drawn weights on both sides (CPU and CUDA generators differ)
+        params = init_params(get_config("tiny"), seed=3, device="cpu").to_device(dev)
+        pipe = WhisperPipeline(device=dev, compute_dtype="float32", kv_quant=True,
+                               self_kv_quant=True, max_tokens=12, language="en", params=params)
+        out[dev] = [(r.text, r.segments) for r in pipe.transcribe_longform(clips)]
+        out[dev + "_seek"] = pipe.last_seek
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"long-form on the card differs from the CPU: {out}")
+    return {"phase": "longform_reference", "model": "tiny", "dtype": "float32",
+            "segments_and_texts_equal_cpu": True, "seek": out["cuda_seek"],
+            "segments": [len(segs) for _, segs in out["cuda"]]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -548,6 +817,8 @@ def main() -> int:
     from whisper_tpu_torch.ops.decode_attention import (
         cross_attention_decode_fd, self_attention_decode, self_attention_decode_int8)
     from whisper_tpu_torch.ops.flash_attention import flash_attention_btd
+    from whisper_tpu_torch.ops.int8_gemm import int8_gemm
+    from whisper_tpu_torch.ops.log10_mel import log10_mel
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 checks run in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -562,27 +833,36 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    kernels = [kernel_k1(dev, gen), kernel_k2(dev, gen), kernel_k3(dev, gen)]
-    for k in kernels:
-        emit({"phase": "kernel", **k})
-    torch.cuda.empty_cache()
+    kernels = []
+    for phase in (kernel_k1, kernel_k2, kernel_k3, kernel_k7, kernel_k8):
+        kernels.append(phase(dev, gen))
+        emit({"phase": "kernel", **kernels[-1]})
+        torch.cuda.empty_cache()
+    emit(w8a8_card_vs_cpu(dev))
 
-    counters = (flash_attention_btd, cross_attention_decode_fd, self_attention_decode_int8,
-                self_attention_decode)
+    counters = (log10_mel, flash_attention_btd, int8_gemm, cross_attention_decode_fd,
+                self_attention_decode_int8, self_attention_decode)
     e2e, stages = end_to_end(counters)
     emit(e2e)
     emit(stages)
     torch.cuda.empty_cache()
     served = serving(counters)
     emit(served)
+    torch.cuda.empty_cache()
+    long = longform(counters)
+    emit(long)
+    torch.cuda.empty_cache()
     emit(reference_check())
     emit(serving_reference_check())
+    emit(longform_reference_check())
 
     for k in kernels:
         k["launches"] = e2e["launches"][k["name"]]
         k["serving_launches"] = served["launches"][k["name"]]
+        k["longform_launches"] = long["launches"][k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "serving_launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "longform_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(smi)
     emit({"kernels": [{key: k[key] for key in keys} for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

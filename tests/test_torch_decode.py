@@ -87,6 +87,100 @@ def test_greedy_tokens_equal_jax(combo, monkeypatch):
     assert res.host_syncs >= res.steps and res.steps <= MAX_TOKENS - 1
 
 
+def _bridged(quant=False):
+    jp = jm.init_params(CFG, jax.random.PRNGKey(0))
+    if quant:
+        jp = jax_qparams(jp)
+    return jp, from_jax_params(jax.tree.map(np.asarray, jp), PCFG, device="cpu")
+
+
+@pytest.mark.parametrize("combo", ["plain", "kvq+skvq"])
+def test_greedy_tokens_with_timestamps_equal_jax(combo):
+    """The timestamp grammar (sampling.apply_rules(timestamps=True)) decodes
+    the same fp32 tokens as JAX from the seek path's prompt (the sot
+    sequence without <|notimestamps|>)."""
+    _, kv_quant, self_kv_quant, _ = COMBOS[combo]
+    jp, model = _bridged()
+    mel = np.random.default_rng(8).standard_normal(
+        (3, CFG.n_mels, 2 * CFG.n_audio_ctx)).astype(np.float32)
+    prompt = np.tile(np.asarray([CFG.sot_sequence("en")[:-1]], np.int32), (3, 1))
+    suppress = jax_suppress_ids(CFG, jax_tokenizer(num_languages=CFG.num_languages))
+    jkv = jm.compute_cross_kv(jp, jm.encoder_forward(jp, jnp.asarray(mel), CFG), CFG)
+    if kv_quant:
+        jkv = jm.quantize_cross_kv(jkv)
+    ref = jax_greedy_decode_kv(jp, jkv, jnp.asarray(prompt), CFG, max_tokens=MAX_TOKENS,
+                               suppress_ids=jnp.asarray(suppress), timestamps=True,
+                               apply_filters=True, self_kv_quant=self_kv_quant)
+    res = greedy_decode(model, torch.from_numpy(mel), torch.from_numpy(prompt),
+                        kv_quant=kv_quant, max_tokens=MAX_TOKENS,
+                        suppress_ids=torch.from_numpy(suppress).long(), timestamps=True,
+                        apply_filters=True, self_kv_quant=self_kv_quant)
+    want = np.asarray(ref.tokens)
+    np.testing.assert_array_equal(res.tokens.numpy(), want)
+    np.testing.assert_array_equal(res.lengths.numpy(), np.asarray(ref.lengths))
+    assert (want[:, prompt.shape[1]] >= CFG.timestamp_begin).all()  # the grammar ran
+    np.testing.assert_allclose(res.no_speech_prob.numpy(), np.asarray(ref.no_speech_prob),
+                               rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("combo", ["plain", "kvq+skvq"])
+def test_padded_prompts_equal_jax(combo):
+    """Right-aligned [sot_prev, *prev, sot, lang, task] prompts with mixed
+    left pads (a row without previous text masks its whole prev region)
+    and sot_index: tokens equal to JAX's, no_speech_prob within 1e-5."""
+    _, kv_quant, self_kv_quant, _ = COMBOS[combo]
+    jp, model = _bridged()
+    mel = np.random.default_rng(9).standard_normal(
+        (3, CFG.n_mels, 2 * CFG.n_audio_ctx)).astype(np.float32)
+    base = list(CFG.sot_sequence("en")[:-1])
+    prevs = [[CFG.sot_prev, 11, 22, 33, 44, 55, 66], [CFG.sot_prev, 300], []]
+    P = 1 + 6 + len(base)
+    prompt = np.full((3, P), CFG.eot, np.int32)
+    pads = np.full((3,), P - len(base), np.int32)
+    prompt[:, -len(base):] = base
+    for b, pv in enumerate(prevs):
+        if pv:
+            pads[b] = P - len(base) - len(pv)
+            prompt[b, pads[b]:P - len(base)] = pv
+    sot_index = P - len(base)
+    suppress = jax_suppress_ids(CFG, jax_tokenizer(num_languages=CFG.num_languages))
+    jkv = jm.compute_cross_kv(jp, jm.encoder_forward(jp, jnp.asarray(mel), CFG), CFG)
+    if kv_quant:
+        jkv = jm.quantize_cross_kv(jkv)
+    ref = jax_greedy_decode_kv(jp, jkv, jnp.asarray(prompt), CFG, max_tokens=MAX_TOKENS,
+                               suppress_ids=jnp.asarray(suppress), timestamps=True,
+                               apply_filters=True, self_kv_quant=self_kv_quant,
+                               prompt_pad=jnp.asarray(pads), sot_index=sot_index)
+    res = greedy_decode(model, torch.from_numpy(mel), torch.from_numpy(prompt),
+                        kv_quant=kv_quant, max_tokens=MAX_TOKENS,
+                        suppress_ids=torch.from_numpy(suppress).long(), timestamps=True,
+                        apply_filters=True, self_kv_quant=self_kv_quant,
+                        prompt_pad=torch.from_numpy(pads).long(), sot_index=sot_index)
+    np.testing.assert_array_equal(res.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(res.lengths.numpy(), np.asarray(ref.lengths))
+    np.testing.assert_allclose(res.no_speech_prob.numpy(), np.asarray(ref.no_speech_prob),
+                               rtol=0, atol=1e-5)
+
+
+def test_pipeline_timestamps_and_initial_prompt_equal_jax():
+    """transcribe_batch with timestamps (no <|notimestamps|>) and an
+    initial_prompt prefix gives the JAX pipeline's texts, tokens and
+    segments."""
+    kw = dict(compute_dtype="float32", max_tokens=8, language="en", timestamps=True,
+              initial_prompt="Hello there, it's 2 o'clock.")
+    jpipe = JaxPipeline(model="test-nano", **kw)
+    params = from_jax_params(jax.tree.map(np.asarray, jpipe.params), PCFG, device="cpu")
+    tpipe = WhisperPipeline(device="cpu", params=params, **kw)
+    rng = np.random.default_rng(12)
+    clips = [(0.1 * rng.standard_normal(16000 * s)).astype(np.float32) for s in (5, 12)]
+    ref = jpipe.transcribe_batch(clips)
+    got = tpipe.transcribe_batch(clips)
+    assert [r.text for r in got] == [r.text for r in ref]
+    assert [r.segments for r in got] == [r.segments for r in ref]
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.tokens, np.asarray(b.tokens))
+
+
 def test_divergence_report():
     """The report a token mismatch would print names the first differing
     position and a margin."""
@@ -120,14 +214,19 @@ def test_pipeline_texts_equal_jax():
 
 
 def test_pipeline_refuses_unported_options():
-    for kw in (dict(beam_size=5), dict(timestamps=True), dict(language=None),
-               dict(temperature=0.4), dict(initial_prompt="hi"), dict(word_timestamps=True),
-               dict(spec_draft="tiny"), dict(temperature_fallback=True)):
+    """Still refused: beam, auto language, sampling and its ladder, word
+    timestamps, speculative decoding. Timestamps, initial_prompt and
+    seek-based long-form are ported (tests below and in
+    test_torch_longform.py)."""
+    for kw in (dict(beam_size=5), dict(language=None), dict(temperature=0.4),
+               dict(word_timestamps=True), dict(spec_draft="tiny"),
+               dict(temperature_fallback=True)):
         with pytest.raises(NotImplementedError):
             WhisperPipeline(model="test-nano", device="cpu", **kw)
-    pipe = WhisperPipeline(model="test-nano", device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipe.transcribe_longform([np.zeros(16000, np.float32)])
+    pipe = WhisperPipeline(model="test-nano", device="cpu", timestamps=True,
+                           initial_prompt="hi", max_tokens=4)
+    (res,) = pipe.transcribe_longform([np.zeros(16000, np.float32)])
+    assert isinstance(res.segments, list) and res.segments is res.segments_list
 
 
 def test_pipeline_never_falls_back_to_cpu(monkeypatch):

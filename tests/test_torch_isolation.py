@@ -39,6 +39,24 @@ assert not bad, bad
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+@pytest.mark.parametrize("module", ["whisper_tpu_torch.ops.int8_gemm",
+                                    "whisper_tpu_torch.ops.log10_mel",
+                                    "whisper_tpu_torch.formats", "whisper_tpu_torch.longform"])
+def test_new_modules_import_alone(module):
+    """Each module of the long-form slice, imported alone, loads none of the
+    forbidden modules (and no CUDA toolchain: kernels build at first use)."""
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {str(REPO)!r})
+importlib.import_module({module!r})
+bad = sorted(n for n in sys.modules if n.split(".")[0] in {FORBIDDEN!r})
+assert not bad, bad
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_import_statements(path):
     tree = ast.parse(path.read_text())

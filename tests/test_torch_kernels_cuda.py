@@ -21,6 +21,9 @@ from whisper_tpu_torch.ops.decode_attention import (
     self_attention_decode_plain,
 )
 from whisper_tpu_torch.ops.flash_attention import flash_attention_btd, flash_attention_btd_plain
+from whisper_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_plain
+from whisper_tpu_torch.ops.log10_mel import log10_mel, log10_mel_plain
+from whisper_tpu_torch.ops.quant import quantize_weight
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +34,9 @@ K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
 # K3 with |V| <= 1: fp32 differs by summation order only; bf16 outputs by one
 # bf16 rounding of a value below 1 (<= 2^-9), plus the order
 K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+# K7: the raw log10 mel, fp32 sums in another order than cuBLAS's; the JAX
+# package's own golden tolerance for its fused mel kernel
+K7_TOL = 5e-4
 
 
 @pytest.fixture
@@ -132,3 +138,105 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):  # head dim 32
         self_attention_decode(q[..., :32].contiguous(), k[:, :, :32].contiguous(),
                               k[:, :, :32].contiguous(), 3)
+
+
+@pytest.mark.parametrize("M,K,N", [(1500, 1280, 1280), (4500, 1280, 5120), (1500, 5120, 1280),
+                                   (3000, 384, 1536), (100, 64, 72), (257, 48, 24), (1, 16, 8)])
+def test_int8_gemm_kernel_matches_plain(dev, M, K, N):
+    """Exactly equal (int32): turbo's and tiny's widths at ragged M, a K
+    that is not a multiple of the 64-byte step, N not a multiple of 128."""
+    rng = np.random.default_rng(M + K + N)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
+    b = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8)).to(dev)
+    b_k = b.t().contiguous().t()  # the K-major storage the kernel reads
+    before = int8_gemm.launches
+    got = int8_gemm(a, b_k)
+    torch.cuda.synchronize()
+    assert int8_gemm.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got, int8_gemm_plain(a, b))
+    extreme = torch.full((M, K), -127, dtype=torch.int8, device=dev)
+    assert torch.equal(int8_gemm(extreme, b_k), int8_gemm_plain(extreme, b))
+    with pytest.raises(ValueError):  # row-major: the wrapper makes no copy
+        int8_gemm(a, b)
+
+
+def test_linear_a8_on_the_card_through_the_kernel(dev, monkeypatch):
+    """The W8A8 linear through K8 equals, bit for bit, the same linear on
+    the CPU, and lays the weight out K-major once, in place. The activation
+    scale is divided by a tensor: by a Python scalar CUDA multiplies by its
+    reciprocal, which this case shows puts scales one ulp off the CPU's."""
+    from whisper_tpu_torch.models import model as tm
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 150, 256)).astype(np.float32))
+    w = quantize_weight(torch.from_numpy(rng.standard_normal((256, 384)).astype(np.float32)))
+    bias = torch.from_numpy(rng.standard_normal(384).astype(np.float32))
+    wd = w.to(dev)
+    before = int8_gemm.launches
+    got = tm._linear_a8(x.to(dev), wd, bias.to(dev), torch.float32)
+    assert int8_gemm.launches == before + 1
+    assert wd.k_major() is wd.q and wd.q.t().is_contiguous() and torch.equal(wd.q.cpu(), w.q)
+    assert torch.equal(got.cpu(), tm._linear_a8(x, w, bias, torch.float32))
+    # batch 1 in the conv stem's transposed layout (a strided view when flattened)
+    xt = x[:1].transpose(1, 2).contiguous().transpose(1, 2).to(dev)
+    assert torch.equal(tm._linear_a8(xt, wd, None, torch.float32),
+                       tm._linear_a8(xt.contiguous(), wd, None, torch.float32))
+    monkeypatch.setattr(tm, "int8_gemm", lambda a, b: int8_gemm_plain(a, b))
+    assert torch.equal(got, tm._linear_a8(x.to(dev), wd, bias.to(dev), torch.float32))
+    amax = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    assert not torch.equal((amax.to(dev) / 127.0).cpu(), amax / 127.0)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("n_frames", [3000, 101])
+def test_log10_mel_kernel_matches_plain(dev, n_mels, n_frames):
+    """Noise, a tone, a short clip zero-padded and an all-zero row (-10
+    everywhere): the raw log10 mel within K7_TOL."""
+    rng = np.random.default_rng(n_mels + n_frames)
+    L = 160 * n_frames + 400
+    t = np.arange(L) / 16000.0
+    x = np.stack([rng.standard_normal(L) * 0.1, 0.3 * np.sin(2 * np.pi * 440 * t),
+                  np.r_[rng.standard_normal(L // 3) * 0.5, np.zeros(L - L // 3)],
+                  np.zeros(L)]).astype(np.float32)
+    audio = torch.from_numpy(x).to(dev)
+    before = log10_mel.launches
+    got = log10_mel(audio, n_mels, 400, 160, n_frames)
+    torch.cuda.synchronize()
+    assert log10_mel.launches == before + 1
+    ref = log10_mel_plain(audio, n_mels, 400, 160, n_frames)
+    assert got.shape == ref.shape == (4, n_mels, n_frames)
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= K7_TOL
+    assert float((got[3] + 10).abs().max()) == 0.0
+
+
+def test_log_mel_batch_on_the_card_matches_the_cpu(dev):
+    from whisper_tpu_torch.ops.mel import log_mel_batch
+
+    rng = np.random.default_rng(9)
+    audio = torch.from_numpy((rng.standard_normal((3, 480000)) * 0.1).astype(np.float32))
+    audio[1, 16000 * 7:] = 0
+    audio[2] = 0
+    lengths = torch.tensor([480000, 16000 * 7, 0])
+    before = log10_mel.launches
+    got = log_mel_batch(audio.to(dev), lengths.to(dev), n_mels=128)
+    assert log10_mel.launches == before + 1
+    want = log_mel_batch(audio, lengths, n_mels=128)
+    assert float((got.cpu() - want).abs().max()) <= K7_TOL / 4  # (x + 4) / 4
+
+
+def test_new_kernels_refuse_what_they_do_not_take(dev):
+    a = torch.zeros((4, 24), dtype=torch.int8, device=dev)  # K % 16 != 0
+    with pytest.raises(ValueError):
+        int8_gemm(a, torch.zeros((24, 8), dtype=torch.int8, device=dev))
+    a = torch.zeros((4, 32), dtype=torch.int8, device=dev)  # N % 8 != 0
+    with pytest.raises(ValueError):
+        int8_gemm(a, torch.zeros((32, 12), dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError):  # int16
+        int8_gemm(a.to(torch.int16), torch.zeros((32, 8), dtype=torch.int8, device=dev))
+    x = torch.zeros((2, 2000), device=dev)
+    with pytest.raises(ValueError):  # another n_fft
+        log10_mel(x, 80, 512, 160, 5)
+    with pytest.raises(ValueError):  # fp64
+        log10_mel(x.double(), 80, 400, 160, 5)

@@ -51,6 +51,31 @@ def test_encode_single_pieces(pair):
         assert tok.encode(s) == ref.encode(s), s
 
 
+CORPUS = [
+    "Hello, world! I'm here; you're there. We've seen they'll go, she'd say it's done.",
+    "DON'T SHOUT'S 're 'll ''s '' 's", "abc123def 4567 ab12 3.14 1,000,000 2nd 3rd",
+    "x² ½ Ⅻ 3½ Ⅻa ²b", "你好，世界。这是一个测试。 こんにちは 세계",
+    "emoji 😀🎉 👍🏽 ok❤️", "  two  spaces\n\nnew lines \t tab\n", "   ", " \n", "a\n b",
+    "trailing   ", "\u3000full-width space", "’s don’t", "__init__ a_b -- --- <<< >>>",
+    '"#()*+/:;<=>@[\\]^_`{|}~「」『』 ♪♪ ((music)) [[x]] {{y}} ♩♪♫♬♭♮♯',
+    "x\x1c y\r\nz",
+]
+
+
+def test_encode_corpus_equals_tiktoken(pair):
+    """The GPT-2 pre-tokenizer plus byte-pair merging gives tiktoken's ids:
+    contractions, digits among letters, numbers that are not digits (², ½,
+    Ⅻ), CJK, emoji, runs of spaces and newlines, the non-speech symbols."""
+    tok, ref = pair
+    for s in CORPUS:
+        assert tok.encode(s) == ref.encode(s), s
+    rng = np.random.default_rng(5)
+    alphabet = list("ab '’12²½Ⅻ你 \n\t😀.,!?-_") + ["'s", "'ll", "  "]
+    for _ in range(300):
+        s = "".join(rng.choice(alphabet, rng.integers(1, 14)))
+        assert tok.encode(s) == ref.encode(s), s
+
+
 def test_non_speech_and_suppress_ids(pair):
     tok, ref = pair
     assert tok.non_speech_tokens == ref.non_speech_tokens

@@ -58,6 +58,9 @@ def greedy_decode_kv(
     apply_filters: bool = False,
     self_kv_quant: bool = False,
     gelu: str = "erf",
+    timestamps: bool = False,
+    prompt_pad: Optional[torch.Tensor] = None,  # (B,) int64 left-pad lengths
+    sot_index: int = 0,
 ) -> GreedyResult:
     """Prefill + greedy token loop against precomputed cross-KV.
 
@@ -65,8 +68,12 @@ def greedy_decode_kv(
     loop runs while ``i < limit - 1`` and some stream is not done; a done
     stream keeps emitting eot; ``lengths`` is the first eot at or after the
     prompt. The self-KV cache is sized to the 128-rounded token budget.
-    The prompt starts with sot and is unpadded; timestamp decoding waits
-    for a later port.
+    ``timestamps`` runs the timestamp grammar of ``sampling.apply_rules``.
+    ``prompt_pad`` right-aligns prompts of differing lengths (e.g.
+    ``[sot_prev, *prev, sot, lang, task]``): the first ``prompt_pad[b]``
+    positions of row b are masked out of attention and skipped in its
+    positional indexing, at the prefill and at every step. ``sot_index`` is
+    the column of sot, where the no-speech probability is read.
     """
     cfg = model.cfg
     device = prompt.device
@@ -79,12 +86,13 @@ def greedy_decode_kv(
     kv_ctx = min(T, -(-limit // 128) * 128)
     eot = cfg.eot
     ts0 = cfg.timestamp_begin
-    use_rules = apply_filters or suppress_ids is not None
+    use_rules = apply_filters or timestamps or suppress_ids is not None
 
     def filt(logits, state):
         if not use_rules:
             return logits
-        return apply_rules(logits, state, cfg, suppress_ids=suppress_ids)
+        return apply_rules(logits, state, cfg, suppress_ids=suppress_ids,
+                           timestamps=timestamps)
 
     def sample(logits_f):
         lp = torch.log_softmax(logits_f.to(torch.float32), dim=-1)
@@ -100,8 +108,11 @@ def greedy_decode_kv(
     tokens = torch.full((B, T), eot, dtype=torch.int64, device=device)
     tokens[:, :prompt.shape[1]] = prompt
 
-    logits, kv = decoder_forward(model, prompt, 0, kv, cross_kv, compute_dtype, gelu=gelu)
-    no_speech_prob = torch.softmax(logits[:, 0], dim=-1)[:, cfg.no_speech]
+    if prompt_pad is not None:
+        prompt_pad = prompt_pad.to(device=device, dtype=torch.int64)
+    logits, kv = decoder_forward(model, prompt, 0, kv, cross_kv, compute_dtype,
+                                 pad=prompt_pad, gelu=gelu)
+    no_speech_prob = torch.softmax(logits[:, sot_index], dim=-1)[:, cfg.no_speech]
     rs = RuleState.create(B, device=device)
     first, first_lp = sample(filt(logits[:, -1], rs))
     rs = rs.advance(first, ts0)
@@ -116,7 +127,7 @@ def greedy_decode_kv(
         if bool(done.all()):
             break
         logits, kv = decoder_forward(model, tokens[:, i:i + 1], i, kv, cross_kv,
-                                     compute_dtype, gelu=gelu)
+                                     compute_dtype, pad=prompt_pad, gelu=gelu)
         nxt, lp = sample(filt(logits[:, 0], rs))
         nxt = torch.where(done, torch.full_like(nxt, eot), nxt)
         alive = ~done
@@ -147,11 +158,11 @@ def greedy_decode(model: Whisper, mel: torch.Tensor, prompt: torch.Tensor,
     return greedy_decode_kv(model, cross_kv, prompt, compute_dtype, gelu=gelu, **kw)
 
 
-def extract_texts(result: GreedyResult, prompt_len: int, tokenizer) -> list:
-    """Host side: token buffer -> list of decoded strings."""
+def extract_texts(result: GreedyResult, prompt_len: int, tokenizer,
+                  timestamps: bool = False) -> list:
+    """Host side: token buffer -> list of decoded strings; with
+    ``timestamps`` the timestamp tokens are kept as ``<|t.tt|>``."""
     toks = result.tokens.cpu().numpy()
     lens = result.lengths.cpu().numpy()
-    out = []
-    for b in range(toks.shape[0]):
-        out.append(tokenizer.decode(toks[b, prompt_len: lens[b]]).strip())
-    return out
+    decode = tokenizer.decode_with_timestamps if timestamps else tokenizer.decode
+    return [decode(toks[b, prompt_len: lens[b]]).strip() for b in range(toks.shape[0])]

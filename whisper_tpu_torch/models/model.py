@@ -15,6 +15,8 @@ decode step's self-attention through
 :func:`~whisper_tpu_torch.ops.decode_attention.self_attention_decode` (or its
 ``_int8`` twin for the int8 cache), and its int8 cross-attention through
 :func:`~whisper_tpu_torch.ops.decode_attention.cross_attention_decode_fd`.
+The W8A8 encoder's int8 x int8 products go through
+:func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm`.
 
 The KV caches are updated IN PLACE (JAX returns new arrays). In
 :func:`decoder_forward` a write that would fall outside a cache raises: JAX's
@@ -39,6 +41,7 @@ from ..ops.decode_attention import (
     self_attention_decode_int8,
 )
 from ..ops.flash_attention import flash_attention_btd
+from ..ops.int8_gemm import int8_gemm
 from ..ops.quant import QTensor
 
 NEG = -1e30  # masked score, as the JAX package's jnp.float32(-1e30)
@@ -178,13 +181,14 @@ def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor], dtype) -> torch.Tenso
     return y
 
 
-def _int8_matmul(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 @ (K, N) int8 -> int32. XLA computes this product outside
-    any Pallas kernel in the JAX package; on the card it is cuBLAS's int8
-    GEMM (``torch._int_mm``), on the CPU an exact int32 matmul."""
-    if x8.is_cuda:
-        return torch._int_mm(x8, w8)
-    return torch.matmul(x8.to(torch.int32), w8.to(torch.int32))
+def _int8_matmul(x8: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """(M, K) int8 @ the (K, N) int8 payload -> int32: the hand-written
+    kernel :func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm` on the card,
+    reading the payload K-major (:meth:`QTensor.k_major`); an exact int32
+    matmul on the CPU. ``x8`` may be a strided view (the encoder's
+    activations keep the conv stem's transposed layout, and at batch 1 the
+    flattening stays a view): the kernel reads a contiguous copy."""
+    return int8_gemm(x8.contiguous(), w.k_major())
 
 
 def _linear_a8(x: torch.Tensor, w, b: Optional[torch.Tensor], dtype) -> torch.Tensor:
@@ -195,10 +199,14 @@ def _linear_a8(x: torch.Tensor, w, b: Optional[torch.Tensor], dtype) -> torch.Te
     if not isinstance(w, QTensor):
         return _linear(x, w, b, dtype)
     xf = x.to(torch.float32)
-    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    # a tensor divisor: CUDA turns division by a Python scalar into a product
+    # with its reciprocal, which can put the scale one ulp off the CPU's (and
+    # the JAX package's) quotient and flip an int8 activation
+    sx = amax / amax.new_full((), 127.0)
     x8 = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     lead = x8.shape[:-1]
-    y = _int8_matmul(x8.reshape(-1, x8.shape[-1]), w.q).reshape(*lead, -1)
+    y = _int8_matmul(x8.reshape(-1, x8.shape[-1]), w).reshape(*lead, -1)
     y = ((y.to(torch.float32) * sx) * w.s.to(torch.float32).reshape(-1)).to(dtype)
     if b is not None:
         y = y + b.to(dtype)

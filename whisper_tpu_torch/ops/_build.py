@@ -22,7 +22,8 @@ from typing import IO, Dict, Iterable, NamedTuple, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "whisper_tpu_torch"
-KERNELS = ("flash_attention_btd", "cross_attention_decode", "self_attention_decode")
+KERNELS = ("flash_attention_btd", "cross_attention_decode", "self_attention_decode",
+           "int8_gemm", "log10_mel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

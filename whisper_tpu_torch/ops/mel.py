@@ -1,10 +1,12 @@
 """Log-mel spectrogram frontend.
 
 Port of ``whisper_tpu/ops/mel.py``'s fixed-shape batched path. The Hann
-window, the DFT bank and the slaney mel filterbank are numpy copies; the STFT
-is framing + one fp32 ``torch.matmul`` against the windowed cos/sin bank (the
-JAX package leaves the same product to XLA), then an fp32 mel matmul,
-log10, the per-utterance masked -8 dB clamp and the zeroed tail.
+window, the DFT bank and the slaney mel filterbank are numpy copies. The raw
+log10 mel (framing, windowed DFT, power, mel projection, log10) is
+:func:`~whisper_tpu_torch.ops.log10_mel.log10_mel`, the hand-written fused
+kernel on the card and its plain framed-copy + fp32 matmul version on the
+CPU; the reflect padding, the per-utterance masked -8 dB clamp and the
+zeroed tail stay here, as they stay outside the TPU kernel.
 """
 
 from __future__ import annotations
@@ -97,18 +99,12 @@ def log_mel_batch(audio: torch.Tensor, lengths: torch.Tensor, n_mels: int = 80,
     -8 dB clamp, zero features beyond the valid frames, last 50 frames zeroed
     for full-length audio.
     """
+    from .log10_mel import log10_mel  # it imports this module's banks
+
     device = audio.device
     x = F.pad(audio.to(torch.float32)[:, None, :], (n_fft // 2, n_fft // 2),
               mode="reflect")[:, 0]
-    frames = _frame(x, N_FRAMES, n_fft, hop)
-    bank = torch.from_numpy(_dft_bank(n_fft)).to(device)
-    spec = torch.matmul(frames, bank)  # (B, T, 2F) fp32
-    n_freqs = n_fft // 2 + 1
-    re, im = spec[..., :n_freqs], spec[..., n_freqs:]
-    power = (re * re + im * im).transpose(1, 2)  # (B, F, T)
-    fb = torch.from_numpy(mel_filterbank(n_mels, n_fft)).to(device)
-    mel = torch.matmul(fb, power)  # (B, n_mels, T)
-    log_spec = torch.log10(torch.clamp(mel, min=1e-10))
+    log_spec = log10_mel(x.contiguous(), n_mels, n_fft, hop, N_FRAMES)  # (B, n_mels, T)
 
     lengths = lengths.to(device=device, dtype=torch.int64)
     n_valid = torch.clamp(lengths // hop + 1, max=N_FRAMES)

@@ -20,14 +20,25 @@ import torch
 class QTensor:
     """Symmetric per-output-channel int8 weight: w ~= q * s.
 
-    ``q`` keeps the weight's own layout; ``s`` is fp32 with the contraction
-    dims kept as 1 (a (d_in, d_out) weight has s of shape (1, d_out))."""
+    ``q`` has the weight's own shape; ``s`` is fp32 with the contraction
+    dims kept as 1 (a (d_in, d_out) weight has s of shape (1, d_out)).
+    :meth:`k_major` stores a 2-D payload column-major, the layout the int8
+    GEMM kernel reads."""
 
     q: torch.Tensor
     s: torch.Tensor
 
     def to(self, device) -> "QTensor":
         return QTensor(self.q.to(device), self.s.to(device))
+
+    def k_major(self) -> torch.Tensor:
+        """The (d_in, d_out) payload stored column-major (the transpose of a
+        contiguous (d_out, d_in)). The first call lays ``q`` out so, in
+        place, and every later W8A8 product with this weight reads it as it
+        is: one copy of the weight, made once."""
+        if not self.q.t().is_contiguous():
+            self.q = self.q.t().contiguous().t()
+        return self.q
 
 
 def quantize_weight(w: torch.Tensor, axis: int = -1,

@@ -1,11 +1,13 @@
 """End-to-end ASR pipeline: audio -> mel -> encode -> greedy decode -> text.
 
-Port of ``whisper_tpu/pipeline.py``'s ``WhisperPipeline.__init__`` and
-``transcribe_batch``, greedy only. Arguments of the JAX pipeline that this
-port does not carry yet raise ``NotImplementedError`` instead of being
-ignored: beam search, speculative decoding, timestamps and word timestamps,
-sampling temperatures and the retry ladder, ``initial_prompt``, checkpoint
-loading, seek-based long-form and language auto-detection.
+Port of ``whisper_tpu/pipeline.py``'s ``WhisperPipeline``, greedy only:
+``transcribe_batch`` (fixed windows), ``transcribe_longform`` (seek-based,
+with timestamps), ``transcribe`` and ``run``, with timestamps,
+``initial_prompt`` and condition-on-previous-text. Arguments of the JAX
+pipeline that this port does not carry yet raise ``NotImplementedError``
+instead of being ignored: beam search, speculative decoding, word
+timestamps, sampling temperatures and the retry ladder, checkpoint loading
+and language auto-detection.
 
 Runs on ``device`` ("cuda" by default); asking for cuda without a card
 raises. Nothing moves to the CPU unless the caller asks for it.
@@ -28,14 +30,14 @@ from torch.profiler import record_function
 
 from .config import N_SAMPLES, get_config
 from .decode import GreedyResult, encode_cross_kv, extract_texts, greedy_decode_kv
-from .longform import merge_texts, silence_mask, split_audio
+from .longform import merge_texts, silence_mask, split_audio, transcribe_seek
 from .models.model import Whisper, cast_floating
 from .ops.audio import load_audio
 from .ops.mel import log_mel_batch
 from .ops.quant import quantize_logits_emb, quantize_params
 from .params import init_params
 from .sampling import build_suppress_ids
-from .text import postprocess
+from .text import parse_segments, postprocess
 from .tokenizer import get_tokenizer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -49,11 +51,20 @@ class TranscribeResult:
     audio_seconds: float
     wall_seconds: float
     no_speech_prob: float = 0.0
+    segments_list: Optional[list] = None  # explicit segments (seek-based long-form)
 
     @property
     def rtf(self) -> float:
         """Real-time factor = wall / audio duration."""
         return self.wall_seconds / max(self.audio_seconds, 1e-9)
+
+    @property
+    def segments(self):
+        """[(start_s, end_s or None, text)] when decoded with timestamps,
+        else []."""
+        if self.segments_list is not None:
+            return self.segments_list
+        return parse_segments(self.text)
 
 
 def resolve_device(device) -> torch.device:
@@ -95,6 +106,7 @@ class WhisperPipeline:
         temperature_fallback: Optional[bool] = None,
         logprob_threshold: float = -1.0,
         no_speech_threshold: float = 0.6,
+        condition_on_previous_text: bool = True,
         initial_prompt: Optional[str] = None,
         longform_overlap_s: float = 2.0,
         word_timestamps: bool = False,
@@ -107,11 +119,9 @@ class WhisperPipeline:
             "checkpoint": checkpoint is not None,
             "beam_size > 1": bool(beam_size and beam_size > 1),
             "spec_draft": bool(spec_draft or spec_draft_checkpoint),
-            "timestamps": timestamps,
             "word_timestamps": word_timestamps,
             "temperature > 0": bool(temperature and temperature > 0),
             "temperature_fallback": bool(temperature_fallback),
-            "initial_prompt": bool(initial_prompt),
             "language=None (auto-detect)": language is None,
         }
         asked = [k for k, v in unported.items() if v]
@@ -126,6 +136,7 @@ class WhisperPipeline:
         self.language = language
         self.compute_dtype = _DTYPES[compute_dtype]
         self.max_tokens = max_tokens
+        self.timestamps = timestamps
         self.apply_filters = apply_filters
         self.kv_quant = kv_quant
         self.self_kv_quant = self_kv_quant
@@ -133,8 +144,11 @@ class WhisperPipeline:
         self.gelu = gelu
         self.logprob_threshold = logprob_threshold
         self.no_speech_threshold = no_speech_threshold
+        self.condition_on_previous_text = condition_on_previous_text
+        self.initial_prompt = initial_prompt
         self.longform_overlap = int(longform_overlap_s * 16000)
         self.last_decode: Optional[GreedyResult] = None
+        self.last_seek: Optional[dict] = None  # rounds, windows, steps of transcribe_longform
 
         if params is None:
             params = init_params(get_config(model), seed, device=self.device)
@@ -191,15 +205,28 @@ class WhisperPipeline:
         cross_kv = encode_cross_kv(self.model, mel, self.compute_dtype,
                                    kv_quant=self.kv_quant, w8a8=self.w8a8, gelu=self.gelu)
         prompts = np.tile(self._prompt(language)[None], (len(flat_waves), 1))
+        if self.timestamps:
+            prompts = prompts[:, :-1]  # drop <|notimestamps|>
+        sot_index = 0
+        if self.initial_prompt:
+            # [sot_prev, *prompt_tokens] before the sot sequence; the same
+            # prefix on every row, so no left padding
+            ptoks = self.tokenizer.encode(
+                " " + self.initial_prompt.strip())[-(self.cfg.n_text_ctx // 2 - 1):]
+            prefix = np.asarray([self.cfg.sot_prev, *ptoks], np.int64)
+            prompts = np.concatenate([np.tile(prefix[None], (len(prompts), 1)), prompts], axis=1)
+            sot_index = len(prefix)
         with record_function("whisper.decode"):
             result = greedy_decode_kv(
                 self.model, cross_kv, torch.from_numpy(prompts).to(self.device),
                 self.compute_dtype, max_tokens=self.max_tokens,
                 suppress_ids=self._suppress_ids, apply_filters=self.apply_filters,
-                self_kv_quant=self.self_kv_quant, gelu=self.gelu)
+                self_kv_quant=self.self_kv_quant, gelu=self.gelu,
+                timestamps=self.timestamps, sot_index=sot_index)
         self.last_decode = result
         with record_function("whisper.texts"):
-            texts = extract_texts(result, prompts.shape[1], self.tokenizer)
+            texts = extract_texts(result, prompts.shape[1], self.tokenizer,
+                                  timestamps=self.timestamps)
             silent = silence_mask(result, self.no_speech_threshold, self.logprob_threshold)
             texts = ["" if s else t for t, s in zip(texts, silent)]
             toks = result.tokens.cpu().numpy()
@@ -223,5 +250,29 @@ class WhisperPipeline:
             pos += nc
         return out
 
-    def transcribe_longform(self, audios, language=None):
-        raise NotImplementedError("seek-based long-form is not ported to whisper_tpu_torch yet")
+    def transcribe(self, audio: Union[str, bytes, np.ndarray],
+                   language: Optional[str] = None) -> TranscribeResult:
+        return self.transcribe_batch([audio], language=language)[0]
+
+    def transcribe_longform(
+        self,
+        audios: Sequence[Union[str, bytes, np.ndarray]],
+        language: Optional[str] = None,
+    ) -> List[TranscribeResult]:
+        """Seek-based long-form (:func:`~whisper_tpu_torch.longform.
+        transcribe_seek`): timestamp-conditioned sliding windows, batched
+        across utterances, so windows end at segment boundaries. Each result
+        carries its segments in ``segments_list``."""
+        t0 = time.perf_counter()
+        language = language or self.language or "en"
+        waves = [load_audio(a) for a in audios]
+        results = transcribe_seek(self, waves, language)
+        wall = time.perf_counter() - t0
+        return [TranscribeResult(text=text, language=language, tokens=np.zeros((0,), np.int64),
+                                 audio_seconds=len(w) / 16000.0,
+                                 wall_seconds=wall / len(audios), segments_list=segs)
+                for (text, segs), w in zip(results, waves)]
+
+    def run(self, audio: Union[str, np.ndarray]) -> str:
+        """The reference's ``Whisper.run``: one clip to its text."""
+        return self.transcribe(audio).text

@@ -1,4 +1,4 @@
-"""Whisper tokenizer for the port, without tiktoken.
+r"""Whisper tokenizer for the port, without tiktoken.
 
 Reads the byte-level BPE rank table (``assets/multilingual.tiktoken``: one
 base64 token and its rank per line) itself:
@@ -9,17 +9,18 @@ base64 token and its rank per line) itself:
 - special ids follow the rank table in the same order as the JAX package's
   tokenizer (eot, sot, the language tokens, task and control tokens, then
   1501 timestamps);
-- encoding is plain rank-ordered byte-pair merging over the whole string,
-  with no GPT-2 pre-tokenizer. That is exact for the short symbol strings
-  behind :attr:`Tokenizer.non_speech_tokens` (one optional space followed by
-  punctuation is one pre-tokenizer piece); arbitrary text such as an
-  ``initial_prompt`` is not supported yet.
+- encoding splits the text as the GPT-2 pattern
+  ``'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+``
+  does (:func:`pretokenize`, a scanner over ``unicodedata`` categories:
+  stdlib ``re`` has no ``\p{L}``/``\p{N}``), then merges each piece's bytes
+  in rank order, as tiktoken does.
 """
 
 from __future__ import annotations
 
 import base64
 import os
+import unicodedata
 from dataclasses import dataclass, field
 from functools import cached_property, lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -78,6 +79,56 @@ def bpe_encode(data: bytes, ranks: Dict[bytes, int]) -> List[int]:
     return [ranks[p] for p in parts]
 
 
+# Unicode White_Space, the regex engines' \s (str.isspace also takes the
+# separators U+001C..U+001F, which \s does not)
+_WHITESPACE = frozenset("\t\n\x0b\x0c\r \x85\xa0\u1680\u2028\u2029\u202f\u205f\u3000"
+                        + "".join(chr(c) for c in range(0x2000, 0x200B)))
+_CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
+
+
+def _kind(ch: str) -> str:
+    """'s' whitespace, 'L' letter, 'N' number, 'o' anything else."""
+    if ch in _WHITESPACE:
+        return "s"
+    cat = unicodedata.category(ch)[0]
+    return cat if cat in "LN" else "o"
+
+
+def pretokenize(text: str) -> List[str]:
+    """Split ``text`` as the GPT-2 pattern above does: at each position the
+    first alternative that matches, each run taken greedily."""
+    kinds = [_kind(c) for c in text]
+    n, i, out = len(text), 0, []
+
+    def run(j: int, kind: str) -> int:
+        while j < n and kinds[j] == kind:
+            j += 1
+        return j
+
+    while i < n:
+        if text[i] == "'":
+            tail = next((c for c in _CONTRACTIONS if text.startswith(c, i + 1)), None)
+            if tail is not None:
+                out.append(text[i:i + 1 + len(tail)])
+                i += 1 + len(tail)
+                continue
+        k = kinds[i]
+        # " ?X+": an optional space, then a run of one kind (letters,
+        # numbers, or the rest: not space, letter or number)
+        lead = 1 if text[i] == " " and i + 1 < n and kinds[i + 1] != "s" else 0
+        if k != "s" or lead:
+            j = run(i + lead, kinds[i + lead])
+        else:
+            j = run(i, "s")
+            # \s+(?!\S): the run short of its last space when a non-space
+            # follows; a lone space before a non-space falls to \s+
+            if j < n and j - i > 1:
+                j -= 1
+        out.append(text[i:j])
+        i = j
+    return out
+
+
 @dataclass
 class Tokenizer:
     """Whisper tokenizer with task/language context (multilingual vocab)."""
@@ -100,7 +151,12 @@ class Tokenizer:
         return out
 
     def encode(self, text: str) -> List[int]:
-        return bpe_encode(text.encode("utf-8"), self.ranks)
+        ids: List[int] = []
+        for piece in pretokenize(text):
+            data = piece.encode("utf-8")
+            rank = self.ranks.get(data)
+            ids += [rank] if rank is not None else bpe_encode(data, self.ranks)
+        return ids
 
     def _decode_bytes(self, ids: Sequence[int]) -> str:
         table = self._id_bytes
