@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from ``whisper_tpu_torch/csrc/`` (nvcc,
+Builds the port's eight CUDA kernels from ``whisper_tpu_torch/csrc/`` (nvcc,
 sm_90a, one process per source, in parallel), holds each against its plain
-PyTorch version at the shapes of the three paths below, and drives each path
+PyTorch version at the shapes of the paths below, and drives each path
 while counting kernel launches:
 
 - the offline path, ``WhisperPipeline.transcribe_batch``: turbo at full
@@ -18,10 +18,15 @@ while counting kernel launches:
   (``whisper_tpu_torch.cli.main``: turbo, bf16, int8 weights + W8A8 + int8
   cross- and self-KV, 64 tokens a window, seek-based ``--longform
   --timestamps -f json``, condition-on-previous-text on) over four seeded
-  noise WAVs of 60-120 s.
+  noise WAVs of 60-120 s;
+- the kernel selections (the JAX package's ``WHISPER_TPU_FLASH=bhtd`` and
+  ``WHISPER_TPU_DECODE_FLASH=legacy|dense``): the offline path again with
+  ``encoder_attention="bhtd"`` and ``cross_decode="legacy"``, then
+  ``"dense"``, and a burst of 8 clips to a server built from
+  ``--encoder_attention bhtd --cross_decode dense``.
 
-Then it checks small fp32 runs of the three paths on the card against the
-CPU. Prints JSON lines; the last is
+Then it checks small fp32 runs of the paths on the card against the CPU
+(the offline one under each selection). Prints JSON lines; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Needs a CUDA card: without one it exits 1 and prints no result.
 """
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import struct
 import subprocess
 import sys
@@ -68,11 +74,22 @@ N_TOKENS = 64
 #  K7: the raw log10 mel in fp32, sums in another order than cuBLAS's; the
 #    JAX package's golden tolerance for its fused mel kernel
 #    (tests/test_pallas.py);
-#  K8: int32 sums of int8 products are exact: equality.
+#  K8: int32 sums of int8 products are exact: equality;
+#  K6: K1's kernel on split heads, K1's tolerances and reasons;
+#  K4 bf16: the scaled query and (MXU form) the normalised weights are
+#    rounded to bf16 on both sides; a weight rounded the other way after
+#    another sum order moves an output far less than one bf16 ulp below 2
+#    (2^-7 = 7.8e-3), which bounds the output rounding; fp32: sum order only;
+#  K5 bf16: as K4 bf16; fp32: the operands are bf16 for an fp32 query too,
+#    so a weight rounded the other way moves an output by ~w * 2^-8 * |v s|,
+#    below 1e-3.
 TOL = {"flash_attention_btd/bf16": 8e-3, "flash_attention_btd/fp32": 1e-4,
        "cross_attention_decode_fd/bf16": 4e-3, "cross_attention_decode_fd/fp32": 1e-4,
        "self_attention_decode/bf16": 4e-3, "self_attention_decode/fp32": 1e-5,
-       "log10_mel": 5e-4, "int8_gemm": 0.0}
+       "log10_mel": 5e-4, "int8_gemm": 0.0,
+       "flash_attention/bf16": 8e-3, "flash_attention/fp32": 1e-4,
+       "cross_attention_decode/bf16": 8e-3, "cross_attention_decode/fp32": 1e-4,
+       "cross_attention_decode_dense/bf16": 8e-3, "cross_attention_decode_dense/fp32": 1e-3}
 # K3's shapes: (batch, self-KV positions, offsets drawn from [lo, hi], pads
 # drawn from [0, max]) of the offline path (prompt of 4, 64 new tokens,
 # cache bucketed to 128), the serving path (8 slots, 224-token budget, cache
@@ -89,8 +106,12 @@ K8_M = (T_AUDIO * B, 1500, 4500)
 L2_BYTES = 50e6
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "elapsed_s": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -112,6 +133,11 @@ def device_ms(fn, reps: int) -> float:
     kernels it launches (CUPTI, through torch.profiler), without the gaps
     between launches. For a kernel of a few microseconds a loop timed by
     CUDA events measures the host's launch rate instead."""
+    return sum(device_kernels_ms(fn, reps).values())
+
+
+def device_kernels_ms(fn, reps: int) -> dict:
+    """``device_ms`` split by the kernels' names: mean ms per call of each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -124,10 +150,12 @@ def device_ms(fn, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-        if total > 0:
-            return total / 1e3 / reps
+        split = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                split[e.name] = split.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        if sum(split.values()) > 0:
+            return split
     raise AssertionError("torch.profiler recorded no time on the card in three windows")
 
 
@@ -183,15 +211,32 @@ def kernel_k1(dev, gen) -> dict:
             "library_ms": library_ms, "library": "F.scaled_dot_product_attention (B,H,T,dh)"}
 
 
-def kernel_k2(dev, gen) -> dict:
-    from whisper_tpu_torch.models.model import attention_int8kv, quantize_cross_kv
-    from whisper_tpu_torch.ops.decode_attention import (
-        cross_attention_decode_fd, cross_attention_decode_fd_plain)
+def _int8_cross_kv(dev, gen):
+    """One layer of turbo's int8 cross-KV at the offline batch, quantized
+    from seeded noise as ``quantize_cross_kv`` quantizes the encoder's."""
+    from whisper_tpu_torch.models.model import quantize_cross_kv
 
     ck, cv = (torch.randn((1, B, H_TEXT, T_AUDIO, DH), generator=gen, device=dev)
               for _ in range(2))
-    k_q, k_s, v_q, v_s = (t[0] for t in quantize_cross_kv((ck, cv)))
-    del ck, cv
+    return tuple(t[0] for t in quantize_cross_kv((ck, cv)))
+
+
+def _cross_bound() -> dict:
+    """K2's, K4's and K5's bound: int8 K and V, fp32 k_s and v_s, bf16 q and
+    output; the fp32 work of the function (two products of dh x T per head)."""
+    nbytes = 2.0 * B * H_TEXT * DH * T_AUDIO + 2 * 4.0 * B * H_TEXT * DH + 2 * 2.0 * B * H_TEXT * DH
+    flops = 4.0 * B * H_TEXT * DH * T_AUDIO
+    return {"bound_ms": 1e3 * max(flops / PEAK_FP32, nbytes / PEAK_BYTES),
+            "bound_by": "bytes" if nbytes / PEAK_BYTES > flops / PEAK_FP32 else "operations",
+            "bound_peaks": "3.35 TB/s, 67 TFLOP/s fp32"}
+
+
+def kernel_k2(dev, gen) -> dict:
+    from whisper_tpu_torch.models.model import attention_int8kv
+    from whisper_tpu_torch.ops.decode_attention import (
+        cross_attention_decode_fd, cross_attention_decode_fd_plain)
+
+    k_q, k_s, v_q, v_s = _int8_cross_kv(dev, gen)
     out = {}
     for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         q = torch.randn((B, H_TEXT, 1, DH), generator=gen, device=dev).to(dtype)
@@ -208,17 +253,124 @@ def kernel_k2(dev, gen) -> dict:
             out["ms"] = cuda_ms(lambda: cross_attention_decode_fd(q, k_q, k_s, v_q, v_s), 50)
             out["plain_ms"] = cuda_ms(
                 lambda: cross_attention_decode_fd_plain(q, k_q, k_s, v_q, v_s), 20)
-    # int8 K and V, fp32 k_s and v_s, bf16 q and output
-    nbytes = 2.0 * B * H_TEXT * DH * T_AUDIO + 2 * 4.0 * B * H_TEXT * DH + 2 * 2.0 * B * H_TEXT * DH
-    flops = 4.0 * B * H_TEXT * DH * T_AUDIO
+            # kernel time on the card, as K4 and K5 report their ``ms``
+            out["device_ms"] = device_ms(
+                lambda: cross_attention_decode_fd(q, k_q, k_s, v_q, v_s), 20)
     return {"name": "cross_attention_decode_fd", "route": "cuda",
             "source": "whisper_tpu_torch/csrc/cross_attention_decode.cu",
             "replaces": "whisper_tpu/ops/decode_attention.py:212",
             "shape": f"q ({B},{H_TEXT},1,{DH}) bf16, k_q/v_q ({B},{H_TEXT},{DH},{T_AUDIO}) int8",
-            **out, "bound_ms": 1e3 * max(flops / PEAK_FP32, nbytes / PEAK_BYTES),
-            "bound_by": "bytes" if nbytes / PEAK_BYTES > flops / PEAK_FP32 else "operations",
-            "bound_peaks": "3.35 TB/s, 67 TFLOP/s fp32",
+            **out, **_cross_bound(),
             "library_ms": None, "library": "none: no single PyTorch call computes it"}
+
+
+def kernel_k6(dev, gen) -> dict:
+    """K6 at the bhtd encoder's shape (turbo B64, split heads), held against
+    its plain version and timed beside SDPA on the same tensors; an fp32
+    check and Tq != Tk cases (bf16 and fp32) at a small batch."""
+    from whisper_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v = (rand(B, H_AUDIO, T_AUDIO, DH) for _ in range(3))
+    chunk = 8  # the plain version's fp32 scores are 1.4 GB per 8 rows
+
+    def plain():
+        return torch.cat([flash_attention_plain(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk])
+                          for i in range(0, B, chunk)])
+
+    res = check("flash_attention/bf16", flash_attention(q, k, v), plain())
+    ms = cuda_ms(lambda: flash_attention(q, k, v), reps=10)
+    plain_ms = cuda_ms(plain, reps=2, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(q, k, v), reps=10)
+    del q, k, v
+    extra = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for tq, tk in ((T_AUDIO, T_AUDIO), (300, T_AUDIO), (T_AUDIO, 448)):
+            if dtype == torch.bfloat16 and tq == tk:
+                continue
+            qs, ks, vs = rand(2, H_AUDIO, tq, DH, dtype=dtype), *(
+                rand(2, H_AUDIO, tk, DH, dtype=dtype) for _ in range(2))
+            extra[f"{tag}/Tq{tq}/Tk{tk}"] = check(f"flash_attention/{tag}",
+                                                 flash_attention(qs, ks, vs),
+                                                 flash_attention_plain(qs, ks, vs))
+    flops = 4.0 * B * H_AUDIO * T_AUDIO * T_AUDIO * DH
+    nbytes = 4.0 * B * T_AUDIO * D_AUDIO * 2
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "whisper_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "whisper_tpu/ops/flash_attention.py:79",
+            "shape": f"q,k,v,o ({B},{H_AUDIO},{T_AUDIO},{DH}) bf16",
+            **res, "small_checks": extra, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BYTES),
+            "bound_by": "operations" if flops / PEAK_BF16 > nbytes / PEAK_BYTES else "bytes",
+            "bound_peaks": "989 TFLOP/s bf16, 3.35 TB/s",
+            "library_ms": library_ms, "library": "F.scaled_dot_product_attention (B,H,T,dh)"}
+
+
+def _cross_variant(name: str, fn, plain, dev, gen, variants: dict) -> dict:
+    """A decode cross-attention kernel at the offline shape, in each of its
+    ``variants`` (keyword arguments): bf16 and fp32 queries against the plain
+    version, the bf16 query timed. The first variant is the one the model
+    runs. ``ms`` and ``plain_ms`` are kernel time on the card (torch.profiler):
+    a loop timed by CUDA events (``events_ms``) measures the host's rate of
+    calls at this size."""
+    k_q, k_s, v_q, v_s = _int8_cross_kv(dev, gen)
+    cases = {}
+    for variant, kw in variants.items():
+        case = {}
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            q = torch.randn((B, H_TEXT, 1, DH), generator=gen, device=dev).to(dtype)
+            case[tag] = check(f"{name}/{tag}", fn(q, k_q, k_s, v_q, v_s, **kw),
+                              plain(q, k_q, k_s, v_q, v_s, **kw))
+        calls = {"ms": lambda: fn(q, k_q, k_s, v_q, v_s, **kw),
+                 "plain_ms": lambda: plain(q, k_q, k_s, v_q, v_s, **kw)}
+        case.update({key: device_ms(call, 20) for key, call in calls.items()})
+        case["events_ms"] = {key: cuda_ms(call, 50) for key, call in calls.items()}
+        cases[variant] = case
+    main = cases[next(iter(variants))]
+    return {"max_abs_err": main["bf16"]["max_abs_err"], "tol_abs": main["bf16"]["tol_abs"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "cases": cases,
+            "shape": f"q ({B},{H_TEXT},1,{DH}) bf16, k_q/v_q ({B},{H_TEXT},{DH},{T_AUDIO}) int8",
+            **_cross_bound(), "library_ms": None,
+            "library": "none: no single PyTorch call computes it"}
+
+
+def kernel_k4(dev, gen) -> dict:
+    """K4 in both forms: ``use_vpu=False`` (the model's) and ``True``."""
+    from whisper_tpu_torch.ops.decode_attention import (
+        cross_attention_decode, cross_attention_decode_plain)
+
+    return {"name": "cross_attention_decode", "route": "cuda",
+            "source": "whisper_tpu_torch/csrc/cross_attention_decode_legacy.cu",
+            "replaces": "whisper_tpu/ops/decode_attention.py:339",
+            **_cross_variant("cross_attention_decode", cross_attention_decode,
+                             cross_attention_decode_plain, dev, gen,
+                             {"use_vpu=False": {"use_vpu": False},
+                              "use_vpu=True": {"use_vpu": True}})}
+
+
+def kernel_k5(dev, gen) -> dict:
+    """K5, with its two launches (scores, output) timed apart, and its dense
+    form's redundant multiply-adds (H-fold: 9.8e9 operations at B64) over
+    the bf16 tensor-core peak beside its bound."""
+    from whisper_tpu_torch.ops.decode_attention import (
+        cross_attention_decode_dense, cross_attention_decode_dense_plain)
+
+    dense_ops = 2 * 2.0 * B * H_TEXT * (H_TEXT * DH) * T_AUDIO
+    out = _cross_variant("cross_attention_decode_dense", cross_attention_decode_dense,
+                         cross_attention_decode_dense_plain, dev, gen, {"dense": {}})
+    # its two launches (scores, output) timed apart on the card
+    k_q, k_s, v_q, v_s = _int8_cross_kv(dev, gen)
+    q = torch.randn((B, H_TEXT, 1, DH), generator=gen, device=dev).to(torch.bfloat16)
+    split = device_kernels_ms(lambda: cross_attention_decode_dense(q, k_q, k_s, v_q, v_s), 20)
+    return {"name": "cross_attention_decode_dense", "route": "cuda",
+            "source": "whisper_tpu_torch/csrc/cross_attention_decode_dense.cu",
+            "replaces": "whisper_tpu/ops/decode_attention.py:295", **out,
+            "launch_split_ms": {re.search(r"\w*kernel\w*", name).group(0): ms
+                                for name, ms in split.items()},
+            "dense_ops": dense_ops, "dense_ops_ms": 1e3 * dense_ops / PEAK_BF16}
 
 
 def kernel_k3(dev, gen) -> dict:
@@ -434,21 +586,43 @@ def _launches(counters) -> dict:
     return {fn.__name__: fn.launches for fn in counters}
 
 
-def _expect(path: str, launches: dict, want: dict) -> None:
+# the kernel each selection runs (models/model.py), by the wrapper's name
+ENCODER_KERNEL = {"btd": "flash_attention_btd", "bhtd": "flash_attention"}
+DECODE_KERNEL = {"fd": "cross_attention_decode_fd", "legacy": "cross_attention_decode",
+                 "dense": "cross_attention_decode_dense"}
+
+
+def _expect(path: str, launches: dict, cfg, encodes: int, steps: int,
+            encoder_attention: str = "btd", cross_decode: str = "fd") -> None:
+    """Exact launch counts of a W8A8 + int8 cross- and self-KV path that ran
+    ``encodes`` encoder passes (one log-mel each) and ``steps`` decoder
+    steps: the selected encoder and decode kernels once a layer, the kernels
+    of the other selections not at all."""
+    want = {"log10_mel": encodes,
+            "int8_gemm": 6 * cfg.n_audio_layer * encodes,  # q, k, v, o, mlp1, mlp2
+            "self_attention_decode_int8": cfg.n_text_layer * steps}
+    for sel, name in ENCODER_KERNEL.items():
+        want[name] = cfg.n_audio_layer * encodes if sel == encoder_attention else 0
+    for sel, name in DECODE_KERNEL.items():
+        want[name] = cfg.n_text_layer * steps if sel == cross_decode else 0
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{path}: {name} ran {launches[name]} times, expected {n}")
 
 
-def end_to_end(counters) -> dict:
-    """The main path: turbo B64 / 64 tokens / kvq+skvq+w8a8 / bf16."""
+def offline(counters, encoder_attention: str = "btd", cross_decode: str = "fd"):
+    """turbo B64 / 64 tokens / kvq+skvq+w8a8 / bf16 through
+    ``transcribe_batch`` under the given kernel selections: built, warmed,
+    run once with the counts at 0 and checked. Returns (record, pipeline,
+    clips)."""
     from whisper_tpu_torch.config import N_SAMPLES
     from whisper_tpu_torch.pipeline import WhisperPipeline
 
     t0 = time.perf_counter()
     pipe = WhisperPipeline(model="turbo", device="cuda", compute_dtype="bfloat16",
                            quantize=True, w8a8=True, kv_quant=True, self_kv_quant=True,
-                           max_tokens=N_TOKENS, seed=0)
+                           max_tokens=N_TOKENS, seed=0, encoder_attention=encoder_attention,
+                           cross_decode=cross_decode)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
@@ -482,20 +656,36 @@ def end_to_end(counters) -> dict:
         raise AssertionError("token ids out of the vocabulary")
     if not (torch.isfinite(dec.avg_logprob).all() and torch.isfinite(dec.no_speech_prob).all()):
         raise AssertionError("non-finite log-probabilities")
-    _expect("offline", launches, {
-        "log10_mel": 1, "flash_attention_btd": cfg.n_audio_layer,
-        "int8_gemm": 6 * cfg.n_audio_layer,  # q, k, v, o, mlp1, mlp2 per layer
-        "cross_attention_decode_fd": cfg.n_text_layer * dec.steps,
-        "self_attention_decode_int8": cfg.n_text_layer * dec.steps})
+    _expect(f"offline ({encoder_attention}, {cross_decode})", launches, cfg, 1, dec.steps,
+            encoder_attention, cross_decode)
     audio_s = B * N_SAMPLES / 16000
-    stages = breakdown(pipe, clips, dec.steps)
-    return {"phase": "end_to_end", "model": "turbo", "batch": B, "max_tokens": N_TOKENS,
+    return {"model": "turbo", "batch": B, "max_tokens": N_TOKENS,
             "dtype": "bfloat16", "quant": "int8 weights + w8a8 encoder + kvq + skvq",
+            "encoder_attention": encoder_attention, "cross_decode": cross_decode,
             "init_s": init_s, "warm_s": warm_s, "wall_s": wall, "rtf": wall / audio_s,
             "audio_s_per_s": audio_s / wall, "generated": (lens - P).tolist(),
             "decode_steps": dec.steps, "host_syncs": dec.host_syncs,
             "launches": launches,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}, stages
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}, pipe, clips
+
+
+def end_to_end(counters):
+    """The main path under the default selections, and its breakdown."""
+    rec, pipe, clips = offline(counters)
+    return {"phase": "end_to_end", **rec}, breakdown(pipe, clips, rec["decode_steps"])
+
+
+def variants(counters) -> list:
+    """The offline path under the JAX package's other kernel selections:
+    split-head encoder attention with the head-batched (legacy) and with the
+    dense decode cross-attention."""
+    out = []
+    for cross_decode in ("legacy", "dense"):
+        rec, pipe, _ = offline(counters, "bhtd", cross_decode)
+        out.append({"phase": "variant", **rec})
+        del pipe
+        torch.cuda.empty_cache()
+    return out
 
 
 def breakdown(pipe, clips, steps: int) -> dict:
@@ -569,18 +759,21 @@ def _post(url: str, clip: np.ndarray, multipart: bool) -> tuple:
         return e.code, {"error": e.read().decode()}, time.perf_counter() - t0
 
 
-N_REQUESTS, N_MULTIPART = 24, 4
+N_REQUESTS = 24
+N_VARIANT_REQUESTS = 8
+VARIANT_FLAGS = ("--encoder_attention", "bhtd", "--cross_decode", "dense")
 
 
-def serving(counters) -> dict:
+def serving(counters, flags=(), n_requests: int = N_REQUESTS) -> dict:
     """The serving path: ``python -m whisper_tpu_torch.serving``'s engine
-    under the server's zero-flag defaults, in-process on 127.0.0.1, one warm
-    request, then 24 seeded noise clips of 2-30 s from 24 client threads
-    (every sixth as multipart WAV, the rest as f32 PCM)."""
+    under the server's zero-flag defaults plus ``flags``, in-process on
+    127.0.0.1, one warm request, then ``n_requests`` seeded noise clips of
+    2-30 s from as many client threads (every sixth as multipart WAV, the
+    rest as f32 PCM)."""
     from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
     from whisper_tpu_torch.serving.server import make_server
 
-    args = parse_args(["--model_type", "turbo", "--host", "127.0.0.1", "--port", "0"])
+    args = parse_args(["--model_type", "turbo", "--host", "127.0.0.1", "--port", "0", *flags])
     t0 = time.perf_counter()
     engine, phases = build_engine(args)
     engine.start()
@@ -591,7 +784,7 @@ def serving(counters) -> dict:
     try:
         rng = np.random.default_rng(2)
         clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
-                 for s in rng.uniform(2.0, 30.0, N_REQUESTS)]
+                 for s in rng.uniform(2.0, 30.0, N_REQUESTS)][:n_requests]
         code, reply, _ = _post(url, clips[0][:16000 * 3], False)  # warm: cuBLAS, allocator
         if code != 200:
             raise AssertionError(f"warm request answered {code}: {reply}")
@@ -600,9 +793,9 @@ def serving(counters) -> dict:
         for fn in counters:
             fn.launches = 0
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(N_REQUESTS) as pool:
+        with ThreadPoolExecutor(n_requests) as pool:
             replies = list(pool.map(lambda i: _post(url, clips[i], i % 6 == 0),
-                                    range(N_REQUESTS)))
+                                    range(n_requests)))
         wall = time.perf_counter() - t0
         launches = _launches(counters)
         st1 = engine.stats.snapshot()
@@ -617,21 +810,19 @@ def serving(counters) -> dict:
            if code != 200 or not reply.get("success") or not isinstance(reply.get("text"), str)
            or not 0 <= reply.get("tokens", -1) <= args.max_tokens]
     if bad:
-        raise AssertionError(f"{len(bad)} of {N_REQUESTS} replies failed: {bad[:3]}")
+        raise AssertionError(f"{len(bad)} of {n_requests} replies failed: {bad[:3]}")
     cfg = engine.cfg
     steps = st1["steps_total"] - st0["steps_total"]
     batches = st1["encode_batches_total"] - st0["encode_batches_total"]
-    _expect(f"serving ({steps} steps, {batches} admission batches)", launches, {
-        "log10_mel": batches, "flash_attention_btd": cfg.n_audio_layer * batches,
-        "int8_gemm": 6 * cfg.n_audio_layer * batches,
-        "cross_attention_decode_fd": cfg.n_text_layer * steps,
-        "self_attention_decode_int8": cfg.n_text_layer * steps})
+    _expect(f"serving {list(flags)} ({steps} steps, {batches} admission batches)", launches,
+            cfg, batches, steps, args.encoder_attention, args.cross_decode)
     lat = np.array([sec for _, _, sec in replies])
     audio_s = sum(len(c) for c in clips) / 16000
     return {"phase": "serving", "model": "turbo", "flags": "server defaults: "
             "--slots 8 --steps_per_sync 32 --max_tokens 224, w8a8 + kv_quant + "
-            "self_kv_quant, bfloat16", "requests": N_REQUESTS, "multipart": N_MULTIPART,
-            "answered_200": N_REQUESTS - len(bad), "startup_s": startup_s,
+            "self_kv_quant, bfloat16" + "".join(f" {f}" for f in flags),
+            "requests": n_requests, "multipart": len(range(0, n_requests, 6)),
+            "answered_200": n_requests - len(bad), "startup_s": startup_s,
             "startup_phases": phases, "kernel_build_s": engine.stats.warmup_seconds,
             "wall_s": wall, "requests_per_s": N_REQUESTS / wall,
             "latency_p50_s": float(np.percentile(lat, 50)),
@@ -685,26 +876,34 @@ def serving_reference_check() -> dict:
             "tokens_equal_cpu_pipeline": True, "tokens": got}
 
 
+SELECTIONS = (("btd", "fd"), ("bhtd", "legacy"), ("bhtd", "dense"))
+
+
 def reference_check() -> dict:
-    """A small fp32 transcription (tiny, kvq + skvq) on the card through both
-    kernels must give the CPU pipeline's tokens (plain versions)."""
+    """A small fp32 transcription (tiny, kvq + skvq) on the card through the
+    kernels of each selection must give the CPU pipeline's tokens (plain
+    versions) under the same selection."""
     from whisper_tpu_torch.config import get_config
     from whisper_tpu_torch.params import init_params
     from whisper_tpu_torch.pipeline import WhisperPipeline
 
     rng = np.random.default_rng(1)
     clips = [(rng.standard_normal(16000 * s) * 0.1).astype(np.float32) for s in (4, 9)]
-    toks = {}
-    for dev in ("cuda", "cpu"):
-        # the same CPU-drawn weights on both sides (CPU and CUDA generators differ)
-        params = init_params(get_config("tiny"), seed=3, device="cpu").to_device(dev)
-        pipe = WhisperPipeline(device=dev, compute_dtype="float32", kv_quant=True,
-                               self_kv_quant=True, max_tokens=12, params=params)
-        toks[dev] = [r.tokens.tolist() for r in pipe.transcribe_batch(clips)]
-    if toks["cuda"] != toks["cpu"]:
-        raise AssertionError(f"card and CPU tokens differ: {toks}")
+    out = {}
+    for enc, dec in SELECTIONS:
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            # the same CPU-drawn weights on both sides (CPU and CUDA generators differ)
+            params = init_params(get_config("tiny"), seed=3, device="cpu").to_device(dev)
+            pipe = WhisperPipeline(device=dev, compute_dtype="float32", kv_quant=True,
+                                   self_kv_quant=True, max_tokens=12, params=params,
+                                   encoder_attention=enc, cross_decode=dec)
+            toks[dev] = [r.tokens.tolist() for r in pipe.transcribe_batch(clips)]
+        if toks["cuda"] != toks["cpu"]:
+            raise AssertionError(f"card and CPU tokens differ under ({enc}, {dec}): {toks}")
+        out[f"{enc}+{dec}"] = toks["cuda"]
     return {"phase": "reference", "model": "tiny", "dtype": "float32",
-            "tokens_equal_cpu": True, "tokens": toks["cuda"]}
+            "tokens_equal_cpu": True, "tokens": out}
 
 
 N_LONGFORM = 4
@@ -771,11 +970,7 @@ def longform(counters) -> dict:
         past_end += sum(st > sec for st in starts)
         open_ends += sum(sg["end"] is None for sg in segs)
     cfg, stats, wall = report["pipeline"].cfg, report["pipeline"].last_seek, report["transcribe_s"]
-    _expect("longform", launches, {
-        "log10_mel": stats["rounds"], "flash_attention_btd": cfg.n_audio_layer * stats["rounds"],
-        "int8_gemm": 6 * cfg.n_audio_layer * stats["rounds"],
-        "cross_attention_decode_fd": cfg.n_text_layer * stats["steps"],
-        "self_attention_decode_int8": cfg.n_text_layer * stats["steps"]})
+    _expect("longform", launches, cfg, stats["rounds"], stats["steps"])
     audio_s = sum(_n_samples(s) / 16000 for s in seconds)
     return {"phase": "longform", "entry": "whisper_tpu_torch.cli.main",
             "args": LONGFORM_ARGS + ["-o", "<tmp>"], "clips_s": seconds, "audio_s": audio_s,
@@ -815,8 +1010,9 @@ def main() -> int:
         return 1
     from whisper_tpu_torch.ops import _build
     from whisper_tpu_torch.ops.decode_attention import (
-        cross_attention_decode_fd, self_attention_decode, self_attention_decode_int8)
-    from whisper_tpu_torch.ops.flash_attention import flash_attention_btd
+        cross_attention_decode, cross_attention_decode_dense, cross_attention_decode_fd,
+        self_attention_decode, self_attention_decode_int8)
+    from whisper_tpu_torch.ops.flash_attention import flash_attention, flash_attention_btd
     from whisper_tpu_torch.ops.int8_gemm import int8_gemm
     from whisper_tpu_torch.ops.log10_mel import log10_mel
 
@@ -834,14 +1030,16 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = []
-    for phase in (kernel_k1, kernel_k2, kernel_k3, kernel_k7, kernel_k8):
+    for phase in (kernel_k1, kernel_k2, kernel_k3, kernel_k7, kernel_k8, kernel_k6, kernel_k4,
+                  kernel_k5):
         kernels.append(phase(dev, gen))
         emit({"phase": "kernel", **kernels[-1]})
         torch.cuda.empty_cache()
     emit(w8a8_card_vs_cpu(dev))
 
     counters = (log10_mel, flash_attention_btd, int8_gemm, cross_attention_decode_fd,
-                self_attention_decode_int8, self_attention_decode)
+                self_attention_decode_int8, self_attention_decode, flash_attention,
+                cross_attention_decode, cross_attention_decode_dense)
     e2e, stages = end_to_end(counters)
     emit(e2e)
     emit(stages)
@@ -852,21 +1050,37 @@ def main() -> int:
     long = longform(counters)
     emit(long)
     torch.cuda.empty_cache()
+    runs = {"btd+fd": e2e}
+    for rec in variants(counters):
+        emit(rec)
+        runs[f"{rec['encoder_attention']}+{rec['cross_decode']}"] = rec
+    served_variant = serving(counters, VARIANT_FLAGS, N_VARIANT_REQUESTS)
+    emit(served_variant)
+    torch.cuda.empty_cache()
     emit(reference_check())
     emit(serving_reference_check())
     emit(longform_reference_check())
 
+    # each kernel's counts from the runs of the path that selects it; the
+    # flagged burst selects K6 and K5
+    variant_burst = ("flash_attention", "cross_attention_decode_dense")
+    own_run = {"flash_attention": "bhtd+legacy", "cross_attention_decode": "bhtd+legacy",
+               "cross_attention_decode_dense": "bhtd+dense"}
     for k in kernels:
-        k["launches"] = e2e["launches"][k["name"]]
-        k["serving_launches"] = served["launches"][k["name"]]
-        k["longform_launches"] = long["launches"][k["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "serving_launches",
-            "longform_launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+        name = k["name"]
+        k["launches"] = runs[own_run.get(name, "btd+fd")]["launches"][name]
+        k["offline_launches"] = {sel: rec["launches"][name] for sel, rec in runs.items()}
+        k["serving_launches"] = (served_variant if name in variant_burst
+                                 else served)["launches"][name]
+        k["longform_launches"] = long["launches"][name]
+    keys = ("name", "route", "source", "replaces", "launches", "offline_launches",
+            "serving_launches", "longform_launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(smi)
-    emit({"kernels": [{key: k[key] for key in keys} for k in kernels]})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

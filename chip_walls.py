@@ -1,0 +1,69 @@
+"""Default-path walls of several checkouts of the port, in turns, on one card.
+
+    python3 chip_walls.py PARENT . . PARENT
+
+Each argument is the root of a checkout (a directory holding
+``chip_smoke.py`` and ``whisper_tpu_torch/``, e.g. the parent commit
+unpacked with ``git archive`` into a git-ignored directory). For each, in
+the order given and in a process of its own, it builds that checkout's
+kernels and runs its ``chip_smoke.end_to_end`` (turbo B64/T64, kvq + skvq +
+w8a8, bf16) and ``chip_smoke.serving`` (the server's zero-flag defaults, 24
+clips) phases, and prints one JSON line with the offline wall and the
+serving burst's wall and latencies. Comparing two commits in one call on one
+card, in turns, keeps other cards' power limits and other hosts' neighbours
+out of the difference. Needs a CUDA card; exits non-zero if a run fails.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+_RUN = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from whisper_tpu_torch.ops import _build, decode_attention, flash_attention, int8_gemm, log10_mel
+
+names = ("flash_attention_btd", "flash_attention", "cross_attention_decode_fd",
+         "cross_attention_decode", "cross_attention_decode_dense", "self_attention_decode",
+         "self_attention_decode_int8")
+counters = [getattr(m, n) for n in names for m in (decode_attention, flash_attention)
+            if hasattr(m, n)] + [int8_gemm.int8_gemm, log10_mel.log10_mel]
+torch.backends.cuda.matmul.allow_tf32 = False
+build = _build.build_all()
+e2e, _ = cs.end_to_end(counters)
+torch.cuda.empty_cache()
+served = cs.serving(counters)
+print("RESULT " + json.dumps({
+    "offline_wall_s": e2e["wall_s"], "offline_steps": e2e["decode_steps"],
+    "serving_wall_s": served["wall_s"], "serving_p50_s": served["latency_p50_s"],
+    "serving_p95_s": served["latency_p95_s"], "serving_steps": served["steps"],
+    "serving_admission_batches": served["admission_batches"], **build}))
+"""
+
+
+def main(argv) -> int:
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    for i, root in enumerate(argv):
+        root = os.path.abspath(root)
+        proc = subprocess.run([sys.executable, "-c", _RUN, root], capture_output=True,
+                              text=True, cwd=root)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        print(json.dumps({"turn": i, "checkout": argv[i], "card": smi,
+                          **json.loads(lines[-1][len("RESULT "):])}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -41,10 +41,15 @@ assert not bad, bad
 
 @pytest.mark.parametrize("module", ["whisper_tpu_torch.ops.int8_gemm",
                                     "whisper_tpu_torch.ops.log10_mel",
-                                    "whisper_tpu_torch.formats", "whisper_tpu_torch.longform"])
+                                    "whisper_tpu_torch.formats", "whisper_tpu_torch.longform",
+                                    "whisper_tpu_torch.ops.flash_attention",
+                                    "whisper_tpu_torch.ops.decode_attention",
+                                    "whisper_tpu_torch.models.model", "whisper_tpu_torch.cli",
+                                    "whisper_tpu_torch.serving.__main__"])
 def test_new_modules_import_alone(module):
-    """Each module of the long-form slice, imported alone, loads none of the
-    forbidden modules (and no CUDA toolchain: kernels build at first use)."""
+    """Each module of the long-form and kernel-selection slices, imported
+    alone, loads none of the forbidden modules (and no CUDA toolchain:
+    kernels build at first use)."""
     code = f"""
 import importlib, sys
 sys.path.insert(0, {str(REPO)!r})
@@ -161,3 +166,12 @@ def test_multipart_copy_matches():
     for mod in (tw, jw):
         with pytest.raises(ValueError):
             mod.parse_multipart(body, "multipart/form-data")
+
+
+def test_every_kernel_source_is_built():
+    """``_build.KERNELS`` names exactly the CUDA sources under csrc/, so
+    ``build_all`` (chip_smoke.py, the server's start) builds every kernel."""
+    from whisper_tpu_torch.ops import _build
+
+    assert sorted(_build.KERNELS) == sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert len(set(_build.KERNELS)) == len(_build.KERNELS) == 8

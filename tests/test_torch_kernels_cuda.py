@@ -13,14 +13,23 @@ import torch
 
 from whisper_tpu_torch.models.model import quantize_cross_kv, quantize_kv_heads
 from whisper_tpu_torch.ops.decode_attention import (
+    cross_attention_decode,
+    cross_attention_decode_dense,
+    cross_attention_decode_dense_plain,
     cross_attention_decode_fd,
     cross_attention_decode_fd_plain,
+    cross_attention_decode_plain,
     self_attention_decode,
     self_attention_decode_int8,
     self_attention_decode_int8_plain,
     self_attention_decode_plain,
 )
-from whisper_tpu_torch.ops.flash_attention import flash_attention_btd, flash_attention_btd_plain
+from whisper_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_btd,
+    flash_attention_btd_plain,
+    flash_attention_plain,
+)
 from whisper_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_plain
 from whisper_tpu_torch.ops.log10_mel import log10_mel, log10_mel_plain
 from whisper_tpu_torch.ops.quant import quantize_weight
@@ -37,6 +46,18 @@ K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
 # K7: the raw log10 mel, fp32 sums in another order than cuBLAS's; the JAX
 # package's own golden tolerance for its fused mel kernel
 K7_TOL = 5e-4
+# K6: K1's kernel on split heads, the same tolerances and reasons
+K6_TOL = K1_TOL
+# K4: fp32 differs by summation order only (the MXU form rounds nothing in
+# fp32); bf16: the query and (MXU form) the weights are rounded on both
+# sides, a weight whose rounding falls the other way after another sum
+# order moves an output by far less than one bf16 ulp of an output below 2
+# (2^-7 = 7.8e-3)
+K4_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+# K5: bf16 operands for every query dtype, so an fp32 output too may move by
+# a weight rounded the other way (~w * 2^-8 * |v|, < 1e-3); bf16 outputs by
+# one bf16 ulp below 2
+K5_TOL = {torch.float32: 1e-3, torch.bfloat16: 8e-3}
 
 
 @pytest.fixture
@@ -240,3 +261,85 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
         log10_mel(x, 80, 512, 160, 5)
     with pytest.raises(ValueError):  # fp64
         log10_mel(x.double(), 80, 400, 160, 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,Tq,Tk", [(2, 4, 150, 150), (1, 20, 1500, 1500), (2, 3, 37, 261),
+                                       (1, 2, 100, 64), (3, 1, 1, 1)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, Tq, Tk):
+    """K6 at a ragged T, turbo's one-row shape, Tq < Tk, Tq > Tk and one key."""
+    rng = np.random.default_rng(Tq * 7 + Tk)
+    q = torch.from_numpy(rng.standard_normal((B, H, Tq, 64)).astype(np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, H, Tk, 64)).astype(np.float32))
+            .to(dev, dtype) for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_plain(q, k, v)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float((got.float() - ref.float()).abs().max()) <= K6_TOL[dtype]
+
+
+def _int8_cross(rng, B, H, T, dtype, dev):
+    ck, cv = (torch.from_numpy(rng.standard_normal((1, B, H, T, 64)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    k_q, k_s, v_q, v_s = (t[0] for t in quantize_cross_kv((ck, cv)))
+    q = torch.from_numpy(rng.standard_normal((B, H, 1, 64)).astype(np.float32)).to(dev, dtype)
+    return q, k_q, k_s, v_q, v_s
+
+
+@pytest.mark.parametrize("use_vpu", [False, True], ids=["mxu", "vpu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,T", [(2, 3, 300), (4, 20, 1500), (1, 2, 4)])
+def test_cross_attention_decode_kernel_matches_plain(dev, dtype, use_vpu, B, H, T):
+    args = _int8_cross(np.random.default_rng(T + 1), B, H, T, dtype, dev)
+    before = cross_attention_decode.launches
+    got = cross_attention_decode(*args, use_vpu=use_vpu)
+    torch.cuda.synchronize()
+    assert cross_attention_decode.launches == before + 1
+    ref = cross_attention_decode_plain(*args, use_vpu=use_vpu)
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert float((got.float() - ref.float()).abs().max()) <= K4_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,T", [(2, 3, 300), (4, 20, 1500), (2, 6, 1500), (1, 32, 1500),
+                                   (1, 1, 4)])
+def test_cross_attention_decode_dense_kernel_matches_plain(dev, dtype, B, H, T):
+    """K5 at turbo's and tiny's heads, the most heads it takes (two m-tiles,
+    four n-tiles), a ragged T tile and one head of four positions."""
+    args = _int8_cross(np.random.default_rng(T + 2), B, H, T, dtype, dev)
+    before = cross_attention_decode_dense.launches
+    got = cross_attention_decode_dense(*args)
+    torch.cuda.synchronize()
+    assert cross_attention_decode_dense.launches == before + 1
+    ref = cross_attention_decode_dense_plain(*args)
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert float((got.float() - ref.float()).abs().max()) <= K5_TOL[dtype]
+
+
+def test_variant_kernels_refuse_what_they_do_not_take(dev):
+    q = torch.zeros((1, 2, 8, 64), device=dev)
+    with pytest.raises(ValueError):  # fp16
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):  # head dim 32
+        flash_attention(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                        q[..., :32].contiguous())
+    with pytest.raises(ValueError):  # not contiguous
+        flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    with pytest.raises(ValueError):  # k and v differ
+        flash_attention(q, q, q[:, :, :4].contiguous())
+    q1 = torch.zeros((1, 2, 1, 64), device=dev)
+    s = torch.ones((1, 2, 1, 64), device=dev)
+    for fn in (cross_attention_decode, cross_attention_decode_dense):
+        kq = torch.zeros((1, 2, 64, 6), dtype=torch.int8, device=dev)  # T % 4 != 0
+        with pytest.raises(ValueError):
+            fn(q1, kq, s, kq, s)
+    kq = torch.zeros((1, 2, 64, 12800), dtype=torch.int8, device=dev)  # scores over 48 KB
+    with pytest.raises(ValueError):
+        cross_attention_decode(q1, kq, s, kq, s)
+    q33, s33 = torch.zeros((1, 33, 1, 64), device=dev), torch.ones((1, 33, 1, 64), device=dev)
+    kq = torch.zeros((1, 33, 64, 8), dtype=torch.int8, device=dev)  # 33 heads
+    with pytest.raises(ValueError):
+        cross_attention_decode_dense(q33, kq, s33, kq, s33)

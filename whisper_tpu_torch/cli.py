@@ -7,6 +7,10 @@ Usage:
     # seek-based long-form with timestamps, one subtitle file per input
     python -m whisper_tpu_torch.cli --wav long.wav --model_type turbo --longform \
         --timestamps --max_tokens 64 -f srt -o out/
+    # the JAX package's kernel selections (WHISPER_TPU_FLASH=bhtd,
+    # WHISPER_TPU_DECODE_FLASH=dense) as flags
+    python -m whisper_tpu_torch.cli --wav a.wav --model_type turbo --kv_quant \
+        --encoder_attention bhtd --cross_decode dense
 
 Weights are the port's seeded random init (checkpoint loading is not ported
 yet), so the text is gibberish; the RTF line shows the path ran end to end.
@@ -19,6 +23,20 @@ import os
 import sys
 import time
 from typing import Optional
+
+
+def add_kernel_selections(p: argparse.ArgumentParser) -> None:
+    """The two kernel-selection flags the CLI and the server share."""
+    from .models.model import CROSS_DECODE, ENCODER_ATTENTION
+
+    p.add_argument("--encoder_attention", default="btd", choices=ENCODER_ATTENTION,
+                   help="encoder attention kernel: btd on the (B, T, D) layout, or bhtd on "
+                        "split heads (the JAX package's WHISPER_TPU_FLASH=btd|bhtd)")
+    p.add_argument("--cross_decode", default="fd", choices=CROSS_DECODE,
+                   help="decode-step int8 cross-attention kernel: fd (flash-decode), legacy "
+                        "(head-batched, whole-T softmax) or dense (block-diagonal query on "
+                        "the tensor cores); the JAX package's WHISPER_TPU_DECODE_FLASH. "
+                        "Runs with --kv_quant")
 
 
 def get_args(argv=None):
@@ -39,6 +57,7 @@ def get_args(argv=None):
     p.add_argument("--w8a8", action="store_true",
                    help="int8 activations x int8 weights in the encoder (needs --quantize)")
     p.add_argument("--gelu", default="erf", choices=["erf", "tanh"])
+    add_kernel_selections(p)
     p.add_argument("--kv_quant", action="store_true", help="int8 cross-attention KV")
     p.add_argument("--self_kv_quant", action="store_true", help="int8 self-attention KV cache")
     p.add_argument("--max_tokens", type=int, default=None,
@@ -74,6 +93,7 @@ def main(argv=None, report: Optional[dict] = None) -> int:
         max_tokens=args.max_tokens, initial_prompt=args.initial_prompt,
         quantize=args.quantize, quantize_logits=args.quantize_logits, w8a8=args.w8a8,
         gelu=args.gelu, kv_quant=args.kv_quant, self_kv_quant=args.self_kv_quant,
+        encoder_attention=args.encoder_attention, cross_decode=args.cross_decode,
         condition_on_previous_text=not args.no_condition, device=args.device)
     print(f"Init model cost: {time.perf_counter() - t0:.3f}s", file=sys.stderr)
     t0 = time.perf_counter()

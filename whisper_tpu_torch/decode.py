@@ -37,12 +37,15 @@ class GreedyResult(NamedTuple):
 
 
 def encode_cross_kv(model: Whisper, mel: torch.Tensor, compute_dtype=torch.float32,
-                    kv_quant: bool = False, w8a8: bool = False, gelu: str = "erf"):
+                    kv_quant: bool = False, w8a8: bool = False, gelu: str = "erf",
+                    encoder_attention: str = "btd"):
     """Encoder + per-layer cross-attention K/V: the 2-tuple (k, v) each
     (L, B, H, Ta, dh), or with ``kv_quant`` the int8 4-tuple of
-    :func:`quantize_cross_kv`."""
+    :func:`quantize_cross_kv`. ``encoder_attention`` selects the encoder's
+    attention kernel (:func:`~whisper_tpu_torch.models.model.encoder_blocks`)."""
     with record_function("whisper.encoder"):
-        audio = encoder_forward(model, mel, compute_dtype, w8a8=w8a8, gelu=gelu)
+        audio = encoder_forward(model, mel, compute_dtype, w8a8=w8a8, gelu=gelu,
+                                attn=encoder_attention)
     with record_function("whisper.cross_kv"):
         cross_kv = compute_cross_kv(model, audio, compute_dtype)
         return quantize_cross_kv(cross_kv) if kv_quant else cross_kv
@@ -61,6 +64,7 @@ def greedy_decode_kv(
     timestamps: bool = False,
     prompt_pad: Optional[torch.Tensor] = None,  # (B,) int64 left-pad lengths
     sot_index: int = 0,
+    cross_decode: str = "fd",
 ) -> GreedyResult:
     """Prefill + greedy token loop against precomputed cross-KV.
 
@@ -74,6 +78,8 @@ def greedy_decode_kv(
     positions of row b are masked out of attention and skipped in its
     positional indexing, at the prefill and at every step. ``sot_index`` is
     the column of sot, where the no-speech probability is read.
+    ``cross_decode`` selects the step's int8 cross-attention kernel
+    (:func:`~whisper_tpu_torch.models.model.decoder_forward`).
     """
     cfg = model.cfg
     device = prompt.device
@@ -111,7 +117,7 @@ def greedy_decode_kv(
     if prompt_pad is not None:
         prompt_pad = prompt_pad.to(device=device, dtype=torch.int64)
     logits, kv = decoder_forward(model, prompt, 0, kv, cross_kv, compute_dtype,
-                                 pad=prompt_pad, gelu=gelu)
+                                 pad=prompt_pad, gelu=gelu, cross_decode=cross_decode)
     no_speech_prob = torch.softmax(logits[:, sot_index], dim=-1)[:, cfg.no_speech]
     rs = RuleState.create(B, device=device)
     first, first_lp = sample(filt(logits[:, -1], rs))
@@ -127,7 +133,8 @@ def greedy_decode_kv(
         if bool(done.all()):
             break
         logits, kv = decoder_forward(model, tokens[:, i:i + 1], i, kv, cross_kv,
-                                     compute_dtype, pad=prompt_pad, gelu=gelu)
+                                     compute_dtype, pad=prompt_pad, gelu=gelu,
+                                     cross_decode=cross_decode)
         nxt, lp = sample(filt(logits[:, 0], rs))
         nxt = torch.where(done, torch.full_like(nxt, eot), nxt)
         alive = ~done
@@ -150,11 +157,12 @@ def greedy_decode_kv(
 
 def greedy_decode(model: Whisper, mel: torch.Tensor, prompt: torch.Tensor,
                   compute_dtype=torch.float32, kv_quant: bool = False,
-                  w8a8: bool = False, gelu: str = "erf", **kw) -> GreedyResult:
+                  w8a8: bool = False, gelu: str = "erf", encoder_attention: str = "btd",
+                  **kw) -> GreedyResult:
     """Encoder + prefill + greedy loop (:func:`encode_cross_kv` then
     :func:`greedy_decode_kv`, which takes the remaining keywords)."""
     cross_kv = encode_cross_kv(model, mel, compute_dtype, kv_quant=kv_quant,
-                               w8a8=w8a8, gelu=gelu)
+                               w8a8=w8a8, gelu=gelu, encoder_attention=encoder_attention)
     return greedy_decode_kv(model, cross_kv, prompt, compute_dtype, gelu=gelu, **kw)
 
 

@@ -210,6 +210,7 @@ def transcribe_seek(pipe, waves: Sequence[np.ndarray], language: str):
         res = greedy_decode(
             pipe.model, mel, torch.from_numpy(prompts).to(dev), pipe.compute_dtype,
             kv_quant=pipe.kv_quant, w8a8=pipe.w8a8, gelu=pipe.gelu,
+            encoder_attention=pipe.encoder_attention, cross_decode=pipe.cross_decode,
             max_tokens=pipe.max_tokens, suppress_ids=pipe._suppress_ids, timestamps=True,
             apply_filters=True, self_kv_quant=pipe.self_kv_quant,
             prompt_pad=None if pads is None else torch.from_numpy(pads).to(dev),

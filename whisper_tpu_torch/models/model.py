@@ -9,14 +9,24 @@ tensor or an int8 :class:`~whisper_tpu_torch.ops.quant.QTensor`.
 
 The ops are plain functions on tensors. Matmuls run in the compute dtype;
 LayerNorm, softmax and the logits stay fp32 islands, as in the JAX package.
-Encoder self-attention always goes through the hand-written kernel
-:func:`~whisper_tpu_torch.ops.flash_attention.flash_attention_btd`; the
-decode step's self-attention through
+Encoder self-attention always goes through a hand-written kernel, chosen by
+``attn`` (the JAX package's ``WHISPER_TPU_FLASH``): ``"btd"`` (default)
+:func:`~whisper_tpu_torch.ops.flash_attention.flash_attention_btd` on the
+(B, T, D) layout, ``"bhtd"``
+:func:`~whisper_tpu_torch.ops.flash_attention.flash_attention` on split heads.
+The decode step's self-attention goes through
 :func:`~whisper_tpu_torch.ops.decode_attention.self_attention_decode` (or its
-``_int8`` twin for the int8 cache), and its int8 cross-attention through
-:func:`~whisper_tpu_torch.ops.decode_attention.cross_attention_decode_fd`.
-The W8A8 encoder's int8 x int8 products go through
-:func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm`.
+``_int8`` twin for the int8 cache), and its int8 cross-attention through the
+kernel ``cross_decode`` names (the JAX package's
+``WHISPER_TPU_DECODE_FLASH``): ``"fd"`` (default)
+:func:`~whisper_tpu_torch.ops.decode_attention.cross_attention_decode_fd`,
+``"legacy"`` :func:`~whisper_tpu_torch.ops.decode_attention.cross_attention_decode`
+(its default, non-``use_vpu`` form, as the JAX model calls it) or ``"dense"``
+:func:`~whisper_tpu_torch.ops.decode_attention.cross_attention_decode_dense`.
+The JAX value ``0`` of both knobs (XLA's einsum attention) has no
+counterpart: on the card every attention at these sites runs a kernel, and
+an unknown selection raises ``ValueError``. The W8A8 encoder's int8 x int8
+products go through :func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm`.
 
 The KV caches are updated IN PLACE (JAX returns new arrays). In
 :func:`decoder_forward` a write that would fall outside a cache raises: JAX's
@@ -36,15 +46,38 @@ from torch import nn
 
 from ..config import WhisperConfig
 from ..ops.decode_attention import (
+    cross_attention_decode,
+    cross_attention_decode_dense,
     cross_attention_decode_fd,
     self_attention_decode,
     self_attention_decode_int8,
 )
-from ..ops.flash_attention import flash_attention_btd
+from ..ops.flash_attention import flash_attention, flash_attention_btd
 from ..ops.int8_gemm import int8_gemm
 from ..ops.quant import QTensor
 
 NEG = -1e30  # masked score, as the JAX package's jnp.float32(-1e30)
+
+# the kernel selections: encoder attention (WHISPER_TPU_FLASH=btd|bhtd) and
+# the S=1 int8 cross-attention (WHISPER_TPU_DECODE_FLASH=fd|legacy|dense)
+ENCODER_ATTENTION = ("btd", "bhtd")
+CROSS_DECODE = ("fd", "legacy", "dense")
+
+
+def check_selections(encoder_attention: str = "btd", cross_decode: str = "fd") -> None:
+    """Raise ValueError on a selection the port has no kernel for."""
+    if encoder_attention not in ENCODER_ATTENTION:
+        raise ValueError(f"encoder_attention must be one of {ENCODER_ATTENTION}, "
+                         f"not {encoder_attention!r}")
+    if cross_decode not in CROSS_DECODE:
+        raise ValueError(f"cross_decode must be one of {CROSS_DECODE}, not {cross_decode!r}")
+
+
+def _cross_decode_kernel(kind: str):
+    """The S=1 int8 cross-attention kernel ``kind`` selects ("legacy" in
+    its default ``use_vpu=False`` form, as the JAX model calls it)."""
+    return {"fd": cross_attention_decode_fd, "legacy": cross_attention_decode,
+            "dense": cross_attention_decode_dense}[kind]
 
 
 # ------------------------------------------------------------------ modules
@@ -293,10 +326,14 @@ def encoder_stem(model: Whisper, mel: torch.Tensor, compute_dtype=torch.float32,
 
 def encoder_blocks(model: Whisper, x: torch.Tensor, compute_dtype=torch.float32,
                    lo: int = 0, hi: Optional[int] = None, w8a8: bool = False,
-                   gelu: str = "erf") -> torch.Tensor:
+                   gelu: str = "erf", attn: str = "btd") -> torch.Tensor:
     """Transformer blocks [lo, hi) over the stem output. ``w8a8`` runs the
     projections and MLP as int8 x int8 products (attention, conv stem and
-    LayerNorm stay in the compute dtype)."""
+    LayerNorm stay in the compute dtype). ``attn="btd"`` runs the attention
+    on the (B, T, D) projections as they are; ``"bhtd"`` splits heads into
+    contiguous (B, H, T, dh) copies, runs the split-head kernel and merges
+    back, as the JAX package does under ``WHISPER_TPU_FLASH=bhtd``."""
+    check_selections(encoder_attention=attn)
     dt = compute_dtype
     n_head = model.cfg.n_audio_head
     lin = _linear_a8 if w8a8 else _linear
@@ -306,7 +343,11 @@ def encoder_blocks(model: Whisper, x: torch.Tensor, compute_dtype=torch.float32,
         q = lin(h, a["wq"], a["bq"], dt)
         k = lin(h, a["wk"], None, dt)
         v = lin(h, a["wv"], a["bv"], dt)
-        o = flash_attention_btd(q, k, v, n_head)
+        if attn == "btd":
+            o = flash_attention_btd(q, k, v, n_head)
+        else:
+            o = _merge_heads(flash_attention(
+                *(_split_heads(t, n_head).contiguous() for t in (q, k, v))))
         x = x + lin(o, a["wo"], a["bo"], dt)
         h = layer_norm(x, blk.mlp_ln["g"], blk.mlp_ln["b"])
         h = _gelu(lin(h, blk.mlp["w1"], blk.mlp["b1"], dt), gelu)
@@ -320,10 +361,11 @@ def encoder_post(model: Whisper, x: torch.Tensor) -> torch.Tensor:
 
 
 def encoder_forward(model: Whisper, mel: torch.Tensor, compute_dtype=torch.float32,
-                    w8a8: bool = False, gelu: str = "erf") -> torch.Tensor:
-    """Conv stem + transformer encoder -> audio features (B, Ta, D) fp32."""
+                    w8a8: bool = False, gelu: str = "erf", attn: str = "btd") -> torch.Tensor:
+    """Conv stem + transformer encoder -> audio features (B, Ta, D) fp32;
+    ``attn`` as in :func:`encoder_blocks`."""
     x = encoder_stem(model, mel, compute_dtype, gelu)
-    x = encoder_blocks(model, x, compute_dtype, w8a8=w8a8, gelu=gelu)
+    x = encoder_blocks(model, x, compute_dtype, w8a8=w8a8, gelu=gelu, attn=attn)
     return encoder_post(model, x)
 
 
@@ -433,6 +475,7 @@ def decoder_forward(
     compute_dtype=torch.float32,
     pad: Optional[torch.Tensor] = None,  # (B,) masked left-pad length
     gelu: str = "erf",
+    cross_decode: str = "fd",
 ):
     """Run S decoder positions starting at ``offset`` against the KV cache.
 
@@ -445,10 +488,12 @@ def decoder_forward(
 
     The decode step (S = 1) runs the hand-written kernels: self-attention
     :func:`self_attention_decode` (``_int8`` for a :class:`QKVCache`) and,
-    with the int8 cross-KV, :func:`cross_attention_decode_fd`; prefill
-    (S > 1) takes :func:`attention_kvt` / :func:`attention_int8kv_perpos`
-    and :func:`attention_int8kv`, as the JAX package does.
+    with the int8 cross-KV, the kernel ``cross_decode`` selects ("fd",
+    "legacy" or "dense", see the module docstring); prefill (S > 1) takes
+    :func:`attention_kvt` / :func:`attention_int8kv_perpos` and
+    :func:`attention_int8kv`, as the JAX package does.
     """
+    check_selections(cross_decode=cross_decode)
     cfg = model.cfg
     dec = model.decoder
     dt = compute_dtype
@@ -501,21 +546,23 @@ def decoder_forward(
             else:
                 o = attention_kvt(qh, kv.k[layer].to(dt), kv.v[layer].to(dt), mask=vis)
         x = x + _linear(_merge_heads(o), a["wo"], a["bo"], dt)
-        x = _cross_and_mlp(x, blk, layer, cross_kv, kv_quant and S == 1, n_head, dt, gelu)
+        x = _cross_and_mlp(x, blk, layer, cross_kv, kv_quant and S == 1, n_head, dt, gelu,
+                           cross_decode)
 
     x = layer_norm(x, dec.ln["g"], dec.ln["b"])
     return _logits(x, dec, dt), kv
 
 
 def _cross_and_mlp(x, blk: DecoderBlock, layer: int, cross_kv, decode_kernel: bool,
-                   n_head: int, dt, gelu: str) -> torch.Tensor:
-    """A decoder block after its self-attention: cross-attention (the int8
-    decode kernel where ``decode_kernel``) and the MLP, residuals included."""
+                   n_head: int, dt, gelu: str, cross_decode: str = "fd") -> torch.Tensor:
+    """A decoder block after its self-attention: cross-attention (where
+    ``decode_kernel``, the int8 decode kernel ``cross_decode`` selects) and
+    the MLP, residuals included."""
     c = blk.cross
     h = layer_norm(x, blk.cross_ln["g"], blk.cross_ln["b"])
     qh = _split_heads(_linear(h, c["wq"], c["bq"], dt), n_head)
     if decode_kernel:
-        o = cross_attention_decode_fd(qh, *(t[layer] for t in cross_kv))
+        o = _cross_decode_kernel(cross_decode)(qh, *(t[layer] for t in cross_kv))
     elif len(cross_kv) == 4:
         o = attention_int8kv(qh, *(t[layer] for t in cross_kv))
     else:
@@ -547,6 +594,7 @@ def decoder_step_multipos(
     compute_dtype=torch.float32,
     pads: Optional[torch.Tensor] = None,  # (B,) int64 masked left-pad length
     gelu: str = "erf",
+    cross_decode: str = "fd",
 ) -> Tuple[torch.Tensor, object]:
     """One decode step where every stream sits at its own position: the
     continuous-batching primitive (port of the JAX
@@ -557,10 +605,12 @@ def decoder_step_multipos(
     ``offsets[b] - pads[b]``, clipped to the table. A row whose offset falls
     outside [0, T) writes nothing (JAX drops it) and attends to the whole
     cache. Self-attention runs :func:`self_attention_decode` (``_int8`` for
-    a :class:`QKVCache`), the int8 cross-attention
-    :func:`cross_attention_decode_fd`. Returns (logits (B, n_vocab) fp32,
-    kv). Nothing here reads the device from the host.
+    a :class:`QKVCache`), the int8 cross-attention the kernel
+    ``cross_decode`` selects (as in :func:`decoder_forward`). Returns
+    (logits (B, n_vocab) fp32, kv). Nothing here reads the device from the
+    host.
     """
+    check_selections(cross_decode=cross_decode)
     cfg = model.cfg
     dec = model.decoder
     dt = compute_dtype
@@ -595,7 +645,7 @@ def decoder_step_multipos(
             _write_rows(kv.v[layer], rows, at, inside, vh)
             o = self_attention_decode(qh, kv.k[layer], kv.v[layer], offsets, pads)
         x = x + _linear(_merge_heads(o), a["wo"], a["bo"], dt)
-        x = _cross_and_mlp(x, blk, layer, cross_kv, kv_quant, n_head, dt, gelu)
+        x = _cross_and_mlp(x, blk, layer, cross_kv, kv_quant, n_head, dt, gelu, cross_decode)
 
     x = layer_norm(x, dec.ln["g"], dec.ln["b"])
     return _logits(x, dec, dt)[:, 0], kv

@@ -1,5 +1,6 @@
-"""Decode-step attention kernels: int8 cross-attention (K2) and self-attention
-over the KV cache (K3).
+"""Decode-step attention kernels: int8 cross-attention (K2, and the
+head-batched K4 and dense K5 forms the JAX package selects with
+``WHISPER_TPU_DECODE_FLASH``) and self-attention over the KV cache (K3).
 
 ``cross_attention_decode_fd`` is the port of the TPU kernel
 ``whisper_tpu/ops/decode_attention.py:cross_attention_decode_fd``
@@ -19,6 +20,21 @@ cache, key position t visible iff ``pads[b] <= t <= offsets[b]``, fp32
 softmax. They read the port's position-minor cache layer views as they lie.
 On a CUDA tensor they launch ``whisper_tpu_torch/csrc/self_attention_decode.cu``;
 on a CPU tensor they run their ``_plain`` versions.
+
+``cross_attention_decode`` is the port of the TPU kernel
+``whisper_tpu/ops/decode_attention.py:cross_attention_decode`` (``_kernel``,
+and ``_kernel_vpu`` with ``use_vpu=True``): K2's contract with the softmax
+taken over the whole T at once and the normalised weights multiplying V; the
+default form rounds the scaled query and the weights to the query's dtype
+before the two products, the ``use_vpu`` form computes all in fp32. On a
+CUDA tensor it launches ``whisper_tpu_torch/csrc/cross_attention_decode_legacy.cu``.
+
+``cross_attention_decode_dense`` is the port of the TPU kernel
+``whisper_tpu/ops/decode_attention.py:cross_attention_decode_dense``
+(``_dense_kernel``): the same function as one product of a block-diagonal
+query with all heads' K, then V times the weights and its diagonal, every
+operand rounded to bf16 whatever the query's dtype. On a CUDA tensor it
+launches ``whisper_tpu_torch/csrc/cross_attention_decode_dense.cu``.
 """
 
 from __future__ import annotations
@@ -31,6 +47,32 @@ import torch
 from . import _build
 
 NEG = -1e30  # masked score, as the JAX package's jnp.float32(-1e30)
+
+
+def _check_cross(name: str, q, k_q, k_s, v_q, v_s):
+    """The checks K2, K4 and K5 share on a CUDA tensor; returns (B, H, T)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    B, H, S, dh = q.shape
+    T = k_q.shape[-1]
+    if S != 1 or dh != 64:
+        raise ValueError(f"the CUDA kernel takes one query of head dim 64, got {tuple(q.shape)}")
+    if k_q.shape != (B, H, dh, T) or v_q.shape != (B, H, dh, T):
+        raise ValueError("k_q and v_q must be (B, H, dh, T)")
+    if k_s.shape != (B, H, 1, dh) or v_s.shape != (B, H, 1, dh):
+        raise ValueError("k_s and v_s must be (B, H, 1, dh)")
+    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
+        raise ValueError("k_q and v_q must be int8")
+    if k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
+        raise ValueError("k_s and v_s must be fp32")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA kernel takes a bf16 or fp32 query, not {q.dtype}")
+    if T % 4 or T < 4:
+        raise ValueError(f"the CUDA kernel reads char4 along T: T % 4 must be 0, got {T}")
+    ts = (q, k_q, k_s, v_q, v_s)
+    if any(t.device != q.device for t in ts) or not all(t.is_contiguous() for t in ts):
+        raise ValueError("all inputs must be contiguous and on one device")
+    return B, H, T
 
 
 def cross_attention_decode_fd_plain(q, k_q, k_s, v_q, v_s) -> torch.Tensor:
@@ -65,30 +107,10 @@ def cross_attention_decode_fd(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Ten
     """
     if q.device.type == "cpu":
         return cross_attention_decode_fd_plain(q, k_q, k_s, v_q, v_s)
-    if q.device.type != "cuda":
-        raise ValueError(f"cross_attention_decode_fd runs on cpu or cuda, not {q.device}")
-    B, H, S, dh = q.shape
-    T = k_q.shape[-1]
-    if S != 1 or dh != 64:
-        raise ValueError(f"the CUDA kernel takes one query of head dim 64, got {tuple(q.shape)}")
-    if k_q.shape != (B, H, dh, T) or v_q.shape != (B, H, dh, T):
-        raise ValueError("k_q and v_q must be (B, H, dh, T)")
-    if k_s.shape != (B, H, 1, dh) or v_s.shape != (B, H, 1, dh):
-        raise ValueError("k_s and v_s must be (B, H, 1, dh)")
-    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
-        raise ValueError("k_q and v_q must be int8")
-    if k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
-        raise ValueError("k_s and v_s must be fp32")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the CUDA kernel takes a bf16 or fp32 query, not {q.dtype}")
-    if T % 4:
-        raise ValueError(f"the CUDA kernel reads char4 along T: T % 4 must be 0, got {T}")
-    ts = (q, k_q, k_s, v_q, v_s)
-    if any(t.device != q.device for t in ts) or not all(t.is_contiguous() for t in ts):
-        raise ValueError("all inputs must be contiguous and on one device")
+    B, H, T = _check_cross("cross_attention_decode_fd", q, k_q, k_s, v_q, v_s)
     out = torch.empty_like(q)
     err = _kernel(q.dtype)(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-                           v_s.data_ptr(), out.data_ptr(), B * H, T, dh ** -0.5,
+                           v_s.data_ptr(), out.data_ptr(), B * H, T, 64 ** -0.5,
                            q.device.index or 0,
                            torch.cuda.current_stream(q.device).cuda_stream)
     if err:
@@ -98,6 +120,123 @@ def cross_attention_decode_fd(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Ten
 
 
 cross_attention_decode_fd.launches = 0  # kernel launches; only the CUDA branch counts
+
+
+# ---------------------------------------- head-batched, whole-T softmax (K4)
+def cross_attention_decode_plain(q, k_q, k_s, v_q, v_s, use_vpu: bool = False) -> torch.Tensor:
+    """Plain version: softmax((q * k_s * dh^-0.5) . k_q) . v_q * v_s in q's
+    dtype, (B, H, 1, dh). Without ``use_vpu`` the scaled query and the
+    normalised weights are rounded to q's dtype before the products (fp32
+    accumulation), as ``_kernel`` does; with it everything is fp32."""
+    dh = q.shape[-1]
+    qs = q.to(torch.float32) * k_s * (dh ** -0.5)
+    if not use_vpu:
+        qs = qs.to(q.dtype).to(torch.float32)
+    w = torch.softmax(torch.matmul(qs, k_q.to(torch.float32)), dim=-1)
+    if not use_vpu:
+        w = w.to(q.dtype).to(torch.float32)
+    o = torch.matmul(w, v_q.to(torch.float32).transpose(-1, -2))
+    return (o * v_s).to(q.dtype)
+
+
+_LEGACY_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_LEGACY_MAX_T = 48 * 1024 // 4  # a head's scores live in shared memory
+
+
+def _legacy_kernel(dtype: torch.dtype):
+    lib = _build.load("cross_attention_decode_legacy")
+    fn = (lib.cross_attention_decode_legacy_bf16 if dtype == torch.bfloat16
+          else lib.cross_attention_decode_legacy_f32)
+    fn.argtypes, fn.restype = _LEGACY_SIGNATURE, ctypes.c_int
+    return fn
+
+
+def cross_attention_decode(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                           v_q: torch.Tensor, v_s: torch.Tensor,
+                           use_vpu: bool = False) -> torch.Tensor:
+    """q (B, H, 1, dh); k_q, v_q (B, H, dh, T) int8; k_s, v_s (B, H, 1, dh)
+    fp32 -> (B, H, 1, dh) in q's dtype. ``use_vpu`` selects the all-fp32
+    form (the TPU's ``_kernel_vpu``).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (q bf16 or fp32, dh = 64, T % 4 == 0, T <= 12288, contiguous) or raise.
+    """
+    if q.device.type == "cpu":
+        return cross_attention_decode_plain(q, k_q, k_s, v_q, v_s, use_vpu)
+    B, H, T = _check_cross("cross_attention_decode", q, k_q, k_s, v_q, v_s)
+    if T > _LEGACY_MAX_T:
+        raise ValueError(f"the CUDA kernel keeps a head's scores in 48 KB: T <= "
+                         f"{_LEGACY_MAX_T}, got {T}")
+    out = torch.empty_like(q)
+    err = _legacy_kernel(q.dtype)(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+                                  v_s.data_ptr(), out.data_ptr(), B * H, T, 64 ** -0.5,
+                                  int(bool(use_vpu)), q.device.index or 0,
+                                  torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"cross_attention_decode launch failed: cudaError {err}")
+    cross_attention_decode.launches += 1
+    return out
+
+
+cross_attention_decode.launches = 0  # kernel launches; only the CUDA branch counts
+
+
+# ------------------------------------------------ block-diagonal dense (K5)
+def cross_attention_decode_dense_plain(q, k_q, k_s, v_q, v_s) -> torch.Tensor:
+    """Plain version: K4's function with every operand rounded to bf16
+    whatever q's dtype (the scaled query, K, V and the normalised weights;
+    int8 is exact in bf16), fp32 accumulation and softmax, in q's dtype."""
+    bf = torch.bfloat16
+    dh = q.shape[-1]
+    qs = (q.to(torch.float32) * k_s * (dh ** -0.5)).to(bf).to(torch.float32)
+    w = torch.softmax(torch.matmul(qs, k_q.to(torch.float32)), dim=-1)
+    w = w.to(bf).to(torch.float32)
+    o = torch.matmul(w, v_q.to(torch.float32).transpose(-1, -2))
+    return (o * v_s).to(q.dtype)
+
+
+_DENSE_SIGNATURE = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+                                                                 ctypes.c_void_p]
+
+
+def _dense_kernel(dtype: torch.dtype):
+    lib = _build.load("cross_attention_decode_dense")
+    fn = (lib.cross_attention_decode_dense_bf16 if dtype == torch.bfloat16
+          else lib.cross_attention_decode_dense_f32)
+    fn.argtypes, fn.restype = _DENSE_SIGNATURE, ctypes.c_int
+    return fn
+
+
+def cross_attention_decode_dense(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                                 v_q: torch.Tensor, v_s: torch.Tensor) -> torch.Tensor:
+    """q (B, H, 1, dh); k_q, v_q (B, H, dh, T) int8; k_s, v_s (B, H, 1, dh)
+    fp32 -> (B, H, 1, dh) in q's dtype, through bf16 operands.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (q
+    bf16 or fp32, dh = 64, H <= 32, T % 4 == 0, contiguous) or raise. The
+    kernel is two launches, the scores and the output, through an fp32
+    (B, H, T) scratch buffer; ``launches`` counts the calls.
+    """
+    if q.device.type == "cpu":
+        return cross_attention_decode_dense_plain(q, k_q, k_s, v_q, v_s)
+    B, H, T = _check_cross("cross_attention_decode_dense", q, k_q, k_s, v_q, v_s)
+    if H > 32:
+        raise ValueError(f"the CUDA kernel pads the query's heads to two m16 tiles: H <= 32, "
+                         f"got {H}")
+    out = torch.empty_like(q)
+    scores = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    err = _dense_kernel(q.dtype)(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+                                 v_s.data_ptr(), scores.data_ptr(), out.data_ptr(), B, H, T,
+                                 64 ** -0.5, q.device.index or 0,
+                                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"cross_attention_decode_dense launch failed: cudaError {err}")
+    cross_attention_decode_dense.launches += 1
+    return out
+
+
+cross_attention_decode_dense.launches = 0  # kernel launches; only the CUDA branch counts
 
 
 # ------------------------------------------------------------ self-attention

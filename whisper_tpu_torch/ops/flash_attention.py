@@ -1,4 +1,5 @@
-"""Encoder self-attention on the native (B, T, D) layout.
+"""Encoder self-attention: on the native (B, T, D) layout (K1) and split
+into heads (K6).
 
 ``flash_attention_btd`` is the port of the TPU kernel
 ``whisper_tpu/ops/flash_attention.py:flash_attention_btd`` (``_btd_kernel``):
@@ -8,6 +9,13 @@ tensor it launches the hand-written Hopper kernel
 ``whisper_tpu_torch/csrc/flash_attention_btd.cu`` (see the note there on what
 bounds it and how the design differs from the TPU's); on a CPU tensor it runs
 :func:`flash_attention_btd_plain`, the same function in plain PyTorch.
+
+``flash_attention`` is the port of the TPU kernel
+``whisper_tpu/ops/flash_attention.py:flash_attention`` (``_attn_kernel``): the
+same attention on split heads, q (B, H, Tq, dh) against k, v (B, H, Tk, dh),
+Tq and Tk independent. On a CUDA tensor it launches
+``whisper_tpu_torch/csrc/flash_attention.cu``; on a CPU tensor it runs
+:func:`flash_attention_plain`.
 """
 
 from __future__ import annotations
@@ -78,3 +86,65 @@ def flash_attention_btd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_btd.launches = 0  # kernel launches; only the CUDA branch counts
+
+
+# ------------------------------------------------------------ split heads (K6)
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version: fp32 scores and softmax, weights cast to v's dtype
+    before the product with V; (B, H, Tq, dh) in v's dtype."""
+    dh = q.shape[-1]
+    scores = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
+    w = torch.softmax(scores * (dh ** -0.5), dim=-1).to(v.dtype)
+    return torch.matmul(w, v)
+
+
+_SPLIT_SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+                                                                 ctypes.c_void_p]
+
+
+def _split_kernel(dtype: torch.dtype):
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_bf16 if dtype == torch.bfloat16 else lib.flash_attention_f32
+    fn.argtypes, fn.restype = _SPLIT_SIGNATURE, ctypes.c_int
+    return fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q (B, H, Tq, dh); k, v (B, H, Tk, dh) -> (B, H, Tq, dh) in v's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (one
+    dtype, bf16 or fp32, dh = 64, Tq and Tk >= 1, contiguous) or raise.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    B, H, Tq, dh = q.shape
+    Tk = k.shape[2]
+    if dh != 64:
+        raise ValueError(f"the CUDA kernel needs head dim 64, got {dh}")
+    if k.shape != (B, H, Tk, dh) or v.shape != k.shape:
+        raise ValueError(f"k and v must be (B, H, Tk, dh) = ({B}, {H}, Tk, {dh}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if Tq < 1 or Tk < 1 or not 1 <= B * H <= 65535:
+        raise ValueError(f"the CUDA kernel needs at least one query and one key and "
+                         f"1 <= B*H <= 65535 (its grid's y), got Tq={Tq}, Tk={Tk}, B*H={B * H}")
+    for t in (k, v):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("q, k and v must share dtype and device")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the CUDA kernel takes bf16 or fp32, not {q.dtype}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        raise ValueError("the CUDA kernel needs contiguous, 16-byte aligned (B, H, T, dh) "
+                         "q, k, v")
+    out = torch.empty_like(q)
+    err = _split_kernel(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                 B * H, Tq, Tk, dh ** -0.5, q.device.index or 0,
+                                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0  # kernel launches; only the CUDA branch counts

@@ -12,6 +12,12 @@ and language auto-detection.
 Runs on ``device`` ("cuda" by default); asking for cuda without a card
 raises. Nothing moves to the CPU unless the caller asks for it.
 
+``encoder_attention`` ("btd" or "bhtd") and ``cross_decode`` ("fd",
+"legacy" or "dense") select the encoder-attention and decode
+cross-attention kernels of every path (the JAX package's
+``WHISPER_TPU_FLASH`` and ``WHISPER_TPU_DECODE_FLASH``; see
+``models/model.py``); an unknown value raises ``ValueError``.
+
 ``transcribe_batch`` marks its stages as ``torch.profiler`` ranges
 (``whisper.audio``, ``whisper.mel``, ``whisper.encoder``, ``whisper.cross_kv``,
 ``whisper.decode``, ``whisper.texts``) so a profile of the real call splits
@@ -31,7 +37,7 @@ from torch.profiler import record_function
 from .config import N_SAMPLES, get_config
 from .decode import GreedyResult, encode_cross_kv, extract_texts, greedy_decode_kv
 from .longform import merge_texts, silence_mask, split_audio, transcribe_seek
-from .models.model import Whisper, cast_floating
+from .models.model import Whisper, cast_floating, check_selections
 from .ops.audio import load_audio
 from .ops.mel import log_mel_batch
 from .ops.quant import quantize_logits_emb, quantize_params
@@ -102,6 +108,8 @@ class WhisperPipeline:
         self_kv_quant: bool = False,
         w8a8: bool = False,
         gelu: str = "erf",
+        encoder_attention: str = "btd",
+        cross_decode: str = "fd",
         temperature: float = 0.0,
         temperature_fallback: Optional[bool] = None,
         logprob_threshold: float = -1.0,
@@ -131,6 +139,7 @@ class WhisperPipeline:
             raise ValueError(f"task must be transcribe or translate, not {task!r}")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+        check_selections(encoder_attention, cross_decode)
         self.device = resolve_device(device)
         self.task = task
         self.language = language
@@ -142,6 +151,8 @@ class WhisperPipeline:
         self.self_kv_quant = self_kv_quant
         self.w8a8 = w8a8
         self.gelu = gelu
+        self.encoder_attention = encoder_attention
+        self.cross_decode = cross_decode
         self.logprob_threshold = logprob_threshold
         self.no_speech_threshold = no_speech_threshold
         self.condition_on_previous_text = condition_on_previous_text
@@ -203,7 +214,8 @@ class WhisperPipeline:
             mel = mel[..., : 2 * self.cfg.n_audio_ctx]
 
         cross_kv = encode_cross_kv(self.model, mel, self.compute_dtype,
-                                   kv_quant=self.kv_quant, w8a8=self.w8a8, gelu=self.gelu)
+                                   kv_quant=self.kv_quant, w8a8=self.w8a8, gelu=self.gelu,
+                                   encoder_attention=self.encoder_attention)
         prompts = np.tile(self._prompt(language)[None], (len(flat_waves), 1))
         if self.timestamps:
             prompts = prompts[:, :-1]  # drop <|notimestamps|>
@@ -222,7 +234,7 @@ class WhisperPipeline:
                 self.compute_dtype, max_tokens=self.max_tokens,
                 suppress_ids=self._suppress_ids, apply_filters=self.apply_filters,
                 self_kv_quant=self.self_kv_quant, gelu=self.gelu,
-                timestamps=self.timestamps, sot_index=sot_index)
+                timestamps=self.timestamps, sot_index=sot_index, cross_decode=self.cross_decode)
         self.last_decode = result
         with record_function("whisper.texts"):
             texts = extract_texts(result, prompts.shape[1], self.tokenizer,

@@ -7,8 +7,10 @@ end, the single-engine path of ``python -m whisper_tpu.serving``.
 
 The zero-flag defaults are the JAX server's benched configuration: 8 slots,
 32 steps per sync, a 224-token budget, W8A8 + int8 cross- and self-KV,
-bf16, on the card. Weights are the port's seeded random init (checkpoint
-loading is not ported). Flags of features not ported yet (``--tp`` > 1,
+bf16, on the card, with the default kernels (``--encoder_attention btd
+--cross_decode fd``; the flags are the JAX package's ``WHISPER_TPU_FLASH``
+and ``WHISPER_TPU_DECODE_FLASH``). Weights are the port's seeded random init
+(checkpoint loading is not ported). Flags of features not ported yet (``--tp`` > 1,
 ``--dp`` > 1, ``--backends``, ``--checkpoint``, ``--timestamps``,
 ``--adaptive_sync``, ``--encode_chunks`` > 1, a non-empty
 ``--temperature_fallback``) exit non-zero and name the feature.
@@ -19,6 +21,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+from ..cli import add_kernel_selections
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -43,6 +47,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="int8-quantize the self-attention KV slot cache")
     p.add_argument("--w8a8", action=argparse.BooleanOptionalAction, default=True,
                    help="int8 weights + dynamic-int8 encoder activations")
+    add_kernel_selections(p)
     p.add_argument("--tp", type=int, default=1, help="not ported yet (1 only)")
     p.add_argument("--dp", type=int, default=1, help="not ported yet (1 only)")
     p.add_argument("--backends", default=None, help="not ported yet")
@@ -108,6 +113,8 @@ def build_engine(args: argparse.Namespace):
         kv_quant=args.kv_quant,
         self_kv_quant=args.self_kv_quant,
         w8a8=args.w8a8,
+        encoder_attention=args.encoder_attention,
+        cross_decode=args.cross_decode,
         no_speech_threshold=None if args.no_speech_threshold < 0 else args.no_speech_threshold,
         logprob_threshold=None if args.logprob_threshold <= -1e9 else args.logprob_threshold,
         compression_ratio_threshold=(None if args.compression_ratio_threshold < 0

@@ -46,6 +46,7 @@ from ..models.model import (
     QKVCache,
     Whisper,
     cast_floating,
+    check_selections,
     decoder_forward,
     decoder_step_multipos,
 )
@@ -170,7 +171,10 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over one model on one device (the
-    model's). ``model`` is cast to ``compute_dtype`` in place."""
+    model's). ``model`` is cast to ``compute_dtype`` in place.
+    ``encoder_attention`` selects the admission encode's attention kernel
+    and ``cross_decode`` the decode step's int8 cross-attention kernel (see
+    ``models/model.py``)."""
 
     def __init__(
         self,
@@ -184,6 +188,8 @@ class ContinuousBatchingEngine:
         kv_quant: bool = False,
         self_kv_quant: bool = False,
         w8a8: bool = False,
+        encoder_attention: str = "btd",
+        cross_decode: str = "fd",
         no_speech_threshold: Optional[float] = 0.6,
         logprob_threshold: Optional[float] = -1.0,
         compression_ratio_threshold: Optional[float] = 2.4,
@@ -201,6 +207,7 @@ class ContinuousBatchingEngine:
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(f"not ported to whisper_tpu_torch yet: {', '.join(asked)}")
+        check_selections(encoder_attention, cross_decode)
         cfg = model.cfg
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -213,6 +220,8 @@ class ContinuousBatchingEngine:
         self.kv_quant = kv_quant
         self.self_kv_quant = self_kv_quant
         self.w8a8 = w8a8
+        self.encoder_attention = encoder_attention
+        self.cross_decode = cross_decode
         self.no_speech_threshold = no_speech_threshold
         self.logprob_threshold = logprob_threshold
         self.compression_ratio_threshold = compression_ratio_threshold
@@ -402,13 +411,14 @@ class ContinuousBatchingEngine:
             lengths[i] = len(a)
         mel = log_mel_batch(self._to_dev(audio), self._to_dev(lengths),
                             n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
-        cross = encode_cross_kv(self.model, mel, dt, kv_quant=self.kv_quant, w8a8=self.w8a8)
+        cross = encode_cross_kv(self.model, mel, dt, kv_quant=self.kv_quant, w8a8=self.w8a8,
+                                encoder_attention=self.encoder_attention)
 
         rows = [cfg.sot_sequence(r.language, r.task) for r in newcomers]
         prompts = np.asarray(rows + rows[:1] * (bucket - len(rows)), np.int64)
         prompts_dev = self._to_dev(prompts)
         logits, kv = decoder_forward(self.model, prompts_dev, 0, self._new_cache(bucket), cross,
-                                     dt)
+                                     dt, cross_decode=self.cross_decode)
         # OpenAI-style no-speech probability: softmax at the sot position
         nsp = torch.softmax(logits[:, 0].to(torch.float32), dim=-1)[:, cfg.no_speech]
         last = apply_rules(logits[:, -1], RuleState.create(bucket, device=self.device), cfg,
@@ -537,7 +547,8 @@ class ContinuousBatchingEngine:
             # clamp: empty slots sit at offset 0
             pos = torch.clamp(offsets - 1, min=0)
             cur = torch.gather(tokens, 1, pos[:, None])[:, 0]
-            logits, _ = decoder_step_multipos(self.model, cur, pos, self.kv, self.cross, self.dt)
+            logits, _ = decoder_step_multipos(self.model, cur, pos, self.kv, self.cross, self.dt,
+                                              cross_decode=self.cross_decode)
             logits = apply_rules(logits, rs, cfg, suppress_ids=self._suppress)
             lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
             nxt = torch.argmax(logits, dim=-1)
