@@ -170,13 +170,30 @@ def check(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
     return out
 
 
+def _attention_times(b: int, ms: float, library_ms: float) -> dict:
+    """K1's and K6's time at batch ``b`` of turbo's encoder attention (T 1500,
+    20 heads of 64) beside SDPA's, the bound, the achieved rate and the
+    share of the bound reached."""
+    flops = 4.0 * b * H_AUDIO * T_AUDIO * T_AUDIO * DH
+    nbytes = 4.0 * b * T_AUDIO * D_AUDIO * 2
+    bound_ms = 1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BYTES)
+    return {"ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / PEAK_BF16 > nbytes / PEAK_BYTES else "bytes",
+            "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
+
+
 def kernel_k1(dev, gen) -> dict:
+    """K1 at the offline shape (turbo B64), held against its plain version
+    and timed beside SDPA on the same tensors split into heads; timed again
+    at the serving and long-form batch sizes (B 1 and 8, ``cases``); an fp32
+    check at a small batch."""
     from whisper_tpu_torch.ops.flash_attention import (
         flash_attention_btd, flash_attention_btd_plain)
 
     def rand(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = (rand(B, T_AUDIO, D_AUDIO) for _ in range(3))
     got = flash_attention_btd(q, k, v, H_AUDIO)
     chunk = 8  # the plain version's fp32 scores are 1.4 GB per 8 rows
@@ -185,30 +202,32 @@ def kernel_k1(dev, gen) -> dict:
                      for i in range(0, B, chunk)])
     res = check("flash_attention_btd/bf16", got, ref)
     del ref
-    ms = cuda_ms(lambda: flash_attention_btd(q, k, v, H_AUDIO), reps=10)
     plain_ms = cuda_ms(lambda: [flash_attention_btd_plain(q[i:i + chunk], k[i:i + chunk],
                                                           v[i:i + chunk], H_AUDIO)
                                 for i in range(0, B, chunk)], reps=2, warmup=1)
-    qh, kh, vh = (t.reshape(B, T_AUDIO, H_AUDIO, DH).transpose(1, 2).contiguous()
-                  for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qh, kh, vh), reps=10)
-    del qh, kh, vh
+    times = {}
+    for b in (B, 8, 1):
+        qb, kb, vb = q[:b], k[:b], v[:b]
+        qh, kh, vh = (t.reshape(b, T_AUDIO, H_AUDIO, DH).transpose(1, 2).contiguous()
+                      for t in (qb, kb, vb))
+        reps = 10 if b == B else 50
+        times[b] = _attention_times(
+            b, cuda_ms(lambda: flash_attention_btd(qb, kb, vb, H_AUDIO), reps=reps),
+            cuda_ms(lambda: sdpa(qh, kh, vh), reps=reps))
+        del qh, kh, vh
     # fp32 path at a small batch
     qf, kf, vf = (rand(2, T_AUDIO, D_AUDIO, dtype=torch.float32) for _ in range(3))
     res32 = check("flash_attention_btd/fp32", flash_attention_btd(qf, kf, vf, H_AUDIO),
                   flash_attention_btd_plain(qf, kf, vf, H_AUDIO))
-    flops = 4.0 * B * H_AUDIO * T_AUDIO * T_AUDIO * DH
-    nbytes = 4.0 * B * T_AUDIO * D_AUDIO * 2
     return {"name": "flash_attention_btd", "route": "cuda",
             "source": "whisper_tpu_torch/csrc/flash_attention_btd.cu",
+            "kernel_source": "whisper_tpu_torch/csrc/flash_attention_sm90.cuh",
             "replaces": "whisper_tpu/ops/flash_attention.py:146",
             "shape": f"q,k,v,o ({B},{T_AUDIO},{D_AUDIO}) bf16, H={H_AUDIO}",
-            **res, "fp32_check": res32, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BYTES),
-            "bound_by": "operations" if flops / PEAK_BF16 > nbytes / PEAK_BYTES else "bytes",
+            **res, "fp32_check": res32, **times[B], "plain_ms": plain_ms,
+            "cases": {f"B{b}": times[b] for b in (8, 1)},
             "bound_peaks": "989 TFLOP/s bf16, 3.35 TB/s",
-            "library_ms": library_ms, "library": "F.scaled_dot_product_attention (B,H,T,dh)"}
+            "library": "F.scaled_dot_product_attention (B,H,T,dh)"}
 
 
 def _int8_cross_kv(dev, gen):
@@ -281,14 +300,14 @@ def kernel_k6(dev, gen) -> dict:
                           for i in range(0, B, chunk)])
 
     res = check("flash_attention/bf16", flash_attention(q, k, v), plain())
-    ms = cuda_ms(lambda: flash_attention(q, k, v), reps=10)
-    plain_ms = cuda_ms(plain, reps=2, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q, k, v), reps=10)
+    times = _attention_times(B, cuda_ms(lambda: flash_attention(q, k, v), reps=10),
+                             cuda_ms(lambda: sdpa(q, k, v), reps=10))
+    plain_ms = cuda_ms(plain, reps=2, warmup=1)
     del q, k, v
     extra = {}
     for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        for tq, tk in ((T_AUDIO, T_AUDIO), (300, T_AUDIO), (T_AUDIO, 448)):
+        for tq, tk in ((T_AUDIO, T_AUDIO), (300, T_AUDIO), (T_AUDIO, 448), (1, T_AUDIO)):
             if dtype == torch.bfloat16 and tq == tk:
                 continue
             qs, ks, vs = rand(2, H_AUDIO, tq, DH, dtype=dtype), *(
@@ -296,17 +315,14 @@ def kernel_k6(dev, gen) -> dict:
             extra[f"{tag}/Tq{tq}/Tk{tk}"] = check(f"flash_attention/{tag}",
                                                  flash_attention(qs, ks, vs),
                                                  flash_attention_plain(qs, ks, vs))
-    flops = 4.0 * B * H_AUDIO * T_AUDIO * T_AUDIO * DH
-    nbytes = 4.0 * B * T_AUDIO * D_AUDIO * 2
     return {"name": "flash_attention", "route": "cuda",
             "source": "whisper_tpu_torch/csrc/flash_attention.cu",
+            "kernel_source": "whisper_tpu_torch/csrc/flash_attention_sm90.cuh",
             "replaces": "whisper_tpu/ops/flash_attention.py:79",
             "shape": f"q,k,v,o ({B},{H_AUDIO},{T_AUDIO},{DH}) bf16",
-            **res, "small_checks": extra, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BYTES),
-            "bound_by": "operations" if flops / PEAK_BF16 > nbytes / PEAK_BYTES else "bytes",
+            **res, "small_checks": extra, **times, "plain_ms": plain_ms,
             "bound_peaks": "989 TFLOP/s bf16, 3.35 TB/s",
-            "library_ms": library_ms, "library": "F.scaled_dot_product_attention (B,H,T,dh)"}
+            "library": "F.scaled_dot_product_attention (B,H,T,dh)"}
 
 
 def _cross_variant(name: str, fn, plain, dev, gen, variants: dict) -> dict:
@@ -580,6 +596,48 @@ def w8a8_card_vs_cpu(dev) -> dict:
             "int8_values": int(x.numel()),
             "linear_a8_card_equals_cpu": True, "linear_a8_shape": f"(2, 150, {D_AUDIO}) @ "
             f"({D_AUDIO}, {D_AUDIO})"}
+
+
+def _function_name(mangled: str) -> str:
+    """The innermost name of a mangled C++ function (``_ZN7fa_sm9011attn_kernelE...``
+    -> ``attn_kernel``)."""
+    names, i = [], mangled.find("_Z") + 2
+    if mangled[i:i + 1] == "N":
+        i += 1
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    return names[-1] if names else mangled
+
+
+# kernels whose bf16 body must hold wgmma (HGMMA) and TMA loads (UTMALDG)
+SM90_KERNELS = {"flash_attention_btd": "attn_kernel", "flash_attention": "attn_kernel"}
+
+
+def sass_counts(names) -> dict:
+    """HGMMA and UTMALDG instructions per function of each built library
+    (``cuobjdump -sass``), so the run itself shows what the binaries hold;
+    fails if a kernel of ``SM90_KERNELS`` lacks either."""
+    from pathlib import Path
+
+    from whisper_tpu_torch.ops import _build
+
+    tool = str(Path(_build.nvcc()).with_name("cuobjdump"))
+    out = {}
+    for name in names:
+        text = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        out[name] = {_function_name(part.split("\n", 1)[0].strip()):
+                     {op: part.count(op) for op in ("HGMMA", "UTMALDG")}
+                     for part in re.split(r"\n\s*Function : ", text)[1:]}
+    for name, fn in SM90_KERNELS.items():
+        counts = out[name].get(fn, {})
+        if not (counts.get("HGMMA") and counts.get("UTMALDG")):
+            raise AssertionError(f"{name}: {fn} holds no wgmma or no TMA load: {out[name]}")
+    return out
 
 
 def _launches(counters) -> dict:
@@ -1023,9 +1081,11 @@ def main() -> int:
                          check=True).stdout.strip()
     build = _build.build_all()
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                 if "registers" in ln or "spill" in ln] for n in _build.KERNELS}
+                 if "registers" in ln or "spill" in ln or "warning" in ln]
+             for n in _build.KERNELS}
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "kernel_build_s": build["build_s"], "ptxas": ptxas})
+          "cuda": torch.version.cuda, "kernel_build_s": build["build_s"], "ptxas": ptxas,
+          "sass": sass_counts(_build.KERNELS)})
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -1,6 +1,8 @@
-"""Default-path walls of several checkouts of the port, in turns, on one card.
+"""Default-path walls, or kernel phases, of several checkouts of the port,
+in turns, on one card.
 
     python3 chip_walls.py PARENT . . PARENT
+    python3 chip_walls.py --phases kernel_k1,kernel_k6 PARENT . . PARENT
 
 Each argument is the root of a checkout (a directory holding
 ``chip_smoke.py`` and ``whisper_tpu_torch/``, e.g. the parent commit
@@ -9,9 +11,12 @@ the order given and in a process of its own, it builds that checkout's
 kernels and runs its ``chip_smoke.end_to_end`` (turbo B64/T64, kvq + skvq +
 w8a8, bf16) and ``chip_smoke.serving`` (the server's zero-flag defaults, 24
 clips) phases, and prints one JSON line with the offline wall and the
-serving burst's wall and latencies. Comparing two commits in one call on one
-card, in turns, keeps other cards' power limits and other hosts' neighbours
-out of the difference. Needs a CUDA card; exits non-zero if a run fails.
+serving burst's wall and latencies. With ``--phases`` it runs that
+checkout's named ``chip_smoke`` kernel phases instead (each checks its
+kernel against the plain version) and prints their times. Comparing two
+commits in one call on one card, in turns, keeps other cards' power limits
+and other hosts' neighbours out of the difference. Needs a CUDA card; exits
+non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -45,8 +50,31 @@ print("RESULT " + json.dumps({
     "serving_admission_batches": served["admission_batches"], **build}))
 """
 
+_PHASES = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from whisper_tpu_torch.ops import _build
+
+torch.backends.cuda.matmul.allow_tf32 = False
+build = _build.build_all()
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+out = {}
+for phase in sys.argv[2].split(","):
+    rec = getattr(cs, phase)(dev, gen)
+    out[phase] = {k: rec[k] for k in ("ms", "library_ms", "bound_ms", "max_abs_err", "cases")
+                  if k in rec}
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps({"phases": out, **build}))
+"""
+
 
 def main(argv) -> int:
+    phases = None
+    if argv[:1] == ["--phases"] and len(argv) > 1:
+        phases, argv = argv[1], argv[2:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -54,8 +82,9 @@ def main(argv) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     for i, root in enumerate(argv):
         root = os.path.abspath(root)
-        proc = subprocess.run([sys.executable, "-c", _RUN, root], capture_output=True,
-                              text=True, cwd=root)
+        cmd = [sys.executable, "-c", _RUN, root] if phases is None else \
+            [sys.executable, "-c", _PHASES, root, phases]
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)

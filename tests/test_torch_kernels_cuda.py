@@ -343,3 +343,83 @@ def test_variant_kernels_refuse_what_they_do_not_take(dev):
     kq = torch.zeros((1, 33, 64, 8), dtype=torch.int8, device=dev)  # 33 heads
     with pytest.raises(ValueError):
         cross_attention_decode_dense(q33, kq, s33, kq, s33)
+
+
+# --- the TMA + wgmma kernel of K1 and K6 (csrc/flash_attention_sm90.cuh):
+# blocks of 192 query rows (three warpgroups of 64), K/V tiles of 128 keys
+
+
+def _bf16(rng, *shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 92, 128, 129, 191, 192, 193, 1500])
+def test_flash_attention_btd_ragged_tiles(dev, T):
+    """Ragged q tiles (192 rows) and k tiles (128 keys): rows past T are
+    zero-filled by the TMA, keys past T masked, rows past T never written."""
+    rng = np.random.default_rng(T + 11)
+    q, k, v = (_bf16(rng, 2, T, 128).to(dev, torch.bfloat16) for _ in range(3))
+    got = flash_attention_btd(q, k, v, 2)
+    torch.cuda.synchronize()
+    ref = flash_attention_btd_plain(q, k, v, 2)
+    assert torch.isfinite(got.float()).all()
+    assert float((got.float() - ref.float()).abs().max()) <= K1_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_flash_attention_btd_admission_batches(dev, B):
+    """The serving path's ragged admission sizes at turbo's width."""
+    rng = np.random.default_rng(B)
+    q, k, v = (_bf16(rng, B, 1500, 1280).to(dev, torch.bfloat16) for _ in range(3))
+    got = flash_attention_btd(q, k, v, 20)
+    torch.cuda.synchronize()
+    ref = flash_attention_btd_plain(q, k, v, 20)
+    assert float((got.float() - ref.float()).abs().max()) <= K1_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("Tq,Tk", [(300, 1500), (1500, 448), (1, 1500), (1500, 1), (193, 129)])
+def test_flash_attention_tq_not_tk(dev, Tq, Tk):
+    """K6 with separate tensor maps for Q/O (Tq rows) and K/V (Tk rows)."""
+    rng = np.random.default_rng(Tq * 3 + Tk)
+    q = _bf16(rng, 2, 3, Tq, 64).to(dev, torch.bfloat16)
+    k, v = (_bf16(rng, 2, 3, Tk, 64).to(dev, torch.bfloat16) for _ in range(2))
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v)
+    assert float((got.float() - ref.float()).abs().max()) <= K6_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("T", [150, 1500])
+def test_no_bleed_across_batch_rows(dev, T):
+    """Row b's last, ragged tile must not see row b+1's keys (a 2-D map over
+    (B*T, D) would read them): with row b+1's K and V made large, row b's
+    output equals row b computed alone, bit for bit; K6 likewise across
+    heads."""
+    rng = np.random.default_rng(T)
+    q, k, v = (_bf16(rng, 3, T, 128) for _ in range(3))
+    k[1:] *= 50.0
+    v[1:] += 1000.0
+    q, k, v = (t.to(dev, torch.bfloat16) for t in (q, k, v))
+    whole = flash_attention_btd(q, k, v, 2)
+    alone = flash_attention_btd(q[:1].contiguous(), k[:1].contiguous(), v[:1].contiguous(), 2)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[:1], alone)
+    assert float(alone.float().abs().max()) < 10.0
+    qh, kh, vh = (t.reshape(3, T, 2, 64).transpose(1, 2).contiguous() for t in (q, k, v))
+    whole = flash_attention(qh, kh, vh)
+    alone = flash_attention(qh[:1].contiguous(), kh[:1].contiguous(), vh[:1].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(whole[:1], alone)
+
+
+def test_flash_attention_refuses_unaligned_views(dev):
+    """TMA needs 16-byte aligned tensors: a contiguous view that starts one
+    element into its storage is refused, not read from the wrong address."""
+    for shape, fn in (((1, 64, 128), lambda t: flash_attention_btd(t, t, t, 2)),
+                      ((1, 2, 64, 64), lambda t: flash_attention(t, t, t))):
+        n = int(np.prod(shape))
+        buf = torch.zeros(n + 1, dtype=torch.bfloat16, device=dev)
+        view = buf[1:].view(shape)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        with pytest.raises(ValueError):
+            fn(view)

@@ -3,9 +3,10 @@
 Each ``whisper_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled on its own by ``nvcc`` for ``sm_90a`` into
 ``<repo>/build/whisper_tpu_torch/<name>.<hash>.so`` (``build/`` is ignored by
-git), the hash covering the source and the flags, so an edited source
-rebuilds. Nothing here runs at import: a kernel is built at its first use, or
-all at once, in parallel, by :func:`build_all`.
+git), the hash covering the source, every header under ``csrc/`` (K1 and
+K6 share ``flash_attention_sm90.cuh``) and the flags, so an edited source or
+header rebuilds. Nothing here runs at import: a kernel is built at its
+first use, or all at once, in parallel, by :func:`build_all`.
 """
 
 from __future__ import annotations
@@ -42,8 +43,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}.{digest}.so"
 
 

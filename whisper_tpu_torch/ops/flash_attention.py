@@ -16,6 +16,10 @@ same attention on split heads, q (B, H, Tq, dh) against k, v (B, H, Tk, dh),
 Tq and Tk independent. On a CUDA tensor it launches
 ``whisper_tpu_torch/csrc/flash_attention.cu``; on a CPU tensor it runs
 :func:`flash_attention_plain`.
+
+In bf16 both kernels are one TMA + wgmma kernel,
+``whisper_tpu_torch/csrc/flash_attention_sm90.cuh``, launched on tensor maps
+of each layout; TMA needs 16-byte aligned q, k and v.
 """
 
 from __future__ import annotations
@@ -41,6 +45,15 @@ def flash_attention_btd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           split(k).to(torch.float32).transpose(-1, -2))
     w = torch.softmax(scores * (dh ** -0.5), dim=-1).to(v.dtype)
     return torch.matmul(w, split(v)).transpose(1, 2).reshape(B, T, D)
+
+
+def _check_launch(name: str, err: int) -> None:
+    """Raise on a kernel entry's return: a cudaError_t (> 0) or minus the
+    CUresult of a failed tensor-map encode (< 0)."""
+    if err > 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    if err < 0:
+        raise RuntimeError(f"{name}: encoding a TMA tensor map failed: CUresult {-err}")
 
 
 _SIGNATURE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
@@ -73,14 +86,13 @@ def flash_attention_btd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("q, k and v must share shape, dtype and device")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the CUDA kernel takes bf16 or fp32, not {q.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("the CUDA kernel needs contiguous (B, T, D) q, k, v")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        raise ValueError("the CUDA kernel needs contiguous, 16-byte aligned (B, T, D) q, k, v")
     out = torch.empty_like(q)
     err = _kernel(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                            B, T, D, n_head, (D // n_head) ** -0.5, q.device.index or 0,
                            torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention_btd launch failed: cudaError {err}")
+    _check_launch("flash_attention_btd", err)
     flash_attention_btd.launches += 1
     return out
 
@@ -141,8 +153,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     err = _split_kernel(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                  B * H, Tq, Tk, dh ** -0.5, q.device.index or 0,
                                  torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+    _check_launch("flash_attention", err)
     flash_attention.launches += 1
     return out
 
