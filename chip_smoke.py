@@ -23,12 +23,23 @@ while counting kernel launches:
   ``WHISPER_TPU_DECODE_FLASH=legacy|dense``): the offline path again with
   ``encoder_attention="bhtd"`` and ``cross_decode="legacy"``, then
   ``"dense"``, and a burst of 8 clips to a server built from
-  ``--encoder_attention bhtd --cross_decode dense``.
+  ``--encoder_attention bhtd --cross_decode dense``;
+- the temperature ladder: 8 clips to a turbo server at its true zero-flag
+  defaults (ladder 0.2 ... 1.0 on), so every request climbs the ladder
+  through the aux worker (the serving bursts above pass
+  ``--temperature_fallback ''``: the greedy core, as before the ladder);
+- tensor-parallel serving: the turbo server's defaults (ladder off) on a
+  (1, 2) mesh whose two ranks share the card, 8 clips over HTTP, its W8A8
+  encoder held bit-equal to the one-rank engine's and its texts beside
+  that engine's.
 
 Then it checks small fp32 runs of the paths on the card against the CPU
-(the offline one under each selection). Prints JSON lines; the last is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
-Needs a CUDA card: without one it exits 1 and prints no result.
+(the offline one under each selection, the TP engine against the one-rank
+engine on the CPU, a sampled decode with the same noise on both). Prints
+JSON lines; the last is ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero without it. Needs a CUDA card: without one it exits 1 and prints
+no result. ``chip_tp.py`` runs the tensor-parallel phases over distinct
+cards.
 """
 
 from __future__ import annotations
@@ -228,6 +239,66 @@ def kernel_k1(dev, gen) -> dict:
             "cases": {f"B{b}": times[b] for b in (8, 1)},
             "bound_peaks": "989 TFLOP/s bf16, 3.35 TB/s",
             "library": "F.scaled_dot_product_attention (B,H,T,dh)"}
+
+
+def kernel_k1_sharded(dev, gen) -> dict:
+    """K1s, the sharded entry (``flash_attention_btd_sharded``) on (1, tp)
+    meshes whose ranks share the card, at the offline shape (turbo B64):
+    its output beside the full K1's (attention is per head, so equality is
+    expected) at tp 2 and 4; one rank's local launch at tp 2 (10 heads,
+    (B, 1500, 640)) held against its plain version and timed beside it and
+    beside SDPA on the same local heads; and the whole entry's time
+    (column split, launches, concatenation)."""
+    from whisper_tpu_torch.ops.flash_attention import (
+        flash_attention_btd, flash_attention_btd_plain, flash_attention_btd_sharded)
+    from whisper_tpu_torch.parallel.sharding import make_mesh
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (torch.randn((B, T_AUDIO, D_AUDIO), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    full = flash_attention_btd(q, k, v, H_AUDIO)
+    meshes, cases = {}, {}
+    for tp in (2, 4):
+        meshes[tp] = make_mesh(1, tp, devices=[dev] * tp)
+        got = flash_attention_btd_sharded(q, k, v, H_AUDIO, meshes[tp])
+        torch.cuda.synchronize()
+        cases[f"tp{tp}"] = {"local_heads": H_AUDIO // tp,
+                            "max_abs_diff_vs_full_k1": float((got.float() - full.float())
+                                                             .abs().max()),
+                            "equal_to_full_k1": bool(torch.equal(got, full))}
+        del got
+    del full
+    tp, width, heads = 2, D_AUDIO // 2, H_AUDIO // 2
+    ql, kl, vl = (t[..., :width].contiguous() for t in (q, k, v))
+    chunk = 8
+    ref = torch.cat([flash_attention_btd_plain(ql[i:i + chunk], kl[i:i + chunk],
+                                               vl[i:i + chunk], heads)
+                     for i in range(0, B, chunk)])
+    res = check("flash_attention_btd/bf16", flash_attention_btd(ql, kl, vl, heads), ref)
+    del ref
+    plain_ms = cuda_ms(lambda: [flash_attention_btd_plain(ql[i:i + chunk], kl[i:i + chunk],
+                                                          vl[i:i + chunk], heads)
+                                for i in range(0, B, chunk)], reps=2, warmup=1)
+    qh, kh, vh = (t.reshape(B, T_AUDIO, heads, DH).transpose(1, 2).contiguous()
+                  for t in (ql, kl, vl))
+    flops = 4.0 * B * heads * T_AUDIO * T_AUDIO * DH
+    nbytes = 4.0 * B * T_AUDIO * width * 2
+    times = {"ms": cuda_ms(lambda: flash_attention_btd(ql, kl, vl, heads), reps=10),
+             "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh), reps=10),
+             "bound_ms": 1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BYTES),
+             "bound_by": "operations" if flops / PEAK_BF16 > nbytes / PEAK_BYTES else "bytes"}
+    times["bound_share"] = times["bound_ms"] / times["ms"]
+    for n in (2, 4):
+        cases[f"tp{n}"]["entry_ms"] = cuda_ms(
+            lambda: flash_attention_btd_sharded(q, k, v, H_AUDIO, meshes[n]), reps=5)
+    return {"name": "flash_attention_btd_sharded", "route": "cuda",
+            "source": "whisper_tpu_torch/ops/flash_attention.py",
+            "kernel_source": "whisper_tpu_torch/csrc/flash_attention_btd.cu",
+            "replaces": "whisper_tpu/ops/flash_attention.py:199",
+            "shape": f"one rank at tp 2: q,k,v,o ({B},{T_AUDIO},{width}) bf16, H={heads}",
+            **res, "plain_ms": plain_ms, **times, "cases": cases,
+            "bound_peaks": "989 TFLOP/s bf16, 3.35 TB/s",
+            "library": "F.scaled_dot_product_attention on the rank's (B,H/tp,T,dh) heads"}
 
 
 def _int8_cross_kv(dev, gen):
@@ -651,18 +722,21 @@ DECODE_KERNEL = {"fd": "cross_attention_decode_fd", "legacy": "cross_attention_d
 
 
 def _expect(path: str, launches: dict, cfg, encodes: int, steps: int,
-            encoder_attention: str = "btd", cross_decode: str = "fd") -> None:
+            encoder_attention: str = "btd", cross_decode: str = "fd", tp: int = 1) -> None:
     """Exact launch counts of a W8A8 + int8 cross- and self-KV path that ran
     ``encodes`` encoder passes (one log-mel each) and ``steps`` decoder
-    steps: the selected encoder and decode kernels once a layer, the kernels
-    of the other selections not at all."""
+    steps on ``tp`` ranks: the selected encoder and decode kernels once a
+    layer on every rank, the kernels of the other selections not at all;
+    with tp > 1 every K1 launch is also the sharded entry's."""
     want = {"log10_mel": encodes,
-            "int8_gemm": 6 * cfg.n_audio_layer * encodes,  # q, k, v, o, mlp1, mlp2
-            "self_attention_decode_int8": cfg.n_text_layer * steps}
+            "int8_gemm": 6 * cfg.n_audio_layer * encodes * tp,  # q, k, v, o, mlp1, mlp2
+            "self_attention_decode_int8": cfg.n_text_layer * steps * tp,
+            "flash_attention_btd_sharded": (cfg.n_audio_layer * encodes * tp
+                                            if tp > 1 and encoder_attention == "btd" else 0)}
     for sel, name in ENCODER_KERNEL.items():
-        want[name] = cfg.n_audio_layer * encodes if sel == encoder_attention else 0
+        want[name] = cfg.n_audio_layer * encodes * tp if sel == encoder_attention else 0
     for sel, name in DECODE_KERNEL.items():
-        want[name] = cfg.n_text_layer * steps if sel == cross_decode else 0
+        want[name] = cfg.n_text_layer * steps * tp if sel == cross_decode else 0
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{path}: {name} ran {launches[name]} times, expected {n}")
@@ -819,21 +893,29 @@ def _post(url: str, clip: np.ndarray, multipart: bool) -> tuple:
 
 N_REQUESTS = 24
 N_VARIANT_REQUESTS = 8
+N_LADDER_REQUESTS = 8
+N_TP_REQUESTS = 8
 VARIANT_FLAGS = ("--encoder_attention", "bhtd", "--cross_decode", "dense")
+# the greedy core: the serving bursts measured before the ladder was ported
+GREEDY = ("--temperature_fallback", "")
 
 
-def serving(counters, flags=(), n_requests: int = N_REQUESTS) -> dict:
+def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="serving",
+            keep_engine: bool = False):
     """The serving path: ``python -m whisper_tpu_torch.serving``'s engine
-    under the server's zero-flag defaults plus ``flags``, in-process on
-    127.0.0.1, one warm request, then ``n_requests`` seeded noise clips of
-    2-30 s from as many client threads (every sixth as multipart WAV, the
-    rest as f32 PCM)."""
+    under the server's zero-flag defaults plus ``flags`` (on ``mesh`` if
+    given), in-process on 127.0.0.1, one warm request, then ``n_requests``
+    seeded noise clips of 2-30 s from as many client threads (every sixth as
+    multipart WAV, the rest as f32 PCM). Counts slot and aux (ladder)
+    launches alike. Returns the record, and with ``keep_engine`` also the
+    stopped engine and the clips."""
+    from whisper_tpu_torch.models.model import model_shards
     from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
     from whisper_tpu_torch.serving.server import make_server
 
     args = parse_args(["--model_type", "turbo", "--host", "127.0.0.1", "--port", "0", *flags])
     t0 = time.perf_counter()
-    engine, phases = build_engine(args)
+    engine, phases = build_engine(args, mesh=mesh)
     engine.start()
     srv = make_server(engine, args.host, args.port, request_timeout_s=600)
     server = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -870,25 +952,105 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS) -> dict:
     if bad:
         raise AssertionError(f"{len(bad)} of {n_requests} replies failed: {bad[:3]}")
     cfg = engine.cfg
-    steps = st1["steps_total"] - st0["steps_total"]
-    batches = st1["encode_batches_total"] - st0["encode_batches_total"]
-    _expect(f"serving {list(flags)} ({steps} steps, {batches} admission batches)", launches,
-            cfg, batches, steps, args.encoder_attention, args.cross_decode)
+    delta = {key: st1[key] - st0[key] for key in ("steps_total", "encode_batches_total",
+                                                  "aux_batches_total", "aux_steps_total",
+                                                  "retries_total", "ticks_total")}
+    steps, batches = delta["steps_total"], delta["encode_batches_total"]
+    aux_batches, aux_steps = delta["aux_batches_total"], delta["aux_steps_total"]
+    tp = len(model_shards(engine.model))
+    _expect(f"{phase} {list(flags)} ({steps} + {aux_steps} aux steps, {batches} + {aux_batches} "
+            f"aux encodes)", launches, cfg, batches + aux_batches, steps + aux_steps,
+            args.encoder_attention, args.cross_decode, tp=tp)
     lat = np.array([sec for _, _, sec in replies])
     audio_s = sum(len(c) for c in clips) / 16000
-    return {"phase": "serving", "model": "turbo", "flags": "server defaults: "
-            "--slots 8 --steps_per_sync 32 --max_tokens 224, w8a8 + kv_quant + "
-            "self_kv_quant, bfloat16" + "".join(f" {f}" for f in flags),
-            "requests": n_requests, "multipart": len(range(0, n_requests, 6)),
-            "answered_200": n_requests - len(bad), "startup_s": startup_s,
-            "startup_phases": phases, "kernel_build_s": engine.stats.warmup_seconds,
-            "wall_s": wall, "requests_per_s": N_REQUESTS / wall,
-            "latency_p50_s": float(np.percentile(lat, 50)),
-            "latency_p95_s": float(np.percentile(lat, 95)),
-            "audio_s": audio_s, "audio_s_per_s": audio_s / wall,
-            "tokens": [reply["tokens"] for _, reply, _ in replies],
-            "ticks": st1["ticks_total"] - st0["ticks_total"], "steps": steps,
-            "admission_batches": batches, "launches": launches, "metrics": metrics}
+    rec = {"phase": phase, "model": "turbo", "flags": "server defaults: "
+           "--slots 8 --steps_per_sync 32 --max_tokens 224, w8a8 + kv_quant + "
+           "self_kv_quant, bfloat16" + "".join(f" {f}" for f in flags),
+           "mesh": None if mesh is None else repr(mesh),
+           "requests": n_requests, "multipart": len(range(0, n_requests, 6)),
+           "answered_200": n_requests - len(bad), "startup_s": startup_s,
+           "startup_phases": phases, "kernel_build_s": engine.stats.warmup_seconds,
+           "wall_s": wall, "requests_per_s": n_requests / wall,
+           "latency_p50_s": float(np.percentile(lat, 50)),
+           "latency_p95_s": float(np.percentile(lat, 95)),
+           "audio_s": audio_s, "audio_s_per_s": audio_s / wall,
+           "tokens": [reply["tokens"] for _, reply, _ in replies],
+           "attempts": [reply["attempts"] for _, reply, _ in replies],
+           "temperatures": [reply["temperature"] for _, reply, _ in replies],
+           "ticks": delta["ticks_total"], "steps": steps, "admission_batches": batches,
+           "aux_batches": aux_batches, "aux_steps": aux_steps,
+           "retries": delta["retries_total"], "launches": launches, "metrics": metrics}
+    if keep_engine:
+        return rec, engine, clips[:n_requests], [reply for _, reply, _ in replies]
+    return rec
+
+
+def serving_ladder(counters) -> dict:
+    """The server at its true zero-flag defaults (the JAX server's ladder
+    0.2 ... 1.0 on): with random weights every request fails the logprob
+    gate and climbs every rung on the aux worker, so each resolves at its
+    sixth attempt, at temperature 1.0. Reports the aux worker's share of
+    the kernels' launches."""
+    rec = serving(counters, (), N_LADDER_REQUESTS, phase="serving_ladder")
+    rungs = 5
+    if rec["attempts"] != [rungs + 1] * N_LADDER_REQUESTS or set(rec["temperatures"]) != {1.0}:
+        raise AssertionError(f"ladder replies: attempts {rec['attempts']}, "
+                             f"temperatures {rec['temperatures']}")
+    if rec["retries"] != rungs * N_LADDER_REQUESTS:
+        raise AssertionError(f"{rec['retries']} retries for {N_LADDER_REQUESTS} requests")
+    L_text = 4
+    rec["aux_launches"] = {"log10_mel": rec["aux_batches"],
+                           "flash_attention_btd": L_AUDIO * rec["aux_batches"],
+                           "int8_gemm": 6 * L_AUDIO * rec["aux_batches"],
+                           "cross_attention_decode_fd": L_text * rec["aux_steps"],
+                           "self_attention_decode_int8": L_text * rec["aux_steps"]}
+    return rec
+
+
+def tensor_parallel(counters, mesh=None, flags=(), phase: str = "tp") -> dict:
+    """TP serving: the turbo server's defaults with the ladder off, split
+    over ``mesh`` (by default (1, 2) with both ranks on the card) or, with
+    ``flags`` ``--tp N``, over N distinct cards as the server's flag places
+    it; 8 clips over HTTP (exact launch counts: every rank launches K1 per
+    layer, K8 per product, K2 and K3 per layer-step). Then the W8A8 encoder
+    output of one admission batch (the 8 clips' mel) against the one-rank
+    engine's on the first card, which must be bit-equal, and the texts
+    beside the one-rank engine's for the same clips."""
+    from whisper_tpu_torch.models.model import encoder_forward
+    from whisper_tpu_torch.ops.mel import log_mel_batch
+    from whisper_tpu_torch.parallel.sharding import make_mesh
+    from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
+    from whisper_tpu_torch.serving.engine import Request
+
+    dev = torch.device("cuda", 0)
+    if mesh is None and not flags:
+        mesh = make_mesh(1, 2, devices=[dev, dev])
+    rec, eng2, clips, replies = serving(counters, GREEDY + tuple(flags), N_TP_REQUESTS,
+                                        mesh=mesh, phase=phase, keep_engine=True)
+    eng1, _ = build_engine(parse_args(["--model_type", "turbo", *GREEDY]))
+    eng1.start()
+    try:
+        futs = [eng1.submit(Request(audio=c)) for c in clips]
+        one = [f.result(timeout=600) for f in futs]
+    finally:
+        eng1.stop()
+    cfg = eng1.cfg
+    audio = np.zeros((len(clips), 480000), np.float32)
+    for i, c in enumerate(clips):
+        audio[i, : len(c)] = c[:480000]
+    mel = log_mel_batch(torch.from_numpy(audio).to(dev),
+                        torch.tensor([min(len(c), 480000) for c in clips], device=dev),
+                        n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
+    enc = [encoder_forward(e.model, mel, torch.bfloat16, w8a8=True) for e in (eng1, eng2)]
+    torch.cuda.synchronize()
+    if not torch.equal(enc[0], enc[1]):
+        raise AssertionError(f"the tp 2 W8A8 encoder differs from tp 1 by "
+                             f"{float((enc[0] - enc[1]).abs().max())}")
+    same = [a["text"] == b["text"] for a, b in zip(replies, one)]
+    rec.update({"w8a8_encoder_bit_equal_tp1": True, "encoder_batch": len(clips),
+                "texts_equal_tp1": int(sum(same)), "texts_compared": len(same),
+                "tokens_tp1": [r["tokens"] for r in one]})
+    return rec
 
 
 def serving_reference_check() -> dict:
@@ -932,6 +1094,78 @@ def serving_reference_check() -> dict:
                              f"{got} vs {want}")
     return {"phase": "serving_reference", "model": "tiny", "dtype": "float32",
             "tokens_equal_cpu_pipeline": True, "tokens": got}
+
+
+def tp_reference_check(devices=("cuda:0", "cuda:0"), model: str = "tiny") -> dict:
+    """A small fp32 engine (``model``, kvq + skvq) on a (1, len(devices))
+    mesh of ``devices`` (by default two ranks on the card, 3 local heads of
+    tiny's 6 each), rounds driven one tick at a time through the kernels on
+    each rank's local heads, must give the one-rank engine's tokens on the
+    CPU (plain versions) for the same clips."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.parallel.sharding import make_mesh
+    from whisper_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    class IdText:
+        non_speech_tokens = get_tokenizer(num_languages=99).non_speech_tokens
+
+        def decode(self, ids):
+            return " ".join(str(int(t)) for t in ids)
+
+    rng = np.random.default_rng(10)
+    clips = [(rng.standard_normal(16000 * s) * 0.1).astype(np.float32) for s in (4, 9, 2)]
+    out = {}
+    for where, mesh in (("cuda_tp", make_mesh(1, len(devices), devices=list(devices))),
+                        ("cpu_tp1", None)):
+        # the same CPU-drawn weights on both sides (CPU and CUDA generators differ)
+        params = init_params(get_config(model), seed=3, device="cpu")
+        if mesh is not None:
+            params = params.to_device(devices[0])
+        engine = ContinuousBatchingEngine(
+            params, IdText(), max_slots=4, compute_dtype=torch.float32, steps_per_sync=4,
+            max_tokens=12, kv_quant=True, self_kv_quant=True, no_speech_threshold=None,
+            logprob_threshold=None, compression_ratio_threshold=None, mesh=mesh)
+        futs = [engine.submit(Request(audio=c)) for c in clips]
+        for _ in range(50):
+            if all(f.done() for f in futs):
+                break
+            engine._tick()
+        out[where] = [f.result(0)["text"] for f in futs]
+    if out["cuda_tp"] != out["cpu_tp1"]:
+        raise AssertionError(f"the tp {len(devices)} engine on {devices} differs from tp 1 "
+                             f"on the CPU: {out}")
+    return {"phase": "tp_reference", "model": model, "dtype": "float32",
+            "mesh": f"(1, {len(devices)}) on {list(devices)}",
+            "texts_equal_cpu_tp1": True, "tokens": [t.split() for t in out["cpu_tp1"]]}
+
+
+def ladder_reference_check() -> dict:
+    """A small fp32 sampled decode (tiny, kvq + skvq, temperature 0.6) on
+    the card against the CPU, the same Gumbel draws handed to both through
+    ``greedy_decode_kv``'s ``noise`` hook: equal tokens."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.decode import greedy_decode
+    from whisper_tpu_torch.params import init_params
+
+    rng = np.random.default_rng(11)
+    cfg = get_config("tiny")
+    mel = rng.standard_normal((3, cfg.n_mels, 2 * cfg.n_audio_ctx)).astype(np.float32)
+    prompt = np.tile(np.asarray([cfg.sot_sequence("en")], np.int64), (3, 1))
+    draws = [np.random.default_rng(100 + i).gumbel(size=(3, cfg.n_vocab)).astype(np.float32)
+             for i in range(16)]
+    toks = {}
+    for dev in ("cuda", "cpu"):
+        params = init_params(cfg, seed=3, device="cpu").to_device(dev)
+        res = greedy_decode(params, torch.from_numpy(mel).to(dev), torch.from_numpy(prompt).to(dev),
+                            kv_quant=True, self_kv_quant=True, max_tokens=12, temperature=0.6,
+                            noise=lambda step, shape, d=dev: torch.from_numpy(draws[step]).to(d))
+        toks[dev] = res.tokens.cpu().tolist()
+    if toks["cuda"] != toks["cpu"]:
+        raise AssertionError(f"sampled tokens on the card differ from the CPU: {toks}")
+    return {"phase": "ladder_reference", "model": "tiny", "dtype": "float32", "temperature": 0.6,
+            "tokens_equal_cpu": True, "tokens": [t[4:] for t in toks["cuda"]]}
 
 
 SELECTIONS = (("btd", "fd"), ("bhtd", "legacy"), ("bhtd", "dense"))
@@ -1070,7 +1304,8 @@ def main() -> int:
     from whisper_tpu_torch.ops.decode_attention import (
         cross_attention_decode, cross_attention_decode_dense, cross_attention_decode_fd,
         self_attention_decode, self_attention_decode_int8)
-    from whisper_tpu_torch.ops.flash_attention import flash_attention, flash_attention_btd
+    from whisper_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_btd, flash_attention_btd_sharded)
     from whisper_tpu_torch.ops.int8_gemm import int8_gemm
     from whisper_tpu_torch.ops.log10_mel import log10_mel
 
@@ -1091,7 +1326,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = []
     for phase in (kernel_k1, kernel_k2, kernel_k3, kernel_k7, kernel_k8, kernel_k6, kernel_k4,
-                  kernel_k5):
+                  kernel_k5, kernel_k1_sharded):
         kernels.append(phase(dev, gen))
         emit({"phase": "kernel", **kernels[-1]})
         torch.cuda.empty_cache()
@@ -1099,12 +1334,12 @@ def main() -> int:
 
     counters = (log10_mel, flash_attention_btd, int8_gemm, cross_attention_decode_fd,
                 self_attention_decode_int8, self_attention_decode, flash_attention,
-                cross_attention_decode, cross_attention_decode_dense)
+                cross_attention_decode, cross_attention_decode_dense, flash_attention_btd_sharded)
     e2e, stages = end_to_end(counters)
     emit(e2e)
     emit(stages)
     torch.cuda.empty_cache()
-    served = serving(counters)
+    served = serving(counters, GREEDY)
     emit(served)
     torch.cuda.empty_cache()
     long = longform(counters)
@@ -1114,12 +1349,20 @@ def main() -> int:
     for rec in variants(counters):
         emit(rec)
         runs[f"{rec['encoder_attention']}+{rec['cross_decode']}"] = rec
-    served_variant = serving(counters, VARIANT_FLAGS, N_VARIANT_REQUESTS)
+    served_variant = serving(counters, VARIANT_FLAGS + GREEDY, N_VARIANT_REQUESTS)
     emit(served_variant)
+    torch.cuda.empty_cache()
+    ladder = serving_ladder(counters)
+    emit(ladder)
+    torch.cuda.empty_cache()
+    tp = tensor_parallel(counters)
+    emit(tp)
     torch.cuda.empty_cache()
     emit(reference_check())
     emit(serving_reference_check())
     emit(longform_reference_check())
+    emit(tp_reference_check())
+    emit(ladder_reference_check())
 
     # each kernel's counts from the runs of the path that selects it; the
     # flagged burst selects K6 and K5
@@ -1128,14 +1371,18 @@ def main() -> int:
                "cross_attention_decode_dense": "bhtd+dense"}
     for k in kernels:
         name = k["name"]
-        k["launches"] = runs[own_run.get(name, "btd+fd")]["launches"][name]
+        # K1s runs on the TP path only
+        k["launches"] = (tp if name == "flash_attention_btd_sharded" else
+                         runs[own_run.get(name, "btd+fd")])["launches"][name]
         k["offline_launches"] = {sel: rec["launches"][name] for sel, rec in runs.items()}
         k["serving_launches"] = (served_variant if name in variant_burst
                                  else served)["launches"][name]
         k["longform_launches"] = long["launches"][name]
+        k["ladder_launches"] = ladder["launches"][name]
+        k["tp_launches"] = tp["launches"][name]
     keys = ("name", "route", "source", "replaces", "launches", "offline_launches",
-            "serving_launches", "longform_launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "serving_launches", "longform_launches", "ladder_launches", "tp_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

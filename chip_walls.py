@@ -9,8 +9,8 @@ Each argument is the root of a checkout (a directory holding
 unpacked with ``git archive`` into a git-ignored directory). For each, in
 the order given and in a process of its own, it builds that checkout's
 kernels and runs its ``chip_smoke.end_to_end`` (turbo B64/T64, kvq + skvq +
-w8a8, bf16) and ``chip_smoke.serving`` (the server's zero-flag defaults, 24
-clips) phases, and prints one JSON line with the offline wall and the
+w8a8, bf16) and ``chip_smoke.serving`` (the server's zero-flag defaults
+with the temperature ladder off, 24 clips) phases, and prints one JSON line with the offline wall and the
 serving burst's wall and latencies. With ``--phases`` it runs that
 checkout's named ``chip_smoke`` kernel phases instead (each checks its
 kernel against the plain version) and prints their times. Comparing two
@@ -35,14 +35,15 @@ from whisper_tpu_torch.ops import _build, decode_attention, flash_attention, int
 
 names = ("flash_attention_btd", "flash_attention", "cross_attention_decode_fd",
          "cross_attention_decode", "cross_attention_decode_dense", "self_attention_decode",
-         "self_attention_decode_int8")
+         "self_attention_decode_int8", "flash_attention_btd_sharded")
 counters = [getattr(m, n) for n in names for m in (decode_attention, flash_attention)
             if hasattr(m, n)] + [int8_gemm.int8_gemm, log10_mel.log10_mel]
 torch.backends.cuda.matmul.allow_tf32 = False
 build = _build.build_all()
 e2e, _ = cs.end_to_end(counters)
 torch.cuda.empty_cache()
-served = cs.serving(counters)
+# the greedy core (a checkout with the ladder passes --temperature_fallback '')
+served = cs.serving(counters, getattr(cs, "GREEDY", ()))
 print("RESULT " + json.dumps({
     "offline_wall_s": e2e["wall_s"], "offline_steps": e2e["decode_steps"],
     "serving_wall_s": served["wall_s"], "serving_p50_s": served["latency_p50_s"],

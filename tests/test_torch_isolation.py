@@ -45,11 +45,14 @@ assert not bad, bad
                                     "whisper_tpu_torch.ops.flash_attention",
                                     "whisper_tpu_torch.ops.decode_attention",
                                     "whisper_tpu_torch.models.model", "whisper_tpu_torch.cli",
-                                    "whisper_tpu_torch.serving.__main__"])
+                                    "whisper_tpu_torch.serving.__main__",
+                                    "whisper_tpu_torch.parallel",
+                                    "whisper_tpu_torch.parallel.sharding",
+                                    "whisper_tpu_torch.parallel.distributed"])
 def test_new_modules_import_alone(module):
-    """Each module of the long-form and kernel-selection slices, imported
-    alone, loads none of the forbidden modules (and no CUDA toolchain:
-    kernels build at first use)."""
+    """Each module of the long-form, kernel-selection and tensor-parallel
+    slices, imported alone, loads none of the forbidden modules (and no
+    CUDA toolchain: kernels build at first use)."""
     code = f"""
 import importlib, sys
 sys.path.insert(0, {str(REPO)!r})

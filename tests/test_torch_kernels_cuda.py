@@ -28,6 +28,7 @@ from whisper_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_btd,
     flash_attention_btd_plain,
+    flash_attention_btd_sharded,
     flash_attention_plain,
 )
 from whisper_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_plain
@@ -162,7 +163,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 
 @pytest.mark.parametrize("M,K,N", [(1500, 1280, 1280), (4500, 1280, 5120), (1500, 5120, 1280),
-                                   (3000, 384, 1536), (100, 64, 72), (257, 48, 24), (1, 16, 8)])
+                                   (3000, 384, 1536), (100, 64, 72), (257, 48, 24), (1, 16, 8),
+                                   # turbo's encoder at tp 2, per rank: q/k/v, o, mlp w1, w2
+                                   (1500, 1280, 640), (1500, 640, 1280), (4500, 1280, 2560),
+                                   (1500, 2560, 1280)])
 def test_int8_gemm_kernel_matches_plain(dev, M, K, N):
     """Exactly equal (int32): turbo's and tiny's widths at ragged M, a K
     that is not a multiple of the 64-byte step, N not a multiple of 128."""
@@ -423,3 +427,75 @@ def test_flash_attention_refuses_unaligned_views(dev):
         assert view.is_contiguous() and view.data_ptr() % 16 != 0
         with pytest.raises(ValueError):
             fn(view)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_btd_sharded_matches_full_k1(dev, dtype, tp):
+    """The sharded entry on a (1, tp) mesh of one card (turbo's 20 heads of
+    64, so 10 or 5 local heads) against the full kernel: attention is per
+    head, so every local launch computes the full launch's columns; and
+    against the plain version within K1's tolerance. One K1 launch per
+    rank, each counted as a sharded launch too."""
+    from whisper_tpu_torch.parallel.sharding import make_mesh
+
+    rng = np.random.default_rng(tp)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 300, 1280)).astype(np.float32))
+               .to(dev, dtype) for _ in range(3))
+    before = (flash_attention_btd.launches, flash_attention_btd_sharded.launches)
+    got = flash_attention_btd_sharded(q, k, v, 20, make_mesh(1, tp, devices=[dev] * tp))
+    torch.cuda.synchronize()
+    assert (flash_attention_btd.launches, flash_attention_btd_sharded.launches) == (
+        before[0] + tp, before[1] + tp)
+    full = flash_attention_btd(q, k, v, 20)
+    assert float((got.float() - full.float()).abs().max()) <= K1_TOL[dtype]
+    ref = flash_attention_btd_plain(q, k, v, 20)
+    assert float((got.float() - ref.float()).abs().max()) <= K1_TOL[dtype]
+
+
+def test_launches_on_other_cards_leave_the_current_device(dev):
+    """A tensor-parallel forward launches on several cards from one thread:
+    every kernel, launched on the last card while the first is current,
+    leaves the first current (events and ``synchronize()`` without a device
+    read it); the sharded entry over distinct cards equals the full K1 on
+    the first."""
+    from whisper_tpu_torch.parallel.sharding import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    first, last = torch.device("cuda", 0), torch.device("cuda", n - 1)
+    torch.cuda.set_device(first)
+    rng = np.random.default_rng(7)
+
+    def rand(*shape, device=last, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+
+    q, k, v = (rand(2, 150, 640) for _ in range(3))
+    kq, ks, vq, vs = (t[0] for t in quantize_cross_kv((rand(1, 2, 10, 160, 64),
+                                                      rand(1, 2, 10, 160, 64))))
+    qd = rand(2, 10, 1, 64)
+    cache = tuple(t.contiguous() for t in quantize_kv_heads(rand(2, 10, 32, 64),
+                                                            rand(2, 10, 32, 64)))
+    offsets = torch.full((2,), 5, dtype=torch.int64, device=last)
+    a8 = torch.from_numpy(rng.integers(-127, 128, (64, 128), dtype=np.int8)).to(last)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (128, 64), dtype=np.int8)).to(last)
+    launches = [lambda: flash_attention_btd(q, k, v, 10),
+                lambda: flash_attention(*(t.reshape(2, 150, 10, 64).transpose(1, 2).contiguous()
+                                          for t in (q, k, v))),
+                lambda: cross_attention_decode_fd(qd, kq, ks, vq, vs),
+                lambda: cross_attention_decode(qd, kq, ks, vq, vs),
+                lambda: cross_attention_decode_dense(qd, kq, ks, vq, vs),
+                lambda: self_attention_decode_int8(qd, *cache, offsets, None),
+                lambda: int8_gemm(a8, w8.t().contiguous().t()),
+                lambda: log10_mel(rand(2, 160 * 101 + 400, dtype=torch.float32), 80, 400, 160,
+                                  101)]
+    for fn in launches:
+        fn()
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(last)
+    qf, kf, vf = (rand(2, 150, 1280) for _ in range(3))
+    got = flash_attention_btd_sharded(qf, kf, vf, 20, make_mesh(1, 2, devices=[last, first]))
+    assert got.device == last and torch.cuda.current_device() == 0
+    want = flash_attention_btd(qf.to(first), kf.to(first), vf.to(first), 20)
+    assert torch.equal(got.to(first), want)

@@ -224,7 +224,7 @@ def test_engine_per_request_max_tokens(jax_params):
 
 
 UNPORTED_REQUESTS = {
-    "beam": dict(beam_size=2), "temperature": dict(temperature=0.4),
+    "beam": dict(beam_size=2),
     "long": dict(audio=np.zeros(16000 * 31, np.float32)),
     "word_timestamps": dict(word_timestamps=True), "initial_prompt": dict(initial_prompt="hi"),
     "condition_on_previous": dict(condition_on_previous=True), "auto": dict(language="auto"),
@@ -240,10 +240,9 @@ def test_engine_refuses_unported_request_options(jax_params, option):
         eng.submit(Request(**kw))
 
 
-@pytest.mark.parametrize("option", [dict(timestamps=True), dict(mesh=object()),
-                                    dict(encode_chunks=2), dict(temperature_fallback=(0.2,)),
+@pytest.mark.parametrize("option", [dict(timestamps=True), dict(encode_chunks=2),
                                     dict(adaptive_sync=True)],
-                         ids=["timestamps", "mesh", "encode_chunks", "ladder", "adaptive_sync"])
+                         ids=["timestamps", "encode_chunks", "adaptive_sync"])
 def test_engine_refuses_unported_engine_options(jax_params, option):
     with pytest.raises(NotImplementedError, match="not ported"):
         _engine(jax_params, **option)
@@ -340,7 +339,7 @@ def test_http_bad_inputs_answer_400(http_server, case):
 
 
 UNPORTED_HTTP = {
-    "beam": {"X-Beam": "2"}, "temperature": {"X-Temperature": "0.5"},
+    "beam": {"X-Beam": "2"},
     "word_timestamps": {"X-Word-Timestamps": "1"}, "initial_prompt": {"X-Initial-Prompt": "hi"},
     "condition_on_previous": {"X-Condition-On-Previous": "1"}, "stream": {"X-Stream": "1"},
     "format": {"X-Format": "srt"}, "language=auto": {"X-Language": "auto"}, "long": {},
@@ -372,8 +371,7 @@ def test_client_module(http_server, tmp_path):
 
 def test_main_refuses_unported_flags_and_a_missing_card(monkeypatch):
     for flags in (["--tp", "2"], ["--dp", "2"], ["--backends", "h:1"], ["--checkpoint", "x"],
-                  ["--timestamps"], ["--adaptive_sync"], ["--encode_chunks", "2"],
-                  ["--temperature_fallback", "0.2,0.4"]):
+                  ["--timestamps"], ["--adaptive_sync"], ["--encode_chunks", "2"]):
         assert serve_main(["--device", "cpu", *flags]) != 0, flags
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert serve_main(["--model_type", "test-nano"]) != 0  # cuda, the default, and no card

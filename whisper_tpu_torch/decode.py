@@ -1,27 +1,28 @@
-"""Batched greedy decoding.
+"""Batched greedy and sampled decoding.
 
 Port of ``whisper_tpu/decode.py``. The JAX package runs prefill and the whole
 token loop as one ``lax.while_loop``; here the loop is Python over eager
 PyTorch ops: one :func:`decoder_forward` prefill over the prompt, then one
 S=1 step per token, each followed by the rules (``sampling.apply_rules``),
-log_softmax and argmax. The all-done early exit reads one flag from the
-device per step; those host syncs are counted in the result.
+log_softmax and argmax (at ``temperature > 0``, a categorical draw). The
+all-done early exit reads one flag from the device per step; those host
+syncs are counted in the result. Every function takes a sharded model
+(``parallel.sharding.shard_params``) wherever it takes a ``Whisper``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
 
 from .models.model import (
-    KVCache,
-    QKVCache,
-    Whisper,
+    Shards,
     compute_cross_kv,
     decoder_forward,
     encoder_forward,
+    new_kv_cache,
     quantize_cross_kv,
 )
 from .sampling import RuleState, apply_rules
@@ -36,7 +37,7 @@ class GreedyResult(NamedTuple):
     host_syncs: int = 0           # device->host reads of the all-done flag
 
 
-def encode_cross_kv(model: Whisper, mel: torch.Tensor, compute_dtype=torch.float32,
+def encode_cross_kv(model, mel: torch.Tensor, compute_dtype=torch.float32,
                     kv_quant: bool = False, w8a8: bool = False, gelu: str = "erf",
                     encoder_attention: str = "btd"):
     """Encoder + per-layer cross-attention K/V: the 2-tuple (k, v) each
@@ -51,8 +52,32 @@ def encode_cross_kv(model: Whisper, mel: torch.Tensor, compute_dtype=torch.float
         return quantize_cross_kv(cross_kv) if kv_quant else cross_kv
 
 
+def index_cross_kv(cross_kv, idx: torch.Tensor):
+    """A batch subset of a (possibly int8, possibly sharded) cross-KV: every
+    leaf is (L, B, ...), batch on axis 1. The temperature ladder re-decodes
+    only the failed rows against it, without re-running the encoder."""
+    if isinstance(cross_kv, Shards):
+        return Shards(index_cross_kv(c, idx) for c in cross_kv)
+    return tuple(a.index_select(1, idx.to(a.device)) for a in cross_kv)
+
+
+def gumbel_noise(seed: int, device) -> Callable[[int, tuple], torch.Tensor]:
+    """The sampler's own noise: step -> standard Gumbel draws of a shape,
+    ``-log(-log(u))`` of uniforms from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (floored at the smallest normal fp32, as
+    ``jax.random.gumbel`` floors them)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tiny = torch.finfo(torch.float32).tiny
+
+    def draw(step: int, shape: tuple) -> torch.Tensor:
+        u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+
+    return draw
+
+
 def greedy_decode_kv(
-    model: Whisper,
+    model,
     cross_kv,
     prompt: torch.Tensor,  # (B, P) int64, e.g. [sot, lang, task, notimestamps]
     compute_dtype=torch.float32,
@@ -65,13 +90,26 @@ def greedy_decode_kv(
     prompt_pad: Optional[torch.Tensor] = None,  # (B,) int64 left-pad lengths
     sot_index: int = 0,
     cross_decode: str = "fd",
+    temperature: float = 0.0,
+    seed: int = 0,
+    noise: Optional[Callable[[int, tuple], torch.Tensor]] = None,
 ) -> GreedyResult:
-    """Prefill + greedy token loop against precomputed cross-KV.
+    """Prefill + greedy (or sampled) token loop against precomputed cross-KV.
 
-    Same semantics as the JAX ``greedy_decode_kv`` at temperature 0: the
-    loop runs while ``i < limit - 1`` and some stream is not done; a done
-    stream keeps emitting eot; ``lengths`` is the first eot at or after the
-    prompt. The self-KV cache is sized to the 128-rounded token budget.
+    Same semantics as the JAX ``greedy_decode_kv``: the loop runs while
+    ``i < limit - 1`` and some stream is not done; a done stream keeps
+    emitting eot; ``lengths`` is the first eot at or after the prompt. The
+    self-KV cache is sized to the 128-rounded token budget.
+
+    At ``temperature > 0`` each token is a categorical draw from the
+    filtered distribution at that temperature, as ``jax.random.categorical``
+    draws it: ``argmax(log_softmax(logits) / T + g)`` with standard Gumbel
+    noise ``g``; its logprob (``avg_logprob``) is read from the unscaled
+    distribution, as in JAX. ``noise(step, shape)`` supplies the draws of
+    step 0 (the token after the prefill), 1, ... (tests hand in the JAX
+    package's own, drawn from ``PRNGKey(seed)`` with its key splits);
+    without it the draws come from :func:`gumbel_noise` of ``seed`` on the
+    logits' device.
     ``timestamps`` runs the timestamp grammar of ``sampling.apply_rules``.
     ``prompt_pad`` right-aligns prompts of differing lengths (e.g.
     ``[sot_prev, *prev, sot, lang, task]``): the first ``prompt_pad[b]``
@@ -100,15 +138,21 @@ def greedy_decode_kv(
         return apply_rules(logits, state, cfg, suppress_ids=suppress_ids,
                            timestamps=timestamps)
 
-    def sample(logits_f):
+    stochastic = bool(temperature and temperature > 0)
+    if stochastic and noise is None:
+        noise = gumbel_noise(seed, device)
+
+    def sample(logits_f, step: int):
         lp = torch.log_softmax(logits_f.to(torch.float32), dim=-1)
-        tok = torch.argmax(lp, dim=-1)
+        if stochastic:
+            # a tensor divisor, so the card divides as the CPU does
+            tok = torch.argmax(lp / lp.new_full((), temperature) + noise(step, tuple(lp.shape)),
+                               dim=-1)
+        else:
+            tok = torch.argmax(lp, dim=-1)
         return tok, torch.gather(lp, 1, tok[:, None])[:, 0]
 
-    if self_kv_quant:
-        kv = QKVCache.create(cfg, B, ctx=kv_ctx, device=device)
-    else:
-        kv = KVCache.create(cfg, B, dtype=compute_dtype, ctx=kv_ctx, device=device)
+    kv = new_kv_cache(model, B, compute_dtype, kv_ctx, quant=self_kv_quant)
 
     prompt = prompt.to(torch.int64)
     tokens = torch.full((B, T), eot, dtype=torch.int64, device=device)
@@ -120,7 +164,7 @@ def greedy_decode_kv(
                                  pad=prompt_pad, gelu=gelu, cross_decode=cross_decode)
     no_speech_prob = torch.softmax(logits[:, sot_index], dim=-1)[:, cfg.no_speech]
     rs = RuleState.create(B, device=device)
-    first, first_lp = sample(filt(logits[:, -1], rs))
+    first, first_lp = sample(filt(logits[:, -1], rs), 0)
     rs = rs.advance(first, ts0)
     tokens[:, P] = first
     done = first == eot
@@ -135,7 +179,7 @@ def greedy_decode_kv(
         logits, kv = decoder_forward(model, tokens[:, i:i + 1], i, kv, cross_kv,
                                      compute_dtype, pad=prompt_pad, gelu=gelu,
                                      cross_decode=cross_decode)
-        nxt, lp = sample(filt(logits[:, 0], rs))
+        nxt, lp = sample(filt(logits[:, 0], rs), steps + 1)
         nxt = torch.where(done, torch.full_like(nxt, eot), nxt)
         alive = ~done
         done = done | (nxt == eot)
@@ -155,7 +199,7 @@ def greedy_decode_kv(
                         steps=steps, host_syncs=syncs)
 
 
-def greedy_decode(model: Whisper, mel: torch.Tensor, prompt: torch.Tensor,
+def greedy_decode(model, mel: torch.Tensor, prompt: torch.Tensor,
                   compute_dtype=torch.float32, kv_quant: bool = False,
                   w8a8: bool = False, gelu: str = "erf", encoder_attention: str = "btd",
                   **kw) -> GreedyResult:

@@ -12,6 +12,7 @@
 from __future__ import annotations
 
 import difflib
+import zlib
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -88,6 +89,13 @@ def silence_mask(result, no_speech_threshold, logprob_threshold) -> np.ndarray:
         confident = result.avg_logprob.cpu().numpy() > logprob_threshold
         silent &= ~confident
     return silent
+
+
+def compression_ratio(text: str) -> float:
+    """OpenAI's repetition gate: the text's UTF-8 length over its zlib
+    length (0 for no text)."""
+    raw = text.encode("utf-8")
+    return len(raw) / max(len(zlib.compress(raw)), 1)
 
 
 def merge_texts(texts: Sequence[str], language: str = "zh",

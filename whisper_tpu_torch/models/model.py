@@ -28,6 +28,14 @@ counterpart: on the card every attention at these sites runs a kernel, and
 an unknown selection raises ``ValueError``. The W8A8 encoder's int8 x int8
 products go through :func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm`.
 
+Tensor parallelism: every forward function also takes a
+:class:`ShardedWhisper` (``parallel.sharding.shard_params``), whose ranks
+hold their local heads and MLP columns. The ranks of a layer run in rank
+order in one process; the row-parallel products are summed on the lead
+device (:func:`_row_parallel`), so no process group is needed, and caches
+and cross-KV come as :class:`Shards`, one per rank over its local heads. A
+``Whisper`` is the one-rank case of the same code.
+
 The KV caches are updated IN PLACE (JAX returns new arrays). In
 :func:`decoder_forward` a write that would fall outside a cache raises: JAX's
 ``dynamic_update_slice`` clamps the start instead, which would silently
@@ -52,7 +60,7 @@ from ..ops.decode_attention import (
     self_attention_decode,
     self_attention_decode_int8,
 )
-from ..ops.flash_attention import flash_attention, flash_attention_btd
+from ..ops.flash_attention import flash_attention, flash_attention_btd_local
 from ..ops.int8_gemm import int8_gemm
 from ..ops.quant import QTensor
 
@@ -158,6 +166,61 @@ class Whisper(nn.Module):
         return self
 
 
+class ShardedWhisper:
+    """A :class:`Whisper` split over the MODEL axis of a mesh
+    (``parallel.sharding.shard_params``). ``shards[r]`` is a ``Whisper`` on
+    rank r's device holding its local attention heads and MLP columns:
+    column-parallel ``wq/bq/wk/wv/bv/w1/b1``, row-parallel ``wo/w2``; the
+    other weights are replicated. With ``vocab_split`` the token embedding
+    (and its int8 logits copy) is split over the vocabulary, rank r holding
+    rows ``r * V / tp`` onwards.
+
+    The forward functions of this module take it wherever they take a
+    ``Whisper``, and run the ranks of a layer in rank order: each rank's
+    local products on its device, then the row-parallel partial products
+    summed on the lead device (``shards[0]``'s) in rank order, which is the
+    all-reduce; replicated activations (LayerNorm, residuals, logits rules)
+    are computed once there. A ``Whisper`` is the one-shard case of the
+    same code."""
+
+    def __init__(self, cfg: WhisperConfig, shards, mesh=None, vocab_split: bool = False):
+        self.cfg = cfg
+        self.shards = tuple(shards)
+        self.mesh = mesh
+        self.vocab_split = vocab_split
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+
+class Shards(tuple):
+    """Per-rank values under a :class:`ShardedWhisper`, in rank order: its
+    self-KV caches (each over the rank's local heads) and its cross-KV
+    tuples."""
+
+
+def model_shards(model) -> Tuple[Whisper, ...]:
+    """The ranks of ``model``: its shards, or the ``Whisper`` itself."""
+    return model.shards if isinstance(model, ShardedWhisper) else (model,)
+
+
+def shard_values(x) -> tuple:
+    """A cache or cross-KV as per-rank values: a :class:`Shards` as it is,
+    anything else as the one value of an unsharded model."""
+    return x if isinstance(x, Shards) else (x,)
+
+
+def _pack(values):
+    """Per-rank values as one: the value itself for a single rank."""
+    return values[0] if len(values) == 1 else Shards(values)
+
+
+def _to(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``; nothing moves when it is there already."""
+    return t if t.device == device else t.to(device)
+
+
 def _set(owner, key, val) -> None:
     if isinstance(owner, dict):
         owner[key] = val
@@ -165,13 +228,14 @@ def _set(owner, key, val) -> None:
         setattr(owner, key, val)
 
 
-def cast_floating(model: Whisper, dtype: torch.dtype) -> Whisper:
-    """Cast floating-point weights to ``dtype`` in place; int8 QTensor
-    payloads and their fp32 scales stay as they are (as the JAX
-    ``cast_floating``)."""
-    for owner, key, val in model.leaves():
-        if isinstance(val, torch.Tensor) and val.is_floating_point():
-            _set(owner, key, val.to(dtype))
+def cast_floating(model, dtype: torch.dtype):
+    """Cast floating-point weights to ``dtype`` in place (every shard of a
+    :class:`ShardedWhisper`); int8 QTensor payloads and their fp32 scales
+    stay as they are (as the JAX ``cast_floating``)."""
+    for shard in model_shards(model):
+        for owner, key, val in shard.leaves():
+            if isinstance(val, torch.Tensor) and val.is_floating_point():
+                _set(owner, key, val.to(dtype))
     return model
 
 
@@ -224,6 +288,33 @@ def _int8_matmul(x8: torch.Tensor, w: QTensor) -> torch.Tensor:
     return int8_gemm(x8.contiguous(), w.k_major())
 
 
+def _row_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The W8A8 row scale from a row's absolute maximum. A tensor divisor:
+    CUDA turns division by a Python scalar into a product with its
+    reciprocal, which can put the scale one ulp off the CPU's (and the JAX
+    package's) quotient and flip an int8 activation."""
+    amax = torch.clamp(amax, min=1e-8)
+    return amax / amax.new_full((), 127.0)
+
+
+def _quantize_rows(xf: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 of fp32 rows ``xf`` at row scale ``sx`` (..., 1)."""
+    return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+
+
+def _a8_product(x8: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """(..., K) int8 activations @ the (K, N) int8 payload -> (..., N) int32."""
+    lead = x8.shape[:-1]
+    return _int8_matmul(x8.reshape(-1, x8.shape[-1]), w).reshape(*lead, -1)
+
+
+def _a8_epilogue(y: torch.Tensor, sx: torch.Tensor, w: QTensor, b: Optional[torch.Tensor],
+                 dtype) -> torch.Tensor:
+    """int32 product -> (row scale x channel scale) in fp32 -> dtype, + bias."""
+    y = ((y.to(torch.float32) * sx) * w.s.to(torch.float32).reshape(-1)).to(dtype)
+    return y if b is None else y + b.to(dtype)
+
+
 def _linear_a8(x: torch.Tensor, w, b: Optional[torch.Tensor], dtype) -> torch.Tensor:
     """W8A8 matmul: dynamic per-token symmetric int8 activations against the
     int8 weight payload, int32 product, (row scale x channel scale)
@@ -232,18 +323,61 @@ def _linear_a8(x: torch.Tensor, w, b: Optional[torch.Tensor], dtype) -> torch.Te
     if not isinstance(w, QTensor):
         return _linear(x, w, b, dtype)
     xf = x.to(torch.float32)
-    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
-    # a tensor divisor: CUDA turns division by a Python scalar into a product
-    # with its reciprocal, which can put the scale one ulp off the CPU's (and
-    # the JAX package's) quotient and flip an int8 activation
-    sx = amax / amax.new_full((), 127.0)
-    x8 = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
-    lead = x8.shape[:-1]
-    y = _int8_matmul(x8.reshape(-1, x8.shape[-1]), w).reshape(*lead, -1)
-    y = ((y.to(torch.float32) * sx) * w.s.to(torch.float32).reshape(-1)).to(dtype)
-    if b is not None:
-        y = y + b.to(dtype)
-    return y
+    sx = _row_scale(xf.abs().amax(dim=-1, keepdim=True))
+    x8 = _quantize_rows(xf, sx)
+    del xf  # 4 bytes an element: not held through the product
+    return _a8_epilogue(_a8_product(x8, w), sx, w, b, dtype)
+
+
+def _weight_device(w) -> torch.device:
+    return w.q.device if isinstance(w, QTensor) else w.device
+
+
+def _column(h: torch.Tensor, per_rank, dtype, a8: bool = False) -> list:
+    """Column-parallel products of the replicated activation ``h``:
+    ``per_rank[r]`` lists rank r's (weight, bias) pairs, and rank r gets
+    ``[h @ w + b, ...]`` on its device (:func:`_linear_a8` with ``a8``: the
+    rows of ``h`` span its full width on every rank, so each rank's columns
+    are the one-rank product's)."""
+    lin = _linear_a8 if a8 else _linear
+    out = []
+    for pairs in per_rank:
+        hs = _to(h, _weight_device(pairs[0][0]))
+        out.append([lin(hs, w, b, dtype) for w, b in pairs])
+    return out
+
+
+def _row_parallel(xs, ws, b: Optional[torch.Tensor], dtype, a8: bool = False) -> torch.Tensor:
+    """sum over ranks of ``xs[r] @ ws[r]`` (+ ``b``), on the lead device:
+    each rank's partial product of its rows of the weight against its local
+    columns of the activation, summed in rank order (the all-reduce), then
+    the bias once.
+
+    With ``a8`` and a quantized weight (W8A8) every rank quantizes its
+    columns with the GLOBAL row scale, from the maximum of the ranks' local
+    row maxima (as GSPMD computes it), and the int32 partial products are
+    summed before the (row scale x channel scale) epilogue. The int32 sum
+    is exact, so any number of ranks gives the bits of one."""
+    if len(xs) == 1:
+        return (_linear_a8 if a8 else _linear)(xs[0], ws[0], b, dtype)
+    lead = xs[0].device
+    if a8 and isinstance(ws[0], QTensor):
+        xfs = [x.to(torch.float32) for x in xs]
+        amax = None
+        for xf in xfs:
+            m = _to(xf.abs().amax(dim=-1, keepdim=True), lead)
+            amax = m if amax is None else torch.maximum(amax, m)
+        sx = _row_scale(amax)
+        acc = None
+        for xf, w in zip(xfs, ws):
+            y = _a8_product(_quantize_rows(xf, _to(sx, xf.device)), w)
+            acc = y if acc is None else acc + _to(y, lead)
+        return _a8_epilogue(acc, sx, ws[0], b, dtype)
+    acc = None
+    for x, w in zip(xs, ws):
+        y = _linear(x, w, None, dtype)
+        acc = y if acc is None else acc + _to(y, lead)
+    return acc if b is None else acc + b.to(dtype)
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -311,10 +445,11 @@ def attention_int8kv_perpos(q, kv_q, kv_s, mask=None) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ encoder
-def encoder_stem(model: Whisper, mel: torch.Tensor, compute_dtype=torch.float32,
+def encoder_stem(model, mel: torch.Tensor, compute_dtype=torch.float32,
                  gelu: str = "erf") -> torch.Tensor:
-    """Conv stem + positional embedding: (B, n_mels, 3000) -> (B, Ta, D)."""
-    enc = model.encoder
+    """Conv stem + positional embedding: (B, n_mels, 3000) -> (B, Ta, D)
+    (on the lead device under a mesh)."""
+    enc = model_shards(model)[0].encoder
     dt = compute_dtype
     x = mel.to(dt)
     x = _gelu(F.conv1d(x, enc.conv1["w"].to(dt), enc.conv1["b"].to(dt), padding=1), gelu)
@@ -324,7 +459,7 @@ def encoder_stem(model: Whisper, mel: torch.Tensor, compute_dtype=torch.float32,
     return x + enc.pos_emb[: x.shape[1]].to(dt)
 
 
-def encoder_blocks(model: Whisper, x: torch.Tensor, compute_dtype=torch.float32,
+def encoder_blocks(model, x: torch.Tensor, compute_dtype=torch.float32,
                    lo: int = 0, hi: Optional[int] = None, w8a8: bool = False,
                    gelu: str = "erf", attn: str = "btd") -> torch.Tensor:
     """Transformer blocks [lo, hi) over the stem output. ``w8a8`` runs the
@@ -332,35 +467,44 @@ def encoder_blocks(model: Whisper, x: torch.Tensor, compute_dtype=torch.float32,
     LayerNorm stay in the compute dtype). ``attn="btd"`` runs the attention
     on the (B, T, D) projections as they are; ``"bhtd"`` splits heads into
     contiguous (B, H, T, dh) copies, runs the split-head kernel and merges
-    back, as the JAX package does under ``WHISPER_TPU_FLASH=bhtd``."""
+    back, as the JAX package does under ``WHISPER_TPU_FLASH=bhtd``.
+
+    Under a mesh (:class:`ShardedWhisper`) each rank projects its local
+    heads, runs the attention kernel on them (``btd``: K1 per rank through
+    :func:`~whisper_tpu_torch.ops.flash_attention.flash_attention_btd_local`,
+    the sharded entry's launch; ``bhtd``: K6 per rank) and its partial
+    ``wo``; the MLP splits the same way (:func:`_column`,
+    :func:`_row_parallel`). W8A8 then gives the one-rank encoder's bits."""
     check_selections(encoder_attention=attn)
     dt = compute_dtype
-    n_head = model.cfg.n_audio_head
-    lin = _linear_a8 if w8a8 else _linear
-    for blk in model.encoder.blocks[lo:hi]:
-        a = blk.attn
-        h = layer_norm(x, blk.attn_ln["g"], blk.attn_ln["b"])
-        q = lin(h, a["wq"], a["bq"], dt)
-        k = lin(h, a["wk"], None, dt)
-        v = lin(h, a["wv"], a["bv"], dt)
+    shards = model_shards(model)
+    n_local = model.cfg.n_audio_head // len(shards)
+    for i in range(len(shards[0].encoder.blocks))[lo:hi]:
+        blks = [s.encoder.blocks[i] for s in shards]
+        b0 = blks[0]
+        # the LayerNorm outputs are not kept past their products (peak memory)
+        qkv = _column(layer_norm(x, b0.attn_ln["g"], b0.attn_ln["b"]),
+                      [[(blk.attn["wq"], blk.attn["bq"]), (blk.attn["wk"], None),
+                        (blk.attn["wv"], blk.attn["bv"])] for blk in blks], dt, w8a8)
         if attn == "btd":
-            o = flash_attention_btd(q, k, v, n_head)
+            outs = flash_attention_btd_local(*zip(*qkv), model.cfg.n_audio_head)
         else:
-            o = _merge_heads(flash_attention(
-                *(_split_heads(t, n_head).contiguous() for t in (q, k, v))))
-        x = x + lin(o, a["wo"], a["bo"], dt)
-        h = layer_norm(x, blk.mlp_ln["g"], blk.mlp_ln["b"])
-        h = _gelu(lin(h, blk.mlp["w1"], blk.mlp["b1"], dt), gelu)
-        x = x + lin(h, blk.mlp["w2"], blk.mlp["b2"], dt)
+            outs = [_merge_heads(flash_attention(
+                *(_split_heads(t, n_local).contiguous() for t in p))) for p in qkv]
+        x = x + _row_parallel(outs, [blk.attn["wo"] for blk in blks], b0.attn["bo"], dt, w8a8)
+        hs = [_gelu(y, gelu) for (y,) in _column(
+            layer_norm(x, b0.mlp_ln["g"], b0.mlp_ln["b"]),
+            [[(blk.mlp["w1"], blk.mlp["b1"])] for blk in blks], dt, w8a8)]
+        x = x + _row_parallel(hs, [blk.mlp["w2"] for blk in blks], b0.mlp["b2"], dt, w8a8)
     return x
 
 
-def encoder_post(model: Whisper, x: torch.Tensor) -> torch.Tensor:
-    ln = model.encoder.ln_post
+def encoder_post(model, x: torch.Tensor) -> torch.Tensor:
+    ln = model_shards(model)[0].encoder.ln_post
     return layer_norm(x, ln["g"], ln["b"]).to(torch.float32)
 
 
-def encoder_forward(model: Whisper, mel: torch.Tensor, compute_dtype=torch.float32,
+def encoder_forward(model, mel: torch.Tensor, compute_dtype=torch.float32,
                     w8a8: bool = False, gelu: str = "erf", attn: str = "btd") -> torch.Tensor:
     """Conv stem + transformer encoder -> audio features (B, Ta, D) fp32;
     ``attn`` as in :func:`encoder_blocks`."""
@@ -369,28 +513,36 @@ def encoder_forward(model: Whisper, mel: torch.Tensor, compute_dtype=torch.float
     return encoder_post(model, x)
 
 
-def compute_cross_kv(model: Whisper, audio_features: torch.Tensor,
-                     compute_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-decoder-layer cross-attention K/V, head-major (L, B, H, Ta, dh)."""
+def compute_cross_kv(model, audio_features: torch.Tensor, compute_dtype=torch.float32):
+    """Per-decoder-layer cross-attention K/V, head-major (L, B, H, Ta, dh).
+    Under a mesh, :class:`Shards` of each rank's (k, v) over its local
+    heads, on its device."""
     dt = compute_dtype
-    x = audio_features.to(dt)
-    H = model.cfg.n_text_head
-    ks, vs = [], []
-    for blk in model.decoder.blocks:
-        c = blk.cross
-        ks.append(_split_heads(_linear(x, c["wk"], None, dt), H))
-        vs.append(_split_heads(_linear(x, c["wv"], c["bv"], dt), H))
-    return torch.stack(ks), torch.stack(vs)
+    shards = model_shards(model)
+    H = model.cfg.n_text_head // len(shards)
+    out = []
+    for shard in shards:
+        x = _to(audio_features, shard.device).to(dt)
+        ks, vs = [], []
+        for blk in shard.decoder.blocks:
+            c = blk.cross
+            ks.append(_split_heads(_linear(x, c["wk"], None, dt), H))
+            vs.append(_split_heads(_linear(x, c["wv"], c["bv"], dt), H))
+        out.append((torch.stack(ks), torch.stack(vs)))
+    return _pack(out)
 
 
-def quantize_cross_kv(cross_kv: Tuple[torch.Tensor, torch.Tensor]):
+def quantize_cross_kv(cross_kv):
     """Dynamic int8 quantization of the cross-attention K/V, symmetric per
     (layer, batch, head, channel) over the audio axis, 1e-12 scale floor.
 
     Returns (k_q, k_s, v_q, v_s): int8 stored TRANSPOSED (L, B, H, dh, Ta) so
     each (b, h) row of the decode step's reads is Ta contiguous bytes, and
     fp32 scales (L, B, H, 1, dh). Quantizes one layer at a time to bound the
-    fp32 transient."""
+    fp32 transient. The scales are per head, so :class:`Shards` quantize
+    rank by rank to the one-rank result."""
+    if isinstance(cross_kv, Shards):
+        return Shards(quantize_cross_kv(c) for c in cross_kv)
     out = []
     for x in cross_kv:
         L, B, H, Ta, dh = x.shape
@@ -415,8 +567,8 @@ class KVCache(NamedTuple):
 
     @classmethod
     def create(cls, cfg: WhisperConfig, batch: int, dtype=torch.float32,
-               ctx: Optional[int] = None, *, device) -> "KVCache":
-        shape = (cfg.n_text_layer, batch, cfg.n_text_head, cfg.head_dim_text,
+               ctx: Optional[int] = None, *, device, heads: Optional[int] = None) -> "KVCache":
+        shape = (cfg.n_text_layer, batch, heads or cfg.n_text_head, cfg.head_dim_text,
                  ctx or cfg.n_text_ctx)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
@@ -432,11 +584,23 @@ class QKVCache(NamedTuple):
 
     @classmethod
     def create(cls, cfg: WhisperConfig, batch: int, ctx: Optional[int] = None, *,
-               device) -> "QKVCache":
-        L, H, dh = cfg.n_text_layer, cfg.n_text_head, cfg.head_dim_text
+               device, heads: Optional[int] = None) -> "QKVCache":
+        L, H, dh = cfg.n_text_layer, heads or cfg.n_text_head, cfg.head_dim_text
         T = ctx or cfg.n_text_ctx
         return cls(torch.zeros((L, batch, H, 2, dh, T), dtype=torch.int8, device=device),
                    torch.ones((L, batch, H, 2, T), dtype=torch.float32, device=device))
+
+
+def new_kv_cache(model, batch: int, dtype=torch.float32, ctx: Optional[int] = None,
+                 quant: bool = False):
+    """A self-KV cache for ``model``: a :class:`KVCache` (a
+    :class:`QKVCache` with ``quant``) on its device, or under a mesh
+    :class:`Shards` of each rank's cache over its local heads."""
+    shards = model_shards(model)
+    H = model.cfg.n_text_head // len(shards)
+    return _pack([QKVCache.create(model.cfg, batch, ctx, device=s.device, heads=H) if quant
+                  else KVCache.create(model.cfg, batch, dtype, ctx, device=s.device, heads=H)
+                  for s in shards])
 
 
 def quantize_kv_heads(kh: torch.Tensor, vh: torch.Tensor):
@@ -458,6 +622,36 @@ def _logits(x: torch.Tensor, dec: Decoder, dt) -> torch.Tensor:
         logits = torch.matmul(xf, q8.q.to(torch.float32).t())
         return logits * q8.s.to(torch.float32).reshape(1, 1, -1)
     return torch.matmul(xf, dec.tok_emb.to(dt).to(torch.float32).t())
+
+
+def _model_logits(model, x: torch.Tensor, dt) -> torch.Tensor:
+    """:func:`_logits` on the lead device; under a vocabulary-split
+    embedding each rank's logit columns, concatenated there in rank order,
+    which is vocabulary order."""
+    shards = model_shards(model)
+    if not (isinstance(model, ShardedWhisper) and model.vocab_split):
+        return _logits(x, shards[0].decoder, dt)
+    return torch.cat([_to(_logits(_to(x, s.device), s.decoder, dt), x.device)
+                      for s in shards], dim=-1)
+
+
+def _embed(model, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings on the lead device. Under a vocabulary-split table
+    rank r looks up the ids in its rows [r * V / tp, (r + 1) * V / tp) and
+    each id takes the row of the rank that holds it (GSPMD's masked
+    gather, with a select for its sum)."""
+    shards = model_shards(model)
+    if not (isinstance(model, ShardedWhisper) and model.vocab_split):
+        return shards[0].decoder.tok_emb[tokens]
+    out = None
+    for r, s in enumerate(shards):
+        table = s.decoder.tok_emb
+        local = _to(tokens, s.device) - r * table.shape[0]
+        held = (local >= 0) & (local < table.shape[0])
+        rows = _to(table[torch.clamp(local, 0, table.shape[0] - 1)], tokens.device)
+        held = _to(held, tokens.device)[..., None]
+        out = rows if out is None else torch.where(held, rows, out)
+    return out
 
 
 def _check_window(offset: int, S: int, T: int, what: str):
@@ -495,15 +689,17 @@ def decoder_forward(
     """
     check_selections(cross_decode=cross_decode)
     cfg = model.cfg
-    dec = model.decoder
+    shards = model_shards(model)
+    dec = shards[0].decoder
     dt = compute_dtype
     B, S = tokens.shape
-    T = kv[0].shape[-1]
-    n_head = cfg.n_text_head
+    kvs, crosses = shard_values(kv), shard_values(cross_kv)
+    T = kvs[0][0].shape[-1]
+    n_head = cfg.n_text_head // len(shards)
     device = tokens.device
     _check_window(offset, S, T, "KV cache write")
 
-    x = dec.tok_emb[tokens].to(dt)
+    x = _embed(model, tokens).to(dt)
     if pad is None:
         _check_window(offset, S, dec.pos_emb.shape[0], "positional embedding")
         x = x + dec.pos_emb[offset:offset + S].to(dt)[None]
@@ -520,57 +716,68 @@ def decoder_forward(
         if pad is not None:
             vis = vis & (key_pos[None, None] >= pad[:, None, None, None])
 
-    kv_quant = len(cross_kv) == 4
-    self_quant = isinstance(kv, QKVCache)
+    kv_quant = len(crosses[0]) == 4
+    self_quant = isinstance(kvs[0], QKVCache)
     window = slice(offset, offset + S)
-    for layer, blk in enumerate(dec.blocks):
-        a = blk.attn
-        h = layer_norm(x, blk.attn_ln["g"], blk.attn_ln["b"])
-        q = _linear(h, a["wq"], a["bq"], dt)
-        k_new = _linear(h, a["wk"], None, dt)
-        v_new = _linear(h, a["wv"], a["bv"], dt)
-        kh, vh, qh = (_split_heads(t, n_head) for t in (k_new, v_new, q))
-        if self_quant:
-            qn, sn = quantize_kv_heads(kh, vh)
-            kv.q[layer, ..., window] = qn
-            kv.s[layer, ..., window] = sn
-            if S == 1:
-                o = self_attention_decode_int8(qh, kv.q[layer], kv.s[layer], offset, pad)
+    for layer in range(cfg.n_text_layer):
+        blks = [s.decoder.blocks[layer] for s in shards]
+        b0 = blks[0]
+        h = layer_norm(x, b0.attn_ln["g"], b0.attn_ln["b"])
+        outs = []
+        for c, (q, k_new, v_new) in zip(kvs, _column(
+                h, [[(blk.attn["wq"], blk.attn["bq"]), (blk.attn["wk"], None),
+                     (blk.attn["wv"], blk.attn["bv"])] for blk in blks], dt)):
+            kh, vh, qh = (_split_heads(t, n_head) for t in (k_new, v_new, q))
+            pad_r = None if pad is None else _to(pad, q.device)
+            vis_r = None if vis is None else _to(vis, q.device)
+            if self_quant:
+                qn, sn = quantize_kv_heads(kh, vh)
+                c.q[layer, ..., window] = qn
+                c.s[layer, ..., window] = sn
+                if S == 1:
+                    o = self_attention_decode_int8(qh, c.q[layer], c.s[layer], offset, pad_r)
+                else:
+                    o = attention_int8kv_perpos(qh, c.q[layer], c.s[layer], mask=vis_r)
             else:
-                o = attention_int8kv_perpos(qh, kv.q[layer], kv.s[layer], mask=vis)
-        else:
-            kv.k[layer, ..., window] = kh.transpose(-1, -2).to(kv.k.dtype)
-            kv.v[layer, ..., window] = vh.transpose(-1, -2).to(kv.v.dtype)
-            if S == 1:
-                o = self_attention_decode(qh, kv.k[layer], kv.v[layer], offset, pad)
-            else:
-                o = attention_kvt(qh, kv.k[layer].to(dt), kv.v[layer].to(dt), mask=vis)
-        x = x + _linear(_merge_heads(o), a["wo"], a["bo"], dt)
-        x = _cross_and_mlp(x, blk, layer, cross_kv, kv_quant and S == 1, n_head, dt, gelu,
+                c.k[layer, ..., window] = kh.transpose(-1, -2).to(c.k.dtype)
+                c.v[layer, ..., window] = vh.transpose(-1, -2).to(c.v.dtype)
+                if S == 1:
+                    o = self_attention_decode(qh, c.k[layer], c.v[layer], offset, pad_r)
+                else:
+                    o = attention_kvt(qh, c.k[layer].to(dt), c.v[layer].to(dt), mask=vis_r)
+            outs.append(_merge_heads(o))
+        x = x + _row_parallel(outs, [blk.attn["wo"] for blk in blks], b0.attn["bo"], dt)
+        x = _cross_and_mlp(x, blks, layer, crosses, kv_quant and S == 1, n_head, dt, gelu,
                            cross_decode)
 
     x = layer_norm(x, dec.ln["g"], dec.ln["b"])
-    return _logits(x, dec, dt), kv
+    return _model_logits(model, x, dt), kv
 
 
-def _cross_and_mlp(x, blk: DecoderBlock, layer: int, cross_kv, decode_kernel: bool,
-                   n_head: int, dt, gelu: str, cross_decode: str = "fd") -> torch.Tensor:
-    """A decoder block after its self-attention: cross-attention (where
-    ``decode_kernel``, the int8 decode kernel ``cross_decode`` selects) and
-    the MLP, residuals included."""
-    c = blk.cross
-    h = layer_norm(x, blk.cross_ln["g"], blk.cross_ln["b"])
-    qh = _split_heads(_linear(h, c["wq"], c["bq"], dt), n_head)
-    if decode_kernel:
-        o = _cross_decode_kernel(cross_decode)(qh, *(t[layer] for t in cross_kv))
-    elif len(cross_kv) == 4:
-        o = attention_int8kv(qh, *(t[layer] for t in cross_kv))
-    else:
-        o = attention(qh, cross_kv[0][layer].to(dt), cross_kv[1][layer].to(dt))
-    x = x + _linear(_merge_heads(o), c["wo"], c["bo"], dt)
-    h = layer_norm(x, blk.mlp_ln["g"], blk.mlp_ln["b"])
-    h = _gelu(_linear(h, blk.mlp["w1"], blk.mlp["b1"], dt), gelu)
-    return x + _linear(h, blk.mlp["w2"], blk.mlp["b2"], dt)
+def _cross_and_mlp(x, blks, layer: int, crosses, decode_kernel: bool, n_head: int, dt,
+                   gelu: str, cross_decode: str = "fd") -> torch.Tensor:
+    """A decoder block after its self-attention, over the ranks' blocks
+    ``blks`` and cross-KVs ``crosses``: cross-attention on each rank's local
+    heads (where ``decode_kernel``, the int8 decode kernel ``cross_decode``
+    selects) and the MLP, residuals included."""
+    b0 = blks[0]
+    h = layer_norm(x, b0.cross_ln["g"], b0.cross_ln["b"])
+    outs = []
+    for ckv, (q,) in zip(crosses, _column(
+            h, [[(blk.cross["wq"], blk.cross["bq"])] for blk in blks], dt)):
+        qh = _split_heads(q, n_head)
+        if decode_kernel:
+            o = _cross_decode_kernel(cross_decode)(qh, *(t[layer] for t in ckv))
+        elif len(ckv) == 4:
+            o = attention_int8kv(qh, *(t[layer] for t in ckv))
+        else:
+            o = attention(qh, ckv[0][layer].to(dt), ckv[1][layer].to(dt))
+        outs.append(_merge_heads(o))
+    x = x + _row_parallel(outs, [blk.cross["wo"] for blk in blks], b0.cross["bo"], dt)
+    h = layer_norm(x, b0.mlp_ln["g"], b0.mlp_ln["b"])
+    hs = [_gelu(y, gelu) for (y,) in
+          _column(h, [[(blk.mlp["w1"], blk.mlp["b1"])] for blk in blks], dt)]
+    return x + _row_parallel(hs, [blk.mlp["w2"] for blk in blks], b0.mlp["b2"], dt)
 
 
 def _write_rows(cache: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
@@ -612,40 +819,54 @@ def decoder_step_multipos(
     """
     check_selections(cross_decode=cross_decode)
     cfg = model.cfg
-    dec = model.decoder
+    shards = model_shards(model)
+    dec = shards[0].decoder
     dt = compute_dtype
     B = tokens.shape[0]
-    T = kv[0].shape[-1]
-    n_head, dh = cfg.n_text_head, cfg.head_dim_text
-    rows = torch.arange(B, device=tokens.device)
+    kvs, crosses = shard_values(kv), shard_values(cross_kv)
+    T = kvs[0][0].shape[-1]
+    n_head, dh = cfg.n_text_head // len(shards), cfg.head_dim_text
 
     pos_idx = offsets if pads is None else offsets - pads
     pos_idx = torch.clamp(pos_idx, 0, dec.pos_emb.shape[0] - 1)
-    x = (dec.tok_emb[tokens].to(dt) + dec.pos_emb[pos_idx].to(dt))[:, None, :]  # (B, 1, D)
+    x = (_embed(model, tokens).to(dt) + dec.pos_emb[pos_idx].to(dt))[:, None, :]  # (B, 1, D)
     inside = (offsets >= 0) & (offsets < T)
     at = torch.clamp(offsets, 0, T - 1)
+    # the per-row step state on each rank's device (one copy a step)
+    local = {}
+    for s in shards:
+        if s.device not in local:
+            local[s.device] = tuple(None if t is None else _to(t, s.device) for t in (
+                torch.arange(B, device=tokens.device), at, inside, offsets, pads))
 
-    kv_quant = len(cross_kv) == 4
-    self_quant = isinstance(kv, QKVCache)
-    for layer, blk in enumerate(dec.blocks):
-        a = blk.attn
-        h = layer_norm(x, blk.attn_ln["g"], blk.attn_ln["b"])
-        qh = _split_heads(_linear(h, a["wq"], a["bq"], dt), n_head)
-        kh = _linear(h, a["wk"], None, dt).reshape(B, n_head, dh)
-        vh = _linear(h, a["wv"], a["bv"], dt).reshape(B, n_head, dh)
-        if self_quant:
-            qn, sn = quantize_kv_heads(kh[:, :, None], vh[:, :, None])
-            # advanced indices at dims 0 and 4 of the (B, H, 2, dh, T) view:
-            # the indexed shape is (B, H, 2, dh)
-            _write_rows(kv.q[layer], rows, at, inside, qn[..., 0])
-            _write_rows(kv.s[layer], rows, at, inside, sn[..., 0])
-            o = self_attention_decode_int8(qh, kv.q[layer], kv.s[layer], offsets, pads)
-        else:
-            _write_rows(kv.k[layer], rows, at, inside, kh)
-            _write_rows(kv.v[layer], rows, at, inside, vh)
-            o = self_attention_decode(qh, kv.k[layer], kv.v[layer], offsets, pads)
-        x = x + _linear(_merge_heads(o), a["wo"], a["bo"], dt)
-        x = _cross_and_mlp(x, blk, layer, cross_kv, kv_quant, n_head, dt, gelu, cross_decode)
+    kv_quant = len(crosses[0]) == 4
+    self_quant = isinstance(kvs[0], QKVCache)
+    for layer in range(cfg.n_text_layer):
+        blks = [s.decoder.blocks[layer] for s in shards]
+        b0 = blks[0]
+        h = layer_norm(x, b0.attn_ln["g"], b0.attn_ln["b"])
+        outs = []
+        for c, (q, k_new, v_new) in zip(kvs, _column(
+                h, [[(blk.attn["wq"], blk.attn["bq"]), (blk.attn["wk"], None),
+                     (blk.attn["wv"], blk.attn["bv"])] for blk in blks], dt)):
+            rows, at_r, inside_r, offsets_r, pads_r = local[q.device]
+            qh = _split_heads(q, n_head)
+            kh = k_new.reshape(B, n_head, dh)
+            vh = v_new.reshape(B, n_head, dh)
+            if self_quant:
+                qn, sn = quantize_kv_heads(kh[:, :, None], vh[:, :, None])
+                # advanced indices at dims 0 and 4 of the (B, H, 2, dh, T)
+                # view: the indexed shape is (B, H, 2, dh)
+                _write_rows(c.q[layer], rows, at_r, inside_r, qn[..., 0])
+                _write_rows(c.s[layer], rows, at_r, inside_r, sn[..., 0])
+                o = self_attention_decode_int8(qh, c.q[layer], c.s[layer], offsets_r, pads_r)
+            else:
+                _write_rows(c.k[layer], rows, at_r, inside_r, kh)
+                _write_rows(c.v[layer], rows, at_r, inside_r, vh)
+                o = self_attention_decode(qh, c.k[layer], c.v[layer], offsets_r, pads_r)
+            outs.append(_merge_heads(o))
+        x = x + _row_parallel(outs, [blk.attn["wo"] for blk in blks], b0.attn["bo"], dt)
+        x = _cross_and_mlp(x, blks, layer, crosses, kv_quant, n_head, dt, gelu, cross_decode)
 
     x = layer_norm(x, dec.ln["g"], dec.ln["b"])
-    return _logits(x, dec, dt)[:, 0], kv
+    return _model_logits(model, x, dt)[:, 0], kv

@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import IO, Dict, Iterable, NamedTuple, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "whisper_tpu_torch"
 KERNELS = ("flash_attention_btd", "cross_attention_decode", "self_attention_decode",
@@ -108,3 +110,14 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, proc)
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """Call a kernel's C launch function as ``fn(*args, device index,
+    stream)`` on ``device``'s current stream, and return its error code.
+    Each launch function makes ``device`` the thread's current CUDA device;
+    the caller's is restored after it, so a tensor-parallel forward that
+    launches on several cards from one thread leaves PyTorch's current
+    device (which events and ``synchronize()`` use) where it was."""
+    with torch.cuda.device(device):
+        return fn(*args, device.index or 0, torch.cuda.current_stream(device).cuda_stream)

@@ -109,10 +109,9 @@ def cross_attention_decode_fd(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Ten
         return cross_attention_decode_fd_plain(q, k_q, k_s, v_q, v_s)
     B, H, T = _check_cross("cross_attention_decode_fd", q, k_q, k_s, v_q, v_s)
     out = torch.empty_like(q)
-    err = _kernel(q.dtype)(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-                           v_s.data_ptr(), out.data_ptr(), B * H, T, 64 ** -0.5,
-                           q.device.index or 0,
-                           torch.cuda.current_stream(q.device).cuda_stream)
+    err = _build.launch(_kernel(q.dtype), q.device, q.data_ptr(), k_q.data_ptr(),
+                        k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), out.data_ptr(), B * H,
+                        T, 64 ** -0.5)
     if err:
         raise RuntimeError(f"cross_attention_decode_fd launch failed: cudaError {err}")
     cross_attention_decode_fd.launches += 1
@@ -169,10 +168,9 @@ def cross_attention_decode(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor
         raise ValueError(f"the CUDA kernel keeps a head's scores in 48 KB: T <= "
                          f"{_LEGACY_MAX_T}, got {T}")
     out = torch.empty_like(q)
-    err = _legacy_kernel(q.dtype)(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-                                  v_s.data_ptr(), out.data_ptr(), B * H, T, 64 ** -0.5,
-                                  int(bool(use_vpu)), q.device.index or 0,
-                                  torch.cuda.current_stream(q.device).cuda_stream)
+    err = _build.launch(_legacy_kernel(q.dtype), q.device, q.data_ptr(), k_q.data_ptr(),
+                        k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), out.data_ptr(), B * H,
+                        T, 64 ** -0.5, int(bool(use_vpu)))
     if err:
         raise RuntimeError(f"cross_attention_decode launch failed: cudaError {err}")
     cross_attention_decode.launches += 1
@@ -226,10 +224,9 @@ def cross_attention_decode_dense(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.
                          f"got {H}")
     out = torch.empty_like(q)
     scores = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    err = _dense_kernel(q.dtype)(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-                                 v_s.data_ptr(), scores.data_ptr(), out.data_ptr(), B, H, T,
-                                 64 ** -0.5, q.device.index or 0,
-                                 torch.cuda.current_stream(q.device).cuda_stream)
+    err = _build.launch(_dense_kernel(q.dtype), q.device, q.data_ptr(), k_q.data_ptr(),
+                        k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), scores.data_ptr(),
+                        out.data_ptr(), B, H, T, 64 ** -0.5)
     if err:
         raise RuntimeError(f"cross_attention_decode_dense launch failed: cudaError {err}")
     cross_attention_decode_dense.launches += 1
@@ -311,10 +308,9 @@ def _launch_self(name: str, q: torch.Tensor, cache: tuple, T: int,
     pad_ptr = pads.data_ptr() if pads is not None else None
     out = torch.empty_like(q)
     tag = "bf16" if q.dtype == torch.bfloat16 else "f32"
-    err = _self_kernel(f"{name}_{tag}")(
-        q.data_ptr(), cache[0].data_ptr(), cache[1].data_ptr(), out.data_ptr(), off_ptr,
-        pad_ptr, scalar, B * H, H, T, dh ** -0.5, q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    err = _build.launch(
+        _self_kernel(f"{name}_{tag}"), q.device, q.data_ptr(), cache[0].data_ptr(),
+        cache[1].data_ptr(), out.data_ptr(), off_ptr, pad_ptr, scalar, B * H, H, T, dh ** -0.5)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return out

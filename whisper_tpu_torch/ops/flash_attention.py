@@ -17,6 +17,14 @@ Tq and Tk independent. On a CUDA tensor it launches
 ``whisper_tpu_torch/csrc/flash_attention.cu``; on a CPU tensor it runs
 :func:`flash_attention_plain`.
 
+``flash_attention_btd_sharded`` is the port of the TPU entry
+``whisper_tpu/ops/flash_attention.py:flash_attention_btd_sharded``: K1 under
+a (data, model) mesh, one launch per rank on its local heads
+(``flash_attention_btd_local``, which the tensor-parallel encoder calls on
+its projections directly). It has no kernel of its own, as its TPU
+counterpart runs ``flash_attention_btd``'s ``pallas_call`` inside
+``shard_map``.
+
 In bf16 both kernels are one TMA + wgmma kernel,
 ``whisper_tpu_torch/csrc/flash_attention_sm90.cuh``, launched on tensor maps
 of each layout; TMA needs 16-byte aligned q, k and v.
@@ -89,15 +97,70 @@ def flash_attention_btd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
         raise ValueError("the CUDA kernel needs contiguous, 16-byte aligned (B, T, D) q, k, v")
     out = torch.empty_like(q)
-    err = _kernel(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           B, T, D, n_head, (D // n_head) ** -0.5, q.device.index or 0,
-                           torch.cuda.current_stream(q.device).cuda_stream)
+    err = _build.launch(_kernel(q.dtype), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B, T, D, n_head, (D // n_head) ** -0.5)
     _check_launch("flash_attention_btd", err)
     flash_attention_btd.launches += 1
     return out
 
 
 flash_attention_btd.launches = 0  # kernel launches; only the CUDA branch counts
+
+
+# ------------------------------------------------- tensor parallel (K1 sharded)
+def flash_attention_btd_local(qs, ks, vs, n_head: int) -> list:
+    """K1 on each model shard's local projections: ``qs[r]``, ``ks[r]``,
+    ``vs[r]`` are rank r's (B, T, D / tp) columns, its ``n_head // tp``
+    heads, on its device; returns rank r's (B, T, D / tp) outputs. Attention
+    is per head, so no collective is needed. With more than one shard every
+    launch on the card also counts as one of
+    ``flash_attention_btd_sharded``'s; a single shard is the unsharded K1."""
+    tp = len(qs)
+    if n_head % tp:
+        raise ValueError(f"n_head={n_head} not divisible by TP={tp}")
+    outs = []
+    for q, k, v in zip(qs, ks, vs):
+        outs.append(flash_attention_btd(q, k, v, n_head // tp))
+        if tp > 1 and q.device.type == "cuda":
+            flash_attention_btd_sharded.launches += 1
+    return outs
+
+
+def flash_attention_btd_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                n_head: int, mesh) -> torch.Tensor:
+    """Port of ``whisper_tpu/ops/flash_attention.py:flash_attention_btd_sharded``:
+    K1 under a (data, model) mesh, with the JAX signature (full q, k, v).
+
+    The batch splits over DATA where it divides (as the JAX entry's
+    ``shard_map`` spec), the head-major D columns over MODEL; block (d, m)
+    runs on ``mesh.devices[d, m]`` as :func:`flash_attention_btd_local`
+    with ``n_head // tp`` heads, and the blocks are put back together on q's
+    device. The column blocks are contiguous copies, since K1 refuses a
+    strided view.
+
+    The JAX entry falls back to XLA attention where the local head count
+    does not tile its 128-column blocks (``btd_heads_ok``: turbo's 5 local
+    heads at tp 4); K1 takes any head count of dh 64, so here every local
+    head count runs the kernel. Both compute the same function."""
+    from ..parallel.sharding import DATA_AXIS, MODEL_AXIS
+
+    tp, n_data = mesh.shape[MODEL_AXIS], mesh.shape[DATA_AXIS]
+    if n_head % tp:
+        raise ValueError(f"n_head={n_head} not divisible by TP={tp}")
+    B, _, D = q.shape
+    rows = B // n_data if B % n_data == 0 else B
+    width = D // tp
+    out_rows = []
+    for d in range(B // rows):
+        devs = mesh.devices[d]
+        blocks = [[t[d * rows:(d + 1) * rows, :, m * width:(m + 1) * width].contiguous().to(dev)
+                   for m, dev in enumerate(devs)] for t in (q, k, v)]
+        outs = flash_attention_btd_local(*blocks, n_head)
+        out_rows.append(torch.cat([o.to(q.device) for o in outs], dim=-1))
+    return torch.cat(out_rows, dim=0)
+
+
+flash_attention_btd_sharded.launches = 0  # K1 launches under a mesh of tp > 1 shards
 
 
 # ------------------------------------------------------------ split heads (K6)
@@ -150,9 +213,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError("the CUDA kernel needs contiguous, 16-byte aligned (B, H, T, dh) "
                          "q, k, v")
     out = torch.empty_like(q)
-    err = _split_kernel(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 B * H, Tq, Tk, dh ** -0.5, q.device.index or 0,
-                                 torch.cuda.current_stream(q.device).cuda_stream)
+    err = _build.launch(_split_kernel(q.dtype), q.device, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), out.data_ptr(), B * H, Tq, Tk, dh ** -0.5)
     _check_launch("flash_attention", err)
     flash_attention.launches += 1
     return out

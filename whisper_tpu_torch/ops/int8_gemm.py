@@ -65,8 +65,7 @@ def int8_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     if M == 0:
         return out
-    err = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-                    a.device.index or 0, torch.cuda.current_stream(a.device).cuda_stream)
+    err = _build.launch(_kernel(), a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K)
     if err:
         raise RuntimeError(f"int8_gemm launch failed: cudaError {err}")
     int8_gemm.launches += 1

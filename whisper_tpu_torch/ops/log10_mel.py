@@ -96,10 +96,9 @@ def log10_mel(audio_padded: torch.Tensor, n_mels: int, n_fft: int = N_FFT,
     if B == 0:
         return out
     bank, fb, lo, hi = _tables(n_mels, audio_padded.device)
-    err = _kernel()(audio_padded.data_ptr(), L, B, n_frames, bank.data_ptr(), fb.data_ptr(),
-                    lo.data_ptr(), hi.data_ptr(), n_mels, out.data_ptr(),
-                    audio_padded.device.index or 0,
-                    torch.cuda.current_stream(audio_padded.device).cuda_stream)
+    err = _build.launch(_kernel(), audio_padded.device, audio_padded.data_ptr(), L, B,
+                        n_frames, bank.data_ptr(), fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                        n_mels, out.data_ptr())
     if err:
         raise RuntimeError(f"log10_mel launch failed: cudaError {err}")
     log10_mel.launches += 1

@@ -1,13 +1,16 @@
 """End-to-end ASR pipeline: audio -> mel -> encode -> greedy decode -> text.
 
-Port of ``whisper_tpu/pipeline.py``'s ``WhisperPipeline``, greedy only:
+Port of ``whisper_tpu/pipeline.py``'s ``WhisperPipeline``:
 ``transcribe_batch`` (fixed windows), ``transcribe_longform`` (seek-based,
 with timestamps), ``transcribe`` and ``run``, with timestamps,
-``initial_prompt`` and condition-on-previous-text. Arguments of the JAX
-pipeline that this port does not carry yet raise ``NotImplementedError``
-instead of being ignored: beam search, speculative decoding, word
-timestamps, sampling temperatures and the retry ladder, checkpoint loading
-and language auto-detection.
+``initial_prompt``, condition-on-previous-text, a sampling ``temperature``
+and OpenAI's temperature-fallback ladder (``temperature_fallback``: the rows
+that fail the compression-ratio or logprob gate are decoded again at 0.2,
+0.4, ... 1.0 against the batch's cross-KV). As in the JAX package, the seek
+loop decodes greedily and without the ladder. Arguments of the JAX pipeline
+that this port does not carry yet raise ``NotImplementedError`` instead of
+being ignored: beam search, speculative decoding, word timestamps,
+checkpoint loading and language auto-detection.
 
 Runs on ``device`` ("cuda" by default); asking for cuda without a card
 raises. Nothing moves to the CPU unless the caller asks for it.
@@ -35,8 +38,20 @@ import torch
 from torch.profiler import record_function
 
 from .config import N_SAMPLES, get_config
-from .decode import GreedyResult, encode_cross_kv, extract_texts, greedy_decode_kv
-from .longform import merge_texts, silence_mask, split_audio, transcribe_seek
+from .decode import (
+    GreedyResult,
+    encode_cross_kv,
+    extract_texts,
+    greedy_decode_kv,
+    index_cross_kv,
+)
+from .longform import (
+    compression_ratio,
+    merge_texts,
+    silence_mask,
+    split_audio,
+    transcribe_seek,
+)
 from .models.model import Whisper, cast_floating, check_selections
 from .ops.audio import load_audio
 from .ops.mel import log_mel_batch
@@ -112,6 +127,7 @@ class WhisperPipeline:
         cross_decode: str = "fd",
         temperature: float = 0.0,
         temperature_fallback: Optional[bool] = None,
+        compression_ratio_threshold: float = 2.4,
         logprob_threshold: float = -1.0,
         no_speech_threshold: float = 0.6,
         condition_on_previous_text: bool = True,
@@ -128,8 +144,6 @@ class WhisperPipeline:
             "beam_size > 1": bool(beam_size and beam_size > 1),
             "spec_draft": bool(spec_draft or spec_draft_checkpoint),
             "word_timestamps": word_timestamps,
-            "temperature > 0": bool(temperature and temperature > 0),
-            "temperature_fallback": bool(temperature_fallback),
             "language=None (auto-detect)": language is None,
         }
         asked = [k for k, v in unported.items() if v]
@@ -153,6 +167,12 @@ class WhisperPipeline:
         self.gelu = gelu
         self.encoder_attention = encoder_attention
         self.cross_decode = cross_decode
+        self.temperature = temperature
+        # whisper's retry ladder only makes sense with trained weights: on
+        # when a checkpoint is given (none can be yet), unless asked for
+        self.temperature_fallback = (temperature_fallback if temperature_fallback is not None
+                                     else checkpoint is not None)
+        self.compression_ratio_threshold = compression_ratio_threshold
         self.logprob_threshold = logprob_threshold
         self.no_speech_threshold = no_speech_threshold
         self.condition_on_previous_text = condition_on_previous_text
@@ -234,7 +254,12 @@ class WhisperPipeline:
                 self.compute_dtype, max_tokens=self.max_tokens,
                 suppress_ids=self._suppress_ids, apply_filters=self.apply_filters,
                 self_kv_quant=self.self_kv_quant, gelu=self.gelu,
-                timestamps=self.timestamps, sot_index=sot_index, cross_decode=self.cross_decode)
+                timestamps=self.timestamps, sot_index=sot_index, cross_decode=self.cross_decode,
+                temperature=self.temperature)
+            # OpenAI's ladder falls back from t=0 to sampling at rising
+            # temperatures, re-decoding only the rows that failed
+            if self.temperature_fallback:
+                result = self._temperature_retry(result, cross_kv, prompts, sot_index)
         self.last_decode = result
         with record_function("whisper.texts"):
             texts = extract_texts(result, prompts.shape[1], self.tokenizer,
@@ -261,6 +286,44 @@ class WhisperPipeline:
             ))
             pos += nc
         return out
+
+    def _needs_retry(self, result: GreedyResult, prompts: np.ndarray) -> np.ndarray:
+        """OpenAI failure criteria: repetitive text or low confidence,
+        except silent rows, which are skipped, not retried."""
+        texts = extract_texts(result, prompts.shape[1], self.tokenizer,
+                              timestamps=self.timestamps)
+        avg_lp = result.avg_logprob.cpu().numpy()
+        bad = np.array([compression_ratio(t) > self.compression_ratio_threshold
+                        or avg_lp[i] < self.logprob_threshold for i, t in enumerate(texts)],
+                       dtype=bool)
+        return bad & ~silence_mask(result, self.no_speech_threshold, self.logprob_threshold)
+
+    def _temperature_retry(self, result: GreedyResult, cross_kv, prompts: np.ndarray,
+                           sot_index: int = 0) -> GreedyResult:
+        """Whisper's temperature ladder: re-decode the failed rows at 0.2,
+        0.4, ... 1.0 (those above ``self.temperature``), each rung with seed
+        ``int(temp * 1000)``, until the quality criteria pass. Reuses the
+        batch's cross-KV (indexed, not re-encoded); keeps the first decode's
+        no-speech probabilities."""
+        for temp in [t for t in (0.2, 0.4, 0.6, 0.8, 1.0) if t > self.temperature]:
+            bad = self._needs_retry(result, prompts)
+            if not bad.any():
+                break
+            idx = torch.from_numpy(np.nonzero(bad)[0]).to(self.device)
+            sub = greedy_decode_kv(
+                self.model, index_cross_kv(cross_kv, idx),
+                torch.from_numpy(prompts[bad]).to(self.device), self.compute_dtype,
+                max_tokens=self.max_tokens, suppress_ids=self._suppress_ids,
+                apply_filters=self.apply_filters, self_kv_quant=self.self_kv_quant,
+                gelu=self.gelu, timestamps=self.timestamps, sot_index=sot_index,
+                cross_decode=self.cross_decode, temperature=temp, seed=int(temp * 1000))
+            tokens, lengths, avg_lp = (t.clone() for t in (result.tokens, result.lengths,
+                                                            result.avg_logprob))
+            tokens[idx], lengths[idx], avg_lp[idx] = sub.tokens, sub.lengths, sub.avg_logprob
+            result = result._replace(tokens=tokens, lengths=lengths, avg_logprob=avg_lp,
+                                     steps=result.steps + sub.steps,
+                                     host_syncs=result.host_syncs + sub.host_syncs)
+        return result
 
     def transcribe(self, audio: Union[str, bytes, np.ndarray],
                    language: Optional[str] = None) -> TranscribeResult:

@@ -2,6 +2,7 @@
 end, the single-engine path of ``python -m whisper_tpu.serving``.
 
     python -m whisper_tpu_torch.serving --model_type turbo --port 8000
+    python -m whisper_tpu_torch.serving --model_type turbo --tp 2 --port 8000
     python -m whisper_tpu_torch.serving --model_type test-nano --device cpu \\
         --dtype float32 --no-w8a8 --port 8000
 
@@ -9,11 +10,15 @@ The zero-flag defaults are the JAX server's benched configuration: 8 slots,
 32 steps per sync, a 224-token budget, W8A8 + int8 cross- and self-KV,
 bf16, on the card, with the default kernels (``--encoder_attention btd
 --cross_decode fd``; the flags are the JAX package's ``WHISPER_TPU_FLASH``
-and ``WHISPER_TPU_DECODE_FLASH``). Weights are the port's seeded random init
-(checkpoint loading is not ported). Flags of features not ported yet (``--tp`` > 1,
-``--dp`` > 1, ``--backends``, ``--checkpoint``, ``--timestamps``,
-``--adaptive_sync``, ``--encode_chunks`` > 1, a non-empty
-``--temperature_fallback``) exit non-zero and name the feature.
+and ``WHISPER_TPU_DECODE_FLASH``) and the JAX server's temperature ladder
+``--temperature_fallback 0.2,0.4,0.6,0.8,1.0`` ('' turns it off). Weights
+are the port's seeded random init (checkpoint loading is not ported), so
+every request fails the logprob gate and climbs the whole ladder.
+``--tp N`` splits the model over the first N CUDA cards, as the JAX server
+does over N chips, and exits non-zero without them. Flags of features not
+ported yet (``--dp`` > 1, ``--backends``, ``--checkpoint``,
+``--timestamps``, ``--adaptive_sync``, ``--encode_chunks`` > 1) exit
+non-zero and name the feature.
 """
 
 from __future__ import annotations
@@ -48,7 +53,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--w8a8", action=argparse.BooleanOptionalAction, default=True,
                    help="int8 weights + dynamic-int8 encoder activations")
     add_kernel_selections(p)
-    p.add_argument("--tp", type=int, default=1, help="not ported yet (1 only)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: split weights/KV over this many CUDA "
+                        "cards (heads + MLP over the model mesh axis)")
     p.add_argument("--dp", type=int, default=1, help="not ported yet (1 only)")
     p.add_argument("--backends", default=None, help="not ported yet")
     p.add_argument("--timeout", type=float, default=300.0)
@@ -63,26 +70,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="max newcomers encoded per sync round while slots are "
                         "active (default slots/4)")
     p.add_argument("--encode_chunks", type=int, default=1, help="not ported yet (1 only)")
-    p.add_argument("--temperature_fallback", default="",
-                   help="retry-ladder temperatures: not ported yet, so '' only")
+    p.add_argument("--temperature_fallback", default="0.2,0.4,0.6,0.8,1.0",
+                   help="comma-separated retry-ladder temperatures for low-quality "
+                        "results ('' disables)")
+    p.add_argument("--beam_batch_max", type=int, default=8,
+                   help="aux worker (sampled decodes, ladder retries) micro-batch size")
     return p.parse_args(argv)
 
 
 def unported_flags(args: argparse.Namespace):
-    asked = {"--tp > 1 (tensor parallelism)": args.tp > 1,
-             "--dp > 1 (data-parallel replicas)": args.dp > 1,
+    asked = {"--dp > 1 (data-parallel replicas)": args.dp > 1,
              "--backends (router)": bool(args.backends),
              "--checkpoint (checkpoint loading)": bool(args.checkpoint),
              "--timestamps": args.timestamps,
              "--adaptive_sync": args.adaptive_sync,
-             "--encode_chunks > 1 (segmented admission encode)": args.encode_chunks > 1,
-             "--temperature_fallback (retry ladder)": bool(args.temperature_fallback)}
+             "--encode_chunks > 1 (segmented admission encode)": args.encode_chunks > 1}
     return [name for name, on in asked.items() if on]
 
 
-def build_engine(args: argparse.Namespace):
-    """The engine the flags describe, on ``args.device``, not started.
-    Returns (engine, startup phase seconds)."""
+def build_engine(args: argparse.Namespace, mesh=None):
+    """The engine the flags describe, on ``args.device``, not started;
+    ``--tp N`` > 1 places it on ``make_mesh(1, N)`` (the first N CUDA
+    cards), unless ``mesh`` is given. Returns (engine, startup phase
+    seconds)."""
     import torch
 
     from ..config import get_config
@@ -104,6 +114,13 @@ def build_engine(args: argparse.Namespace):
     if not cfg.is_multilingual:
         raise NotImplementedError("English-only (.en) vocabularies are not ported yet")
     tok = get_tokenizer(num_languages=cfg.num_languages)
+    if mesh is None and args.tp > 1:
+        from ..parallel.sharding import make_mesh
+
+        if device.type != "cuda":
+            raise ValueError(f"--tp {args.tp} splits the model over CUDA cards, not {device}")
+        mesh = make_mesh(1, args.tp)
+    t0 = time.perf_counter()
     engine = ContinuousBatchingEngine(
         model, tok,
         max_slots=args.slots,
@@ -120,8 +137,12 @@ def build_engine(args: argparse.Namespace):
         compression_ratio_threshold=(None if args.compression_ratio_threshold < 0
                                      else args.compression_ratio_threshold),
         admit_chunk=args.admit_chunk,
+        mesh=mesh,
+        temperature_fallback=tuple(float(x) for x in args.temperature_fallback.split(",") if x),
+        beam_batch_max=args.beam_batch_max,
     )
-    return engine, {"load_s": t_load, "quantize_s": t_quant}
+    return engine, {"load_s": t_load, "quantize_s": t_quant,
+                    "place_s": time.perf_counter() - t0}
 
 
 def main(argv=None) -> int:
@@ -134,14 +155,16 @@ def main(argv=None) -> int:
 
     try:
         engine, phases = build_engine(args)
-    except RuntimeError as e:  # cuda asked for without a card
+    except (RuntimeError, ValueError) as e:  # cuda without a card, --tp without N cards
         print(f"whisper_tpu_torch.serving: {e}", file=sys.stderr)
         return 1
     engine.start()
     srv = make_server(engine, args.host, args.port, request_timeout_s=args.timeout)
     print(f"whisper_tpu_torch server on {args.host}:{srv.server_address[1]} "
-          f"(model={engine.cfg.name}, slots={args.slots}, device={engine.device}) startup: "
+          f"(model={engine.cfg.name}, slots={args.slots}, device={engine.device}, "
+          f"tp={args.tp}) startup: "
           f"load {phases['load_s']:.1f}s quantize {phases['quantize_s']:.1f}s "
+          f"place {phases['place_s']:.1f}s "
           f"kernel build {engine.stats.warmup_seconds:.1f}s", file=sys.stderr, flush=True)
     try:
         srv.serve_forever()

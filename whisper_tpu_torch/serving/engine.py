@@ -1,7 +1,8 @@
-"""Continuous-batching inference engine: greedy slots on one card.
+"""Continuous-batching inference engine: greedy slots, an aux worker for
+sampled decodes and the temperature ladder, on one card or a TP mesh.
 
-Port of ``whisper_tpu/serving/engine.py``'s greedy core. The engine keeps a
-fixed pool of ``max_slots`` decode slots on the device:
+Port of ``whisper_tpu/serving/engine.py``. The engine keeps a fixed pool of
+``max_slots`` decode slots on the device:
 
 - new requests are admitted between decode rounds: their mel, encoder,
   cross-KV and prompt prefill run as one bucketed batch, and the resulting
@@ -13,16 +14,29 @@ fixed pool of ``max_slots`` decode slots on the device:
   to pinned host memory overlaps the next round; the next tick resolves it,
   detokenizes the finished slots and frees them.
 
-One thread (``_run``) owns the device state and calls :meth:`_tick`; HTTP
+One thread (``_run``) owns the slot state and calls :meth:`_tick`; HTTP
 handler threads only :meth:`submit` and wait on futures. Admission runs
 inline in ``_tick`` (the JAX engine's single-thread mode), so tests drive
 rounds deterministically by calling ``_tick`` themselves.
 
-Not ported yet, and refused with ``NotImplementedError``: the beam worker,
-sampling temperatures and the retry ladder, requests over 30 s, word
-timestamps, ``initial_prompt`` / ``condition_on_previous``, language
-auto-detection, ``on_partial`` streaming, timestamps, a device mesh,
-segmented admission encodes and adaptive round sizes.
+The aux worker (its own thread after :meth:`start`, one round per
+:meth:`aux_round` in tests) decodes ``temperature > 0`` requests: a
+micro-batch of one temperature gets a bucketed encode through the engine's
+own encode function and a sampled ``greedy_decode_kv``, with its own caches.
+OpenAI's temperature ladder (``temperature_fallback``) sends a result that
+fails the compression-ratio or logprob gate there again at the next
+temperature, from the slots or from the aux worker itself.
+
+Under a ``mesh`` (tensor parallelism over its MODEL axis) the weights are
+split per rank (``parallel.sharding.shard_params``) and the slot caches and
+cross-KV are kept per rank over its local heads; slot bookkeeping is one
+copy on the lead device. Data parallelism runs across engines, so a mesh
+with ``n_data > 1`` is refused.
+
+Not ported yet, and refused with ``NotImplementedError``: beams, requests
+over 30 s, word timestamps, ``initial_prompt`` / ``condition_on_previous``,
+language auto-detection, ``on_partial`` streaming, timestamps, segmented
+admission encodes and adaptive round sizes.
 """
 
 from __future__ import annotations
@@ -30,7 +44,6 @@ from __future__ import annotations
 import queue
 import threading
 import time
-import zlib
 from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
@@ -40,15 +53,18 @@ import numpy as np
 import torch
 
 from ..config import N_SAMPLES
-from ..decode import encode_cross_kv
+from ..decode import encode_cross_kv, extract_texts, greedy_decode_kv
+from ..longform import compression_ratio
 from ..models.model import (
-    KVCache,
-    QKVCache,
+    Shards,
     Whisper,
     cast_floating,
     check_selections,
     decoder_forward,
     decoder_step_multipos,
+    model_shards,
+    new_kv_cache,
+    shard_values,
 )
 from ..ops import _build
 from ..ops.mel import log_mel_batch
@@ -65,7 +81,11 @@ class Request:
     # per-request generated-token budget (None = the engine's max_tokens),
     # capped by the engine's bucketed cache
     max_tokens: Optional[int] = None
-    temperature: float = 0.0   # > 0 is not ported
+    # sampling temperature: 0 = greedy slots; t > 0 routes to the aux
+    # worker's sampled decode (OpenAI semantics: no beam at t > 0)
+    temperature: float = 0.0
+    # internal: temperature-ladder attempt counter (0 = first decode)
+    _attempt: int = 0
     future: Future = field(default_factory=Future)
     enqueued_at: float = field(default_factory=time.perf_counter)
     on_partial: Optional[object] = None  # streaming: not ported
@@ -98,6 +118,11 @@ class EngineStats:
     # quality gates (harvest-time, OpenAI transcribe semantics)
     no_speech_total: int = 0      # requests gated to "" by the silence rule
     low_quality_total: int = 0    # compression-ratio / logprob criteria failed
+    retries_total: int = 0        # temperature-ladder re-decodes
+    # aux worker (sampled decodes): micro-batches, and the S=1 decoder steps
+    # and encoder passes they ran
+    aux_batches_total: int = 0
+    aux_steps_total: int = 0
     # host-side phase breakdown of busy time: eager launches return before
     # the card finishes, so admit/step measure enqueue cost and the card's
     # execution pools into harvest_seconds_total at its one sync per tick
@@ -130,8 +155,8 @@ class _PreparedBatch:
     slots, possibly across several ticks."""
 
     reqs: List[Request]            # row i of the device tensors <-> reqs[i]
-    kv: tuple                      # prefilled self-KV (bucket rows)
-    cross: tuple                   # cross-KV parts (bucket rows)
+    kv: object                     # prefilled self-KV (bucket rows; Shards under a mesh)
+    cross: object                  # cross-KV parts (bucket rows; Shards under a mesh)
     first: torch.Tensor            # (bucket,) first sampled token
     first_lp: torch.Tensor         # (bucket,) its logprob
     nsp: torch.Tensor              # (bucket,) no-speech prob
@@ -169,12 +194,21 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
+def _cache_leaves(kv, cross) -> list:
+    """Every tensor of a self-KV and a cross-KV, rank by rank: (L, B, ...)
+    each, batch on axis 1."""
+    return [t for c, x in zip(shard_values(kv), shard_values(cross)) for t in (*c, *x)]
+
+
 class ContinuousBatchingEngine:
-    """Slot-based continuous batching over one model on one device (the
-    model's). ``model`` is cast to ``compute_dtype`` in place.
-    ``encoder_attention`` selects the admission encode's attention kernel
-    and ``cross_decode`` the decode step's int8 cross-attention kernel (see
-    ``models/model.py``)."""
+    """Slot-based continuous batching over one model on the model's device,
+    or with ``mesh`` split over its MODEL axis. ``model`` is cast to
+    ``compute_dtype`` in place. ``encoder_attention`` selects the admission
+    encode's attention kernel and ``cross_decode`` the decode step's int8
+    cross-attention kernel (see ``models/model.py``).
+    ``temperature_fallback`` is the retry ladder (off when empty, as for
+    library users of the JAX engine; its server turns it on), and
+    ``beam_batch_max`` caps an aux micro-batch."""
 
     def __init__(
         self,
@@ -199,16 +233,24 @@ class ContinuousBatchingEngine:
         encode_chunks: int = 1,
         temperature_fallback: Optional[Sequence[float]] = None,
         adaptive_sync: bool = False,
+        beam_batch_max: int = 8,
     ):
-        unported = {"timestamps": timestamps, "mesh": mesh is not None,
-                    "encode_chunks > 1": encode_chunks > 1,
-                    "temperature_fallback": bool(temperature_fallback),
+        unported = {"timestamps": timestamps, "encode_chunks > 1": encode_chunks > 1,
                     "adaptive_sync": adaptive_sync}
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(f"not ported to whisper_tpu_torch yet: {', '.join(asked)}")
         check_selections(encoder_attention, cross_decode)
         cfg = model.cfg
+        self.mesh = mesh
+        if mesh is not None:
+            # tensor-parallel placement: weights split per rank, the slot
+            # KV/cross caches over each rank's local heads; slot bookkeeping
+            # one copy. DP is done ACROSS engines (one per data replica), so
+            # shard_params refuses n_data > 1.
+            from ..parallel.sharding import shard_params
+
+            model = shard_params(model, mesh)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.dt = compute_dtype
@@ -225,6 +267,11 @@ class ContinuousBatchingEngine:
         self.no_speech_threshold = no_speech_threshold
         self.logprob_threshold = logprob_threshold
         self.compression_ratio_threshold = compression_ratio_threshold
+        # OpenAI transcribe's retry ladder: a result failing the compression
+        # or logprob criteria (and not silence-gated) is decoded again on the
+        # aux worker at the next temperature instead of resolving
+        self.temperature_fallback = tuple(temperature_fallback or ())
+        self.beam_batch_max = beam_batch_max
         # while slots are decoding, at most this many newcomers encode per
         # round, so one admission stalls the active slots by a small encoder
         # pass; an idle engine admits whole buckets
@@ -240,15 +287,22 @@ class ContinuousBatchingEngine:
         # positions, rounded up to 128
         self.kv_ctx = min(T, -(-(4 + max_tokens) // 128) * 128) if max_tokens else T
         self.kv = self._new_cache(B)
-        L, H, dh, Ta = cfg.n_text_layer, cfg.n_text_head, cfg.head_dim_text, cfg.n_audio_ctx
-        if kv_quant:  # int8 payloads + fp32 scales, audio-minor (quantize_cross_kv)
-            q8 = dict(dtype=torch.int8, device=dev)
-            f32 = dict(dtype=torch.float32, device=dev)
-            self.cross = (torch.zeros((L, B, H, dh, Ta), **q8), torch.zeros((L, B, H, 1, dh), **f32),
-                          torch.zeros((L, B, H, dh, Ta), **q8), torch.zeros((L, B, H, 1, dh), **f32))
-        else:
-            self.cross = tuple(torch.zeros((L, B, H, Ta, dh), dtype=compute_dtype, device=dev)
-                               for _ in range(2))
+        shards = model_shards(self.model)
+        L, dh, Ta = cfg.n_text_layer, cfg.head_dim_text, cfg.n_audio_ctx
+        H = cfg.n_text_head // len(shards)  # each rank's local heads
+        cross = []
+        for shard in shards:
+            if kv_quant:  # int8 payloads + fp32 scales, audio-minor (quantize_cross_kv)
+                q8 = dict(dtype=torch.int8, device=shard.device)
+                f32 = dict(dtype=torch.float32, device=shard.device)
+                cross.append((torch.zeros((L, B, H, dh, Ta), **q8),
+                              torch.zeros((L, B, H, 1, dh), **f32),
+                              torch.zeros((L, B, H, dh, Ta), **q8),
+                              torch.zeros((L, B, H, 1, dh), **f32)))
+            else:
+                cross.append(tuple(torch.zeros((L, B, H, Ta, dh), dtype=compute_dtype,
+                                               device=shard.device) for _ in range(2)))
+        self.cross = cross[0] if len(cross) == 1 else Shards(cross)
         self.tokens = torch.full((B, T), cfg.eot, dtype=torch.int64, device=dev)
         self.offsets = torch.zeros((B,), dtype=torch.int64, device=dev)  # next write position
         self.active = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -282,13 +336,20 @@ class ContinuousBatchingEngine:
         # the last round; resolved at the start of the next tick
         self._inflight_harvest = None
         self.stats = EngineStats()
+        # the decode thread and the aux worker both bump the gate, retry,
+        # request and busy counters: read-modify-writes under this lock
+        self._stats_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # aux worker state: FIFO deque guarded by a condition; the worker
+        # micro-batches same-temperature runs from the left
+        self._aux_pending: "deque[Request]" = deque()
+        self._aux_cv = threading.Condition()
+        self._aux_thread: Optional[threading.Thread] = None
+        self._aux_max_queue = max_queue
 
     def _new_cache(self, batch: int):
-        if self.self_kv_quant:
-            return QKVCache.create(self.cfg, batch, ctx=self.kv_ctx, device=self.device)
-        return KVCache.create(self.cfg, batch, dtype=self.dt, ctx=self.kv_ctx, device=self.device)
+        return new_kv_cache(self.model, batch, self.dt, self.kv_ctx, quant=self.self_kv_quant)
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without waiting on the card: staged
@@ -306,7 +367,6 @@ class ContinuousBatchingEngine:
             raise ValueError(f"bad task {req.task!r}")
         unported = {
             "beam_size > 1": req.beam_size > 1,
-            "temperature > 0": req.temperature > 0,
             "audio over 30 s": len(req.audio) > N_SAMPLES,
             "word_timestamps": req.word_timestamps,
             "initial_prompt": bool(req.initial_prompt),
@@ -318,6 +378,8 @@ class ContinuousBatchingEngine:
         if asked:
             raise NotImplementedError(f"not ported to whisper_tpu_torch yet: {', '.join(asked)}")
         self.cfg.sot_sequence(req.language, req.task)  # ValueError on an unknown language
+        if req.temperature > 0:
+            return self._submit_aux(req)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
@@ -331,22 +393,36 @@ class ContinuousBatchingEngine:
                                   beam_size=beam_size))
         return fut.result(timeout=timeout)
 
+    def _submit_aux(self, req: Request) -> Future:
+        with self._aux_cv:
+            if len(self._aux_pending) >= self._aux_max_queue:
+                raise OverloadedError(f"aux queue full ({self._aux_max_queue} pending requests)")
+            self._aux_pending.append(req)
+            self._aux_cv.notify()
+        return req.future
+
     def start(self):
         """Build the CUDA kernels (so no request pays for nvcc), then start
-        the decode thread."""
+        the decode thread and the aux worker."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             _build.build_all()
         self.stats.warmup_seconds = time.perf_counter() - t0
         self._thread = threading.Thread(target=self._run, daemon=True, name="cb-engine")
         self._thread.start()
+        self._aux_thread = threading.Thread(target=self._aux_run, daemon=True, name="cb-aux")
+        self._aux_thread.start()
         return self
 
     def stop(self):
         self._stop.set()
-        if self._thread is not None:
-            self._thread.join(timeout=30)
-            self._thread = None
+        with self._aux_cv:
+            self._aux_cv.notify_all()
+        for name in ("_thread", "_aux_thread"):
+            thread = getattr(self, name)
+            if thread is not None:
+                thread.join(timeout=30)
+                setattr(self, name, None)
 
     # ------------------------------------------------------------- admission
     def _free_slots(self) -> List[int]:
@@ -397,22 +473,29 @@ class ContinuousBatchingEngine:
         self.stats.encode_batches_total += 1
         return True
 
+    def _encode(self, reqs: List[Request], bucket: int):
+        """The engine's encode function: the requests' audio zero-padded to
+        ``bucket`` rows -> mel -> encoder -> cross-KV (+int8), as the slots
+        and the aux worker share it. Only enqueues work on the card."""
+        cfg = self.cfg
+        audio = np.zeros((bucket, N_SAMPLES), np.float32)
+        lengths = np.zeros((bucket,), np.int64)
+        for i, r in enumerate(reqs):
+            a = np.asarray(r.audio, np.float32)[:N_SAMPLES]
+            audio[i, : len(a)] = a
+            lengths[i] = len(a)
+        mel = log_mel_batch(self._to_dev(audio), self._to_dev(lengths),
+                            n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
+        return encode_cross_kv(self.model, mel, self.dt, kv_quant=self.kv_quant, w8a8=self.w8a8,
+                               encoder_attention=self.encoder_attention)
+
     def _prepare_batch(self, newcomers: List[Request]) -> _PreparedBatch:
         """Bucketed mel -> encoder -> cross-KV (+int8) -> prefill, then the
         no-speech probability and the first token under the rules. Only
         enqueues work on the card: no host sync."""
         cfg, dt = self.cfg, self.dt
         bucket = _bucket(len(newcomers), self.prefill_buckets)
-        audio = np.zeros((bucket, N_SAMPLES), np.float32)
-        lengths = np.zeros((bucket,), np.int64)
-        for i, r in enumerate(newcomers):
-            a = np.asarray(r.audio, np.float32)[:N_SAMPLES]
-            audio[i, : len(a)] = a
-            lengths[i] = len(a)
-        mel = log_mel_batch(self._to_dev(audio), self._to_dev(lengths),
-                            n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
-        cross = encode_cross_kv(self.model, mel, dt, kv_quant=self.kv_quant, w8a8=self.w8a8,
-                                encoder_attention=self.encoder_attention)
+        cross = self._encode(newcomers, bucket)
 
         rows = [cfg.sot_sequence(r.language, r.task) for r in newcomers]
         prompts = np.asarray(rows + rows[:1] * (bucket - len(rows)), np.int64)
@@ -426,7 +509,7 @@ class ContinuousBatchingEngine:
         lp0 = torch.log_softmax(last.to(torch.float32), dim=-1)
         first = torch.argmax(last, dim=-1)
         first_lp = torch.gather(lp0, 1, first[:, None])[:, 0]
-        return _PreparedBatch(reqs=newcomers, kv=tuple(kv), cross=tuple(cross), first=first,
+        return _PreparedBatch(reqs=newcomers, kv=kv, cross=cross, first=first,
                               first_lp=first_lp, nsp=nsp, prompts=prompts_dev,
                               prompt_len=prompts.shape[1])
 
@@ -481,8 +564,10 @@ class ContinuousBatchingEngine:
             if budget:
                 lim[j] = min(lim[j], P + budget)
 
-        for dst_t, src_t in zip(tuple(self.kv) + self.cross, batch.kv + batch.cross):
-            dst_t.index_copy_(1, dst, src_t.index_select(1, src))
+        # every rank's caches, each written the same way on its own device
+        for dst_t, src_t in zip(_cache_leaves(self.kv, self.cross),
+                                _cache_leaves(batch.kv, batch.cross)):
+            dst_t.index_copy_(1, dst.to(dst_t.device), src_t.index_select(1, src.to(src_t.device)))
         first = batch.first.index_select(0, src)
         row = torch.full((k, self.tokens.shape[1]), cfg.eot, dtype=torch.int64,
                          device=self.device)
@@ -594,31 +679,79 @@ class ContinuousBatchingEngine:
         # ignore any slot re-admitted after this pack (see _slot_gen)
         self._inflight_harvest = (host, event, self._slot_gen.copy())
 
-    @staticmethod
-    def _compression_ratio(text: str) -> float:
-        b = text.encode("utf-8")
-        return len(b) / max(len(zlib.compress(b)), 1)
-
     def _quality_gate(self, text: str, nsp: float, avg_lp: float):
         """Harvest-time quality gates (OpenAI transcribe semantics): silence
         unless the decode is confident anyway; compression/logprob failures
-        are flagged. Returns (text, comp, quality_ok, silenced) and bumps the
+        feed the temperature ladder. Shared by the greedy harvest and the
+        aux worker. Returns (text, comp, quality_ok, silenced) and bumps the
         gate counters."""
-        comp = self._compression_ratio(text)
-        quality_ok = True
-        if ((self.compression_ratio_threshold is not None
-             and comp > self.compression_ratio_threshold)
-                or (self.logprob_threshold is not None and avg_lp < self.logprob_threshold)):
-            quality_ok = False
-            self.stats.low_quality_total += 1
-        silenced = False
-        if (self.no_speech_threshold is not None and nsp > self.no_speech_threshold
-                and not (self.logprob_threshold is not None
-                         and avg_lp > self.logprob_threshold)):
-            text = ""
-            silenced = True
-            self.stats.no_speech_total += 1
-        return text, comp, quality_ok, silenced
+        comp = compression_ratio(text)
+        quality_ok = not ((self.compression_ratio_threshold is not None
+                           and comp > self.compression_ratio_threshold)
+                          or (self.logprob_threshold is not None
+                              and avg_lp < self.logprob_threshold))
+        silenced = (self.no_speech_threshold is not None and nsp > self.no_speech_threshold
+                    and not (self.logprob_threshold is not None
+                             and avg_lp > self.logprob_threshold))
+        with self._stats_lock:
+            self.stats.low_quality_total += not quality_ok
+            self.stats.no_speech_total += silenced
+        return ("" if silenced else text), comp, quality_ok, silenced
+
+    def _maybe_retry(self, req: Request, quality_ok: bool, silenced: bool) -> bool:
+        """OpenAI retry criteria: a repetitive or low-confidence result is
+        decoded again at the next ladder temperature (silence is skipped,
+        not retried). Returns True if the request went to the aux worker:
+        the caller must NOT resolve its future."""
+        if quality_ok or silenced or not self.temperature_fallback:
+            return False
+        # only climb: a request already decoded at t skips rungs <= t
+        while (req._attempt < len(self.temperature_fallback)
+               and self.temperature_fallback[req._attempt] <= req.temperature):
+            req._attempt += 1
+        if req._attempt >= len(self.temperature_fallback):
+            return False
+        if req.future.done() or req.future.cancelled() or req.expired():
+            return False
+        req.temperature = self.temperature_fallback[req._attempt]
+        req._attempt += 1
+        with self._stats_lock:
+            self.stats.retries_total += 1
+        try:
+            self._submit_aux(req)
+        except OverloadedError:
+            return False  # aux queue full: resolve with what we have
+        return True
+
+    def _resolve(self, req: Request, text: str, n_tok: int, nsp: float, avg_lp: float,
+                 comp: float, quality_ok: bool):
+        """Count a finished request and set its reply (from the slots or the
+        aux worker)."""
+        wall = time.perf_counter() - req.enqueued_at
+        audio_s = len(req.audio) / 16000.0
+        with self._stats_lock:
+            self.stats.requests_total += 1
+            self.stats.tokens_total += n_tok
+            self.stats.audio_seconds_total += audio_s
+        _safe_set_result(req.future, {
+            "success": True,
+            "text": text,
+            "language": req.language,
+            "audio_seconds": audio_s,
+            "wall_seconds": wall,
+            "rtf": wall / max(audio_s, 1e-9),
+            "tokens": n_tok,
+            "temperature": req.temperature,
+            "attempts": req._attempt + 1,
+            "no_speech_prob": nsp,
+            "avg_logprob": avg_lp,
+            "compression_ratio": comp,
+            "quality_ok": quality_ok,
+        })
+
+    def _add_busy(self, seconds: float):
+        with self._stats_lock:
+            self.stats.busy_seconds_total += seconds
 
     def _harvest_host(self, done_h, active_h, offs_h, tokens_h, fstate_h, nsp_h):
         ready = [i for i in range(self.B)
@@ -634,26 +767,13 @@ class ContinuousBatchingEngine:
             avg_lp = float(fstate_h[i, 0] / max(fstate_h[i, 1], 1.0))
             nsp = float(nsp_h[i])
             text, comp, quality_ok, silenced = self._quality_gate(text, nsp, avg_lp)
-            wall = time.perf_counter() - req.enqueued_at
-            audio_s = len(req.audio) / 16000.0
-            self.stats.requests_total += 1
-            self.stats.tokens_total += int(len(ids))
-            self.stats.audio_seconds_total += audio_s
-            _safe_set_result(req.future, {
-                "success": True,
-                "text": text,
-                "language": req.language,
-                "audio_seconds": audio_s,
-                "wall_seconds": wall,
-                "rtf": wall / max(audio_s, 1e-9),
-                "tokens": int(len(ids)),
-                "temperature": req.temperature,
-                "attempts": 1,
-                "no_speech_prob": nsp,
-                "avg_logprob": avg_lp,
-                "compression_ratio": comp,
-                "quality_ok": quality_ok,
-            })
+            if self._maybe_retry(req, quality_ok, silenced):
+                # re-decoding on the aux worker at the next ladder
+                # temperature: free the slot, leave the future pending
+                self._slot_req[i] = None
+                self._slot_prompt_len[i] = 0
+                continue
+            self._resolve(req, text, int(len(ids)), nsp, avg_lp, comp, quality_ok)
             self._slot_req[i] = None
             self._slot_prompt_len[i] = 0
         self._deactivate(ready)
@@ -716,7 +836,87 @@ class ContinuousBatchingEngine:
         self._expire_slots()
         self._admit_new()  # copied now, stepped in round N+1
         self.stats.admit_seconds_total += time.perf_counter() - t2
-        self.stats.busy_seconds_total += time.perf_counter() - t0
+        self._add_busy(time.perf_counter() - t0)
+
+    # ------------------------------------------------------------- aux worker
+    def _aux_collect(self) -> List[Request]:
+        """Take a same-temperature micro-batch (at most ``beam_batch_max``)
+        from the left of the aux deque; requests of another temperature keep
+        their place."""
+        with self._aux_cv:
+            batch: List[Request] = []
+            keep: List[Request] = []
+            now = time.perf_counter()
+            while self._aux_pending and len(batch) < self.beam_batch_max:
+                r = self._aux_pending.popleft()
+                if r.future.cancelled():
+                    continue
+                if r.expired(now):
+                    _safe_set_exception(r.future, TimeoutError(
+                        f"deadline {r.deadline_s}s expired in aux queue"))
+                    continue
+                (batch if not batch or r.temperature == batch[0].temperature
+                 else keep).append(r)
+            self._aux_pending.extendleft(reversed(keep))
+            return batch
+
+    def _run_aux_batch(self, reqs: List[Request]):
+        """One micro-batched sampled decode: bucketed encode through
+        :meth:`_encode` (int8 cross-KV and the mesh apply), then
+        ``greedy_decode_kv`` at the batch's temperature (seed 0, as the JAX
+        engine's) with its own caches; results pass the same quality gate as
+        the slots' and may climb the ladder again."""
+        cfg = self.cfg
+        temp = reqs[0].temperature
+        buckets = sorted({b for b in self.prefill_buckets if b <= self.beam_batch_max}
+                         | {self.beam_batch_max})
+        bucket = _bucket(len(reqs), buckets)
+        cross = self._encode(reqs, bucket)
+        rows = [cfg.sot_sequence(r.language, r.task) for r in reqs]
+        prompts = np.asarray(rows + rows[:1] * (bucket - len(rows)), np.int64)
+        P = prompts.shape[1]
+        result = greedy_decode_kv(
+            self.model, cross, self._to_dev(prompts), self.dt, max_tokens=self.max_tokens,
+            suppress_ids=self._suppress, apply_filters=True, self_kv_quant=self.self_kv_quant,
+            cross_decode=self.cross_decode, temperature=float(temp))
+        self.stats.aux_batches_total += 1
+        self.stats.aux_steps_total += result.steps
+        texts = extract_texts(result, P, self.tokenizer)
+        lens = result.lengths.cpu().numpy()
+        nsp_h = result.no_speech_prob.cpu().numpy()
+        lp_h = result.avg_logprob.cpu().numpy()
+        for i, r in enumerate(reqs):
+            text = postprocess(texts[i], r.language)
+            text, comp, quality_ok, silenced = self._quality_gate(
+                text, float(nsp_h[i]), float(lp_h[i]))
+            if self._maybe_retry(r, quality_ok, silenced):
+                continue  # re-decoding at the next ladder temperature
+            self._resolve(r, text, int(max(lens[i] - P, 0)), float(nsp_h[i]), float(lp_h[i]),
+                          comp, quality_ok)
+
+    def aux_round(self) -> int:
+        """Run one aux micro-batch if any is pending (the aux thread's round,
+        for callers that drive the engine themselves, as ``_tick``).
+        Returns the number of requests it took."""
+        batch = self._aux_collect()
+        if batch:
+            t0 = time.perf_counter()
+            try:
+                self._run_aux_batch(batch)
+            except Exception as e:  # noqa: BLE001 — fail the batch, keep serving
+                for r in batch:
+                    _safe_set_exception(r.future, e)
+            self._add_busy(time.perf_counter() - t0)
+        return len(batch)
+
+    def _aux_run(self):
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while not self._stop.is_set():
+            with self._aux_cv:
+                while not self._aux_pending and not self._stop.is_set():
+                    self._aux_cv.wait()
+            self.aux_round()
 
     def _idle(self) -> bool:
         return (all(r is None for r in self._slot_req) and self._inflight_harvest is None

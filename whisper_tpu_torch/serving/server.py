@@ -10,8 +10,9 @@ Port of ``whisper_tpu/serving/server.py``. Both reference wire protocols on
 - any other content type: a bare WAV body.
 
 ``GET /health`` and ``GET /metrics`` (engine stats); JSON responses with CORS
-headers. Status codes: 400 for bad input, 501 for a request option this port
-does not serve yet (``beam`` > 1, ``temperature`` > 0, ``word_timestamps``,
+headers. ``temperature`` (0 to 2) is served: above 0 the engine samples on
+its aux worker. Status codes: 400 for bad input, 501 for a request option
+this port does not serve yet (``beam`` > 1, ``word_timestamps``,
 ``initial_prompt``, ``condition_on_previous``, ``stream``, ``format`` other
 than json, audio over 30 s, ``language=auto``; the reply names it), 503 when
 the engine's queue is full, 504 on timeout, 500 otherwise.
