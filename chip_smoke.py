@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernels from ``whisper_tpu_torch/csrc/`` (nvcc,
+Builds the port's nine CUDA kernels from ``whisper_tpu_torch/csrc/`` (nvcc,
 sm_90a, one process per source, in parallel), holds each against its plain
-PyTorch version at the shapes of the paths below, and drives each path
-while counting kernel launches:
+PyTorch version at the shapes of the paths below (and a turbo layer's six
+W8A8 linears as one chain, K8q + K8 against the PyTorch composition they
+replace), and drives each path while counting kernel launches:
 
 - the offline path, ``WhisperPipeline.transcribe_batch``: turbo at full
   width, batch 64, 64 new tokens, bf16, int8 weights + W8A8 encoder + int8
@@ -85,7 +86,10 @@ N_TOKENS = 64
 #  K7: the raw log10 mel in fp32, sums in another order than cuBLAS's; the
 #    JAX package's golden tolerance for its fused mel kernel
 #    (tests/test_pallas.py);
-#  K8: int32 sums of int8 products are exact: equality;
+#  K8: int32 sums of int8 products are exact: equality; its scaled epilogue
+#    rounds each step as the PyTorch epilogue does: equality;
+#  K8q: the same roundings as the plain version (IEEE division, round half
+#    to even): equality;
 #  K6: K1's kernel on split heads, K1's tolerances and reasons;
 #  K4 bf16: the scaled query and (MXU form) the normalised weights are
 #    rounded to bf16 on both sides; a weight rounded the other way after
@@ -97,7 +101,7 @@ N_TOKENS = 64
 TOL = {"flash_attention_btd/bf16": 8e-3, "flash_attention_btd/fp32": 1e-4,
        "cross_attention_decode_fd/bf16": 4e-3, "cross_attention_decode_fd/fp32": 1e-4,
        "self_attention_decode/bf16": 4e-3, "self_attention_decode/fp32": 1e-5,
-       "log10_mel": 5e-4, "int8_gemm": 0.0,
+       "log10_mel": 5e-4, "int8_gemm": 0.0, "quantize_rows": 0.0,
        "flash_attention/bf16": 8e-3, "flash_attention/fp32": 1e-4,
        "cross_attention_decode/bf16": 8e-3, "cross_attention_decode/fp32": 1e-4,
        "cross_attention_decode_dense/bf16": 8e-3, "cross_attention_decode_dense/fp32": 1e-3}
@@ -114,6 +118,12 @@ K3_SHAPES = {"offline": (B, 128, 4, 4 + N_TOKENS - 1, None),
 # mlp w2) at the offline batch (M = 1500 x 64) and at ragged admission sizes
 K8_KN = ((1280, 1280, 4), (1280, 5120, 1), (5120, 1280, 1))
 K8_M = (T_AUDIO * B, 1500, 4500)
+# the same products per rank at tp 2 (q/k/v and w1 split their columns, o
+# and w2 their rows), at the admission sizes
+K8_TP_KN = ((1280, 640), (640, 1280), (1280, 2560), (2560, 1280))
+K8_TP_M = (1500, 4500)
+# K8q's rows: the inputs of q/k/v, o and w1 (D = 1280) and of w2 (4 D)
+K8Q_K = (D_AUDIO, 4 * D_AUDIO)
 L2_BYTES = 50e6
 
 
@@ -149,6 +159,12 @@ def device_ms(fn, reps: int) -> float:
 
 def device_kernels_ms(fn, reps: int) -> dict:
     """``device_ms`` split by the kernels' names: mean ms per call of each."""
+    return {name: ms for name, (ms, _) in device_kernels(fn, reps).items()}
+
+
+def device_kernels(fn, reps: int = 1) -> dict:
+    """{kernel name: (mean ms, launches) per call of ``fn``} on the card
+    (CUPTI, through torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -164,8 +180,9 @@ def device_kernels_ms(fn, reps: int) -> dict:
         split = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-                split[e.name] = split.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-        if sum(split.values()) > 0:
+                ms, n = split.get(e.name, (0.0, 0))
+                split[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / reps, n + 1 / reps)
+        if sum(ms for ms, _ in split.values()) > 0:
             return split
     raise AssertionError("torch.profiler recorded no time on the card in three windows")
 
@@ -575,41 +592,84 @@ def kernel_k7(dev, gen) -> dict:
             "library_ms": None, "library": "none: no single PyTorch call computes it"}
 
 
+def _k8_bounds(M: int, K: int, N: int) -> dict:
+    """K8's bounds at (M, K, N): operations at the int8 peak against the
+    bytes of A and B in and C out, C as int32 (``int32``) or as bf16 with
+    the fp32 row and channel scales and the bf16 bias in (``scaled``)."""
+    ops_ms = 1e3 * 2.0 * M * K * N / PEAK_INT8
+    out = {}
+    for mode, nbytes in (("int32", M * K + K * N + 4.0 * M * N),
+                         ("scaled", M * K + K * N + 2.0 * M * N + 4.0 * M + 6.0 * N)):
+        bytes_ms = 1e3 * nbytes / PEAK_BYTES
+        out[mode] = {"bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                     "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+    return out
+
+
 def kernel_k8(dev, gen) -> dict:
-    """K8 at every turbo encoder shape: exact against its plain version at
-    the offline batch's M and at ragged admission sizes, timed at the
-    offline batch's M beside torch._int_mm with a column-major weight (the
-    transpose of a contiguous (N, K), the layout K8 reads; ``library_ms``)
-    and with the (K, N) row-major one (the path before K8;
-    ``library_rowmajor_ms``)."""
-    from whisper_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_plain
+    """K8 in both epilogues at every turbo encoder shape: the int32 product
+    exact against its plain version, and the scaled epilogue (bf16 out with
+    a bias, the path's; fp32 out without one) bit-equal to the PyTorch
+    epilogue of the plain product, at the offline batch's M, the admission
+    sizes and the tp 2 rank shapes. Timed at the offline batch's M: the
+    scaled mode (the path's: ``ms``, ``plain_ms``, ``bound_ms``, bf16 out)
+    and the int32 mode (``int32_ms``, ``int32_bound_ms``) beside
+    torch._int_mm, which computes the int32 product alone, with a
+    column-major weight (the layout K8 reads; ``library_ms``) and with the
+    (K, N) row-major one (``library_rowmajor_ms``)."""
+    from whisper_tpu_torch.ops.int8_gemm import (
+        int8_gemm, int8_gemm_plain, int8_gemm_scaled, int8_gemm_scaled_plain)
 
     def rand8(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
 
-    cases, layer = {}, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                        "library_rowmajor_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
+    def check_both(a, b, b_k):
+        M, N = a.shape[0], b.shape[1]
+        if not torch.equal(int8_gemm(a, b_k), int8_gemm_plain(a, b)):
+            raise AssertionError(f"int8_gemm differs from its plain version at {tuple(a.shape)} "
+                                 f"@ {tuple(b.shape)}")
+        sx = torch.rand((M, 1), generator=gen, device=dev) * 0.05 + 1e-4
+        ws = torch.rand((1, N), generator=gen, device=dev) * 0.01 + 1e-5
+        bias = torch.randn(N, generator=gen, device=dev) * 4
+        for dtype, bb in ((torch.bfloat16, bias.bfloat16()), (torch.float32, None)):
+            if not torch.equal(int8_gemm_scaled(a, b_k, sx, ws, bb, dtype),
+                               int8_gemm_scaled_plain(a, b, sx, ws, bb, dtype)):
+                raise AssertionError(f"int8_gemm_scaled ({dtype}) differs from the PyTorch "
+                                     f"epilogue at {tuple(a.shape)} @ {tuple(b.shape)}")
+        torch.cuda.synchronize()
+        return sx, ws, bias.bfloat16()
+
+    keys = ("ms", "plain_ms", "bound_ms", "int32_ms", "int32_plain_ms", "int32_bound_ms",
+            "library_ms", "library_rowmajor_ms", "ops_ms", "bytes_ms")
+    cases, layer, tp_checked = {}, {key: 0.0 for key in keys}, []
+    for K, N in K8_TP_KN:
+        b = rand8(K, N)
+        for M in K8_TP_M:
+            check_both(rand8(M, K), b, b.t().contiguous().t())
+            tp_checked.append((M, K, N))
     for K, N, per_layer in K8_KN:
         b = rand8(K, N)
         b_k = b.t().contiguous().t()  # K-major storage, as QTensor.k_major lays it out
         for M in K8_M:
             a = rand8(M, K)
-            got = int8_gemm(a, b_k)
-            torch.cuda.synchronize()
-            if not torch.equal(got, int8_gemm_plain(a, b)):
-                raise AssertionError(f"int8_gemm differs from its plain version at "
-                                     f"M={M}, K={K}, N={N}")
-            del got
+            sx, ws, bias = check_both(a, b, b_k)
             if M != T_AUDIO * B:
                 continue
-            ops, nbytes = 2.0 * M * K * N, M * K + K * N + 4.0 * M * N
-            case = {"ms": cuda_ms(lambda: int8_gemm(a, b_k), reps=10),
-                    "plain_ms": cuda_ms(lambda: int8_gemm_plain(a, b), reps=2, warmup=1),
-                    "library_ms": cuda_ms(lambda: torch._int_mm(a, b_k), reps=10),
-                    "library_rowmajor_ms": cuda_ms(lambda: torch._int_mm(a, b), reps=10),
-                    "ops_ms": 1e3 * ops / PEAK_INT8, "bytes_ms": 1e3 * nbytes / PEAK_BYTES}
-            case["bound_ms"] = max(case["ops_ms"], case["bytes_ms"])
-            case["bound_by"] = "operations" if case["ops_ms"] > case["bytes_ms"] else "bytes"
+            bounds = _k8_bounds(M, K, N)
+            case = {
+                "ms": cuda_ms(lambda: int8_gemm_scaled(a, b_k, sx, ws, bias), reps=10),
+                "plain_ms": cuda_ms(lambda: int8_gemm_scaled_plain(a, b, sx, ws, bias,
+                                                                   torch.bfloat16),
+                                    reps=2, warmup=1),
+                "int32_ms": cuda_ms(lambda: int8_gemm(a, b_k), reps=10),
+                "int32_plain_ms": cuda_ms(lambda: int8_gemm_plain(a, b), reps=2, warmup=1),
+                "library_ms": cuda_ms(lambda: torch._int_mm(a, b_k), reps=10),
+                "library_rowmajor_ms": cuda_ms(lambda: torch._int_mm(a, b), reps=10),
+                "bound_ms": bounds["scaled"]["bound_ms"], "bound_by": bounds["scaled"]["bound_by"],
+                "int32_bound_ms": bounds["int32"]["bound_ms"],
+                "int32_bound_by": bounds["int32"]["bound_by"],
+                "ops_ms": bounds["scaled"]["ops_ms"], "bytes_ms": bounds["scaled"]["bytes_ms"],
+                "int32_bytes_ms": bounds["int32"]["bytes_ms"]}
             cases[f"M{M}/K{K}/N{N}"] = case
             for key in layer:
                 layer[key] += per_layer * case[key]
@@ -621,14 +681,174 @@ def kernel_k8(dev, gen) -> dict:
             "replaces": "benchmarks/int8_gemm_probe.py:43",
             "shape": f"a ({T_AUDIO * B}, K) int8 @ b (K, N) int8, (K, N) in "
                      f"{[(k, n) for k, n, _ in K8_KN]}; times are the mean per launch of a turbo "
-                     f"encoder layer's {n} GEMMs", "max_abs_err": 0.0, "exact_at_M": list(K8_M),
-            **{k: per_launch[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                          "library_rowmajor_ms")},
+                     f"encoder layer's {n} GEMMs; ms/plain_ms/bound_ms: the scaled epilogue, "
+                     f"bf16 out with a bias (the path's); int32_*: the int32 product",
+            "max_abs_err": 0.0, "exact_at_M": list(K8_M), "exact_at_tp2_shapes": tp_checked,
+            **per_launch,
             "bound_by": "operations" if layer["ops_ms"] > layer["bytes_ms"] else "bytes",
+            "int32_share_of_library": per_launch["library_ms"] / per_launch["int32_ms"],
+            "bound_share": per_launch["bound_ms"] / per_launch["ms"],
+            "int32_bound_share": per_launch["int32_bound_ms"] / per_launch["int32_ms"],
             "per_batch_ms": {k: L_AUDIO * v for k, v in layer.items()},
             "bound_peaks": "1,979 TOP/s int8, 3.35 TB/s", "cases": cases,
-            "library": "torch._int_mm(a, b) with b column-major; library_rowmajor_ms with b "
-                       "(K, N) row-major, the path before K8"}
+            "library": "torch._int_mm(a, b) with b column-major: the int32 product alone (compare "
+                       "with int32_ms; no PyTorch call computes the scaled epilogue); "
+                       "library_rowmajor_ms with b (K, N) row-major, cuBLAS's path before K8"}
+
+
+def _tie_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` (M, K) rewritten in place so that x / sx lands exactly
+    on .5 ties (amax 127: sx = 1, half-integers; amax 254: sx = 2, odd
+    integers), and every 97th row all zero. Returns the rows with ties."""
+    K = x.shape[1]
+    half = torch.arange(K, device=x.device, dtype=torch.float32) % 64 - 31.5
+    x[::97] = 0.0
+    x[1::89], x[2::89] = half, 2 * half
+    x[1::89, 0], x[2::89, 0] = 127.0, 254.0
+    return torch.cat([torch.arange(1, x.shape[0], 89), torch.arange(2, x.shape[0], 89)])
+
+
+def kernel_k8q(dev, gen) -> dict:
+    """K8q at the offline batch's rows (M = 96,000) of both widths the
+    encoder quantizes (D for q/k/v, o and w1; 4 D for w2), bf16, on seeded
+    noise with rows built to land on .5 ties after the division and all-zero
+    rows: bit-equal to its plain version (int8 rows and fp32 scales), timed
+    beside it; fp32 rows and the given-scale entry checked at an admission
+    size. ``ms`` is the mean per launch of a layer's four (three at D, one
+    at 4 D)."""
+    from whisper_tpu_torch.ops.quantize_rows import quantize_rows, quantize_rows_plain
+
+    M, cases = T_AUDIO * B, {}
+    for K in K8Q_K:
+        x = torch.randn((M, K), generator=gen, device=dev) * 2
+        tie_rows = _tie_rows(x)
+        x = x.bfloat16()
+        q, sx = quantize_rows(x)
+        want_q, want_sx = quantize_rows_plain(x)
+        if not (torch.equal(q, want_q) and torch.equal(sx, want_sx)):
+            raise AssertionError(f"quantize_rows differs from its plain version at ({M}, {K})")
+        # the built ties are there: a .5 quotient, rounded to even
+        xt = x[tie_rows].float() / sx[tie_rows]
+        ties = int(((xt - xt.floor()) == 0.5).sum())
+        if ties == 0 or not torch.equal(q[tie_rows].float(), torch.round(xt)):
+            raise AssertionError("the tie rows did not round half to even")
+        nbytes = 3.0 * M * K + 4.0 * M
+        cases[f"M{M}/K{K}"] = {
+            "ms": cuda_ms(lambda: quantize_rows(x), reps=20),
+            "plain_ms": cuda_ms(lambda: quantize_rows_plain(x), reps=3, warmup=1),
+            "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes",
+            "ties": ties, "zero_rows": int((x.abs().amax(-1) == 0).sum())}
+        cases[f"M{M}/K{K}"]["bound_share"] = (cases[f"M{M}/K{K}"]["bound_ms"]
+                                              / cases[f"M{M}/K{K}"]["ms"])
+        del x, q, want_q
+        torch.cuda.empty_cache()
+    x = torch.randn((4500, D_AUDIO), generator=gen, device=dev)
+    _tie_rows(x)
+    given = torch.rand((4500, 1), generator=gen, device=dev) * 0.05 + 1e-3
+    for args in ((x,), (x, given), (x.bfloat16(), given)):
+        got, want = quantize_rows(*args), quantize_rows_plain(*args)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"quantize_rows differs from its plain version: {len(args)} "
+                                 f"arguments, {args[0].dtype}")
+    per_layer = {K: n for K, n in zip(K8Q_K, (3, 1))}
+    mean = {key: sum(n * cases[f"M{M}/K{K}"][key] for K, n in per_layer.items()) / 4
+            for key in ("ms", "plain_ms", "bound_ms")}
+    return {"name": "quantize_rows", "route": "cuda",
+            "source": "whisper_tpu_torch/csrc/quantize_rows.cu",
+            "replaces": "whisper_tpu/models/model.py:103",
+            "replaces_note": "the activation quantization of _linear_a8 (lines 103-105), an XLA "
+                             "fusion: no pallas_call",
+            "shape": f"x ({M}, K) bf16 -> int8 (M, K) + fp32 (M, 1), K in {list(K8Q_K)}; times "
+                     f"are the mean per launch of a turbo layer's four (3 at K {D_AUDIO}, 1 at "
+                     f"{4 * D_AUDIO})",
+            "max_abs_err": 0.0, **mean, "bound_by": "bytes",
+            "bound_share": mean["bound_ms"] / mean["ms"], "cases": cases,
+            "bound_peaks": "3.35 TB/s", "library_ms": None,
+            "library": "none: no single PyTorch call computes it"}
+
+
+def w8a8_chain(dev, gen) -> dict:
+    """A turbo layer's six W8A8 linears at the offline batch (M = 96,000,
+    bf16, the biases of q, v, o, w1 and w2; k has none), two ways on the
+    same inputs and weights:
+    - ``before``: the PyTorch composition the port ran until K8's epilogue
+      and K8q: activations in the conv stem's transposed layout; per linear
+      an fp32 cast, abs, row max, clamp, divide, round, clamp and int8
+      cast, a contiguous copy of the flattened rows, K8's int32 product,
+      then the int32 -> fp32 cast, two products, the cast and the bias add;
+      q, k and v each quantize the same input;
+    - ``after``: contiguous activations, one K8q per input (q, k and v
+      share one) and K8's scaled epilogue: ten launches, no other kernel.
+    Both must give the same bits. Times by CUDA events (``*_ms``) and as
+    kernel time on the card (``*_device_ms``, torch.profiler), kernel
+    launches counted."""
+    from whisper_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_scaled, scale_epilogue
+    from whisper_tpu_torch.ops.quantize_rows import quantize_rows, row_scale
+
+    M = T_AUDIO * B
+    D, F = D_AUDIO, 4 * D_AUDIO
+    weights = {}
+    for name, (K, N, has_bias) in {"q": (D, D, True), "k": (D, D, False), "v": (D, D, True),
+                                   "o": (D, D, True), "w1": (D, F, True),
+                                   "w2": (F, D, True)}.items():
+        wq = torch.randint(-127, 128, (N, K), generator=gen, device=dev, dtype=torch.int8).t()
+        ws = torch.rand((1, N), generator=gen, device=dev) * 1e-3 + 1e-5
+        bias = torch.randn(N, generator=gen, device=dev).bfloat16() if has_bias else None
+        weights[name] = (wq, ws, bias)
+    acts = {name: torch.randn((M, K), generator=gen, device=dev).bfloat16()
+            for name, K in (("h", D), ("attn", D), ("h2", D), ("g", F))}
+    # the conv stem's transposed layout: (B, T, K) viewed from a (B, K, T) buffer
+    strided = {name: x.view(B, T_AUDIO, -1).transpose(1, 2).contiguous().transpose(1, 2)
+               for name, x in acts.items()}
+    uses = (("h", "q"), ("h", "k"), ("h", "v"), ("attn", "o"), ("h2", "w1"), ("g", "w2"))
+
+    def before():
+        out = []
+        for act, name in uses:
+            wq, ws, bias = weights[name]
+            x = strided[act]
+            xf = x.to(torch.float32)
+            sx = row_scale(xf.abs().amax(dim=-1, keepdim=True))
+            x8 = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+            del xf
+            y = int8_gemm(x8.reshape(-1, x8.shape[-1]).contiguous(), wq)
+            out.append(scale_epilogue(y.reshape(B, T_AUDIO, -1), sx, ws, bias, torch.bfloat16))
+        return out
+
+    def after():
+        out, quantized = [], {}
+        for act, name in uses:
+            wq, ws, bias = weights[name]
+            if act not in quantized:
+                quantized = {act: quantize_rows(acts[act])}  # q, k, v share one
+            x8, sx = quantized[act]
+            out.append(int8_gemm_scaled(x8, wq, sx, ws, bias))
+        return out
+
+    equal = all(torch.equal(a.reshape(M, -1), b) for a, b in zip(before(), after()))
+    if not equal:
+        raise AssertionError("the fused W8A8 chain differs from the PyTorch composition")
+    rec = {"phase": "w8a8_chain", "M": M, "linears": [name for _, name in uses],
+           "bit_equal": equal}
+    for tag, fn in (("before", before), ("after", after)):
+        split = device_kernels(fn)
+        rec[f"{tag}_ms"] = cuda_ms(fn, reps=3, warmup=1)
+        rec[f"{tag}_device_ms"] = sum(ms for ms, _ in split.values())
+        rec[f"{tag}_launches"] = round(sum(n for _, n in split.values()))
+        rec[f"{tag}_kernels"] = {name[:60]: [ms, round(n)] for name, (ms, n) in
+                                 sorted(split.items(), key=lambda kv: -kv[1][0])[:8]}
+    kinds = {name for name in device_kernels(after)}
+    if rec["after_launches"] != 10 or not all("int8_gemm_sm90" in n or "quantize_rows_kernel" in n
+                                              for n in kinds):
+        raise AssertionError(f"the fused chain ran other kernels: {rec['after_kernels']}")
+    # what the chain must move at least: each input read once (the shared
+    # h once), int8 rows, scales and weights, each output written once
+    nbytes = sum(2.0 * x.numel() for x in acts.values()) + 2.0 * M * (5 * D + F)
+    ops = sum(2.0 * M * w.shape[0] * w.shape[1] for w, _, _ in weights.values())
+    rec["bound_ms"] = 1e3 * max(nbytes / PEAK_BYTES, ops / PEAK_INT8)
+    rec["per_batch_before_ms"] = L_AUDIO * rec["before_ms"]
+    rec["per_batch_after_ms"] = L_AUDIO * rec["after_ms"]
+    return rec
 
 
 def w8a8_card_vs_cpu(dev) -> dict:
@@ -636,8 +856,8 @@ def w8a8_card_vs_cpu(dev) -> dict:
     against the CPU: how many row scales ``amax / 127.0`` (a Python-scalar
     divisor, which CUDA turns into a product with the reciprocal) puts off
     the CPU's quotient and how many int8 activations flip as a result; and
-    the port's ``_linear_a8`` (tensor divisor, K8) against the CPU's, which
-    must be equal bit for bit."""
+    the port's ``_linear_a8`` (K8q, IEEE division, then K8's scaled
+    epilogue) against the CPU's, which must be equal bit for bit."""
     from whisper_tpu_torch.models.model import _linear_a8
     from whisper_tpu_torch.ops.quant import quantize_weight
 
@@ -684,14 +904,25 @@ def _function_name(mangled: str) -> str:
     return names[-1] if names else mangled
 
 
-# kernels whose bf16 body must hold wgmma (HGMMA) and TMA loads (UTMALDG)
-SM90_KERNELS = {"flash_attention_btd": "attn_kernel", "flash_attention": "attn_kernel"}
+# kernels whose Hopper body must hold wgmma (HGMMA on bf16, IGMMA on int8)
+# and TMA loads (UTMALDG): library -> (function, instructions it must hold)
+SM90_KERNELS = {"flash_attention_btd": ("attn_kernel", ("HGMMA", "UTMALDG")),
+                "flash_attention": ("attn_kernel", ("HGMMA", "UTMALDG")),
+                "int8_gemm": ("int8_gemm_sm90", ("IGMMA", "UTMALDG"))}
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+
+
+def serialized_wgmma(ptxas: dict) -> dict:
+    """The ptxas warnings of the ``SM90_KERNELS`` libraries that say their
+    wgmma were serialized (C7513, C7515): none may appear."""
+    return {name: [ln for ln in lines if "C7513" in ln or "C7515" in ln]
+            for name, lines in ptxas.items() if name in SM90_KERNELS}
 
 
 def sass_counts(names) -> dict:
-    """HGMMA and UTMALDG instructions per function of each built library
-    (``cuobjdump -sass``), so the run itself shows what the binaries hold;
-    fails if a kernel of ``SM90_KERNELS`` lacks either."""
+    """HGMMA, IGMMA and UTMALDG instructions per function of each built
+    library (``cuobjdump -sass``), so the run itself shows what the binaries
+    hold; fails if a kernel of ``SM90_KERNELS`` lacks one it must hold."""
     from pathlib import Path
 
     from whisper_tpu_torch.ops import _build
@@ -702,12 +933,12 @@ def sass_counts(names) -> dict:
         text = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
         out[name] = {_function_name(part.split("\n", 1)[0].strip()):
-                     {op: part.count(op) for op in ("HGMMA", "UTMALDG")}
+                     {op: part.count(op) for op in SASS_OPS}
                      for part in re.split(r"\n\s*Function : ", text)[1:]}
-    for name, fn in SM90_KERNELS.items():
+    for name, (fn, ops) in SM90_KERNELS.items():
         counts = out[name].get(fn, {})
-        if not (counts.get("HGMMA") and counts.get("UTMALDG")):
-            raise AssertionError(f"{name}: {fn} holds no wgmma or no TMA load: {out[name]}")
+        if not all(counts.get(op) for op in ops):
+            raise AssertionError(f"{name}: {fn} lacks one of {ops}: {out[name]}")
     return out
 
 
@@ -730,6 +961,7 @@ def _expect(path: str, launches: dict, cfg, encodes: int, steps: int,
     with tp > 1 every K1 launch is also the sharded entry's."""
     want = {"log10_mel": encodes,
             "int8_gemm": 6 * cfg.n_audio_layer * encodes * tp,  # q, k, v, o, mlp1, mlp2
+            "quantize_rows": 4 * cfg.n_audio_layer * encodes * tp,  # qkv once, o, mlp1, mlp2
             "self_attention_decode_int8": cfg.n_text_layer * steps * tp,
             "flash_attention_btd_sharded": (cfg.n_audio_layer * encodes * tp
                                             if tp > 1 and encoder_attention == "btd" else 0)}
@@ -1002,6 +1234,7 @@ def serving_ladder(counters) -> dict:
     rec["aux_launches"] = {"log10_mel": rec["aux_batches"],
                            "flash_attention_btd": L_AUDIO * rec["aux_batches"],
                            "int8_gemm": 6 * L_AUDIO * rec["aux_batches"],
+                           "quantize_rows": 4 * L_AUDIO * rec["aux_batches"],
                            "cross_attention_decode_fd": L_text * rec["aux_steps"],
                            "self_attention_decode_int8": L_text * rec["aux_steps"]}
     return rec
@@ -1308,6 +1541,7 @@ def main() -> int:
         flash_attention, flash_attention_btd, flash_attention_btd_sharded)
     from whisper_tpu_torch.ops.int8_gemm import int8_gemm
     from whisper_tpu_torch.ops.log10_mel import log10_mel
+    from whisper_tpu_torch.ops.quantize_rows import quantize_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 checks run in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1321,20 +1555,26 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build["build_s"], "ptxas": ptxas,
           "sass": sass_counts(_build.KERNELS)})
+    serialized = serialized_wgmma(ptxas)
+    if any(serialized.values()):
+        raise AssertionError(f"ptxas serialized wgmma: {serialized}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = []
-    for phase in (kernel_k1, kernel_k2, kernel_k3, kernel_k7, kernel_k8, kernel_k6, kernel_k4,
-                  kernel_k5, kernel_k1_sharded):
+    for phase in (kernel_k1, kernel_k2, kernel_k3, kernel_k7, kernel_k8, kernel_k8q, kernel_k6,
+                  kernel_k4, kernel_k5, kernel_k1_sharded):
         kernels.append(phase(dev, gen))
         emit({"phase": "kernel", **kernels[-1]})
         torch.cuda.empty_cache()
     emit(w8a8_card_vs_cpu(dev))
+    emit(w8a8_chain(dev, gen))
+    torch.cuda.empty_cache()
 
-    counters = (log10_mel, flash_attention_btd, int8_gemm, cross_attention_decode_fd,
-                self_attention_decode_int8, self_attention_decode, flash_attention,
-                cross_attention_decode, cross_attention_decode_dense, flash_attention_btd_sharded)
+    counters = (log10_mel, flash_attention_btd, int8_gemm, quantize_rows,
+                cross_attention_decode_fd, self_attention_decode_int8, self_attention_decode,
+                flash_attention, cross_attention_decode, cross_attention_decode_dense,
+                flash_attention_btd_sharded)
     e2e, stages = end_to_end(counters)
     emit(e2e)
     emit(stages)

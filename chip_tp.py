@@ -43,6 +43,7 @@ def main() -> int:
         flash_attention, flash_attention_btd, flash_attention_btd_sharded)
     from whisper_tpu_torch.ops.int8_gemm import int8_gemm
     from whisper_tpu_torch.ops.log10_mel import log10_mel
+    from whisper_tpu_torch.ops.quantize_rows import quantize_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -51,9 +52,10 @@ def main() -> int:
                          check=True).stdout.strip()
     cs.emit({"phase": "device", "nvidia_smi": smi.splitlines(), "cards": n,
              "torch": torch.__version__, "cuda": torch.version.cuda, **_build.build_all()})
-    counters = (log10_mel, flash_attention_btd, int8_gemm, cross_attention_decode_fd,
-                self_attention_decode_int8, self_attention_decode, flash_attention,
-                cross_attention_decode, cross_attention_decode_dense, flash_attention_btd_sharded)
+    counters = (log10_mel, flash_attention_btd, int8_gemm, quantize_rows,
+                cross_attention_decode_fd, self_attention_decode_int8, self_attention_decode,
+                flash_attention, cross_attention_decode, cross_attention_decode_dense,
+                flash_attention_btd_sharded)
     for tp in (2, 4):
         if tp > n:
             continue

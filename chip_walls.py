@@ -27,7 +27,7 @@ import subprocess
 import sys
 
 _RUN = r"""
-import json, sys
+import importlib.util, json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 import chip_smoke as cs
@@ -38,6 +38,9 @@ names = ("flash_attention_btd", "flash_attention", "cross_attention_decode_fd",
          "self_attention_decode_int8", "flash_attention_btd_sharded")
 counters = [getattr(m, n) for n in names for m in (decode_attention, flash_attention)
             if hasattr(m, n)] + [int8_gemm.int8_gemm, log10_mel.log10_mel]
+if importlib.util.find_spec("whisper_tpu_torch.ops.quantize_rows"):  # K8q, where it exists
+    from whisper_tpu_torch.ops.quantize_rows import quantize_rows
+    counters.append(quantize_rows)
 torch.backends.cuda.matmul.allow_tf32 = False
 build = _build.build_all()
 e2e, _ = cs.end_to_end(counters)

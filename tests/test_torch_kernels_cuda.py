@@ -31,9 +31,11 @@ from whisper_tpu_torch.ops.flash_attention import (
     flash_attention_btd_sharded,
     flash_attention_plain,
 )
-from whisper_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_plain
+from whisper_tpu_torch.ops.int8_gemm import (int8_gemm, int8_gemm_plain, int8_gemm_scaled,
+                                             int8_gemm_scaled_plain)
 from whisper_tpu_torch.ops.log10_mel import log10_mel, log10_mel_plain
 from whisper_tpu_torch.ops.quant import quantize_weight
+from whisper_tpu_torch.ops.quantize_rows import quantize_rows, quantize_rows_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -168,8 +170,10 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                                    (1500, 1280, 640), (1500, 640, 1280), (4500, 1280, 2560),
                                    (1500, 2560, 1280)])
 def test_int8_gemm_kernel_matches_plain(dev, M, K, N):
-    """Exactly equal (int32): turbo's and tiny's widths at ragged M, a K
-    that is not a multiple of the 64-byte step, N not a multiple of 128."""
+    """Exactly equal (int32), and bit-equal in the scaled epilogue (bf16 and
+    fp32 out, with and without a bias): turbo's and tiny's widths at ragged
+    M, K below and not a multiple of the 128-byte stage, N not a multiple
+    of the 256-column tile."""
     rng = np.random.default_rng(M + K + N)
     a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
     b = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8)).to(dev)
@@ -184,13 +188,102 @@ def test_int8_gemm_kernel_matches_plain(dev, M, K, N):
     assert torch.equal(int8_gemm(extreme, b_k), int8_gemm_plain(extreme, b))
     with pytest.raises(ValueError):  # row-major: the wrapper makes no copy
         int8_gemm(a, b)
+    sx = torch.from_numpy(rng.uniform(1e-3, 5e-2, (M, 1)).astype(np.float32)).to(dev)
+    ws = torch.from_numpy(rng.uniform(1e-4, 1e-2, (1, N)).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32) * 4).to(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        for bb in (bias.to(dtype), None):
+            before = int8_gemm.launches
+            out = int8_gemm_scaled(a, b_k, sx, ws, bb, dtype)
+            torch.cuda.synchronize()
+            assert int8_gemm.launches == before + 1
+            assert out.dtype == dtype and out.shape == (M, N)
+            assert torch.equal(out, int8_gemm_scaled_plain(a, b, sx, ws, bb, dtype)), (dtype, bb)
+
+
+def _rows_with_ties(rng, M, K):
+    """M seeded rows of width K: noise, every fifth row all zero, and rows
+    whose x / sx lands exactly on .5 (amax 127: sx = 1; amax 254: sx = 2)."""
+    x = rng.standard_normal((M, K)).astype(np.float32) * 3
+    x[::5] = 0.0
+    ties = np.resize(np.float32([0.5, -1.5, 2.5, -3.5, 40.5, 0.0]), K)
+    x[1::7] = ties
+    x[1::7, 0] = 127.0
+    x[2::7] = ties * 2
+    x[2::7, 0] = 254.0
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("M,K", [(1500, 1280), (4500, 5120), (3000, 640), (1500, 2560),
+                                 (257, 48), (1, 16), (33, 8192), (100, 64)])
+def test_quantize_rows_kernel_matches_plain(dev, dtype, M, K):
+    """K8q bit-equal to its plain version: turbo's widths and their tp 2
+    halves at ragged M, the narrowest and widest K it takes, .5 ties
+    (rounded to even) and zero rows; and at a given scale."""
+    rng = np.random.default_rng(M * 3 + K)
+    x = torch.from_numpy(_rows_with_ties(rng, M, K)).to(dev, dtype)
+    before = quantize_rows.launches
+    q, sx = quantize_rows(x)
+    torch.cuda.synchronize()
+    assert quantize_rows.launches == before + 1
+    want_q, want_sx = quantize_rows_plain(x)
+    assert q.dtype == torch.int8 and q.shape == (M, K) and sx.shape == (M, 1)
+    assert torch.equal(sx, want_sx)
+    assert torch.equal(q, want_q)
+    assert torch.equal(q.cpu(), quantize_rows_plain(x.cpu())[0])  # card == CPU
+    given = torch.from_numpy(rng.uniform(0.01, 0.1, (M, 1)).astype(np.float32)).to(dev)
+    q2, s2 = quantize_rows(x, given)
+    assert s2 is given and torch.equal(q2, quantize_rows_plain(x, given)[0])
+
+
+def test_quantize_rows_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((4, 64), device=dev)
+    for bad in (torch.zeros((4, 24), device=dev),        # K % 16 != 0
+                torch.zeros((4, 8208), device=dev),      # K > 8192
+                x.half(),                                # fp16
+                torch.zeros((4, 128), device=dev)[:, :64],  # not contiguous
+                torch.zeros((2, 4, 64), device=dev)):    # not 2-D
+        with pytest.raises(ValueError):
+            quantize_rows(bad)
+    for sx in (torch.ones((4,), device=dev), torch.ones((4, 1), device=dev).double(),
+               torch.ones((3, 1), device=dev)):
+        with pytest.raises(ValueError):
+            quantize_rows(x, sx)
+    a8, w8 = torch.zeros((4, 64), dtype=torch.int8, device=dev), torch.zeros(
+        (8, 64), dtype=torch.int8, device=dev).t()
+    s4, s8 = torch.ones((4, 1), device=dev), torch.ones((1, 8), device=dev)
+    with pytest.raises(ValueError):  # fp16 out
+        int8_gemm_scaled(a8, w8, s4, s8, None, torch.half)
+    with pytest.raises(ValueError):  # the channel scales of another width
+        int8_gemm_scaled(a8, w8, s4, torch.ones((1, 16), device=dev), None, torch.float32)
+    with pytest.raises(ValueError):  # bf16 row scales
+        int8_gemm_scaled(a8, w8, s4.bfloat16(), s8, None, torch.float32)
+
+
+def _card_kernels(fn) -> list:
+    """Names of the kernels ``fn`` launches on the card (torch.profiler; the
+    first window of a process can miss the card's activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        if names:
+            return names
+    raise AssertionError("torch.profiler recorded nothing on the card")
 
 
 def test_linear_a8_on_the_card_through_the_kernel(dev, monkeypatch):
-    """The W8A8 linear through K8 equals, bit for bit, the same linear on
-    the CPU, and lays the weight out K-major once, in place. The activation
-    scale is divided by a tensor: by a Python scalar CUDA multiplies by its
-    reciprocal, which this case shows puts scales one ulp off the CPU's."""
+    """The W8A8 linear is one K8q and one K8 launch and no other kernel; it
+    equals, bit for bit, the same linear on the CPU, and lays the weight out
+    K-major once, in place. The activation scale is divided by a tensor: by
+    a Python scalar CUDA multiplies by its reciprocal, which this case shows
+    puts scales one ulp off the CPU's."""
     from whisper_tpu_torch.models import model as tm
 
     rng = np.random.default_rng(3)
@@ -198,16 +291,24 @@ def test_linear_a8_on_the_card_through_the_kernel(dev, monkeypatch):
     w = quantize_weight(torch.from_numpy(rng.standard_normal((256, 384)).astype(np.float32)))
     bias = torch.from_numpy(rng.standard_normal(384).astype(np.float32))
     wd = w.to(dev)
-    before = int8_gemm.launches
+    before = (quantize_rows.launches, int8_gemm.launches)
     got = tm._linear_a8(x.to(dev), wd, bias.to(dev), torch.float32)
-    assert int8_gemm.launches == before + 1
+    assert (quantize_rows.launches, int8_gemm.launches) == (before[0] + 1, before[1] + 1)
     assert wd.k_major() is wd.q and wd.q.t().is_contiguous() and torch.equal(wd.q.cpu(), w.q)
     assert torch.equal(got.cpu(), tm._linear_a8(x, w, bias, torch.float32))
-    # batch 1 in the conv stem's transposed layout (a strided view when flattened)
+    xb, bb = x.to(dev, torch.bfloat16), bias.to(dev, torch.bfloat16)
+    names = _card_kernels(lambda: tm._linear_a8(xb, wd, bb, torch.bfloat16))
+    kinds = sorted(next((k for k in ("int8_gemm_sm90", "quantize_rows_kernel") if k in n), n)
+                   for n in names)
+    assert kinds == ["int8_gemm_sm90", "quantize_rows_kernel"], names
+    assert torch.equal(tm._linear_a8(xb, wd, bb, torch.bfloat16).cpu(),
+                       tm._linear_a8(xb.cpu(), w, bb.cpu(), torch.bfloat16))
+    # batch 1 in the conv stem's old transposed layout (a strided view when flattened)
     xt = x[:1].transpose(1, 2).contiguous().transpose(1, 2).to(dev)
     assert torch.equal(tm._linear_a8(xt, wd, None, torch.float32),
                        tm._linear_a8(xt.contiguous(), wd, None, torch.float32))
-    monkeypatch.setattr(tm, "int8_gemm", lambda a, b: int8_gemm_plain(a, b))
+    monkeypatch.setattr(tm, "int8_gemm_scaled", int8_gemm_scaled_plain)
+    monkeypatch.setattr(tm, "quantize_rows", quantize_rows_plain)
     assert torch.equal(got, tm._linear_a8(x.to(dev), wd, bias.to(dev), torch.float32))
     amax = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8)
     assert not torch.equal((amax.to(dev) / 127.0).cpu(), amax / 127.0)
@@ -488,6 +589,10 @@ def test_launches_on_other_cards_leave_the_current_device(dev):
                 lambda: cross_attention_decode_dense(qd, kq, ks, vq, vs),
                 lambda: self_attention_decode_int8(qd, *cache, offsets, None),
                 lambda: int8_gemm(a8, w8.t().contiguous().t()),
+                lambda: int8_gemm_scaled(a8, w8.t().contiguous().t(),
+                                         torch.ones((64, 1), device=last),
+                                         torch.ones((1, 64), device=last), None, torch.bfloat16),
+                lambda: quantize_rows(rand(64, 128)),
                 lambda: log10_mel(rand(2, 160 * 101 + 400, dtype=torch.float32), 80, 400, 160,
                                   101)]
     for fn in launches:

@@ -79,21 +79,29 @@ def test_encoder_forward_w8a8_matches_jax(params, monkeypatch):
         got = tm._linear_a8(x, model.encoder.blocks[0].attn[name], None, torch.float32)
         np.testing.assert_array_equal(got.numpy(), ref)
 
-    linear_a8, seen = tm._linear_a8, []
+    quantize_rows, gemm_scaled, seen, products = tm.quantize_rows, tm.int8_gemm_scaled, [], []
 
-    def recording_linear_a8(x, w, b, dtype):
-        seen.append(x.detach().float())
-        return linear_a8(x, w, b, dtype)
+    def recording_quantize_rows(x, sx=None):
+        seen.append(x.detach().float().reshape(2, CFG.n_audio_ctx, -1))
+        return quantize_rows(x, sx)
 
-    monkeypatch.setattr(tm, "_linear_a8", recording_linear_a8)
+    def counting_gemm_scaled(*args):
+        products.append(args[1].shape)
+        return gemm_scaled(*args)
+
+    monkeypatch.setattr(tm, "quantize_rows", recording_quantize_rows)
+    monkeypatch.setattr(tm, "int8_gemm_scaled", counting_gemm_scaled)
     jx = jm.encoder_stem(jp, jnp.asarray(mel), CFG)
     for l in range(CFG.n_audio_layer):
         x = torch.from_numpy(np.array(jx))
         jx = jm.encoder_blocks(jp, jx, CFG, lo=l, hi=l + 1)
         ref = np.asarray(jx)
         seen.clear()
+        products.clear()
         got = tm.encoder_blocks(model, x, lo=l, hi=l + 1, w8a8=True).numpy()
-        assert len(seen) == 6  # q, k, v, o, mlp1, mlp2 all took the int8 x int8 path
+        # q, k, v, o, mlp1, mlp2 all took the int8 x int8 path; q, k and v
+        # share one quantization of their LayerNorm output
+        assert len(products) == 6 and len(seen) == 4
         clean = ~_tie_rows(seen)
         assert clean.mean() > 0.5
         np.testing.assert_allclose(got[clean], ref[clean], rtol=0, atol=ATOL)
@@ -119,6 +127,46 @@ def test_encoder_fp32_weights_and_stem(fp_params):
     x = tm.encoder_stem(model, torch.from_numpy(mel))
     split = tm.encoder_blocks(model, tm.encoder_blocks(model, x, hi=1), lo=1)
     torch.testing.assert_close(split, tm.encoder_blocks(model, x), rtol=0, atol=0)
+
+
+def test_encoder_stem_writes_contiguous_rows(fp_params):
+    """The stem's output is a contiguous (B, T, D), with the values of the
+    conv's transposed layout plus the positional embedding."""
+    _, model = fp_params
+    mel = torch.from_numpy(_mel(3))
+    got = tm.encoder_stem(model, mel)
+    assert got.is_contiguous() and got.shape == (2, CFG.n_audio_ctx, CFG.n_audio_state)
+    enc = model.encoder
+    x = tm._gelu(torch.nn.functional.conv1d(mel, enc.conv1["w"], enc.conv1["b"], padding=1))
+    x = tm._gelu(torch.nn.functional.conv1d(x, enc.conv2["w"], enc.conv2["b"], stride=2,
+                                            padding=1)).transpose(1, 2)
+    assert torch.equal(got, x + enc.pos_emb[: x.shape[1]])
+
+
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_column_quantizes_once_for_q_k_v(params, monkeypatch, ranks):
+    """Under W8A8 ``_column`` quantizes the shared LayerNorm output once per
+    rank for the q, k and v products, with the bits of three separate
+    ``_linear_a8`` calls."""
+    _, model = params
+    attn = model.encoder.blocks[0].attn
+    pairs = [(attn["wq"], attn["bq"]), (attn["wk"], None), (attn["wv"], attn["bv"])]
+    h = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 30, CFG.n_audio_state)).astype(np.float32))
+    want = [tm._linear_a8(h, w, b, torch.float32) for w, b in pairs]
+    quantize_rows, calls = tm.quantize_rows, []
+
+    def counting(x, sx=None):
+        calls.append(x.shape)
+        return quantize_rows(x, sx)
+
+    monkeypatch.setattr(tm, "quantize_rows", counting)
+    got = tm._column(h, [pairs] * ranks, torch.float32, a8=True)
+    assert calls == [(60, CFG.n_audio_state)] * ranks
+    for rank in got:
+        assert len(rank) == 3
+        for g, w in zip(rank, want):
+            assert torch.equal(g, w)
 
 
 def _cross_kv(params, seed=2):

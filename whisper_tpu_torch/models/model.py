@@ -25,8 +25,11 @@ kernel ``cross_decode`` names (the JAX package's
 :func:`~whisper_tpu_torch.ops.decode_attention.cross_attention_decode_dense`.
 The JAX value ``0`` of both knobs (XLA's einsum attention) has no
 counterpart: on the card every attention at these sites runs a kernel, and
-an unknown selection raises ``ValueError``. The W8A8 encoder's int8 x int8
-products go through :func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm`.
+an unknown selection raises ``ValueError``. The W8A8 encoder's linears go
+through two kernels: the row quantization
+:func:`~whisper_tpu_torch.ops.quantize_rows.quantize_rows` (K8q) and the int8
+GEMM with the scale epilogue fused in,
+:func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm_scaled` (K8).
 
 Tensor parallelism: every forward function also takes a
 :class:`ShardedWhisper` (``parallel.sharding.shard_params``), whose ranks
@@ -61,8 +64,9 @@ from ..ops.decode_attention import (
     self_attention_decode_int8,
 )
 from ..ops.flash_attention import flash_attention, flash_attention_btd_local
-from ..ops.int8_gemm import int8_gemm
+from ..ops.int8_gemm import int8_gemm, int8_gemm_scaled, scale_epilogue
 from ..ops.quant import QTensor
+from ..ops.quantize_rows import quantize_rows, row_scale
 
 NEG = -1e30  # masked score, as the JAX package's jnp.float32(-1e30)
 
@@ -278,55 +282,38 @@ def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor], dtype) -> torch.Tenso
     return y
 
 
-def _int8_matmul(x8: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """(M, K) int8 @ the (K, N) int8 payload -> int32: the hand-written
-    kernel :func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm` on the card,
-    reading the payload K-major (:meth:`QTensor.k_major`); an exact int32
-    matmul on the CPU. ``x8`` may be a strided view (the encoder's
-    activations keep the conv stem's transposed layout, and at batch 1 the
-    flattening stays a view): the kernel reads a contiguous copy."""
-    return int8_gemm(x8.contiguous(), w.k_major())
+def _quantize_a8(x: torch.Tensor, sx: Optional[torch.Tensor] = None) -> tuple:
+    """(..., K) activations -> (int8 rows (M, K), fp32 row scales (M, 1), the
+    leading shape): the K8q wrapper
+    :func:`~whisper_tpu_torch.ops.quantize_rows.quantize_rows` on the
+    flattened rows (a view of a contiguous ``x``; a strided ``x``, such as a
+    batch-1 transposed view, is read through a contiguous copy), at ``sx``
+    (..., 1) when given."""
+    K = x.shape[-1]
+    if sx is not None:
+        sx = sx.reshape(-1, 1)
+    x8, sx = quantize_rows(x.reshape(-1, K).contiguous(), sx)
+    return x8, sx, x.shape[:-1]
 
 
-def _row_scale(amax: torch.Tensor) -> torch.Tensor:
-    """The W8A8 row scale from a row's absolute maximum. A tensor divisor:
-    CUDA turns division by a Python scalar into a product with its
-    reciprocal, which can put the scale one ulp off the CPU's (and the JAX
-    package's) quotient and flip an int8 activation."""
-    amax = torch.clamp(amax, min=1e-8)
-    return amax / amax.new_full((), 127.0)
-
-
-def _quantize_rows(xf: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
-    """Symmetric int8 of fp32 rows ``xf`` at row scale ``sx`` (..., 1)."""
-    return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
-
-
-def _a8_product(x8: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """(..., K) int8 activations @ the (K, N) int8 payload -> (..., N) int32."""
-    lead = x8.shape[:-1]
-    return _int8_matmul(x8.reshape(-1, x8.shape[-1]), w).reshape(*lead, -1)
-
-
-def _a8_epilogue(y: torch.Tensor, sx: torch.Tensor, w: QTensor, b: Optional[torch.Tensor],
-                 dtype) -> torch.Tensor:
-    """int32 product -> (row scale x channel scale) in fp32 -> dtype, + bias."""
-    y = ((y.to(torch.float32) * sx) * w.s.to(torch.float32).reshape(-1)).to(dtype)
-    return y if b is None else y + b.to(dtype)
+def _a8_scaled(xq: tuple, w: QTensor, b: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """One W8A8 product of quantized activations ``xq`` (:func:`_quantize_a8`)
+    with the weight's payload read K-major (:meth:`QTensor.k_major`), the
+    (row scale x channel scale) epilogue and the bias fused into K8
+    (:func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm_scaled`)."""
+    x8, sx, lead = xq
+    return int8_gemm_scaled(x8, w.k_major(), sx, w.s, b, dtype).reshape(*lead, -1)
 
 
 def _linear_a8(x: torch.Tensor, w, b: Optional[torch.Tensor], dtype) -> torch.Tensor:
     """W8A8 matmul: dynamic per-token symmetric int8 activations against the
     int8 weight payload, int32 product, (row scale x channel scale)
-    epilogue. Falls back to :func:`_linear` for a weight that is not
-    quantized, as the JAX ``_linear_a8`` does."""
+    epilogue; on the card two launches, K8q and K8. Falls back to
+    :func:`_linear` for a weight that is not quantized, as the JAX
+    ``_linear_a8`` does."""
     if not isinstance(w, QTensor):
         return _linear(x, w, b, dtype)
-    xf = x.to(torch.float32)
-    sx = _row_scale(xf.abs().amax(dim=-1, keepdim=True))
-    x8 = _quantize_rows(xf, sx)
-    del xf  # 4 bytes an element: not held through the product
-    return _a8_epilogue(_a8_product(x8, w), sx, w, b, dtype)
+    return _a8_scaled(_quantize_a8(x), w, b, dtype)
 
 
 def _weight_device(w) -> torch.device:
@@ -336,14 +323,19 @@ def _weight_device(w) -> torch.device:
 def _column(h: torch.Tensor, per_rank, dtype, a8: bool = False) -> list:
     """Column-parallel products of the replicated activation ``h``:
     ``per_rank[r]`` lists rank r's (weight, bias) pairs, and rank r gets
-    ``[h @ w + b, ...]`` on its device (:func:`_linear_a8` with ``a8``: the
-    rows of ``h`` span its full width on every rank, so each rank's columns
-    are the one-rank product's)."""
-    lin = _linear_a8 if a8 else _linear
+    ``[h @ w + b, ...]`` on its device. With ``a8`` and quantized weights
+    each rank quantizes ``h`` once for all its products (:func:`_linear_a8`'s
+    bits: the rows of ``h`` span its full width on every rank, so each
+    rank's columns are the one-rank product's)."""
     out = []
     for pairs in per_rank:
         hs = _to(h, _weight_device(pairs[0][0]))
-        out.append([lin(hs, w, b, dtype) for w, b in pairs])
+        if a8 and all(isinstance(w, QTensor) for w, _ in pairs):
+            hq = _quantize_a8(hs)
+            out.append([_a8_scaled(hq, w, b, dtype) for w, b in pairs])
+        else:
+            lin = _linear_a8 if a8 else _linear
+            out.append([lin(hs, w, b, dtype) for w, b in pairs])
     return out
 
 
@@ -362,17 +354,17 @@ def _row_parallel(xs, ws, b: Optional[torch.Tensor], dtype, a8: bool = False) ->
         return (_linear_a8 if a8 else _linear)(xs[0], ws[0], b, dtype)
     lead = xs[0].device
     if a8 and isinstance(ws[0], QTensor):
-        xfs = [x.to(torch.float32) for x in xs]
         amax = None
-        for xf in xfs:
-            m = _to(xf.abs().amax(dim=-1, keepdim=True), lead)
+        for x in xs:  # |x| and its maximum are exact in any float dtype
+            m = _to(x.abs().amax(dim=-1, keepdim=True).to(torch.float32), lead)
             amax = m if amax is None else torch.maximum(amax, m)
-        sx = _row_scale(amax)
+        sx = row_scale(amax)
         acc = None
-        for xf, w in zip(xfs, ws):
-            y = _a8_product(_quantize_rows(xf, _to(sx, xf.device)), w)
+        for x, w in zip(xs, ws):
+            x8, _, shape = _quantize_a8(x, _to(sx, x.device))
+            y = int8_gemm(x8, w.k_major()).reshape(*shape, -1)
             acc = y if acc is None else acc + _to(y, lead)
-        return _a8_epilogue(acc, sx, ws[0], b, dtype)
+        return scale_epilogue(acc, sx, ws[0].s, b, dtype)
     acc = None
     for x, w in zip(xs, ws):
         y = _linear(x, w, None, dtype)
@@ -456,7 +448,9 @@ def encoder_stem(model, mel: torch.Tensor, compute_dtype=torch.float32,
     x = _gelu(F.conv1d(x, enc.conv2["w"].to(dt), enc.conv2["b"].to(dt), stride=2,
                        padding=1), gelu)
     x = x.transpose(1, 2)
-    return x + enc.pos_emb[: x.shape[1]].to(dt)
+    # written (B, T, D) contiguous, not in the conv's transposed layout: every
+    # LayerNorm then reduces over contiguous rows, and K8q reads them in place
+    return torch.add(x, enc.pos_emb[: x.shape[1]].to(dt), out=x.new_empty(x.shape))
 
 
 def encoder_blocks(model, x: torch.Tensor, compute_dtype=torch.float32,

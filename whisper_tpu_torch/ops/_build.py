@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "whisper_tpu_torch"
 KERNELS = ("flash_attention_btd", "cross_attention_decode", "self_attention_decode",
            "int8_gemm", "log10_mel", "flash_attention", "cross_attention_decode_legacy",
-           "cross_attention_decode_dense")
+           "cross_attention_decode_dense", "quantize_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
