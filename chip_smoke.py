@@ -6,7 +6,11 @@ Builds the port's nine CUDA kernels from ``whisper_tpu_torch/csrc/`` (nvcc,
 sm_90a, one process per source, in parallel), holds each against its plain
 PyTorch version at the shapes of the paths below (and a turbo layer's six
 W8A8 linears as one chain, K8q + K8 against the PyTorch composition they
-replace), and drives each path while counting kernel launches:
+replace; K2 at the offline, serving, long-form and tp 2 rank batches, K3 at
+the three paths' windows on both caches), checks what the binaries hold
+(the wgmma kernels' HGMMA/IGMMA and TMA loads, K2's bulk copies, K3's
+cp.async, no I2F conversion in either, no register spill in either), and
+drives each path while counting kernel launches:
 
 - the offline path, ``WhisperPipeline.transcribe_batch``: turbo at full
   width, batch 64, 64 new tokens, bf16, int8 weights + W8A8 encoder + int8
@@ -71,6 +75,7 @@ PEAK_BYTES = 3.35e12
 B, T_AUDIO, D_AUDIO, H_AUDIO, L_AUDIO = 64, 1500, 1280, 20, 32
 H_TEXT, DH = 20, 64
 N_TOKENS = 64
+N_LONGFORM = 4  # the long-form path's clips, so its window batch
 
 # kernel-vs-plain tolerances (max |kernel - plain|) and why:
 #  K1 bf16: p is rounded to bf16 before p.v unnormalised (plain rounds the
@@ -155,6 +160,14 @@ def device_ms(fn, reps: int) -> float:
     between launches. For a kernel of a few microseconds a loop timed by
     CUDA events measures the host's launch rate instead."""
     return sum(device_kernels_ms(fn, reps).values())
+
+
+def launch_ms(fn, reps: int) -> float:
+    """Mean time on the card of one kernel launch of ``fn``, a loop of calls
+    that each launch one kernel: the profiled kernels' summed time over
+    their count, so a launch the profiler's window missed biases nothing."""
+    split = device_kernels(fn, reps)
+    return sum(ms for ms, _ in split.values()) / sum(n for _, n in split.values())
 
 
 def device_kernels_ms(fn, reps: int) -> dict:
@@ -318,56 +331,81 @@ def kernel_k1_sharded(dev, gen) -> dict:
             "library": "F.scaled_dot_product_attention on the rank's (B,H/tp,T,dh) heads"}
 
 
-def _int8_cross_kv(dev, gen):
-    """One layer of turbo's int8 cross-KV at the offline batch, quantized
-    from seeded noise as ``quantize_cross_kv`` quantizes the encoder's."""
+def _int8_cross_kv(dev, gen, b: int = B, heads: int = H_TEXT):
+    """One layer of turbo's int8 cross-KV at batch ``b`` (the offline batch by
+    default), quantized from seeded noise as ``quantize_cross_kv`` quantizes
+    the encoder's."""
     from whisper_tpu_torch.models.model import quantize_cross_kv
 
-    ck, cv = (torch.randn((1, B, H_TEXT, T_AUDIO, DH), generator=gen, device=dev)
+    ck, cv = (torch.randn((1, b, heads, T_AUDIO, DH), generator=gen, device=dev)
               for _ in range(2))
     return tuple(t[0] for t in quantize_cross_kv((ck, cv)))
 
 
-def _cross_bound() -> dict:
+def _cross_bound(b: int = B, heads: int = H_TEXT) -> dict:
     """K2's, K4's and K5's bound: int8 K and V, fp32 k_s and v_s, bf16 q and
     output; the fp32 work of the function (two products of dh x T per head)."""
-    nbytes = 2.0 * B * H_TEXT * DH * T_AUDIO + 2 * 4.0 * B * H_TEXT * DH + 2 * 2.0 * B * H_TEXT * DH
-    flops = 4.0 * B * H_TEXT * DH * T_AUDIO
+    n = b * heads
+    nbytes = 2.0 * n * DH * T_AUDIO + 2 * 4.0 * n * DH + 2 * 2.0 * n * DH
+    flops = 4.0 * n * DH * T_AUDIO
     return {"bound_ms": 1e3 * max(flops / PEAK_FP32, nbytes / PEAK_BYTES),
             "bound_by": "bytes" if nbytes / PEAK_BYTES > flops / PEAK_FP32 else "operations",
             "bound_peaks": "3.35 TB/s, 67 TFLOP/s fp32"}
 
 
+# K2's batches: the offline batch, the serving slots, the long-form window
+# batch (four clips), and the serving slots on a tp 2 rank (10 heads)
+K2_SHAPES = {"offline": (B, H_TEXT), "serving": (8, H_TEXT), "longform": (N_LONGFORM, H_TEXT),
+             "tp2_rank": (8, H_TEXT // 2)}
+
+
 def kernel_k2(dev, gen) -> dict:
+    """K2 at each of ``K2_SHAPES``: bf16 and fp32 queries against the plain
+    version, the bf16 query timed beside its bound. Below the offline batch a
+    layer's K and V fit the 50 MB L2, so the times cycle through enough
+    copies to exceed it, as the decode step finds its layer cold. ``ms`` is
+    CUDA events over a loop of calls; ``device_ms`` the kernel time alone
+    (torch.profiler): at B 8 a loop of calls measures the host's rate."""
     from whisper_tpu_torch.models.model import attention_int8kv
     from whisper_tpu_torch.ops.decode_attention import (
         cross_attention_decode_fd, cross_attention_decode_fd_plain)
 
-    k_q, k_s, v_q, v_s = _int8_cross_kv(dev, gen)
-    out = {}
-    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        q = torch.randn((B, H_TEXT, 1, DH), generator=gen, device=dev).to(dtype)
-        got = cross_attention_decode_fd(q, k_q, k_s, v_q, v_s)
-        res = check(f"cross_attention_decode_fd/{tag}", got,
-                    cross_attention_decode_fd_plain(q, k_q, k_s, v_q, v_s))
-        if tag == "fp32":
-            # the plain fd semantics agree with the model's attention_int8kv
-            ref = attention_int8kv(q, k_q, k_s, v_q, v_s)
-            res["vs_attention_int8kv"] = float((got - ref).abs().max())
-            out["fp32_check"] = res
-        else:
-            out.update(res)
-            out["ms"] = cuda_ms(lambda: cross_attention_decode_fd(q, k_q, k_s, v_q, v_s), 50)
-            out["plain_ms"] = cuda_ms(
-                lambda: cross_attention_decode_fd_plain(q, k_q, k_s, v_q, v_s), 20)
-            # kernel time on the card, as K4 and K5 report their ``ms``
-            out["device_ms"] = device_ms(
-                lambda: cross_attention_decode_fd(q, k_q, k_s, v_q, v_s), 20)
+    cases = {}
+    for path, (b, heads) in K2_SHAPES.items():
+        kv = _int8_cross_kv(dev, gen, b, heads)
+        case = {}
+        for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q = torch.randn((b, heads, 1, DH), generator=gen, device=dev).to(dtype)
+            got = cross_attention_decode_fd(q, *kv)
+            res = check(f"cross_attention_decode_fd/{tag}", got,
+                        cross_attention_decode_fd_plain(q, *kv))
+            if tag == "fp32":
+                # the plain fd semantics agree with the model's attention_int8kv
+                res["vs_attention_int8kv"] = float((got - attention_int8kv(q, *kv)).abs().max())
+                case["fp32_check"] = res
+                continue
+            case.update(res)
+            full = sum(t.numel() * t.element_size() for t in kv)
+            sets = [kv] + [tuple(t.clone() for t in kv)
+                           for _ in range(max(1, math.ceil(2 * L2_BYTES / full)) - 1)]
+            calls = {"ms": lambda: [cross_attention_decode_fd(q, *c) for c in sets],
+                     "plain_ms": lambda: [cross_attention_decode_fd_plain(q, *c) for c in sets]}
+            case.update({key: cuda_ms(call, 50 if key == "ms" else 10) / len(sets)
+                         for key, call in calls.items()})
+            case["device_ms"] = launch_ms(calls["ms"], 10)
+            case["plain_device_ms"] = device_ms(calls["plain_ms"], 5) / len(sets)
+            del sets
+        cases[path] = {"shape": f"q ({b},{heads},1,{DH}) bf16, k_q/v_q ({b},{heads},{DH},"
+                                f"{T_AUDIO}) int8", **case, **_cross_bound(b, heads)}
+        del kv
+    main = cases["offline"]
     return {"name": "cross_attention_decode_fd", "route": "cuda",
             "source": "whisper_tpu_torch/csrc/cross_attention_decode.cu",
             "replaces": "whisper_tpu/ops/decode_attention.py:212",
-            "shape": f"q ({B},{H_TEXT},1,{DH}) bf16, k_q/v_q ({B},{H_TEXT},{DH},{T_AUDIO}) int8",
-            **out, **_cross_bound(),
+            **{k: main[k] for k in ("shape", "max_abs_err", "rel_l2_err", "tol_abs", "ms",
+                                    "plain_ms", "device_ms", "fp32_check", "bound_ms",
+                                    "bound_by", "bound_peaks")},
+            "cases": cases, **_kernel_build("cross_attention_decode"),
             "library_ms": None, "library": "none: no single PyTorch call computes it"}
 
 
@@ -525,7 +563,8 @@ def kernel_k3(dev, gen) -> dict:
                 calls["library_ms"] = lambda: [sdpa(qd, cs[0].transpose(-1, -2),
                                                     cs[1].transpose(-1, -2), attn_mask=vis)
                                                for cs in sets]
-            times = {key: device_ms(call, reps=10) / len(sets) for key, call in calls.items()}
+            times = {key: launch_ms(call, reps=10) if key == "ms" else
+                     device_ms(call, reps=10) / len(sets) for key, call in calls.items()}
             times["events_ms"] = {key: cuda_ms(call, reps=10) / len(sets)
                                   for key, call in calls.items()}
             times.setdefault("library_ms", None)
@@ -551,7 +590,8 @@ def kernel_k3(dev, gen) -> dict:
             "replaces": "whisper_tpu/ops/decode_attention.py:60",
             **{k: main[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
-            "bound_peaks": "3.35 TB/s, 67 TFLOP/s fp32", "cases": out}
+            "bound_peaks": "3.35 TB/s, 67 TFLOP/s fp32", "cases": out,
+            **_kernel_build("self_attention_decode")}
 
 
 def kernel_k7(dev, gen) -> dict:
@@ -781,7 +821,10 @@ def w8a8_chain(dev, gen) -> dict:
       share one) and K8's scaled epilogue: ten launches, no other kernel.
     Both must give the same bits. Times by CUDA events (``*_ms``) and as
     kernel time on the card (``*_device_ms``, torch.profiler), kernel
-    launches counted."""
+    launches counted by the profiler (``*_launches``; a window of the
+    profiler can miss a launch late in a long run). ``after`` must launch
+    ten kernels by the wrappers' counters and only K8q and K8 by the
+    profiler's names."""
     from whisper_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_scaled, scale_epilogue
     from whisper_tpu_torch.ops.quantize_rows import quantize_rows, row_scale
 
@@ -835,12 +878,18 @@ def w8a8_chain(dev, gen) -> dict:
         rec[f"{tag}_ms"] = cuda_ms(fn, reps=3, warmup=1)
         rec[f"{tag}_device_ms"] = sum(ms for ms, _ in split.values())
         rec[f"{tag}_launches"] = round(sum(n for _, n in split.values()))
-        rec[f"{tag}_kernels"] = {name[:60]: [ms, round(n)] for name, (ms, n) in
+        rec[f"{tag}_kernels"] = {name[:90]: [ms, round(n)] for name, (ms, n) in
                                  sorted(split.items(), key=lambda kv: -kv[1][0])[:8]}
-    kinds = {name for name in device_kernels(after)}
-    if rec["after_launches"] != 10 or not all("int8_gemm_sm90" in n or "quantize_rows_kernel" in n
-                                              for n in kinds):
-        raise AssertionError(f"the fused chain ran other kernels: {rec['after_kernels']}")
+        if tag == "after":
+            kinds = set(split)
+    counted = quantize_rows.launches + int8_gemm.launches
+    after()
+    torch.cuda.synchronize()
+    rec["after_counted_launches"] = quantize_rows.launches + int8_gemm.launches - counted
+    if rec["after_counted_launches"] != 10 or not all(
+            "int8_gemm_sm90" in n or "quantize_rows_kernel" in n for n in kinds):
+        raise AssertionError(f"the fused chain ran other kernels or another count than 10 "
+                             f"({rec['after_counted_launches']}): {sorted(kinds)}")
     # what the chain must move at least: each input read once (the shared
     # h once), int8 rows, scales and weights, each output written once
     nbytes = sum(2.0 * x.numel() for x in acts.values()) + 2.0 * M * (5 * D + F)
@@ -904,41 +953,82 @@ def _function_name(mangled: str) -> str:
     return names[-1] if names else mangled
 
 
-# kernels whose Hopper body must hold wgmma (HGMMA on bf16, IGMMA on int8)
-# and TMA loads (UTMALDG): library -> (function, instructions it must hold)
-SM90_KERNELS = {"flash_attention_btd": ("attn_kernel", ("HGMMA", "UTMALDG")),
-                "flash_attention": ("attn_kernel", ("HGMMA", "UTMALDG")),
-                "int8_gemm": ("int8_gemm_sm90", ("IGMMA", "UTMALDG"))}
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+# kernels whose Hopper body must hold an instruction of its design, and
+# none of some others: library -> (function, instructions it must hold,
+# instructions it must not hold). K1, K6 and K8: wgmma (HGMMA on bf16,
+# IGMMA on int8) and TMA loads (UTMALDG); K2: 1-D bulk copies (UBLKCP) and
+# no I2F conversion; K3: cp.async (LDGSTS) and no I2F
+SM90_KERNELS = {"flash_attention_btd": ("attn_kernel", ("HGMMA", "UTMALDG"), ()),
+                "flash_attention": ("attn_kernel", ("HGMMA", "UTMALDG"), ()),
+                "int8_gemm": ("int8_gemm_sm90", ("IGMMA", "UTMALDG"), ()),
+                "cross_attention_decode": ("fd_kernel", ("UBLKCP",), ("I2F",)),
+                "self_attention_decode": ("self_decode_kernel", ("LDGSTS",), ("I2F",))}
+# I2F counts the int -> float conversions; I2F.RP, the reciprocal estimate
+# of an integer division by a variable (I2F.RP, I2F.U32.RP, ...), apart
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP", "LDGSTS", "I2F", "I2F.RP", "I2FP", "PRMT")
+WGMMA_KERNELS = ("flash_attention_btd", "flash_attention", "int8_gemm")
 
 
 def serialized_wgmma(ptxas: dict) -> dict:
-    """The ptxas warnings of the ``SM90_KERNELS`` libraries that say their
+    """The ptxas warnings of the wgmma kernels' libraries that say their
     wgmma were serialized (C7513, C7515): none may appear."""
     return {name: [ln for ln in lines if "C7513" in ln or "C7515" in ln]
-            for name, lines in ptxas.items() if name in SM90_KERNELS}
+            for name, lines in ptxas.items() if name in WGMMA_KERNELS}
 
 
-def sass_counts(names) -> dict:
-    """HGMMA, IGMMA and UTMALDG instructions per function of each built
-    library (``cuobjdump -sass``), so the run itself shows what the binaries
-    hold; fails if a kernel of ``SM90_KERNELS`` lacks one it must hold."""
+def ptxas_report(name: str) -> list:
+    """The register, shared-memory, spill and warning lines of ptxas's
+    report (``-Xptxas -v``) from the last build of library ``name``."""
+    from whisper_tpu_torch.ops import _build
+
+    return [ln.strip() for ln in _build.build_log(name).splitlines()
+            if "registers" in ln or "spill" in ln or "warning" in ln]
+
+
+def spills(lines) -> list:
+    """The ptxas lines that report spill stores or loads."""
+    return [ln for ln in lines
+            if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+
+
+def _sass(name: str) -> dict:
+    """``SASS_OPS`` counts per function (template instances summed) of the
+    built library ``name`` (``cuobjdump -sass``)."""
     from pathlib import Path
 
     from whisper_tpu_torch.ops import _build
 
     tool = str(Path(_build.nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
     out = {}
-    for name in names:
-        text = subprocess.run([tool, "-sass", str(_build.library_path(name))],
-                              capture_output=True, text=True, check=True).stdout
-        out[name] = {_function_name(part.split("\n", 1)[0].strip()):
-                     {op: part.count(op) for op in SASS_OPS}
-                     for part in re.split(r"\n\s*Function : ", text)[1:]}
-    for name, (fn, ops) in SM90_KERNELS.items():
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        counts = out.setdefault(_function_name(part.split("\n", 1)[0].strip()),
+                                dict.fromkeys(SASS_OPS, 0))
+        for op in SASS_OPS:
+            if op.startswith("I2F"):
+                forms = re.findall(r"\bI2F(?!\w)(?:\.\w+)*", part)
+                counts[op] += sum(f.endswith(".RP") == (op == "I2F.RP") for f in forms)
+            else:
+                counts[op] += len(re.findall(rf"\b{op}\b", part))
+    return out
+
+
+def _kernel_build(name: str) -> dict:
+    """What a kernel phase reports of its library's build: ptxas's lines
+    and the SASS counts."""
+    return {"ptxas": ptxas_report(name), "sass": _sass(name)}
+
+
+def sass_counts(names) -> dict:
+    """``SASS_OPS`` per function of each built library, so the run itself
+    shows what the binaries hold; fails if a kernel of ``SM90_KERNELS``
+    lacks an instruction it must hold or holds one it must not."""
+    out = {name: _sass(name) for name in names}
+    for name, (fn, need, banned) in SM90_KERNELS.items():
         counts = out[name].get(fn, {})
-        if not all(counts.get(op) for op in ops):
-            raise AssertionError(f"{name}: {fn} lacks one of {ops}: {out[name]}")
+        if not all(counts.get(op) for op in need) or any(counts.get(op) for op in banned):
+            raise AssertionError(f"{name}: {fn} must hold {need} and no {banned}: {out[name]}")
     return out
 
 
@@ -1431,7 +1521,6 @@ def reference_check() -> dict:
             "tokens_equal_cpu": True, "tokens": out}
 
 
-N_LONGFORM = 4
 LONGFORM_ARGS = ["--model_type", "turbo", "--dtype", "bfloat16", "--quantize", "--w8a8",
                  "--kv_quant", "--self_kv_quant", "--max_tokens", str(N_TOKENS), "--longform",
                  "--timestamps", "-f", "json"]
@@ -1549,15 +1638,16 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     build = _build.build_all()
-    ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                 if "registers" in ln or "spill" in ln or "warning" in ln]
-             for n in _build.KERNELS}
+    ptxas = {n: ptxas_report(n) for n in _build.KERNELS}
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build["build_s"], "ptxas": ptxas,
           "sass": sass_counts(_build.KERNELS)})
     serialized = serialized_wgmma(ptxas)
     if any(serialized.values()):
         raise AssertionError(f"ptxas serialized wgmma: {serialized}")
+    spilled = {n: spills(ptxas[n]) for n in ("cross_attention_decode", "self_attention_decode")}
+    if any(spilled.values()):
+        raise AssertionError(f"ptxas spilled registers in a decode kernel: {spilled}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -11,9 +11,11 @@ the order given and in a process of its own, it builds that checkout's
 kernels and runs its ``chip_smoke.end_to_end`` (turbo B64/T64, kvq + skvq +
 w8a8, bf16) and ``chip_smoke.serving`` (the server's zero-flag defaults
 with the temperature ladder off, 24 clips) phases, and prints one JSON line with the offline wall and the
-serving burst's wall and latencies. With ``--phases`` it runs that
-checkout's named ``chip_smoke`` kernel phases instead (each checks its
-kernel against the plain version) and prints their times. Comparing two
+serving burst's wall and latencies. With ``--phases`` it runs the named
+kernel phases of the ``chip_smoke.py`` beside this script on that
+checkout's kernels instead (each checks its kernel against the plain
+version through the wrappers), so every checkout is timed by the same
+code, and prints their times. Comparing two
 commits in one call on one card, in turns, keeps other cards' power limits
 and other hosts' neighbours out of the difference. Needs a CUDA card; exits
 non-zero if a run fails.
@@ -25,6 +27,9 @@ import json
 import os
 import subprocess
 import sys
+
+# the kernel phases, one measurement for every checkout
+SMOKE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py")
 
 _RUN = r"""
 import importlib.util, json, sys
@@ -55,10 +60,12 @@ print("RESULT " + json.dumps({
 """
 
 _PHASES = r"""
-import json, sys
+import importlib.util, json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
-import chip_smoke as cs
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[3])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
 from whisper_tpu_torch.ops import _build
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -68,8 +75,8 @@ gen = torch.Generator(device=dev).manual_seed(0)
 out = {}
 for phase in sys.argv[2].split(","):
     rec = getattr(cs, phase)(dev, gen)
-    out[phase] = {k: rec[k] for k in ("ms", "library_ms", "bound_ms", "max_abs_err", "cases")
-                  if k in rec}
+    out[phase] = {k: rec[k] for k in ("ms", "device_ms", "library_ms", "bound_ms",
+                                      "max_abs_err", "cases") if k in rec}
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps({"phases": out, **build}))
 """
@@ -87,7 +94,7 @@ def main(argv) -> int:
     for i, root in enumerate(argv):
         root = os.path.abspath(root)
         cmd = [sys.executable, "-c", _RUN, root] if phases is None else \
-            [sys.executable, "-c", _PHASES, root, phases]
+            [sys.executable, "-c", _PHASES, root, phases, SMOKE]
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
         if proc.returncode != 0 or not lines:

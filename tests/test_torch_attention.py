@@ -6,6 +6,9 @@ tests/test_pallas.py. The hand-written kernels are held against the plain
 versions on the card by tests/test_torch_kernels_cuda.py.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -153,3 +156,90 @@ def test_wrappers_refuse_other_devices():
         self_attention_decode(q, meta, meta, 0)
     with pytest.raises(ValueError):
         self_attention_decode_int8(q, meta, meta, 0)
+
+
+@pytest.mark.parametrize("B", [8, 4], ids=["serving", "longform"])
+def test_cross_attention_decode_fd_matches_pallas_at_the_path_shapes(B):
+    """The serving (8 slots) and long-form (4 windows) batches of turbo's
+    decode step: H=20, T=1500 (three t_tiles of 512, the last ragged)."""
+    q, ck, cv = _fd_inputs(10 + B, B=B, H=20, T=1500)
+    jq = jax_quantize_cross_kv((jnp.asarray(ck), jnp.asarray(cv)))
+    jargs = (jnp.asarray(q), jq[0][0], jq[1][0], jq[2][0], jq[3][0])
+    ref_fd = np.asarray(jax_fd(*jargs, interpret=True))
+    ref_xla = np.asarray(jax_attention_int8kv(*jargs))
+    targs = (torch.from_numpy(q),) + tuple(torch.from_numpy(np.array(a)) for a in jargs[1:])
+    got = cross_attention_decode_fd(*targs)
+    assert got.shape == (B, 20, 1, 64)
+    np.testing.assert_allclose(got.numpy(), ref_fd, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got.numpy(), ref_xla, rtol=2e-3, atol=2e-3)
+
+
+# the serving (8 slots, T 256, offsets 4..227) and long-form (T 384, offsets
+# 226..289, pads 0..60) windows of the decode step
+PATH_WINDOWS = {"serving": (8, 256, 4, 227, None), "longform": (8, 384, 226, 289, 60)}
+
+
+@pytest.mark.parametrize("path", list(PATH_WINDOWS))
+def test_self_attention_decode_matches_jax_at_the_path_shapes(path):
+    """Both entry points at H=20 and the path's cache length: against the
+    Pallas kernel (interpret mode; it takes no pads) without pads, and
+    against the JAX decode step's attention_kvt / attention_int8kv_perpos
+    under the same mask with the path's pads."""
+    B, T, lo, hi, max_pad = PATH_WINDOWS[path]
+    rng = np.random.default_rng(T)
+    q, k, v = _self_inputs(T, B=B, H=20, T=T)
+    offsets = rng.integers(lo, hi + 1, B)
+    toff = torch.from_numpy(offsets)
+    k_t, v_t = k.swapaxes(-1, -2).copy(), v.swapaxes(-1, -2).copy()
+    tq, tk, tv = torch.from_numpy(q), torch.from_numpy(k_t), torch.from_numpy(v_t)
+
+    ref = np.asarray(jax_self_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     jnp.asarray(offsets, jnp.int32), interpret=True))
+    np.testing.assert_allclose(self_attention_decode(tq, tk, tv, toff).numpy(), ref,
+                               rtol=0, atol=SELF_TOL)
+
+    pads = rng.integers(0, (max_pad or T // 4) + 1, B)
+    mask = jnp.asarray(_vis(offsets, pads, B, T))
+    ref = np.asarray(jax_attention_kvt(jnp.asarray(q), jnp.asarray(k_t), jnp.asarray(v_t),
+                                       mask=mask))
+    got = self_attention_decode(tq, tk, tv, toff, torch.from_numpy(pads))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=SELF_TOL)
+    kv_q, kv_s = jax_quantize_kv_heads(jnp.asarray(k), jnp.asarray(v))
+    ref8 = np.asarray(jax_perpos(jnp.asarray(q), kv_q, kv_s, mask=mask))
+    got8 = self_attention_decode_int8(tq, torch.from_numpy(np.array(kv_q)),
+                                      torch.from_numpy(np.array(kv_s)), toff,
+                                      torch.from_numpy(pads))
+    np.testing.assert_allclose(got8.numpy(), ref8, rtol=0, atol=SELF_TOL)
+
+
+def _int8_convert_constants():
+    """kMagic, kBias, kFlip and kSelect as the decode kernels' header states them."""
+    text = (Path(__file__).resolve().parents[1] / "whisper_tpu_torch" / "csrc"
+            / "decode_common.cuh").read_text()
+    got = {name: re.search(rf"constexpr \w+ {name} = ([0-9A-Fa-fx.]+?)u?f?;", text).group(1)
+           for name in ("kMagic", "kBias", "kFlip", "kSelect")}
+    return (int(got["kMagic"], 16), float(got["kBias"]), int(got["kFlip"], 16),
+            int(got["kSelect"], 16))
+
+
+def _byte_perm(x: np.ndarray, y: int, s: int) -> np.ndarray:
+    """CUDA's __byte_perm(x, y, s): result byte n is byte (s >> 4n) & 7 of
+    the eight bytes y:x (x's bytes 0-3, y's 4-7)."""
+    pool = [(x >> (8 * i)) & 0xFF for i in range(4)] + [
+        np.full_like(x, (y >> (8 * i)) & 0xFF) for i in range(4)]
+    return sum(pool[(s >> (4 * n)) & 7] << (8 * n) for n in range(4)).astype(np.uint32)
+
+
+def test_int8_to_fp32_bit_trick_is_exact_for_every_byte():
+    """The kernels' int8 -> fp32 conversion (a byte permute of x ^ 0x80 into
+    2^23's mantissa, minus 2^23 + 128), emulated bit for bit in numpy: all
+    256 values, in each of the four byte lanes of a word."""
+    magic, bias, flip, select = _int8_convert_constants()
+    assert (magic, bias, flip, select) == (0x4B000000, 8388736.0, 0x80808080, 0x7440)
+    x = np.arange(-128, 128, dtype=np.int8)
+    for lane in range(4):
+        word = (x.view(np.uint8).astype(np.uint32) << (8 * lane)) | (0x5A << (8 * ((lane + 1) % 4)))
+        bits = _byte_perm(word ^ np.uint32(flip), magic, select + lane)
+        got = bits.view(np.float32) - np.float32(bias)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, x.astype(np.float32))

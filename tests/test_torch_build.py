@@ -49,3 +49,9 @@ def test_a_new_header_rebuilds(csrc):
     before = _build.library_path("flash_attention_btd")
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.library_path("flash_attention_btd") != before
+
+
+@pytest.mark.parametrize("name", ["cross_attention_decode", "self_attention_decode"])
+def test_decode_kernels_include_their_common_header(name):
+    """K2 and K3 share the int8 -> fp32 conversion and the warp reductions."""
+    assert '#include "decode_common.cuh"' in (_build.CSRC / f"{name}.cu").read_text()

@@ -87,13 +87,20 @@ def test_flash_attention_btd_kernel_matches_plain(dev, dtype, B, T, D, H):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("B,H,T", [(2, 3, 300), (4, 20, 1500), (1, 2, 4)])
+@pytest.mark.parametrize("B,H,T", [
+    (2, 3, 300), (4, 20, 1500), (1, 2, 4),
+    # turbo's cross-KV at batch 1, the serving slots and the offline batch
+    (1, 20, 1500), (8, 20, 1500), (64, 20, 1500),
+    # a tp 2 rank's heads; short T (quarters of one quad, then empty ones)
+    (8, 10, 1500), (2, 20, 4), (2, 20, 12), (3, 5, 300),
+    # long T: all eight groups in flight, then rings of 3 and 2 stages
+    (1, 2, 6400), (1, 2, 12288), (2, 1, 16384)])
 def test_cross_attention_decode_fd_kernel_matches_plain(dev, dtype, B, H, T):
-    rng = np.random.default_rng(T)
-    ck, cv = (torch.from_numpy(rng.standard_normal((1, B, H, T, 64)).astype(np.float32)).to(dev)
-              for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(B * T + H)
+    ck, cv = (torch.randn((1, B, H, T, 64), generator=gen, device=dev) for _ in range(2))
     k_q, k_s, v_q, v_s = (t[0] for t in quantize_cross_kv((ck, cv)))
-    q = torch.from_numpy(rng.standard_normal((B, H, 1, 64)).astype(np.float32)).to(dev, dtype)
+    del ck, cv
+    q = torch.randn((B, H, 1, 64), generator=gen, device=dev).to(dtype)
     before = cross_attention_decode_fd.launches
     got = cross_attention_decode_fd(q, k_q, k_s, v_q, v_s)
     torch.cuda.synchronize()
@@ -101,6 +108,25 @@ def test_cross_attention_decode_fd_kernel_matches_plain(dev, dtype, B, H, T):
     ref = cross_attention_decode_fd_plain(q, k_q, k_s, v_q, v_s)
     assert got.dtype == dtype and got.shape == q.shape
     assert float((got.float() - ref.float()).abs().max()) <= K2_TOL[dtype]
+
+
+def test_cross_attention_decode_fd_refuses_unaligned_and_long_caches(dev):
+    """The bulk copies need k_q and v_q 16-byte aligned: a contiguous view
+    one byte into its storage is refused, not read from the wrong address;
+    so is T past the 16384 whose scores fit in shared memory."""
+    q = torch.zeros((1, 2, 1, 64), device=dev)
+    s = torch.ones((1, 2, 1, 64), device=dev)
+    n = 2 * 64 * 1500
+    buf = torch.zeros(n + 1, dtype=torch.int8, device=dev)
+    view = buf[1:].view(1, 2, 64, 1500)
+    good = torch.zeros((1, 2, 64, 1500), dtype=torch.int8, device=dev)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    for k_q, v_q in ((view, good), (good, view)):
+        with pytest.raises(ValueError, match="aligned"):
+            cross_attention_decode_fd(q, k_q, s, v_q, s)
+    long = torch.zeros((1, 2, 64, 16388), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="16384"):
+        cross_attention_decode_fd(q, long, s, long, s)
 
 
 def _self_cache(rng, B, H, T, dtype, dev):
@@ -138,6 +164,81 @@ def test_self_attention_decode_kernel_matches_plain(dev, dtype, B, H, T):
             assert got.dtype == dtype and got.shape == q.shape
             assert torch.isfinite(got).all()
             assert float((got.float() - ref.float()).abs().max()) <= K3_TOL[dtype], fn.__name__
+
+
+def _check_self(q, kv, kv8, offsets, pads, dtype):
+    """Both K3 entry points against their plain versions, one launch each."""
+    for fn, plain, cache in ((self_attention_decode, self_attention_decode_plain, kv),
+                             (self_attention_decode_int8, self_attention_decode_int8_plain,
+                              kv8)):
+        before = fn.launches
+        got = fn(q, *cache, offsets, pads)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        ref = plain(q, *cache, offsets, pads)
+        assert got.dtype == dtype and got.shape == q.shape and torch.isfinite(got).all()
+        assert float((got.float() - ref.float()).abs().max()) <= K3_TOL[dtype], fn.__name__
+
+
+# the decode paths' windows: (batch, cache length, offsets drawn from
+# [lo, hi], pads drawn from [0, max_pad]): offline (prompt of 4, 64 new
+# tokens), serving (8 slots, 224-token budget), long-form (prompts of up to
+# 226 tokens, 64 new ones, left-padded by up to 60)
+K3_WINDOWS = {"offline": (64, 128, 4, 67, 3), "serving": (8, 256, 4, 227, 3),
+              "longform": (8, 384, 226, 289, 60)}
+
+
+@pytest.mark.parametrize("use_pads", [False, True], ids=["nopad", "pad"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("path", list(K3_WINDOWS))
+def test_self_attention_decode_at_the_path_windows(dev, path, dtype, use_pads):
+    B, T, lo, hi, max_pad = K3_WINDOWS[path]
+    rng = np.random.default_rng(T)
+    q, kv, kv8 = _self_cache(rng, B, 20, T, dtype, dev)
+    offsets = torch.tensor(rng.integers(lo, hi + 1, B), device=dev)
+    pads = torch.tensor(rng.integers(0, max_pad + 1, B), device=dev) if use_pads else None
+    _check_self(q, kv, kv8, offsets, pads, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T", [1, 100, 448, 12288])
+def test_self_attention_decode_edge_windows(dev, dtype, T):
+    """Per row: an empty window (pads past the offset), one key at 0, one key
+    at the end, the full cache, and a window inside it; then a scalar offset
+    of 0 (one key) and of T - 1 (all), without pads."""
+    B = 5
+    rng = np.random.default_rng(T + 1)
+    q, kv, kv8 = _self_cache(rng, B, 3, T, dtype, dev)
+    offsets = torch.tensor([0, 0, T - 1, T - 1, (3 * T) // 4], device=dev)
+    pads = torch.tensor([1, 0, T - 1, 0, T // 4], device=dev)
+    if T == 1:  # the empty row's pad 1 lies past the cache
+        assert int(pads[0]) > int(offsets[0])
+    _check_self(q, kv, kv8, offsets, pads, dtype)
+    for off in (0, T - 1):
+        _check_self(q, kv, kv8, off, None, dtype)
+
+
+@pytest.mark.parametrize("B,H", [(3, 2), (28, 20)], ids=["few_rows", "many_rows"])
+@pytest.mark.parametrize("T", [128, 100, 1])
+def test_self_attention_decode_reads_unaligned_views(dev, T, B, H):
+    """Cache views that start one element (and, for int8, one byte) into
+    their storage: the kernel falls back to narrower copies in the same
+    launch, and still matches the plain version; with few (batch, head)
+    rows (64-byte chunks) and with many (128-byte chunks)."""
+    rng = np.random.default_rng(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, (k, v), (kv_q, kv_s) = _self_cache(rng, B, H, T, dtype, dev)
+
+        def shift(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            view = buf[1:].view(t.shape)
+            view.copy_(t)
+            assert view.is_contiguous() and view.data_ptr() % 16 != 0
+            return view
+
+        offsets = torch.tensor(([T - 1, T // 2, 0] * B)[:B], device=dev)
+        pads = torch.tensor(([0, T // 4, 0] * B)[:B], device=dev)
+        _check_self(q, (shift(k), shift(v)), (shift(kv_q), shift(kv_s)), offsets, pads, dtype)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

@@ -7,9 +7,10 @@ head-batched K4 and dense K5 forms the JAX package selects with
 (``_fd_kernel``): one query per (batch, head) against int8 K and V stored
 transposed (B, H, dh, T) with fp32 (B, H, 1, dh) per-channel scales; the K
 scales and dh^-0.5 fold into the query, the V scales into the output, and the
-softmax is online over T tiles, all in fp32. On a CUDA tensor it launches the
+softmax is over the whole T, all in fp32. On a CUDA tensor it launches the
 hand-written Hopper kernel ``whisper_tpu_torch/csrc/cross_attention_decode.cu``
-(see the note there); on a CPU tensor it runs
+(a cluster of four CTAs a (batch, head), each moving its 16 K and V rows
+with bulk copies; see the note there); on a CPU tensor it runs
 :func:`cross_attention_decode_fd_plain`.
 
 ``self_attention_decode`` (float cache) and ``self_attention_decode_int8``
@@ -18,8 +19,10 @@ hand-written Hopper kernel ``whisper_tpu_torch/csrc/cross_attention_decode.cu``
 (``_self_kernel``): one query per (batch, head) against the self-attention
 cache, key position t visible iff ``pads[b] <= t <= offsets[b]``, fp32
 softmax. They read the port's position-minor cache layer views as they lie.
-On a CUDA tensor they launch ``whisper_tpu_torch/csrc/self_attention_decode.cu``;
-on a CPU tensor they run their ``_plain`` versions.
+On a CUDA tensor they launch ``whisper_tpu_torch/csrc/self_attention_decode.cu``
+(each warp loads its chunk of the visible window in one round: K and the
+scales by cp.async, V into registers); on a CPU tensor they run their
+``_plain`` versions.
 
 ``cross_attention_decode`` is the port of the TPU kernel
 ``whisper_tpu/ops/decode_attention.py:cross_attention_decode`` (``_kernel``,
@@ -89,6 +92,9 @@ _SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float
                                       ctypes.c_int, ctypes.c_void_p]
 
 
+_FD_MAX_T = 16384  # two fp32 score arrays of a (batch, head) and a 4-row group in 227 KB
+
+
 def _kernel(dtype: torch.dtype):
     lib = _build.load("cross_attention_decode")
     fn = (lib.cross_attention_decode_fd_bf16 if dtype == torch.bfloat16
@@ -103,11 +109,18 @@ def cross_attention_decode_fd(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Ten
     fp32 -> (B, H, 1, dh) in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (q bf16 or fp32, dh = 64, T % 4 == 0, contiguous) or raise.
+    (q bf16 or fp32, dh = 64, T % 4 == 0, T <= 16384, contiguous, k_q and
+    v_q 16-byte aligned for the bulk copies) or raise.
     """
     if q.device.type == "cpu":
         return cross_attention_decode_fd_plain(q, k_q, k_s, v_q, v_s)
     B, H, T = _check_cross("cross_attention_decode_fd", q, k_q, k_s, v_q, v_s)
+    if T > _FD_MAX_T:
+        raise ValueError(f"the CUDA kernel keeps a head's scores in shared memory: T <= "
+                         f"{_FD_MAX_T}, got {T}")
+    if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+        raise ValueError("the CUDA kernel bulk-copies k_q and v_q: both must start "
+                         "16-byte aligned")
     out = torch.empty_like(q)
     err = _build.launch(_kernel(q.dtype), q.device, q.data_ptr(), k_q.data_ptr(),
                         k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), out.data_ptr(), B * H,
@@ -271,7 +284,7 @@ def self_attention_decode_int8_plain(q, kv_q, kv_s, offsets, pads=None) -> torch
 _SELF_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                           ctypes.c_void_p]
-_MAX_T = 48 * 1024 // 4  # the window's scores live in shared memory
+_MAX_T = 12288  # the longest cache the wrapper takes (the card tests run up to it)
 
 
 def _self_kernel(symbol: str):
