@@ -7,9 +7,11 @@ sm_90a, one process per source, in parallel), holds each against its plain
 PyTorch version at the shapes of the paths below (and a turbo layer's six
 W8A8 linears as one chain, K8q + K8 against the PyTorch composition they
 replace; K2 at the offline, serving, long-form and tp 2 rank batches, K3 at
-the three paths' windows on both caches), checks what the binaries hold
-(the wgmma kernels' HGMMA/IGMMA and TMA loads, K2's bulk copies, K3's
-cp.async, no I2F conversion in either, no register spill in either), and
+the three paths' windows on both caches, K5 at the offline and serving
+batches, K7 at the offline and admission batches beside ``torch.stft``),
+checks what the binaries hold (the wgmma kernels' HGMMA/IGMMA and TMA
+loads, K2's and K5's bulk copies, K5's mma.sync, K3's cp.async, no I2F
+conversion in K2, K3 or K5, no register spill in K2, K3, K5 or K7), and
 drives each path while counting kernel launches:
 
 - the offline path, ``WhisperPipeline.transcribe_batch``: turbo at full
@@ -51,6 +53,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import struct
 import subprocess
@@ -63,6 +66,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+# CUPTI stays attached between torch.profiler windows: torn down after each
+# window and attached again at the next, it can leave whole windows without
+# the card's activity
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 # NVIDIA H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 without
 # tensor cores, HBM3 bandwidth. Rates at the full 700 W power limit.
@@ -91,6 +99,11 @@ N_LONGFORM = 4  # the long-form path's clips, so its window batch
 #  K7: the raw log10 mel in fp32, sums in another order than cuBLAS's; the
 #    JAX package's golden tolerance for its fused mel kernel
 #    (tests/test_pallas.py);
+#  K7 f64: against the same function in float64 (``_log10_mel_f64``): the
+#    kernel's FFT is float64, so only its fp32 power, mel sums and log2
+#    remain (6e-7 measured); an fp32 FFT reads 1.4e-4 to 4.2e-4 there
+#    (PERF.md), so 1e-5 holds the kernel's own error, which the check
+#    against the fp32 plain version (up to 7e-4 off itself) cannot;
 #  K8: int32 sums of int8 products are exact: equality; its scaled epilogue
 #    rounds each step as the PyTorch epilogue does: equality;
 #  K8q: the same roundings as the plain version (IEEE division, round half
@@ -109,7 +122,8 @@ TOL = {"flash_attention_btd/bf16": 8e-3, "flash_attention_btd/fp32": 1e-4,
        "log10_mel": 5e-4, "int8_gemm": 0.0, "quantize_rows": 0.0,
        "flash_attention/bf16": 8e-3, "flash_attention/fp32": 1e-4,
        "cross_attention_decode/bf16": 8e-3, "cross_attention_decode/fp32": 1e-4,
-       "cross_attention_decode_dense/bf16": 8e-3, "cross_attention_decode_dense/fp32": 1e-3}
+       "cross_attention_decode_dense/bf16": 8e-3, "cross_attention_decode_dense/fp32": 1e-3,
+       "log10_mel/f64": 1e-5}
 # K3's shapes: (batch, self-KV positions, offsets drawn from [lo, hi], pads
 # drawn from [0, max]) of the offline path (prompt of 4, 64 new tokens,
 # cache bucketed to 128), the serving path (8 slots, 224-token budget, cache
@@ -162,11 +176,14 @@ def device_ms(fn, reps: int) -> float:
     return sum(device_kernels_ms(fn, reps).values())
 
 
-def launch_ms(fn, reps: int) -> float:
-    """Mean time on the card of one kernel launch of ``fn``, a loop of calls
-    that each launch one kernel: the profiled kernels' summed time over
-    their count, so a launch the profiler's window missed biases nothing."""
+def launch_ms(fn, reps: int, launches: int) -> float:
+    """Mean time on the card of one kernel launch of ``fn``, a loop of
+    ``launches`` calls that each launch one kernel: the profiled kernels'
+    summed time over their count, so a launch the profiler's window missed
+    biases nothing."""
     split = device_kernels(fn, reps)
+    if EVENTS in split:
+        return split[EVENTS][0] / launches
     return sum(ms for ms, _ in split.values()) / sum(n for _, n in split.values())
 
 
@@ -175,9 +192,19 @@ def device_kernels_ms(fn, reps: int) -> dict:
     return {name: ms for name, (ms, _) in device_kernels(fn, reps).items()}
 
 
-def device_kernels(fn, reps: int = 1) -> dict:
+# the key of ``device_kernels``' answer when no profiled window held the
+# card's activity; ``PROFILER_MISSES`` counts such windows, reported in the
+# ``profiler`` record
+EVENTS = "(cuda events: no profiled window held the card's activity)"
+PROFILER_MISSES = {"empty_windows": 0, "events_fallbacks": 0}
+
+
+def device_kernels(fn, reps: int = 1, fallback: bool = True) -> dict:
     """{kernel name: (mean ms, launches) per call of ``fn``} on the card
-    (CUPTI, through torch.profiler)."""
+    (CUPTI, through torch.profiler). Where five windows in a row come back
+    without the card's activity, ``{EVENTS: (ms, None)}`` from CUDA events
+    around the same loop, which adds the gaps between launches; without
+    ``fallback`` that raises instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -185,7 +212,7 @@ def device_kernels(fn, reps: int = 1) -> dict:
     torch.cuda.synchronize()
     # the process's first profiled window can come back without the card's
     # activity (CUPTI starting up), so an empty window is taken again
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -197,15 +224,22 @@ def device_kernels(fn, reps: int = 1) -> dict:
                 split[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / reps, n + 1 / reps)
         if sum(ms for ms, _ in split.values()) > 0:
             return split
-    raise AssertionError("torch.profiler recorded no time on the card in three windows")
+        PROFILER_MISSES["empty_windows"] += 1
+    if not fallback:
+        raise AssertionError("torch.profiler recorded no time on the card in five windows")
+    PROFILER_MISSES["events_fallbacks"] += 1
+    return {EVENTS: (cuda_ms(fn, reps, warmup=0), None)}
 
 
-def check(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+def check(name: str, got: torch.Tensor, ref: torch.Tensor, **extra) -> dict:
+    """max |got - ref| against TOL[name], in float64 where ``ref`` is, else
+    in fp32; ``extra`` is reported beside it."""
     torch.cuda.synchronize()
-    err = (got.float() - ref.float()).abs()
-    rel = float(torch.linalg.vector_norm(got.float() - ref.float())
-                / torch.linalg.vector_norm(ref.float()))
-    out = {"max_abs_err": float(err.max()), "rel_l2_err": rel, "tol_abs": TOL[name]}
+    dt = torch.float64 if ref.dtype == torch.float64 else torch.float32
+    err = (got.to(dt) - ref.to(dt)).abs()
+    rel = float(torch.linalg.vector_norm(got.to(dt) - ref.to(dt))
+                / torch.linalg.vector_norm(ref.to(dt)))
+    out = {"max_abs_err": float(err.max()), "rel_l2_err": rel, "tol_abs": TOL[name], **extra}
     if not torch.isfinite(got).all() or out["max_abs_err"] > TOL[name]:
         raise AssertionError(f"{name} disagrees with its plain version: {out}")
     return out
@@ -392,7 +426,7 @@ def kernel_k2(dev, gen) -> dict:
                      "plain_ms": lambda: [cross_attention_decode_fd_plain(q, *c) for c in sets]}
             case.update({key: cuda_ms(call, 50 if key == "ms" else 10) / len(sets)
                          for key, call in calls.items()})
-            case["device_ms"] = launch_ms(calls["ms"], 10)
+            case["device_ms"] = launch_ms(calls["ms"], 10, len(sets))
             case["plain_device_ms"] = device_ms(calls["plain_ms"], 5) / len(sets)
             del sets
         cases[path] = {"shape": f"q ({b},{heads},1,{DH}) bf16, k_q/v_q ({b},{heads},{DH},"
@@ -493,26 +527,64 @@ def kernel_k4(dev, gen) -> dict:
                               "use_vpu=True": {"use_vpu": True}})}
 
 
+def _dense_times(fn, q, kv) -> dict:
+    """K5's kernel time and its plain version's per call on the card
+    (torch.profiler), cycling through enough copies of K and V to exceed the
+    L2 where one layer's fit it, as the decode step finds its layer cold;
+    ``events_ms`` CUDA events around the same loop."""
+    from whisper_tpu_torch.ops.decode_attention import cross_attention_decode_dense_plain
+
+    full = sum(t.numel() * t.element_size() for t in kv)
+    sets = [kv] + [tuple(t.clone() for t in kv)
+                   for _ in range(max(1, math.ceil(2 * L2_BYTES / full)) - 1)]
+    calls = {"ms": lambda: [fn(q, *c) for c in sets],
+             "plain_ms": lambda: [cross_attention_decode_dense_plain(q, *c) for c in sets]}
+    out = {key: device_ms(call, 20 if key == "ms" else 5) / len(sets)
+           for key, call in calls.items()}
+    out["events_ms"] = cuda_ms(calls["ms"], 20) / len(sets)
+    return out
+
+
+# K5's batches: the offline batch and the flagged serving burst's slots
+K5_SHAPES = {"offline": B, "serving": 8}
+
+
 def kernel_k5(dev, gen) -> dict:
-    """K5, with its two launches (scores, output) timed apart, and its dense
-    form's redundant multiply-adds (H-fold: 9.8e9 operations at B64) over
-    the bf16 tensor-core peak beside its bound."""
+    """K5 at each of ``K5_SHAPES``: bf16 and fp32 queries against the plain
+    version, the bf16 query timed beside its bound (``_dense_times``), and
+    its dense form's redundant multiply-adds (H-fold: 9.8e9 operations at
+    B64) over the bf16 tensor-core peak."""
     from whisper_tpu_torch.ops.decode_attention import (
         cross_attention_decode_dense, cross_attention_decode_dense_plain)
 
-    dense_ops = 2 * 2.0 * B * H_TEXT * (H_TEXT * DH) * T_AUDIO
-    out = _cross_variant("cross_attention_decode_dense", cross_attention_decode_dense,
-                         cross_attention_decode_dense_plain, dev, gen, {"dense": {}})
-    # its two launches (scores, output) timed apart on the card
-    k_q, k_s, v_q, v_s = _int8_cross_kv(dev, gen)
-    q = torch.randn((B, H_TEXT, 1, DH), generator=gen, device=dev).to(torch.bfloat16)
-    split = device_kernels_ms(lambda: cross_attention_decode_dense(q, k_q, k_s, v_q, v_s), 20)
+    cases = {}
+    for path, b in K5_SHAPES.items():
+        kv = _int8_cross_kv(dev, gen, b)
+        case = {}
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            q = torch.randn((b, H_TEXT, 1, DH), generator=gen, device=dev).to(dtype)
+            res = check(f"cross_attention_decode_dense/{tag}",
+                        cross_attention_decode_dense(q, *kv),
+                        cross_attention_decode_dense_plain(q, *kv))
+            if tag == "fp32":
+                case["fp32_check"] = res
+            else:
+                case.update(res)
+        case.update(_dense_times(cross_attention_decode_dense, q, kv))
+        dense_ops = 2 * 2.0 * b * H_TEXT * (H_TEXT * DH) * T_AUDIO
+        cases[path] = {"shape": f"q ({b},{H_TEXT},1,{DH}) bf16, k_q/v_q ({b},{H_TEXT},{DH},"
+                                f"{T_AUDIO}) int8", **case, **_cross_bound(b),
+                       "dense_ops": dense_ops, "dense_ops_ms": 1e3 * dense_ops / PEAK_BF16}
+        del kv
+    main = cases["offline"]
     return {"name": "cross_attention_decode_dense", "route": "cuda",
             "source": "whisper_tpu_torch/csrc/cross_attention_decode_dense.cu",
-            "replaces": "whisper_tpu/ops/decode_attention.py:295", **out,
-            "launch_split_ms": {re.search(r"\w*kernel\w*", name).group(0): ms
-                                for name, ms in split.items()},
-            "dense_ops": dense_ops, "dense_ops_ms": 1e3 * dense_ops / PEAK_BF16}
+            "replaces": "whisper_tpu/ops/decode_attention.py:295",
+            **{k: main[k] for k in ("shape", "max_abs_err", "rel_l2_err", "tol_abs", "ms",
+                                    "plain_ms", "fp32_check", "bound_ms", "bound_by",
+                                    "bound_peaks")},
+            "cases": cases, **_kernel_build("cross_attention_decode_dense"),
+            "library_ms": None, "library": "none: no single PyTorch call computes it"}
 
 
 def kernel_k3(dev, gen) -> dict:
@@ -563,7 +635,7 @@ def kernel_k3(dev, gen) -> dict:
                 calls["library_ms"] = lambda: [sdpa(qd, cs[0].transpose(-1, -2),
                                                     cs[1].transpose(-1, -2), attn_mask=vis)
                                                for cs in sets]
-            times = {key: launch_ms(call, reps=10) if key == "ms" else
+            times = {key: launch_ms(call, 10, len(sets)) if key == "ms" else
                      device_ms(call, reps=10) / len(sets) for key, call in calls.items()}
             times["events_ms"] = {key: cuda_ms(call, reps=10) / len(sets)
                                   for key, call in calls.items()}
@@ -594,30 +666,62 @@ def kernel_k3(dev, gen) -> dict:
             **_kernel_build("self_attention_decode")}
 
 
+def _log10_mel_f64(x: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """The raw log10 mel of reflect-padded audio ``x`` computed in float64
+    (``torch.fft.rfft``): the yardstick beside which K7's and its plain
+    version's fp32 errors are reported (``kernel_vs_f64``, ``plain_vs_f64``)."""
+    from whisper_tpu_torch.ops.mel import _frame, mel_filterbank
+
+    hann = torch.hann_window(400, periodic=True, dtype=torch.float64, device=x.device)
+    fb = torch.from_numpy(mel_filterbank(n_mels, 400)).to(x.device, torch.float64)
+    out = []
+    for i in range(0, x.shape[0], 16):  # 16 rows of frames in float64: 0.6 GB
+        spec = torch.fft.rfft(_frame(x[i:i + 16].double(), 3000, 400, 160) * hann, dim=-1)
+        out.append(torch.log10(torch.clamp(fb @ (spec.abs() ** 2).transpose(1, 2), min=1e-10)))
+    return torch.cat(out)
+
+
 def kernel_k7(dev, gen) -> dict:
-    """K7 at the offline path's shape (B 64, turbo's 128 mels) and at tiny's
-    (B 8, 80 mels), on reflect-padded seeded noise. The bound counts the
-    operations the function needs, not those of the TPU kernel's dense DFT
-    matmul: per frame the Hann window, a real FFT of 400 points at the usual
-    2.5 n log2 n, the power of 201 bins, the mel projection over each
-    filter's nonzero bins and the log. The dense algorithm's bound is kept
-    beside it as ``dft_matmul_bound_ms``."""
+    """K7 at the offline path's shape (B 64, turbo's 128 mels), the serving
+    admission batch (B 8, 128 mels) and tiny's (B 8, 80 mels), on
+    reflect-padded seeded noise. The bound counts the operations the
+    function needs, not those of the TPU kernel's dense DFT matmul: per
+    frame the Hann window, a real FFT of 400 points at the usual 2.5 n log2
+    n, the power of 201 bins, the mel projection over each filter's nonzero
+    bins and the log. The dense algorithm's bound is kept beside it as
+    ``dft_matmul_bound_ms``. ``stft_ms`` times ``torch.stft``'s power
+    spectrum of the same audio (cuFFT): a part of K7's function only, so it
+    is no ``library_ms``."""
     from whisper_tpu_torch.ops.log10_mel import log10_mel, log10_mel_plain
     from whisper_tpu_torch.ops.mel import mel_filterbank
 
     out = {}
-    for b, n_mels in ((B, 128), (8, 80)):
+    for b, n_mels in ((B, 128), (8, 128), (8, 80)):
         audio = torch.randn((b, 480000), generator=gen, device=dev) * 0.1
         x = torch.nn.functional.pad(audio[:, None], (200, 200), mode="reflect")[:, 0].contiguous()
         got = log10_mel(x, n_mels, 400, 160, 3000)
-        res = check("log10_mel", got, log10_mel_plain(x, n_mels, 400, 160, 3000))
+        plain = log10_mel_plain(x, n_mels, 400, 160, 3000)
+        exact = _log10_mel_f64(x, n_mels)
+        f64 = check("log10_mel/f64", got, exact)
+        res = check("log10_mel", got, plain, kernel_vs_f64=f64["max_abs_err"],
+                    plain_vs_f64=float((plain.double() - exact).abs().max()), f64_check=f64)
+        del exact
         nnz = int(np.count_nonzero(mel_filterbank(n_mels, 400)))
         flops = b * 3000 * (400 + 2.5 * 400 * math.log2(400) + 3 * 201 + 2 * nnz + 2 * n_mels)
         dft_flops = 2.0 * b * 3000 * 400 * 402 + 2.0 * b * 3000 * 201 * n_mels
         nbytes = 4.0 * x.numel() + 4.0 * b * n_mels * 3000
+        window = torch.hann_window(400, periodic=True, device=dev)
+
+        def stft_power():
+            s = torch.stft(audio, 400, 160, window=window, center=True, pad_mode="reflect",
+                           return_complex=True)
+            return s.real * s.real + s.imag * s.imag
+
         out[f"B{b}/{n_mels}"] = {
             **res, "ms": cuda_ms(lambda: log10_mel(x, n_mels, 400, 160, 3000), reps=20),
+            "device_ms": device_ms(lambda: log10_mel(x, n_mels, 400, 160, 3000), reps=10),
             "plain_ms": cuda_ms(lambda: log10_mel_plain(x, n_mels, 400, 160, 3000), reps=5),
+            "stft_ms": cuda_ms(stft_power, reps=20),
             "bound_ms": 1e3 * max(flops / PEAK_FP32, nbytes / PEAK_BYTES),
             "bound_by": "operations" if flops / PEAK_FP32 > nbytes / PEAK_BYTES else "bytes",
             "ops_ms": 1e3 * flops / PEAK_FP32, "bytes_ms": 1e3 * nbytes / PEAK_BYTES,
@@ -626,10 +730,12 @@ def kernel_k7(dev, gen) -> dict:
     return {"name": "log10_mel", "route": "cuda", "source": "whisper_tpu_torch/csrc/log10_mel.cu",
             "replaces": "whisper_tpu/ops/mel_pallas.py:75",
             "shape": f"audio ({B}, 480400) fp32 -> ({B}, 128, 3000) fp32",
-            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "dft_matmul_bound_ms")},
+            **{k: main[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "stft_ms",
+                                    "bound_ms", "bound_by", "dft_matmul_bound_ms")},
             "bound_peaks": "67 TFLOP/s fp32, 3.35 TB/s", "cases": out,
-            "library_ms": None, "library": "none: no single PyTorch call computes it"}
+            **_kernel_build("log10_mel"),
+            "library_ms": None, "library": "none: no single PyTorch call computes it "
+            "(stft_ms: torch.stft's power spectrum alone)"}
 
 
 def _k8_bounds(M: int, K: int, N: int) -> dict:
@@ -874,7 +980,7 @@ def w8a8_chain(dev, gen) -> dict:
     rec = {"phase": "w8a8_chain", "M": M, "linears": [name for _, name in uses],
            "bit_equal": equal}
     for tag, fn in (("before", before), ("after", after)):
-        split = device_kernels(fn)
+        split = device_kernels(fn, fallback=False)  # its kernels' names are checked
         rec[f"{tag}_ms"] = cuda_ms(fn, reps=3, warmup=1)
         rec[f"{tag}_device_ms"] = sum(ms for ms, _ in split.values())
         rec[f"{tag}_launches"] = round(sum(n for _, n in split.values()))
@@ -957,15 +1063,18 @@ def _function_name(mangled: str) -> str:
 # none of some others: library -> (function, instructions it must hold,
 # instructions it must not hold). K1, K6 and K8: wgmma (HGMMA on bf16,
 # IGMMA on int8) and TMA loads (UTMALDG); K2: 1-D bulk copies (UBLKCP) and
-# no I2F conversion; K3: cp.async (LDGSTS) and no I2F
+# no I2F conversion; K3: cp.async (LDGSTS) and no I2F; K5: bulk copies,
+# mma.sync (HMMA) and no I2F
 SM90_KERNELS = {"flash_attention_btd": ("attn_kernel", ("HGMMA", "UTMALDG"), ()),
                 "flash_attention": ("attn_kernel", ("HGMMA", "UTMALDG"), ()),
                 "int8_gemm": ("int8_gemm_sm90", ("IGMMA", "UTMALDG"), ()),
                 "cross_attention_decode": ("fd_kernel", ("UBLKCP",), ("I2F",)),
-                "self_attention_decode": ("self_decode_kernel", ("LDGSTS",), ("I2F",))}
+                "self_attention_decode": ("self_decode_kernel", ("LDGSTS",), ("I2F",)),
+                "cross_attention_decode_dense": ("dense_kernel", ("UBLKCP", "HMMA"), ("I2F",))}
 # I2F counts the int -> float conversions; I2F.RP, the reciprocal estimate
 # of an integer division by a variable (I2F.RP, I2F.U32.RP, ...), apart
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP", "LDGSTS", "I2F", "I2F.RP", "I2FP", "PRMT")
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "UTMALDG", "UBLKCP", "LDGSTS", "I2F", "I2F.RP", "I2FP",
+            "PRMT")
 WGMMA_KERNELS = ("flash_attention_btd", "flash_attention", "int8_gemm")
 
 
@@ -1645,9 +1754,10 @@ def main() -> int:
     serialized = serialized_wgmma(ptxas)
     if any(serialized.values()):
         raise AssertionError(f"ptxas serialized wgmma: {serialized}")
-    spilled = {n: spills(ptxas[n]) for n in ("cross_attention_decode", "self_attention_decode")}
+    spilled = {n: spills(ptxas[n]) for n in ("cross_attention_decode", "self_attention_decode",
+                                             "cross_attention_decode_dense", "log10_mel")}
     if any(spilled.values()):
-        raise AssertionError(f"ptxas spilled registers in a decode kernel: {spilled}")
+        raise AssertionError(f"ptxas spilled registers in a decode or mel kernel: {spilled}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1693,6 +1803,7 @@ def main() -> int:
     emit(longform_reference_check())
     emit(tp_reference_check())
     emit(ladder_reference_check())
+    emit({"phase": "profiler", **PROFILER_MISSES})
 
     # each kernel's counts from the runs of the path that selects it; the
     # flagged burst selects K6 and K5

@@ -49,6 +49,10 @@ K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
 # K7: the raw log10 mel, fp32 sums in another order than cuBLAS's; the JAX
 # package's own golden tolerance for its fused mel kernel
 K7_TOL = 5e-4
+# K7 against the same function in float64: its FFT is float64, so only its
+# fp32 power, mel sums and log2 remain (6e-7 measured on turbo noise); an
+# fp32 FFT reads 1.4e-4 to 4.2e-4 there, past what this holds
+K7_F64_TOL = 1e-5
 # K6: K1's kernel on split heads, the same tolerances and reasons
 K6_TOL = K1_TOL
 # K4: fp32 differs by summation order only (the MXU form rounds nothing in
@@ -415,27 +419,63 @@ def test_linear_a8_on_the_card_through_the_kernel(dev, monkeypatch):
     assert not torch.equal((amax.to(dev) / 127.0).cpu(), amax / 127.0)
 
 
-@pytest.mark.parametrize("n_mels", [80, 128])
-@pytest.mark.parametrize("n_frames", [3000, 101])
-def test_log10_mel_kernel_matches_plain(dev, n_mels, n_frames):
-    """Noise, a tone, a short clip zero-padded and an all-zero row (-10
-    everywhere): the raw log10 mel within K7_TOL."""
-    rng = np.random.default_rng(n_mels + n_frames)
+def _mel_rows(n_frames: int, seed: int) -> np.ndarray:
+    """Noise, a 440 Hz tone, a short clip zero-padded, an all-zero row and
+    an impulse train, as reflect-padded audio of n_frames frames."""
+    rng = np.random.default_rng(seed)
     L = 160 * n_frames + 400
     t = np.arange(L) / 16000.0
-    x = np.stack([rng.standard_normal(L) * 0.1, 0.3 * np.sin(2 * np.pi * 440 * t),
-                  np.r_[rng.standard_normal(L // 3) * 0.5, np.zeros(L - L // 3)],
-                  np.zeros(L)]).astype(np.float32)
-    audio = torch.from_numpy(x).to(dev)
+    return np.stack([rng.standard_normal(L) * 0.1, 0.3 * np.sin(2 * np.pi * 440 * t),
+                     np.r_[rng.standard_normal(L // 3) * 0.5, np.zeros(L - L // 3)],
+                     np.zeros(L), (np.arange(L) % 397 == 0) * 0.8]).astype(np.float32)
+
+
+def _log10_mel_f64(audio: torch.Tensor, n_mels: int, n_frames: int) -> torch.Tensor:
+    """The raw log10 mel of reflect-padded audio, in float64 throughout."""
+    from whisper_tpu_torch.ops.mel import _frame, mel_filterbank
+
+    hann = torch.hann_window(400, periodic=True, dtype=torch.float64, device=audio.device)
+    spec = torch.fft.rfft(_frame(audio.double(), n_frames, 400, 160) * hann, dim=-1)
+    fb = torch.from_numpy(mel_filterbank(n_mels, 400)).to(audio.device, torch.float64)
+    return torch.log10(torch.clamp(fb @ (spec.abs() ** 2).transpose(1, 2), min=1e-10))
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("n_frames", [3000, 101, 1])
+def test_log10_mel_kernel_matches_plain(dev, n_mels, n_frames):
+    """Noise, a tone, a short clip zero-padded, an all-zero row (-10
+    everywhere) and an impulse train: the raw log10 mel within K7_TOL of
+    the plain version and within K7_F64_TOL of the float64 function."""
+    audio = torch.from_numpy(_mel_rows(n_frames, n_mels + n_frames)).to(dev)
     before = log10_mel.launches
     got = log10_mel(audio, n_mels, 400, 160, n_frames)
     torch.cuda.synchronize()
     assert log10_mel.launches == before + 1
     ref = log10_mel_plain(audio, n_mels, 400, 160, n_frames)
-    assert got.shape == ref.shape == (4, n_mels, n_frames)
+    assert got.shape == ref.shape == (5, n_mels, n_frames)
     assert torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= K7_TOL
+    exact = _log10_mel_f64(audio, n_mels, n_frames)
+    assert float((got.double() - exact).abs().max()) <= K7_F64_TOL
     assert float((got[3] + 10).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("B", [1, 8])
+def test_log10_mel_kernel_batches(dev, B, n_mels):
+    """One row and the serving admission batch of eight 30 s rows (the five
+    kinds of row, then noise at other levels), within K7_TOL of the plain
+    version and K7_F64_TOL of the float64 function."""
+    rows = _mel_rows(3000, B)
+    scales = np.array([0.01, 1.0, 3.0], np.float32)[:, None]
+    rows = np.concatenate([rows, rows[:1] * scales * 10])[:B]
+    audio = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+    got = log10_mel(audio, n_mels, 400, 160, 3000)
+    ref = log10_mel_plain(audio, n_mels, 400, 160, 3000)
+    assert got.shape == ref.shape == (B, n_mels, 3000)
+    assert float((got - ref).abs().max()) <= K7_TOL
+    exact = _log10_mel_f64(audio, n_mels, 3000)
+    assert float((got.double() - exact).abs().max()) <= K7_F64_TOL
 
 
 def test_log_mel_batch_on_the_card_matches_the_cpu(dev):
@@ -523,6 +563,81 @@ def test_cross_attention_decode_dense_kernel_matches_plain(dev, dtype, B, H, T):
     ref = cross_attention_decode_dense_plain(*args)
     assert got.dtype == dtype and got.shape == args[0].shape
     assert float((got.float() - ref.float()).abs().max()) <= K5_TOL[dtype]
+
+
+def _int8_cross_card(seed, B, H, T, dtype, dev):
+    """_int8_cross drawn on the card (the larger shapes would take long in
+    numpy)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ck, cv = (torch.randn((1, B, H, T, 64), generator=gen, device=dev) for _ in range(2))
+    k_q, k_s, v_q, v_s = (t[0] for t in quantize_cross_kv((ck, cv)))
+    del ck, cv
+    q = torch.randn((B, H, 1, 64), generator=gen, device=dev).to(dtype)
+    return q, k_q, k_s, v_q, v_s
+
+
+def _dense_check(args, dtype):
+    before = cross_attention_decode_dense.launches
+    got = cross_attention_decode_dense(*args)
+    torch.cuda.synchronize()
+    assert cross_attention_decode_dense.launches == before + 1
+    ref = cross_attention_decode_dense_plain(*args)
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert torch.isfinite(got.float()).all()
+    assert float((got.float() - ref.float()).abs().max()) <= K5_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,T", [(b, h, 1500) for b in (1, 8, 64) for h in (1, 6, 20, 32)]
+                         + [(b, h, t) for b, h in ((1, 1), (8, 20), (64, 20), (1, 32))
+                            for t in (4, 300)]
+                         + [(1, 1, 12288), (8, 20, 12288), (1, 32, 12288)])
+def test_cross_attention_decode_dense_shapes(dev, dtype, B, H, T):
+    """K5 over the batches of the paths (1, 8, 64), tiny's to the most heads
+    (1, 6, 20, 32), and T from one char4 (4) past a slice's ragged edge
+    (300) to turbo's 1500 and the wrapper's cap (12288)."""
+    _dense_check(_int8_cross_card(B * 1000 + H * 10 + T, B, H, T, dtype, dev), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T", [(1, 1500), (8, 1500), (2, 12288)])
+def test_cross_attention_decode_dense_peaked_and_flat(dev, dtype, B, T):
+    """One dominant position per head (its score ~32 above the rest: weights
+    of ~1e-14 elsewhere, the global max in one slice of the cluster) and a
+    flat softmax (q = 0: every weight bf16(1 / T))."""
+    H = 20
+    gen = torch.Generator(device=dev).manual_seed(T + B)
+    ck = torch.randn((1, B, H, T, 64), generator=gen, device=dev) * 0.05
+    cv = torch.randn((1, B, H, T, 64), generator=gen, device=dev) * 0.2  # |out| < 2
+    peak = torch.randint(0, T, (B, H), generator=gen, device=dev)
+    ck[0].scatter_(2, peak[:, :, None, None].expand(B, H, 1, 64),
+                   torch.ones((B, H, 1, 64), device=dev))
+    k_q, k_s, v_q, v_s = (t[0] for t in quantize_cross_kv((ck, cv)))
+    q = torch.full((B, H, 1, 64), 4.0, device=dev).to(dtype)
+    _dense_check((q, k_q, k_s, v_q, v_s), dtype)
+    got = cross_attention_decode_dense(q, k_q, k_s, v_q, v_s).float()
+    at_peak = torch.gather(v_q.float(), 3, peak[:, :, None, None].expand(B, H, 64, 1))
+    want = at_peak.transpose(-1, -2) * v_s  # the weight at the peak rounds to 1
+    assert float((got - want).abs().max()) <= K5_TOL[dtype]
+    _dense_check((torch.zeros_like(q), k_q, k_s, v_q, v_s), dtype)
+
+
+def test_cross_attention_decode_dense_refuses_long_and_unaligned(dev):
+    q = torch.zeros((1, 2, 1, 64), device=dev)
+    s = torch.ones((1, 2, 1, 64), device=dev)
+    kq = torch.zeros((1, 2, 64, 12292), dtype=torch.int8, device=dev)  # above the cap
+    with pytest.raises(ValueError):
+        cross_attention_decode_dense(q, kq, s, kq, s)
+    n = 2 * 64 * 1500
+    buf = torch.zeros(n + 16, dtype=torch.int8, device=dev)
+    view = buf[4:4 + n].view(1, 2, 64, 1500)  # contiguous, 4 bytes past 16-byte alignment
+    ok = buf[:n].view(1, 2, 64, 1500)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    before = cross_attention_decode_dense.launches
+    for k, v in ((view, ok), (ok, view)):
+        with pytest.raises(ValueError):
+            cross_attention_decode_dense(q, k, s, v, s)
+    assert cross_attention_decode_dense.launches == before
 
 
 def test_variant_kernels_refuse_what_they_do_not_take(dev):

@@ -1,77 +1,125 @@
-// Decode-step cross-attention against the int8 cross-KV as two dense
-// tensor-core products over a block-diagonal query, for Hopper (sm_90a).
+// Decode-step cross-attention against the int8 cross-KV through bf16
+// operands on the tensor cores, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
 // whisper_tpu/ops/decode_attention.py:cross_attention_decode_dense
-// (_dense_kernel): for one batch row, the H per-head matvecs q_h . K_h become
-// ONE (H, H*dh) @ (H*dh, T) product against a block-diagonal query
-// (qd[h, h*dh + d] = q[h, d] * k_s[h, d] * dh^-0.5, zero elsewhere), an fp32
-// softmax over T per row, then the (H*dh, T) @ (T, H) product of V with the
-// weights, of which each head keeps its own column (the diagonal). The
+// (_dense_kernel): for one batch row, the H per-head matvecs q_h . K_h as
+// ONE product of a block-diagonal query (qd[h, h*dh + d] = q[h, d] * k_s[h,
+// d] * dh^-0.5, zero elsewhere) with all heads' K, an fp32 softmax over the
+// whole T per head, the weights w = exp(s - max) / sum rounded to bf16, then
+// V times the weights, of which each head keeps its own column. The
 // operands are ALWAYS bf16, whatever the query's dtype (the scaled query,
-// the int8 K and V, the normalised weights), with fp32 accumulation; the V
-// scales fold into the output, which takes the query's dtype.
+// the int8 K and V, the normalised weights; bf16 x int8 products are exact
+// in fp32), with fp32 accumulation; the V scales fold into the output,
+// which takes the query's dtype.
 //
 // What bounds it on the card: bytes. The function needs 2*B*H*dh*T = 246 MB
-// of int8 K/V at turbo batch 64 (0.073 ms at 3.35 TB/s); its dense form does
-// H-fold redundant multiply-adds, 9.8e9 operations (0.0099 ms at the bf16
-// tensor-core peak), still below the bytes.
+// of int8 K/V at turbo batch 64 (0.073 ms at 3.35 TB/s); the dense form's
+// redundant multiply-adds on the tensor cores cost less (0.0099 ms at the
+// bf16 peak for the TPU kernel's H-fold redundancy).
 //
-// What the design does about it. The question the TPU kernel asked, whether
-// products with H-fold redundant work on the matrix unit beat per-head
-// matvecs, is asked here of the tensor cores: both products are
-// mma.sync.m16n8k16 bf16 with fp32 accumulation, with the zeros of the
-// block-diagonal query really multiplied. The TPU ran one program per batch
-// row; here that is 64 blocks at B64, too few to keep enough loads in flight
-// on 132 SMs, so the row is split where each product splits, into two
-// launches of 8 warps a block:
-//   1. scores: one block per (32 positions, batch row), 3,008 at turbo B64.
-//      The query rows (H, padded to a multiple of 16) are the A operand,
-//      built per k-step from the scaled query in shared memory (row h is
-//      nonzero only in its own 64 columns). The block's K tile (all H*dh
-//      channels x 32 positions) is converted from int8 to bf16 into shared
-//      memory, position-major, so one tile is the B operand of every head
-//      at once. Warp w computes the (m-tile w/4, 8-position n-tile w%4)
-//      block of S over all H*dh channels, in two accumulators (even and odd
-//      k-steps). S (B, H, T) fp32 goes to a scratch buffer (7.7 MB at turbo
-//      B64, read back from L2).
-//   2. output: one block per (128 channels, batch row), 640 at turbo B64.
-//      The block takes the max and the sum of exponentials of each row of
-//      S, then streams its channels of V in tiles of 128 positions (int8 ->
-//      bf16, the A operand) beside the same positions of the weights,
-//      w = exp(s - max) / sum rounded to bf16 (the B operand, H columns
-//      padded to a multiple of 8). Warp w owns 16 channels: they belong to
-//      one head, and that head's column of the product is written out.
-// K and V are each read once; every thread keeps 16 (K and V) 4-byte loads
-// in flight before it converts and stores them.
+// What the design does about it: one launch, K and V read once as int8,
+// no scores in device memory.
+//   - A CTA of 256 threads owns one head of one batch row and a slice of S
+//     positions of T (S a multiple of 32); the C slices of T form a
+//     thread-block cluster. C is the fewest slices (up to 8) whose CTA
+//     leaves two CTAs an SM: one at turbo's T = 1500 (105 KB), more only
+//     above T ~1,600. The probes (PERF.md) chose one head, 256 threads and
+//     the fewest slices at B64 and at B8 alike: the cluster's exchanges cost
+//     more than its extra CTAs bring.
+//   - Each of the CTA's 64 K rows, then its 64 V rows, is one 1-D bulk copy
+//     (cp.async.bulk, the TMA) of its slice, widened to 16-byte boundaries
+//     (no row of T = 1500 starts 16-byte aligned, so 2-D TMA does not apply;
+//     the widening adds at most 30 bytes a row). Each group of 16 rows
+//     completes on its own mbarrier, so the scores of one group run while
+//     the later groups are in flight. V is copied into K's rows as soon as
+//     the scores are done, so a CTA holds one operand at a time (two CTAs an
+//     SM, one's copies under the other's products) and V arrives during the
+//     softmax. Rows are padded in shared memory to a stride of 16 mod 64
+//     bytes, so the four row pairs a warp reads at once fall on distinct
+//     banks.
+//   - Scores: mma.sync.m16n8k16 bf16 with fp32 accumulation. The A operand
+//     is the block-diagonal query over the CTA's head (its row 0, the only
+//     nonzero one); the B operand is built in registers from the int8 tile:
+//     a lane reads one 32-bit word (4 positions) of each of its 4 channel
+//     rows, converts it with a byte permute and one subtract
+//     (decode_common.cuh, no I2F) and packs bf16 pairs, and n-tile i of a
+//     32-position block takes position 4n + i of column n, so each word
+//     feeds four mma. The scores stay in shared memory (S fp32).
+//   - Softmax over the WHOLE T: each CTA takes its slice's max m_c and sum
+//     l_c of exp(s - m_c); with C > 1 the cluster exchanges them once
+//     through distributed shared memory, and every CTA forms the same
+//     m = max m_c, l = sum_c l_c exp(m_c - m) in rank order. Only then are
+//     the weights formed, exp(s - m) / l with the global m and l, and
+//     rounded to bf16: normalisation comes before the rounding, as in the
+//     TPU kernel.
+//   - V: the head needs only its own column of V W^T (the rest of the dense
+//     product is what the diagonal discards), so no weight is formed for
+//     another head's rows: a warp takes 16 V rows and dots them with the
+//     weights in fp32 (converted as above), lanes along T. With C > 1 the
+//     slices' partial outputs (64 fp32) are summed in rank order through
+//     distributed shared memory; times v_s.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // C interface, loaded with ctypes (whisper_tpu_torch/ops/decode_attention.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "decode_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int DH = 64;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TT1 = 32;              // positions per scores block
-constexpr int TT2 = 128;             // positions per V tile of an output block
-constexpr int CH = 16 * WARPS;       // channels per output block
-constexpr int LDV = TT2 + 8;         // bf16 stride of V and weight tile rows: 272 B
-constexpr int MAX_H = 32;            // two m-tiles of query rows, four n-tiles of heads
-constexpr int K_BATCH = 8;           // K channel pairs a thread loads before it stores
-constexpr int V_ITEMS = CH * (TT2 / 4) / THREADS;  // char4 of a V tile per thread
-
+using namespace decode;
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int DH = 64;               // channels of a head: K rows, and V rows, of a CTA
+constexpr int NT = 256;              // threads a CTA
+constexpr int W = NT / 32;           // warps a CTA
+constexpr int GROUP_ROWS = 16;       // rows per mbarrier: one k-step of the scores
+constexpr int GROUPS = DH / GROUP_ROWS;  // per operand
+constexpr int P = W / GROUPS;        // warps sharing a V group along T
+constexpr int MAX_CLUSTER = 8;       // the portable cluster size
+constexpr int SMEM_LIMIT = 232448;   // a block's shared memory on sm_90
+constexpr int STATIC_RESERVE = 4096;  // the kernel's static shared memory, rounded up
+constexpr int TWO_PER_SM = 110 * 1024;  // dynamic shared memory that fits two CTAs an SM
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's first phase has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar))
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned global memory into this
+// CTA's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -79,8 +127,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // D (16x8 fp32) += A (16x16 bf16, row) * B (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -88,274 +136,254 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// acc + p . (the four int8 values in v), a dot product
+__device__ __forceinline__ float dot4(float4 p, uint32_t v, float acc) {
+  const float4 f = s8x4_to_f32(v);
+  return fmaf(p.w, f.w, fmaf(p.z, f.z, fmaf(p.y, f.y, fmaf(p.x, f.x, acc))));
+}
+
+// Block-wide max (MAX) or sum of x; every thread gets the result.
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float x, float* red) {
+  x = MAX ? warp_max(x) : warp_sum(x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  x = red[0];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  for (int w = 1; w < W; ++w) x = MAX ? fmaxf(x, red[w]) : x + red[w];
+  __syncthreads();  // red is rewritten by the next reduction
   return x;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// Bytes from the 16-byte boundary below a row's slice to its first position.
+__device__ __forceinline__ uint32_t lead(size_t row, int T, int t0) {
+  return (uint32_t)(((size_t)row * T + t0) & 15);
 }
 
-// A fragment of k-step ks for query rows r0, r1 of the block-diagonal query:
-// columns ks*16..ks*16+15 belong to head ks/4, so only that row is nonzero
-__device__ __forceinline__ void query_frag(uint32_t a[4], const uint32_t* sQw, int ks, int r0,
-                                           int r1, int tg) {
-  const int hk = ks >> 2;
-  const uint32_t* qw = sQw + hk * (DH / 2) + (ks & 3) * 8 + tg;
-  const uint32_t lo = qw[0], hi = qw[4];
-  a[0] = r0 == hk ? lo : 0u;
-  a[1] = r1 == hk ? lo : 0u;
-  a[2] = r0 == hk ? hi : 0u;
-  a[3] = r1 == hk ? hi : 0u;
-}
-
-__host__ __device__ constexpr int k_stride(int H) { return H * DH + 8; }  // bf16, K tile row
-
-// dynamic shared memory of a scores block: scaled query bf16 (H, 64) | K tile
-__host__ __device__ inline size_t scores_smem(int H) {
-  return (size_t)H * DH * 2 + (size_t)2 * TT1 * k_stride(H);
-}
-
-// ---- 1. S[b, :, t0:t0+TT1] = Qd K for one tile of positions of one batch row
+// Grid: (B * H) clusters of C CTAs; CTA `rank` of a cluster takes positions
+// [rank * S, min((rank + 1) * S, T)) of one (batch, head). Dynamic shared
+// memory: 64 rows of K, later of V (stride RS bytes) | the scores, later
+// the weights, S fp32.
 template <typename Tq>
-__global__ void __launch_bounds__(THREADS)
-dense_scores_kernel(const Tq* __restrict__ q, const int8_t* __restrict__ kq,
-                    const float* __restrict__ ks, float* __restrict__ S, int H, int T,
-                    float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  uint32_t* sK = reinterpret_cast<uint32_t*>(smem + (size_t)H * DH * 2);
+__global__ void __launch_bounds__(NT)
+dense_kernel(const Tq* __restrict__ q, const int8_t* __restrict__ kq,
+             const float* __restrict__ ks, const int8_t* __restrict__ vq,
+             const float* __restrict__ vs, Tq* __restrict__ out, int T, int S, int RS,
+             float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar[2 * GROUPS];
+  __shared__ __align__(16) uint32_t sQ[DH / 2];  // the scaled query, bf16 pairs
+  __shared__ float red[W];
+  __shared__ float stat[2];                      // this slice's max and sum
+  __shared__ float part[P][DH];                  // V partials of the warps of a group
+  __shared__ float sO[DH];                       // this slice's output partial
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;  // mma groupID / thread-in-group
-  const int HD = H * DH, ldk = k_stride(H);
-  const int t0 = blockIdx.x * TT1;
-  const size_t b = blockIdx.y;
-  const int8_t* K = kq + b * HD * (size_t)T;
-  const size_t row0 = b * HD;  // first (head, channel) of this batch row
+  const size_t row0 = (size_t)(blockIdx.x / C) * DH;  // first (head, channel) row
+  const int t0 = min(rank * S, T), n = min(t0 + S, T) - t0;  // this slice
+  unsigned char* sK = smem;  // K's rows, then V's
+  float* sS = reinterpret_cast<float*>(smem + (size_t)DH * RS);
 
+  if (tid == 0) {
+    for (int j = 0; j < 2 * GROUPS; ++j) mbar_init(&bar[j], GROUP_ROWS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // one bulk copy a row: K rows r < DH (groups 0..GROUPS-1), then V rows
+  auto issue = [&](int r) {
+    const bool is_k = r < DH;
+    const int rr = is_k ? r : r - DH;
+    const size_t row = row0 + rr;
+    const size_t first = row * T + t0 - lead(row, T, t0);
+    const uint32_t bytes = n ? (uint32_t)(((row * T + t0 + n + 15) & ~(size_t)15) - first) : 0;
+    mbar_expect_tx(&bar[r / GROUP_ROWS], bytes);
+    if (bytes)
+      bulk_load(sK + (size_t)rr * RS, (is_k ? kq : vq) + first, bytes, &bar[r / GROUP_ROWS]);
+  };
+  if (tid < DH) issue(tid);
   // the scaled query, rounded to bf16 as the TPU kernel's operand
-  for (int i = tid; i < HD; i += THREADS)
-    sQ[i] = __float2bfloat16(to_f32(q[row0 + i]) * ks[row0 + i] * scale);
-
-  // int8 rows c, c+1 at positions t..t+3 -> bf16 pairs (c, c+1) at [t][c];
-  // K_BATCH pairs' loads are in flight before the first store
-  const int items = (HD / 2) * (TT1 / 4);
-  for (int base = tid; base < items; base += K_BATCH * THREADS) {
-    char4 x0[K_BATCH], x1[K_BATCH];
-#pragma unroll
-    for (int j = 0; j < K_BATCH; ++j) {
-      const int idx = base + j * THREADS;
-      const int quad = idx & (TT1 / 4 - 1), p = idx / (TT1 / 4), t = t0 + 4 * quad;
-      x0[j] = x1[j] = make_char4(0, 0, 0, 0);
-      if (idx < items && t < T) {  // T % 4 == 0: a char4 is all in or all out
-        x0[j] = *reinterpret_cast<const char4*>(K + (size_t)(2 * p) * T + t);
-        x1[j] = *reinterpret_cast<const char4*>(K + (size_t)(2 * p + 1) * T + t);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < K_BATCH; ++j) {
-      const int idx = base + j * THREADS;
-      if (idx < items) {
-        const int quad = idx & (TT1 / 4 - 1), p = idx / (TT1 / 4);
-        uint32_t* d = sK + (4 * quad) * (ldk / 2) + p;
-        d[0] = pack_bf16((float)x0[j].x, (float)x1[j].x);
-        d[ldk / 2] = pack_bf16((float)x0[j].y, (float)x1[j].y);
-        d[ldk] = pack_bf16((float)x0[j].z, (float)x1[j].z);
-        d[3 * (ldk / 2)] = pack_bf16((float)x0[j].w, (float)x1[j].w);
-      }
-    }
+  if (tid < DH / 2) {
+    const size_t i = row0 + 2 * tid;
+    sQ[tid] = pack_bf16(to_f32(q[i]) * ks[i] * scale, to_f32(q[i + 1]) * ks[i + 1] * scale);
   }
   __syncthreads();
 
-  const int mt = warp >> 2, nt = warp & 3;  // this warp's block of S
-  const int r0 = mt * 16 + g, r1 = r0 + 8;   // its two query rows (heads)
-  if (mt * 16 >= H) return;                  // a padding m-tile: nothing to compute
-  // two accumulators (even and odd k-steps) halve the chain of dependent mma
-  float c[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-  const uint32_t* sQw = reinterpret_cast<const uint32_t*>(sQ);
-  const uint32_t* kb = sK + (nt * 8 + g) * (ldk / 2) + tg;
-  for (int kstep = 0; kstep < HD / 16; kstep += 2) {  // HD / 16 = 4H is even
-    uint32_t a[4], a1[4];
-    query_frag(a, sQw, kstep, r0, r1, tg);
-    query_frag(a1, sQw, kstep + 1, r0, r1, tg);
-    // B: channels kstep*16 + tg*2 (+1) and (+8, +9) at position nt*8 + g
-    mma_bf16(c, a, kb[kstep * 8], kb[kstep * 8 + 4]);
-    mma_bf16(c1, a1, kb[kstep * 8 + 8], kb[kstep * 8 + 12]);
+  // ---- scores of 32-position blocks: n-tile i holds position 4 col + i;
+  // lane (g, tg) reads channels 2tg, 2tg+1, 2tg+8, 2tg+9 of each k-step
+  uint32_t koff[GROUPS][4];
+#pragma unroll
+  for (int kk = 0; kk < GROUPS; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = kk * GROUP_ROWS + 2 * tg + (j & 1) + (j >> 1) * 8;
+      koff[kk][j] = (uint32_t)c * RS + lead(row0 + c, T, t0) + 4 * g;
+    }
+  const int n_blocks = (n + 31) / 32;
+  for (int blk = warp; blk < n_blocks; blk += W) {
+    const int p0 = 32 * blk;
+    float acc[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < GROUPS; ++kk) {
+      mbar_wait(&bar[kk]);
+      // A: row 0 holds the query's 16 channels of this k-step, rows 1-15 zero
+      const uint32_t a[4] = {g == 0 ? sQ[kk * 8 + tg] : 0u, 0u,
+                             g == 0 ? sQ[kk * 8 + tg + 4] : 0u, 0u};
+      float4 f[4];  // the four channels at positions 4g..4g+3 of the block
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[j] = s8x4_to_f32(*reinterpret_cast<const uint32_t*>(sK + koff[kk][j] + p0));
+      mma_bf16(acc[0], a, pack_bf16(f[0].x, f[1].x), pack_bf16(f[2].x, f[3].x));
+      mma_bf16(acc[1], a, pack_bf16(f[0].y, f[1].y), pack_bf16(f[2].y, f[3].y));
+      mma_bf16(acc[2], a, pack_bf16(f[0].z, f[1].z), pack_bf16(f[2].z, f[3].z));
+      mma_bf16(acc[3], a, pack_bf16(f[0].w, f[1].w), pack_bf16(f[2].w, f[3].w));
+    }
+    // D[0][col 2tg (+1)] of n-tile i is position p0 + 8tg (+4) + i
+    if (g == 0)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = p0 + 8 * tg + i;
+        if (p < n) sS[p] = acc[i][0];
+        if (p + 4 < n) sS[p + 4] = acc[i][1];
+      }
   }
-  const int t = t0 + nt * 8 + tg * 2;  // even; T % 4 == 0, so t + 1 < T too
-  if (t < T) {
-    float* Sb = S + b * H * (size_t)T;
-    if (r0 < H)
-      *reinterpret_cast<float2*>(Sb + (size_t)r0 * T + t) = make_float2(c[0] + c1[0],
-                                                                       c[1] + c1[1]);
-    if (r1 < H)
-      *reinterpret_cast<float2*>(Sb + (size_t)r1 * T + t) = make_float2(c[2] + c1[2],
-                                                                       c[3] + c1[3]);
+  __syncthreads();
+  // V into K's rows, now read
+  if (tid < DH) issue(DH + tid);
+
+  // ---- softmax over the whole T: the slice's max and sum, then the cluster's
+  float m = -INFINITY, l = 0.f;
+  for (int t = tid; t < n; t += NT) m = fmaxf(m, sS[t]);
+  m = block_reduce<true>(m, red);
+  for (int t = tid; t < n; t += NT) l += expf(sS[t] - m);
+  l = block_reduce<false>(l, red);
+  if (C > 1) {
+    if (tid == 0) {
+      stat[0] = m;
+      stat[1] = l;
+    }
+    cluster.sync();  // every slice's statistics are written
+    float M = -INFINITY, L = 0.f;
+    for (int c = 0; c < C; ++c) M = fmaxf(M, cluster.map_shared_rank(&stat[0], c)[0]);
+    for (int c = 0; c < C; ++c)  // rank order: every CTA gets the same bits
+      L += cluster.map_shared_rank(&stat[1], c)[0] *
+           expf(cluster.map_shared_rank(&stat[0], c)[0] - M);
+    m = M;
+    l = L;
   }
+  // the weights, normalised by the whole T's max and sum, then rounded to bf16
+  for (int t = tid; t < n; t += NT)
+    sS[t] = __bfloat162float(__float2bfloat16(expf(sS[t] - m) / l));
+  __syncthreads();
+
+  // ---- V: warp u dots the 16 rows of group u / P with the weights, lanes
+  // along T (part u % P of the P warps sharing the group takes every P-th word)
+  const int nq = n / 4;  // words of a row; T % 4 == 0 and S % 32 == 0
+  {
+    const int j = warp / P, p = warp % P;
+    mbar_wait(&bar[GROUPS + j]);
+    uint32_t off[GROUP_ROWS];
+    float acc[GROUP_ROWS];
+#pragma unroll
+    for (int rr = 0; rr < GROUP_ROWS; ++rr) {
+      const int r = j * GROUP_ROWS + rr;
+      off[rr] = (uint32_t)r * RS + lead(row0 + r, T, t0);
+      acc[rr] = 0.f;
+    }
+    const float4* w4 = reinterpret_cast<const float4*>(sS);
+    for (int k = p * 32 + lane; k < nq; k += 32 * P) {
+      const float4 wk = w4[k];
+#pragma unroll
+      for (int rr = 0; rr < GROUP_ROWS; ++rr)
+        acc[rr] = dot4(wk, *reinterpret_cast<const uint32_t*>(sK + off[rr] + 4 * k), acc[rr]);
+    }
+#pragma unroll
+    for (int rr = 0; rr < GROUP_ROWS; ++rr) {
+      const float a = warp_sum(acc[rr]);
+      if (lane == 0) part[p][j * GROUP_ROWS + rr] = a;
+    }
+  }
+  __syncthreads();
+  if (tid < DH) {
+    float o = part[0][tid];
+#pragma unroll
+    for (int p = 1; p < P; ++p) o += part[p][tid];
+    sO[tid] = o;
+  }
+  if (C == 1) {
+    if (tid < DH) store(out + row0 + tid, sO[tid] * vs[row0 + tid]);
+    return;
+  }
+  // the slices' partial outputs, summed in rank order; CTA `rank` stores
+  // the rows i with i % C == rank
+  cluster.sync();
+  for (int i = rank + C * tid; i < DH; i += C * NT) {
+    float o = cluster.map_shared_rank(sO, 0)[i];
+    for (int c = 1; c < C; ++c) o += cluster.map_shared_rank(sO, c)[i];
+    store(out + row0 + i, o * vs[row0 + i]);
+  }
+  cluster.sync();  // no peer still reads this CTA's shared memory
 }
 
-// ---- 2. out[b, head of channels c0..c0+CH) = diag(V W^T) * v_s
-template <typename Tq>
-__global__ void __launch_bounds__(THREADS)
-dense_output_kernel(const float* __restrict__ S, const int8_t* __restrict__ vq,
-                    const float* __restrict__ vs, Tq* __restrict__ out, int H, int T) {
-  __shared__ __align__(16) bf16 sV[CH * LDV];          // V tile [channel][position]
-  __shared__ __align__(16) bf16 sW[MAX_H * LDV];       // weights [head][position]
-  __shared__ float s_max[MAX_H], s_sum[MAX_H];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int HD = H * DH, n_tiles = (H + 7) / 8, w_rows = 8 * n_tiles;
-  const int c0 = blockIdx.x * CH, cw = c0 + warp * 16;  // this warp's 16 channels
-  const size_t b = blockIdx.y;
-  const int8_t* V = vq + b * HD * (size_t)T;
-  const float* Sb = S + b * H * (size_t)T;
-
-  // the softmax statistics of each row of S (fp32), four loads in flight
-  for (int h = warp; h < H; h += WARPS) {
-    const float* row = Sb + (size_t)h * T;
-    float m = -INFINITY;
-#pragma unroll 4
-    for (int t = 4 * lane; t < T; t += 128) {
-      const float4 s = *reinterpret_cast<const float4*>(row + t);
-      m = fmaxf(m, fmaxf(fmaxf(s.x, s.y), fmaxf(s.z, s.w)));
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll 4
-    for (int t = 4 * lane; t < T; t += 128) {
-      const float4 s = *reinterpret_cast<const float4*>(row + t);
-      sum += (expf(s.x - m) + expf(s.y - m)) + (expf(s.z - m) + expf(s.w - m));
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      s_max[h] = m;
-      s_sum[h] = sum;
-    }
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int t0 = 0; t0 < T; t0 += TT2) {
-    __syncthreads();  // the statistics are written / the previous tiles are consumed
-    char4 x[V_ITEMS];  // the whole V tile's loads in flight before the first store
-#pragma unroll
-    for (int j = 0; j < V_ITEMS; ++j) {
-      const int idx = tid + j * THREADS;
-      const int quad = idx & (TT2 / 4 - 1), r = idx / (TT2 / 4);
-      const int c = c0 + r, t = t0 + 4 * quad;
-      x[j] = make_char4(0, 0, 0, 0);
-      if (c < HD && t < T) x[j] = *reinterpret_cast<const char4*>(V + (size_t)c * T + t);
-    }
-    // the normalised weights of these positions, rounded to bf16; zero for
-    // padding heads and positions past T
-    for (int idx = tid; idx < w_rows * (TT2 / 4); idx += THREADS) {
-      const int quad = idx & (TT2 / 4 - 1), h = idx / (TT2 / 4), t = t0 + 4 * quad;
-      uint2 w = make_uint2(0u, 0u);
-      if (h < H && t < T) {
-        const float4 s = *reinterpret_cast<const float4*>(Sb + (size_t)h * T + t);
-        const float m = s_max[h], l = s_sum[h];
-        w = make_uint2(pack_bf16(expf(s.x - m) / l, expf(s.y - m) / l),
-                       pack_bf16(expf(s.z - m) / l, expf(s.w - m) / l));
-      }
-      *reinterpret_cast<uint2*>(sW + h * LDV + 4 * quad) = w;
-    }
-#pragma unroll
-    for (int j = 0; j < V_ITEMS; ++j) {
-      const int idx = tid + j * THREADS;
-      const int quad = idx & (TT2 / 4 - 1), r = idx / (TT2 / 4);
-      *reinterpret_cast<uint2*>(sV + r * LDV + 4 * quad) = make_uint2(
-          pack_bf16((float)x[j].x, (float)x[j].y), pack_bf16((float)x[j].z, (float)x[j].w));
-    }
-    __syncthreads();
-    if (cw < HD) {
-#pragma unroll
-      for (int kstep = 0; kstep < TT2 / 16; ++kstep) {
-        // A: V rows cw+g, cw+g+8 at tile positions kstep*16 + tg*2 (+1), (+8, +9)
-        const uint32_t* vw = reinterpret_cast<const uint32_t*>(
-            sV + (warp * 16 + g) * LDV + kstep * 16 + tg * 2);
-        const uint32_t a[4] = {vw[0], vw[8 * LDV / 2], vw[4], vw[8 * LDV / 2 + 4]};
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          if (n >= n_tiles) break;
-          // B = W^T: head n*8 + g's weights at those positions
-          const uint32_t* ww = reinterpret_cast<const uint32_t*>(
-              sW + (n * 8 + g) * LDV + kstep * 16 + tg * 2);
-          mma_bf16(acc[n], a, ww[0], ww[4]);
-        }
-      }
-    }
-  }
-  // the diagonal: rows cw..cw+15 are channels d0..d0+15 of head hm, whose
-  // column hm sits in n-tile hm/8, lane group tg = (hm%8)/2, element hm%2
-  if (cw < HD) {
-    const int hm = cw / DH, d0 = cw % DH, j = hm % 8;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      if (n == hm / 8 && tg == j / 2) {
-        const float o0 = (j & 1) ? acc[n][1] : acc[n][0];
-        const float o1 = (j & 1) ? acc[n][3] : acc[n][2];
-        const size_t i0 = b * HD + (size_t)hm * DH + d0 + g;
-        store(out + i0, o0 * vs[i0]);
-        store(out + i0 + 8, o1 * vs[i0 + 8]);
-      }
-    }
-  }
-}
+// positions per CTA for a cluster of C, and the padded row stride (bytes):
+// at least the slice plus 30 bytes of widening, 16 mod 64
+inline int slice(int T, int C) { return ((T + C - 1) / C + 31) / 32 * 32; }
+inline int row_stride(int S) { return (S + 30 + 63) / 64 * 64 + 16; }
+inline size_t smem_bytes(int S) { return (size_t)DH * row_stride(S) + (size_t)S * 4; }
 
 template <typename Tq>
 int launch(const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
-           void* scores, void* out, int B, int H, int T, float scale, int device,
-           void* stream) {
+           void* out, int B, int H, int T, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (H < 1 || H > MAX_H || T < 4 || T % 4) return (int)cudaErrorInvalidValue;
-  // 135 KB at most (H = 32): opt in to the largest, once per device
-  constexpr int kMaxDevices = 64;
-  static bool opted_in[kMaxDevices] = {};
-  const size_t smem = scores_smem(H);
-  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!opted_in[device]) {
-    err = cudaFuncSetAttribute(dense_scores_kernel<Tq>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)scores_smem(MAX_H));
-    if (err != cudaSuccess) return (int)err;
-    opted_in[device] = true;
-  }
-  dense_scores_kernel<Tq><<<dim3((T + TT1 - 1) / TT1, B), THREADS, smem,
-                            (cudaStream_t)stream>>>(
-      (const Tq*)q, (const int8_t*)kq, (const float*)ks, (float*)scores, H, T, scale);
-  err = cudaGetLastError();
+  if (H < 1 || T < 4 || T % 4 ||
+      (reinterpret_cast<uintptr_t>(kq) | reinterpret_cast<uintptr_t>(vq)) % 16)
+    return (int)cudaErrorInvalidValue;
+  // the fewest slices of T that leave two CTAs an SM (T = 1500: one, 105 KB)
+  int C = 1;
+  while (C < MAX_CLUSTER && smem_bytes(slice(T, C)) > TWO_PER_SM) C *= 2;
+  const int S = slice(T, C);
+  const size_t smem = smem_bytes(S);
+  if (smem > SMEM_LIMIT - STATIC_RESERVE) return (int)cudaErrorInvalidValue;
+  auto kernel = dense_kernel<Tq>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dense_output_kernel<Tq><<<dim3((H * DH + CH - 1) / CH, B), THREADS, 0,
-                            (cudaStream_t)stream>>>(
-      (const float*)scores, (const int8_t*)vq, (const float*)vs, (Tq*)out, H, T);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * H * C));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const Tq*)q, (const int8_t*)kq, (const float*)ks,
+                           (const int8_t*)vq, (const float*)vs, (Tq*)out, T, S, row_stride(S),
+                           scale);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out: (B, H, dh) in the query's dtype; kq, vq: (B, H*dh, T) int8;
-// ks, vs: (B, H, dh) fp32; scores: (B, H, T) fp32 scratch; 1 <= H <= 32,
-// T % 4 == 0. Two launches on ``stream``. Returns a cudaError_t.
+// q, out: (B, H, dh) in the query's dtype; kq, vq: (B, H*dh, T) int8,
+// 16-byte aligned, T % 4 == 0; ks, vs: (B, H, dh) fp32. One launch on
+// ``stream``. Returns a cudaError_t.
 extern "C" int cross_attention_decode_dense_bf16(const void* q, const void* kq,
                                                  const void* ks, const void* vq,
-                                                 const void* vs, void* scores, void* out,
-                                                 int B, int H, int T, float scale, int device,
-                                                 void* stream) {
-  return launch<bf16>(q, kq, ks, vq, vs, scores, out, B, H, T, scale, device, stream);
+                                                 const void* vs, void* out, int B, int H,
+                                                 int T, float scale, int device, void* stream) {
+  return launch<bf16>(q, kq, ks, vq, vs, out, B, H, T, scale, device, stream);
 }
 
 extern "C" int cross_attention_decode_dense_f32(const void* q, const void* kq,
                                                 const void* ks, const void* vq,
-                                                const void* vs, void* scores, void* out,
-                                                int B, int H, int T, float scale, int device,
-                                                void* stream) {
-  return launch<float>(q, kq, ks, vq, vs, scores, out, B, H, T, scale, device, stream);
+                                                const void* vs, void* out, int B, int H,
+                                                int T, float scale, int device, void* stream) {
+  return launch<float>(q, kq, ks, vq, vs, out, B, H, T, scale, device, stream);
 }

@@ -37,7 +37,10 @@ CUDA tensor it launches ``whisper_tpu_torch/csrc/cross_attention_decode_legacy.c
 (``_dense_kernel``): the same function as one product of a block-diagonal
 query with all heads' K, then V times the weights and its diagonal, every
 operand rounded to bf16 whatever the query's dtype. On a CUDA tensor it
-launches ``whisper_tpu_torch/csrc/cross_attention_decode_dense.cu``.
+launches ``whisper_tpu_torch/csrc/cross_attention_decode_dense.cu`` (one
+launch: a CTA per (batch, head), a cluster of them along a long T, int8 K
+and V by bulk copies, the scores kept in shared memory; see the note
+there).
 """
 
 from __future__ import annotations
@@ -207,8 +210,12 @@ def cross_attention_decode_dense_plain(q, k_q, k_s, v_q, v_s) -> torch.Tensor:
     return (o * v_s).to(q.dtype)
 
 
-_DENSE_SIGNATURE = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+_DENSE_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
                                                                  ctypes.c_void_p]
+# the longest T whose slice of a cluster of eight CTAs (its rows of K, later
+# of V, and its scores: 107 KB) still leaves two CTAs an SM; the card tests
+# run up to it
+_DENSE_MAX_T = 12288
 
 
 def _dense_kernel(dtype: torch.dtype):
@@ -225,21 +232,25 @@ def cross_attention_decode_dense(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.
     fp32 -> (B, H, 1, dh) in q's dtype, through bf16 operands.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (q
-    bf16 or fp32, dh = 64, H <= 32, T % 4 == 0, contiguous) or raise. The
-    kernel is two launches, the scores and the output, through an fp32
-    (B, H, T) scratch buffer; ``launches`` counts the calls.
+    bf16 or fp32, dh = 64, H <= 32, T % 4 == 0, T <= 12288, contiguous,
+    k_q and v_q 16-byte aligned for the bulk copies) or raise. One launch;
+    the softmax's scores stay in the kernel's shared memory.
     """
     if q.device.type == "cpu":
         return cross_attention_decode_dense_plain(q, k_q, k_s, v_q, v_s)
     B, H, T = _check_cross("cross_attention_decode_dense", q, k_q, k_s, v_q, v_s)
-    if H > 32:
-        raise ValueError(f"the CUDA kernel pads the query's heads to two m16 tiles: H <= 32, "
-                         f"got {H}")
+    if H > 32:  # the contract of the first design, which the tests hold
+        raise ValueError(f"the CUDA kernel takes H <= 32, got {H}")
+    if T > _DENSE_MAX_T:
+        raise ValueError(f"the CUDA kernel keeps a slice of T in shared memory: T <= "
+                         f"{_DENSE_MAX_T}, got {T}")
+    if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+        raise ValueError("the CUDA kernel bulk-copies k_q and v_q: both must start "
+                         "16-byte aligned")
     out = torch.empty_like(q)
-    scores = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     err = _build.launch(_dense_kernel(q.dtype), q.device, q.data_ptr(), k_q.data_ptr(),
-                        k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), scores.data_ptr(),
-                        out.data_ptr(), B, H, T, 64 ** -0.5)
+                        k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(), out.data_ptr(), B, H,
+                        T, 64 ** -0.5)
     if err:
         raise RuntimeError(f"cross_attention_decode_dense launch failed: cudaError {err}")
     cross_attention_decode_dense.launches += 1

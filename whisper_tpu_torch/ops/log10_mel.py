@@ -5,9 +5,11 @@ projection and log10 in one pass.
 ``whisper_tpu/ops/mel_pallas.py:log10_mel_pallas`` (``_mel_kernel``):
 reflect-padded audio (B, L) fp32 -> raw log10 mel (B, n_mels, n_frames)
 fp32, before normalization. On a CUDA tensor it launches the hand-written
-Hopper kernel ``whisper_tpu_torch/csrc/log10_mel.cu`` (see the note there);
-on a CPU tensor it runs :func:`log10_mel_plain`, the framed-copy and two fp32
-matmuls that :func:`~whisper_tpu_torch.ops.mel.log_mel_batch` ran before.
+Hopper kernel ``whisper_tpu_torch/csrc/log10_mel.cu`` (a float64 FFT of
+200 = 8 x 25 points in shared memory, the sparse mel stage and log10 in
+fp32; see the note there); on a CPU tensor it runs :func:`log10_mel_plain`,
+the framed-copy and two fp32 matmuls that
+:func:`~whisper_tpu_torch.ops.mel.log_mel_batch` ran before.
 """
 
 from __future__ import annotations
@@ -22,7 +24,38 @@ from . import _build
 from .mel import _dft_bank, _frame, mel_filterbank
 
 N_FFT, HOP = 400, 160  # the only framing the CUDA kernel takes
-_PADDED_BINS = 224     # the kernel's bins: 201 padded to 7 per lane
+
+# The kernel's FFT table in this order (offsets in elements; complex entries
+# are (re, im) pairs, W_n = exp(-2 pi i / n)):
+HANN = 0          # 400: the periodic Hann window
+TW200 = 400       # 200 complex: W_200^(m2 * k1) at [m2 * 8 + k1], m2 < 25, k1 < 8
+TW25 = 800        # 25 complex: W_25^(b * c) at [b * 5 + c], b, c < 5
+TW400 = 850       # 101 complex: W_400^k, k <= 100 (the real-FFT split)
+CONST = 1052      # cos(2 pi/5), sin(2 pi/5), cos(4 pi/5), sin(4 pi/5), sqrt(1/2)
+TABLE_FLOATS = 1060  # padded to a multiple of 4
+
+
+def fft_table() -> np.ndarray:
+    """The twiddle and window table of the kernel's FFT (layout above) in
+    float64, the FFT's precision (an fp32 FFT's error at near-zero bins adds
+    to the plain version's past the 5e-4 the kernel is held to; PERF.md).
+    Every value is computed here: none is formed by a recurrence on the
+    card."""
+    t = np.zeros(TABLE_FLOATS, np.float64)
+    n = np.arange(N_FFT)
+    t[HANN:HANN + N_FFT] = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / N_FFT))
+
+    def put(off, w):
+        t[off:off + 2 * w.size:2], t[off + 1:off + 2 * w.size:2] = w.real, w.imag
+
+    m2, k1 = np.meshgrid(np.arange(25), np.arange(8), indexing="ij")
+    put(TW200, np.exp(-2j * np.pi * (m2 * k1).ravel() / 200))
+    b, c = np.meshgrid(np.arange(5), np.arange(5), indexing="ij")
+    put(TW25, np.exp(-2j * np.pi * (b * c).ravel() / 25))
+    put(TW400, np.exp(-2j * np.pi * np.arange(101) / 400))
+    t[CONST:CONST + 5] = (np.cos(2 * np.pi / 5), np.sin(2 * np.pi / 5), np.cos(4 * np.pi / 5),
+                          np.sin(4 * np.pi / 5), np.sqrt(0.5))
+    return t
 
 
 def log10_mel_plain(audio_padded: torch.Tensor, n_mels: int, n_fft: int, hop: int,
@@ -41,27 +74,28 @@ def log10_mel_plain(audio_padded: torch.Tensor, n_mels: int, n_fft: int, hop: in
 
 @functools.lru_cache(maxsize=8)
 def _tables(n_mels: int, device: torch.device):
-    """The kernel's constant inputs on ``device``: the bank as (400, 224, 2)
-    fp32 (cos and -sin per sample and bin, zero past bin 200), the
-    filterbank (n_mels, 201) and each filter's nonzero bins [lo, hi)."""
-    n_freqs = N_FFT // 2 + 1
-    dft = _dft_bank(N_FFT)
-    bank = np.zeros((N_FFT, _PADDED_BINS, 2), np.float32)
-    bank[:, :n_freqs, 0] = dft[:, :n_freqs]
-    bank[:, :n_freqs, 1] = dft[:, n_freqs:]
+    """The kernel's constant inputs on ``device``: the FFT table
+    (:func:`fft_table`, float64) and the mel filterbank packed
+    by filter: filter m's weights of bins [lo[m], lo[m] + start[m+1] -
+    start[m]) (its nonzero span) at ``weights[start[m]:start[m+1]]``; lo
+    (n_mels,) and start (n_mels + 1,) int32."""
     fb = mel_filterbank(n_mels, N_FFT)
     lo = np.zeros(n_mels, np.int32)
-    hi = np.zeros(n_mels, np.int32)
+    start = np.zeros(n_mels + 1, np.int32)
+    spans = []
     for m in range(n_mels):
         nz = np.nonzero(fb[m])[0]
-        if len(nz):
-            lo[m], hi[m] = nz[0], nz[-1] + 1
-    return tuple(torch.from_numpy(a).to(device) for a in (bank, fb, lo, hi))
+        lo[m] = nz[0] if len(nz) else 0
+        spans.append(fb[m, lo[m]:nz[-1] + 1] if len(nz) else fb[m, :0])
+        start[m + 1] = start[m] + len(spans[-1])
+    weights = np.concatenate(spans).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (fft_table(), weights, lo, start))
 
 
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def _kernel():
@@ -95,10 +129,10 @@ def log10_mel(audio_padded: torch.Tensor, n_mels: int, n_fft: int = N_FFT,
     out = torch.empty((B, n_mels, n_frames), dtype=torch.float32, device=audio_padded.device)
     if B == 0:
         return out
-    bank, fb, lo, hi = _tables(n_mels, audio_padded.device)
+    table, weights, lo, start = _tables(n_mels, audio_padded.device)
     err = _build.launch(_kernel(), audio_padded.device, audio_padded.data_ptr(), L, B,
-                        n_frames, bank.data_ptr(), fb.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                        n_mels, out.data_ptr())
+                        n_frames, table.data_ptr(), weights.data_ptr(), lo.data_ptr(),
+                        start.data_ptr(), weights.numel(), n_mels, out.data_ptr())
     if err:
         raise RuntimeError(f"log10_mel launch failed: cudaError {err}")
     log10_mel.launches += 1
