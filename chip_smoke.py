@@ -38,11 +38,22 @@ drives each path while counting kernel launches:
 - tensor-parallel serving: the turbo server's defaults (ladder off) on a
   (1, 2) mesh whose two ranks share the card, 8 clips over HTTP, its W8A8
   encoder held bit-equal to the one-rank engine's and its texts beside
-  that engine's.
+  that engine's;
+- the real-weights path: the seeded turbo weights written as an OpenAI
+  fp16 ``.pt``, ``WhisperPipeline(checkpoint=..., language=None)`` at the
+  offline configuration (ladder off) run from it over 64 clips and held
+  token for token and language for language against a pipeline built from
+  the same weights in memory, the loaded int8 model's snapshot round trip
+  (bit-equal), language detection with the kernels against their plain
+  versions on the same cross-KV, the WER entry point
+  (``whisper_tpu_torch.eval``) over 8 synthetic AIShell-format clips with
+  that ``.pt``, the quantization gate at turbo (its fp32 control at zero),
+  and 8 ``language=auto`` clips to the turbo server.
 
 Then it checks small fp32 runs of the paths on the card against the CPU
 (the offline one under each selection, the TP engine against the one-rank
-engine on the CPU, a sampled decode with the same noise on both). Prints
+engine on the CPU, a sampled decode with the same noise on both, language
+detection, the engine's ``language=auto`` replies). Prints
 JSON lines; the last is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it. Needs a CUDA card: without one it exits 1 and prints
 no result. ``chip_tp.py`` runs the tensor-parallel phases over distinct
@@ -58,6 +69,7 @@ import re
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -129,10 +141,12 @@ TOL = {"flash_attention_btd/bf16": 8e-3, "flash_attention_btd/fp32": 1e-4,
 # cache bucketed to 128), the serving path (8 slots, 224-token budget, cache
 # bucketed to 256) and the long-form path (prompts of up to 1 + 223 + 3
 # previous-text and sot tokens, left-padded by up to 60, 64 new tokens,
-# cache bucketed to 384)
+# cache bucketed to 384); and the language-detection step, float cache only
+# (one [sot] at offset 0 in a cache of 128, the offline batch)
 K3_SHAPES = {"offline": (B, 128, 4, 4 + N_TOKENS - 1, None),
              "serving": (8, 256, 4, 4 + 224 - 1, None),
-             "longform": (8, 384, 226, 226 + N_TOKENS - 1, 60)}
+             "longform": (8, 384, 226, 226 + N_TOKENS - 1, 60),
+             "detect": (B, 128, 0, 0, None)}
 # K8's shapes: the turbo encoder's (K, N) per layer (q, k, v, o; mlp w1;
 # mlp w2) at the offline batch (M = 1500 x 64) and at ragged admission sizes
 K8_KN = ((1280, 1280, 4), (1280, 5120, 1), (5120, 1280, 1))
@@ -617,6 +631,8 @@ def kernel_k3(dev, gen) -> dict:
                                   v.transpose(-1, -2).contiguous().to(dt)), 2.0 * DH * 2),
         }
         for layout, (fn, plain, cache, bytes_per_key) in layouts.items():
+            if path == "detect" and layout == "int8":
+                continue
             res = {}
             for tag, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
                 qd, c = q.to(dt), cache(dt)
@@ -1152,22 +1168,26 @@ DECODE_KERNEL = {"fd": "cross_attention_decode_fd", "legacy": "cross_attention_d
 
 
 def _expect(path: str, launches: dict, cfg, encodes: int, steps: int,
-            encoder_attention: str = "btd", cross_decode: str = "fd", tp: int = 1) -> None:
+            encoder_attention: str = "btd", cross_decode: str = "fd", tp: int = 1,
+            detects: int = 0) -> None:
     """Exact launch counts of a W8A8 + int8 cross- and self-KV path that ran
-    ``encodes`` encoder passes (one log-mel each) and ``steps`` decoder
-    steps on ``tp`` ranks: the selected encoder and decode kernels once a
-    layer on every rank, the kernels of the other selections not at all;
-    with tp > 1 every K1 launch is also the sharded entry's."""
+    ``encodes`` encoder passes (one log-mel each), ``steps`` decoder steps
+    and ``detects`` language-detection steps on ``tp`` ranks: the selected
+    encoder and decode kernels once a layer on every rank, the kernels of
+    the other selections not at all; with tp > 1 every K1 launch is also the
+    sharded entry's. A detection step is one S=1 decoder step over a float
+    self-KV cache: the decode kernel and the float K3 once a layer."""
     want = {"log10_mel": encodes,
             "int8_gemm": 6 * cfg.n_audio_layer * encodes * tp,  # q, k, v, o, mlp1, mlp2
             "quantize_rows": 4 * cfg.n_audio_layer * encodes * tp,  # qkv once, o, mlp1, mlp2
             "self_attention_decode_int8": cfg.n_text_layer * steps * tp,
+            "self_attention_decode": cfg.n_text_layer * detects * tp,
             "flash_attention_btd_sharded": (cfg.n_audio_layer * encodes * tp
                                             if tp > 1 and encoder_attention == "btd" else 0)}
     for sel, name in ENCODER_KERNEL.items():
         want[name] = cfg.n_audio_layer * encodes * tp if sel == encoder_attention else 0
     for sel, name in DECODE_KERNEL.items():
-        want[name] = cfg.n_text_layer * steps * tp if sel == cross_decode else 0
+        want[name] = cfg.n_text_layer * (steps + detects) * tp if sel == cross_decode else 0
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{path}: {name} ran {launches[name]} times, expected {n}")
@@ -1332,14 +1352,15 @@ GREEDY = ("--temperature_fallback", "")
 
 
 def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="serving",
-            keep_engine: bool = False):
+            keep_engine: bool = False, language: str = ""):
     """The serving path: ``python -m whisper_tpu_torch.serving``'s engine
     under the server's zero-flag defaults plus ``flags`` (on ``mesh`` if
     given), in-process on 127.0.0.1, one warm request, then ``n_requests``
     seeded noise clips of 2-30 s from as many client threads (every sixth as
-    multipart WAV, the rest as f32 PCM). Counts slot and aux (ladder)
-    launches alike. Returns the record, and with ``keep_engine`` also the
-    stopped engine and the clips."""
+    multipart WAV, the rest as f32 PCM), each with ``?language=`` the given
+    one if any (the server's default otherwise). Counts slot and aux
+    (ladder) launches alike, detection steps included. Returns the record,
+    and with ``keep_engine`` also the stopped engine and the clips."""
     from whisper_tpu_torch.models.model import model_shards
     from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
     from whisper_tpu_torch.serving.server import make_server
@@ -1351,7 +1372,8 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
     srv = make_server(engine, args.host, args.port, request_timeout_s=600)
     server = threading.Thread(target=srv.serve_forever, daemon=True)
     server.start()
-    url = f"http://127.0.0.1:{srv.server_address[1]}/asr"
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    url = f"{base}/asr" + (f"?language={language}" if language else "")
     try:
         rng = np.random.default_rng(2)
         clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
@@ -1370,7 +1392,7 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
         wall = time.perf_counter() - t0
         launches = _launches(counters)
         st1 = engine.stats.snapshot()
-        with urllib.request.urlopen(url.replace("/asr", "/metrics"), timeout=30) as r:
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
             metrics = json.load(r)
     finally:
         srv.shutdown()
@@ -1385,13 +1407,15 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
     cfg = engine.cfg
     delta = {key: st1[key] - st0[key] for key in ("steps_total", "encode_batches_total",
                                                   "aux_batches_total", "aux_steps_total",
-                                                  "retries_total", "ticks_total")}
+                                                  "retries_total", "ticks_total",
+                                                  "detect_batches_total")}
     steps, batches = delta["steps_total"], delta["encode_batches_total"]
     aux_batches, aux_steps = delta["aux_batches_total"], delta["aux_steps_total"]
     tp = len(model_shards(engine.model))
     _expect(f"{phase} {list(flags)} ({steps} + {aux_steps} aux steps, {batches} + {aux_batches} "
             f"aux encodes)", launches, cfg, batches + aux_batches, steps + aux_steps,
-            args.encoder_attention, args.cross_decode, tp=tp)
+            args.encoder_attention, args.cross_decode, tp=tp,
+            detects=delta["detect_batches_total"])
     lat = np.array([sec for _, _, sec in replies])
     audio_s = sum(len(c) for c in clips) / 16000
     rec = {"phase": phase, "model": "turbo", "flags": "server defaults: "
@@ -1410,7 +1434,9 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
            "temperatures": [reply["temperature"] for _, reply, _ in replies],
            "ticks": delta["ticks_total"], "steps": steps, "admission_batches": batches,
            "aux_batches": aux_batches, "aux_steps": aux_steps,
-           "retries": delta["retries_total"], "launches": launches, "metrics": metrics}
+           "retries": delta["retries_total"], "detect_batches": delta["detect_batches_total"],
+           "languages": [reply.get("language") for _, reply, _ in replies],
+           "launches": launches, "metrics": metrics}
     if keep_engine:
         return rec, engine, clips[:n_requests], [reply for _, reply, _ in replies]
     return rec
@@ -1727,6 +1753,420 @@ def longform_reference_check() -> dict:
             "segments": [len(segs) for _, segs in out["cuda"]]}
 
 
+# ------------------------------------------------------------- real weights
+N_AUTO_REQUESTS = 8
+N_EVAL_CLIPS = 8
+GATE_ARGS = ["--model", "turbo", "--batch", "4", "--max_tokens", "16", "--device", "cuda"]
+# the offline configuration, its ladder off: random weights would send every
+# row up it five times
+CHECKPOINT_PIPELINE = dict(model="turbo", device="cuda", compute_dtype="bfloat16", quantize=True,
+                           w8a8=True, kv_quant=True, self_kv_quant=True, max_tokens=N_TOKENS,
+                           language=None, temperature_fallback=False)
+# detection, the kernels against their plain versions on the card (bf16
+# activations and cache, fp32 logits), as log-probabilities and
+# probabilities over the languages. The limits sit between the readings of a
+# right kernel (outputs within a bf16 ulp of the plain versions': K2's and
+# K3's bf16 TOL above) and a control, the plain versions with their outputs
+# rounded to DETECT_CONTROL_BITS significant bits (16 bf16 ulps), which the
+# check must catch (on an H100 at turbo B64, random weights: the kernels
+# 0.026 nats and 6.4e-4, the control 0.117 nats and 3.7e-3). Ids must agree
+# on every row whose top-2 margin exceeds twice the log-probability limit:
+# no difference within it can swap them.
+DETECT_LOGPROB_TOL = 6e-2
+DETECT_PROB_TOL = 2e-3
+DETECT_CONTROL_BITS = 4
+
+
+def _write_openai_pt(model, path: str) -> int:
+    """``model``'s weights as an OpenAI-layout checkpoint in fp16,
+    ``{"dims", "model_state_dict"}`` (torch Linear (out, in), Conv1d (out,
+    in, k)); returns the file's size in bytes."""
+    cfg = model.cfg
+
+    def h(t):
+        return t.detach().to(torch.float16).contiguous().cpu()
+
+    enc, dec = model.encoder, model.decoder
+    sd = {"encoder.conv1.weight": h(enc.conv1["w"]), "encoder.conv1.bias": h(enc.conv1["b"]),
+          "encoder.conv2.weight": h(enc.conv2["w"]), "encoder.conv2.bias": h(enc.conv2["b"]),
+          "encoder.positional_embedding": h(enc.pos_emb),
+          "encoder.ln_post.weight": h(enc.ln_post["g"]),
+          "encoder.ln_post.bias": h(enc.ln_post["b"]),
+          "decoder.token_embedding.weight": h(dec.tok_emb),
+          "decoder.positional_embedding": h(dec.pos_emb),
+          "decoder.ln.weight": h(dec.ln["g"]), "decoder.ln.bias": h(dec.ln["b"])}
+    stems = {"attn": "attn", "cross": "cross_attn", "attn_ln": "attn_ln",
+             "cross_ln": "cross_attn_ln", "mlp_ln": "mlp_ln"}
+    proj = {"q": "query", "k": "key", "v": "value", "o": "out"}
+    for part, blocks in (("encoder", enc.blocks), ("decoder", dec.blocks)):
+        for i, blk in enumerate(blocks):
+            pre = f"{part}.blocks.{i}"
+            for sub, p in blk.sublayers().items():
+                if sub.endswith("_ln"):
+                    sd[f"{pre}.{stems[sub]}.weight"], sd[f"{pre}.{stems[sub]}.bias"] = \
+                        h(p["g"]), h(p["b"])
+                elif sub == "mlp":
+                    for j, n in ((0, "1"), (2, "2")):
+                        sd[f"{pre}.mlp.{j}.weight"] = h(p["w" + n].t())
+                        sd[f"{pre}.mlp.{j}.bias"] = h(p["b" + n])
+                else:
+                    for key, val in p.items():
+                        kind = "weight" if key[0] == "w" else "bias"
+                        sd[f"{pre}.{stems[sub]}.{proj[key[1]]}.{kind}"] = h(
+                            val.t() if kind == "weight" else val)
+    dims = {k: getattr(cfg, k) for k in ("n_mels", "n_audio_ctx", "n_audio_state",
+                                         "n_audio_head", "n_audio_layer", "n_vocab",
+                                         "n_text_ctx", "n_text_state", "n_text_head",
+                                         "n_text_layer")}
+    torch.save({"dims": dims, "model_state_dict": sd}, path)
+    return os.path.getsize(path)
+
+
+def _round_fp16(model) -> None:
+    """Every floating weight of ``model`` rounded to fp16 and back, in place:
+    the numbers an fp16 checkpoint of it holds, without the loader."""
+    for owner, key, val in model.leaves():
+        val = val.half().float()
+        if isinstance(owner, dict):
+            owner[key] = val
+        else:
+            setattr(owner, key, val)
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    """{dotted path: numpy array} of a JAX-layout tree (QTensors as their
+    ``__q`` and ``__s`` parts)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flat(sub, f"{prefix}{key}.").items()}
+    if hasattr(tree, "q"):
+        return {prefix + "__q": tree.q, prefix + "__s": tree.s}
+    return {prefix.rstrip("."): tree}
+
+
+def _snapshot_round_trip(model, folder: str) -> dict:
+    """``save_params`` -> ``load_params`` of a pipeline's model (int8 QTensor
+    leaves, bf16 floats, K-major payloads): bit-equal, weight by weight,
+    once cast back to the model's float dtype (the snapshot holds bf16 as
+    fp32)."""
+    from whisper_tpu_torch.models.checkpoint import load_params, save_params
+    from whisper_tpu_torch.models.model import cast_floating
+    from whisper_tpu_torch.params import to_jax_params
+
+    path = f"{folder}/snapshot.safetensors"
+    t0 = time.perf_counter()
+    save_params(path, model)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, cfg = load_params(path, device=model.device)
+    cast_floating(back, model.decoder.tok_emb.dtype)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if cfg != model.cfg:
+        raise AssertionError(f"snapshot config {cfg} is not the model's")
+    # bf16 -> fp32 on the host is exact: equal arrays are bit-equal weights
+    want, got = _flat(to_jax_params(model)), _flat(to_jax_params(back))
+    changed = sorted(k for k in want if k not in got or got[k].dtype != want[k].dtype
+                     or not np.array_equal(got[k], want[k]))
+    if changed or got.keys() != want.keys():
+        raise AssertionError(f"snapshot round trip changed {changed[:5]}")
+    return {"bit_equal": True, "tensors": len(want), "bytes": os.path.getsize(path),
+            "save_s": save_s, "load_s": load_s}
+
+
+def checkpoint_phase(counters, folder: str):
+    """The real-weights path at turbo's full width: the seeded turbo weights
+    written as an OpenAI fp16 ``.pt``, ``WhisperPipeline(checkpoint=...,
+    language=None)`` at the offline configuration built from it, warmed and
+    run once over 64 clips with the counts at 0 (one encode, one detection
+    step, the decode), and held against a pipeline built with ``params=``
+    from the same weights rounded to fp16 in torch: equal languages and
+    tokens. Then the snapshot round trip of the loaded, quantized model.
+    Returns (record, the pipeline, the clips, the .pt's path)."""
+    from whisper_tpu_torch.config import LANGUAGES, N_SAMPLES, get_config
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+
+    cfg = get_config(CHECKPOINT_PIPELINE["model"])
+    path = f"{folder}/{cfg.name}.pt"
+    model = init_params(cfg, seed=0, device=CHECKPOINT_PIPELINE["device"])
+    t0 = time.perf_counter()
+    nbytes = _write_openai_pt(model, path)
+    write_s = time.perf_counter() - t0
+    _round_fp16(model)
+    t0 = time.perf_counter()
+    pipe = WhisperPipeline(checkpoint=path, **CHECKPOINT_PIPELINE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    mem = WhisperPipeline(params=model, **CHECKPOINT_PIPELINE)
+    del model
+    rng = np.random.default_rng(12)
+    clips = list(rng.standard_normal((B, N_SAMPLES)).astype(np.float32) * 0.1)
+    pipe.transcribe_batch(clips)  # warm
+    mem.transcribe_batch(clips)
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = pipe.transcribe_batch(clips)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(counters)
+    dec = pipe.last_decode
+    want = mem.transcribe_batch(clips)
+    langs = [r.language for r in results]
+    if langs != [r.language for r in want] or not set(langs) <= set(LANGUAGES):
+        raise AssertionError(f"languages from the .pt {langs} differ from the in-memory "
+                             f"weights' {[r.language for r in want]}")
+    if not torch.equal(dec.tokens, mem.last_decode.tokens):
+        rows = (dec.tokens != mem.last_decode.tokens).any(dim=1).nonzero()[:, 0].tolist()
+        raise AssertionError(f"tokens from the .pt differ from the in-memory weights' on "
+                             f"rows {rows}")
+    del mem
+    torch.cuda.empty_cache()
+    _expect("checkpoint", launches, pipe.cfg, 1, dec.steps, detects=1)
+    snapshot = _snapshot_round_trip(pipe.model, folder)
+    audio_s = B * N_SAMPLES / 16000
+    rec = {"phase": "checkpoint", "model": cfg.name, "file": "OpenAI .pt, fp16, with dims",
+           "file_bytes": nbytes, "write_s": write_s, "load_s": load_s,
+           "batch": B, "max_tokens": N_TOKENS, "dtype": "bfloat16",
+           "quant": "int8 weights + w8a8 encoder + kvq + skvq", "language": "auto",
+           "wall_s": wall, "audio_s_per_s": audio_s / wall, "decode_steps": dec.steps,
+           "languages": sorted(set(langs)), "tokens_equal_in_memory": True,
+           "languages_equal_in_memory": True, "launches": launches, "snapshot": snapshot}
+    return rec, pipe, clips, path
+
+
+def _round_significand(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """``x`` rounded to ``bits`` significant bits (bf16 keeps 8)."""
+    m, e = torch.frexp(x.float())
+    return torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits, e).to(x.dtype)
+
+
+class _PlainDecodeKernels:
+    """Within the block the model's decode step calls the plain versions of
+    K2 and the float K3 (on CUDA tensors too), their outputs rounded to
+    ``bits`` significant bits where given (the control)."""
+
+    def __init__(self, bits: int | None = None):
+        self.bits = bits
+
+    def __enter__(self):
+        from whisper_tpu_torch.models import model as mm
+        from whisper_tpu_torch.ops import decode_attention as da
+
+        def coarse(fn):
+            return fn if self.bits is None else (
+                lambda *a, **kw: _round_significand(fn(*a, **kw), self.bits))
+
+        self.mm = mm
+        self.saved = (mm.cross_attention_decode_fd, mm.self_attention_decode)
+        mm.cross_attention_decode_fd = coarse(da.cross_attention_decode_fd_plain)
+        mm.self_attention_decode = coarse(da.self_attention_decode_plain)
+        return self
+
+    def __exit__(self, *exc):
+        self.mm.cross_attention_decode_fd, self.mm.self_attention_decode = self.saved
+
+
+def _detect_errors(idx, p, idx_ref, p_ref) -> dict:
+    """How far a detection's (ids, probabilities) lie from the plain
+    versions': the largest log-probability and probability differences, and
+    the ids on the rows clear of a tie at the log-probability limit."""
+    lp, lp_ref = (torch.log(q.clamp_min(1e-30)) for q in (p, p_ref))
+    top2 = torch.topk(lp_ref, 2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    equal = (idx == idx_ref).cpu().numpy()
+    clear = margin > 2 * DETECT_LOGPROB_TOL
+    return {"log_prob_max_abs_err": float((lp - lp_ref).abs().max()),
+            "prob_max_abs_err": float((p - p_ref).abs().max()),
+            "rows_clear_of_ties": int(clear.sum()),
+            "ids_differ_on_clear_rows": np.nonzero(clear & ~equal)[0].tolist(),
+            "near_tie_rows": [{"row": int(r), "margin": float(margin[r]), "equal": bool(equal[r])}
+                              for r in np.nonzero(~clear)[0]]}
+
+
+def _within(err: dict) -> bool:
+    return (err["log_prob_max_abs_err"] <= DETECT_LOGPROB_TOL
+            and err["prob_max_abs_err"] <= DETECT_PROB_TOL and not err["ids_differ_on_clear_rows"])
+
+
+def language_detect(pipe, clips) -> dict:
+    """``detect_language_kv`` on the int8 cross-KV of the 64 clips, with the
+    kernels (K2, the float K3), with their plain versions, and with the
+    control (the plain versions' outputs rounded to
+    ``DETECT_CONTROL_BITS`` significant bits), on the card: the kernels'
+    log-probabilities within ``DETECT_LOGPROB_TOL`` of the plain versions',
+    probabilities within ``DETECT_PROB_TOL``, ids equal on every row clear
+    of a tie (the others reported with their margins: the near-tie hazard,
+    ROADMAP section 3); the control must break a limit, or the check could
+    not tell a wrong kernel from a right one."""
+    from whisper_tpu_torch.decode import detect_language_kv, encode_cross_kv
+    from whisper_tpu_torch.ops.mel import log_mel_batch
+
+    cfg = pipe.cfg
+    batch, lengths = pipe._prepare_batch(clips)
+    mel = log_mel_batch(batch, lengths, n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
+    cross = encode_cross_kv(pipe.model, mel, torch.bfloat16, kv_quant=True, w8a8=True)
+
+    def detect():
+        return detect_language_kv(pipe.model, cross, torch.bfloat16)
+
+    idx_k, p_k = detect()
+    ms = cuda_ms(detect, reps=10)
+    with _PlainDecodeKernels():
+        idx_p, p_p = detect()
+        plain_ms = cuda_ms(detect, reps=10)
+    with _PlainDecodeKernels(DETECT_CONTROL_BITS):
+        control = _detect_errors(*detect(), idx_p, p_p)
+    err = _detect_errors(idx_k, p_k, idx_p, p_p)
+    if not _within(err):
+        raise AssertionError(f"language detection with the kernels differs from the plain "
+                             f"versions: {err}")
+    if _within(control):
+        raise AssertionError(f"the control ({DETECT_CONTROL_BITS} significant bits) passes "
+                             f"the detection check, which cannot fail: {control}")
+    return {"phase": "language_detect", "model": cfg.name, "batch": B, "dtype": "bfloat16",
+            "cross_kv": "int8", **err, "log_prob_tol_abs": DETECT_LOGPROB_TOL,
+            "prob_tol_abs": DETECT_PROB_TOL, "ids_equal_on_clear_rows": True,
+            "control": {"significant_bits": DETECT_CONTROL_BITS,
+                        **{k: v for k, v in control.items() if k != "near_tie_rows"}},
+            "step_ms": ms, "step_plain_ms": plain_ms,
+            "times": "ms: CUDA events around one detection step (K2 + float K3 once a layer, "
+                     "4 layers, logits); plain_ms: the same with their plain versions"}
+
+
+def eval_phase(pt_path: str, folder: str) -> list:
+    """The WER entry point at turbo, in-process, with the ``.pt`` and
+    ``--language zh`` over a synthetic AIShell-format set of 8 seeded noise
+    WAVs (random weights: the WER means nothing, a finite one is the check);
+    then the quantization gate at turbo, B4, 16 steps, every variant, whose
+    fp32 control must read zero."""
+    import contextlib
+    import io
+
+    from whisper_tpu_torch.eval import quant_gate
+    from whisper_tpu_torch.eval.__main__ import main as eval_main
+
+    wav_dir = f"{folder}/aishell_S0764"
+    os.makedirs(wav_dir)
+    rng = np.random.default_rng(13)
+    lines = []
+    for i, sec in enumerate(rng.uniform(2.0, 10.0, N_EVAL_CLIPS)):
+        with open(f"{wav_dir}/BAC{i:05d}.wav", "wb") as f:
+            f.write(_wav(rng.standard_normal(_n_samples(sec)) * 0.1))
+        lines.append(f"BAC{i:05d} 测试句子{i}")
+    with open(f"{folder}/ground_truth.txt", "w", encoding="utf-8") as f:
+        f.write("\n".join(lines))
+    argv = ["--dataset", "aishell", "--gt_path", f"{folder}/ground_truth.txt",
+            "--model_type", CHECKPOINT_PIPELINE["model"], "--checkpoint", pt_path,
+            "--language", "zh", "--device", CHECKPOINT_PIPELINE["device"],
+            "--batch", str(N_EVAL_CLIPS),
+            "--log", f"{folder}/test_wer.log", "--out", f"{folder}/wer.txt"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its per-utterance log lines
+        rc = eval_main(argv)
+    wall = time.perf_counter() - t0
+    with open(f"{folder}/wer.txt") as f:
+        wer = float(f.read())
+    if rc != 0 or not math.isfinite(wer):
+        raise AssertionError(f"whisper_tpu_torch.eval returned {rc}, WER {wer}")
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gate_rc = quant_gate.main(GATE_ARGS)
+    gate_s = time.perf_counter() - t0
+    gate = json.loads(out.getvalue().strip().splitlines()[-1])
+    fp32 = gate["fp32"]
+    if not (fp32["kl_mean_nats"] < 1e-6 and fp32["top1_agreement"] == 1.0):
+        raise AssertionError(f"the gate's fp32 control is not zero on the card: {fp32}")
+    return [{"phase": "eval", "entry": "whisper_tpu_torch.eval.__main__.main",
+             "args": [a.replace(folder, "<tmp>") for a in argv], "clips": N_EVAL_CLIPS,
+             "wer": wer, "wall_s": wall,
+             "note": "random weights: the WER value means nothing"},
+            {"phase": "quant_gate", "entry": "whisper_tpu_torch.eval.quant_gate.main",
+             "args": GATE_ARGS, "rc": gate_rc, "wall_s": gate_s, **gate}]
+
+
+def serving_auto(counters) -> dict:
+    """8 clips with ``language=auto`` to the in-process turbo server (greedy
+    core): every reply names a language of the table, and each admission
+    batch ran one detection step (the float K3 and the decode kernel once a
+    layer, counted exactly by ``_expect``)."""
+    from whisper_tpu_torch.config import LANGUAGES
+
+    rec = serving(counters, GREEDY, N_AUTO_REQUESTS, phase="serving_auto", language="auto")
+    if not set(rec["languages"]) <= set(LANGUAGES):
+        raise AssertionError(f"replies name languages outside the table: {rec['languages']}")
+    if rec["detect_batches"] != rec["admission_batches"]:
+        raise AssertionError(f"{rec['detect_batches']} detection steps for "
+                             f"{rec['admission_batches']} admission batches of auto rows")
+    return rec
+
+
+def language_reference_check() -> dict:
+    """Tiny fp32 detection against the int8 cross-KV (K2 and the float K3 on
+    the card, their plain versions on the CPU): equal ids, probabilities
+    within 1e-4 (fp32, another summation order)."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.decode import detect_language_kv, encode_cross_kv
+    from whisper_tpu_torch.params import init_params
+
+    cfg = get_config("tiny")
+    mel = np.random.default_rng(14).standard_normal(
+        (4, cfg.n_mels, 2 * cfg.n_audio_ctx)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        # the same CPU-drawn weights on both sides (CPU and CUDA generators differ)
+        model = init_params(cfg, seed=3, device="cpu").to_device(dev)
+        cross = encode_cross_kv(model, torch.from_numpy(mel).to(dev), kv_quant=True)
+        out[dev] = [t.cpu() for t in detect_language_kv(model, cross)]
+    err = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    if not torch.equal(out["cuda"][0], out["cpu"][0]) or err > 1e-4:
+        raise AssertionError(f"detection on the card differs from the CPU: ids "
+                             f"{out['cuda'][0].tolist()} vs {out['cpu'][0].tolist()}, "
+                             f"probabilities by {err}")
+    return {"phase": "language_reference", "model": "tiny", "dtype": "float32",
+            "ids_equal_cpu": True, "prob_max_abs_err": err, "tol_abs": 1e-4,
+            "ids": out["cuda"][0].tolist()}
+
+
+def serving_auto_reference_check() -> dict:
+    """A tiny fp32 engine (kvq + skvq) given ``language="auto"`` requests on
+    the card and on the CPU, rounds driven one tick at a time: equal
+    languages and texts."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    class IdText:
+        non_speech_tokens = get_tokenizer(num_languages=99).non_speech_tokens
+
+        def decode(self, ids):
+            return " ".join(str(int(t)) for t in ids)
+
+    rng = np.random.default_rng(15)
+    clips = [(rng.standard_normal(16000 * s) * 0.1).astype(np.float32) for s in (4, 9, 2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        engine = ContinuousBatchingEngine(
+            init_params(get_config("tiny"), seed=3, device="cpu").to_device(dev), IdText(),
+            max_slots=4, compute_dtype=torch.float32, steps_per_sync=4, max_tokens=12,
+            kv_quant=True, self_kv_quant=True, no_speech_threshold=None,
+            logprob_threshold=None, compression_ratio_threshold=None)
+        futs = [engine.submit(Request(audio=c, language="auto")) for c in clips]
+        for _ in range(50):
+            if all(f.done() for f in futs):
+                break
+            engine._tick()
+        out[dev] = [(f.result(0)["language"], f.result(0)["text"]) for f in futs]
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"language=auto replies on the card differ from the CPU: {out}")
+    return {"phase": "serving_auto_reference", "model": "tiny", "dtype": "float32",
+            "languages_and_texts_equal_cpu": True, "replies": out["cuda"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -1798,11 +2238,25 @@ def main() -> int:
     tp = tensor_parallel(counters)
     emit(tp)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as folder:
+        ckpt, pipe, clips, pt_path = checkpoint_phase(counters, folder)
+        emit(ckpt)
+        emit(language_detect(pipe, clips))
+        del pipe
+        torch.cuda.empty_cache()
+        for rec in eval_phase(pt_path, folder):
+            emit(rec)
+    torch.cuda.empty_cache()
+    auto = serving_auto(counters)
+    emit(auto)
+    torch.cuda.empty_cache()
     emit(reference_check())
     emit(serving_reference_check())
     emit(longform_reference_check())
     emit(tp_reference_check())
     emit(ladder_reference_check())
+    emit(language_reference_check())
+    emit(serving_auto_reference_check())
     emit({"phase": "profiler", **PROFILER_MISSES})
 
     # each kernel's counts from the runs of the path that selects it; the
@@ -1821,11 +2275,18 @@ def main() -> int:
         k["longform_launches"] = long["launches"][name]
         k["ladder_launches"] = ladder["launches"][name]
         k["tp_launches"] = tp["launches"][name]
+        k["checkpoint_launches"] = ckpt["launches"][name]
+        k["serving_auto_launches"] = auto["launches"][name]
+        if name == "self_attention_decode_int8":  # K3's float variant: the detection step
+            k["float_launches"] = {path: rec["launches"]["self_attention_decode"]
+                                   for path, rec in (("checkpoint", ckpt), ("serving_auto", auto))}
     keys = ("name", "route", "source", "replaces", "launches", "offline_launches",
             "serving_launches", "longform_launches", "ladder_launches", "tp_launches",
+            "checkpoint_launches", "serving_auto_launches", "float_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
-    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}), flush=True)
+    print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -214,12 +214,12 @@ def test_pipeline_texts_equal_jax():
 
 
 def test_pipeline_refuses_unported_options():
-    """Still refused: beam, auto language, word timestamps, speculative
-    decoding. Timestamps, initial_prompt, seek-based long-form, sampling and
-    its ladder are ported (tests below, in test_torch_longform.py and in
-    test_torch_ladder.py)."""
-    for kw in (dict(beam_size=5), dict(language=None), dict(word_timestamps=True),
-               dict(spec_draft="tiny")):
+    """Still refused: beam, word timestamps, speculative decoding.
+    Timestamps, initial_prompt, seek-based long-form, sampling and its
+    ladder, checkpoints and the auto language are ported (tests below, in
+    test_torch_longform.py, test_torch_ladder.py, test_torch_checkpoint.py
+    and test_torch_language.py)."""
+    for kw in (dict(beam_size=5), dict(word_timestamps=True), dict(spec_draft="tiny")):
         with pytest.raises(NotImplementedError):
             WhisperPipeline(model="test-nano", device="cpu", **kw)
     pipe = WhisperPipeline(model="test-nano", device="cpu", timestamps=True,

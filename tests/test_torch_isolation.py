@@ -49,10 +49,14 @@ assert not bad, bad
                                     "whisper_tpu_torch.serving.__main__",
                                     "whisper_tpu_torch.parallel",
                                     "whisper_tpu_torch.parallel.sharding",
-                                    "whisper_tpu_torch.parallel.distributed"])
+                                    "whisper_tpu_torch.parallel.distributed",
+                                    "whisper_tpu_torch.models.checkpoint",
+                                    "whisper_tpu_torch.eval.quant_gate",
+                                    "whisper_tpu_torch.eval.wer",
+                                    "whisper_tpu_torch.eval.__main__"])
 def test_new_modules_import_alone(module):
-    """Each module of the long-form, kernel-selection and tensor-parallel
-    slices, imported alone, loads none of the forbidden modules (and no
+    """Each module of the long-form, kernel-selection, tensor-parallel and
+    real-weights slices, imported alone, loads none of the forbidden modules (and no
     CUDA toolchain: kernels build at first use)."""
     code = f"""
 import importlib, sys

@@ -820,3 +820,75 @@ def test_launches_on_other_cards_leave_the_current_device(dev):
     assert got.device == last and torch.cuda.current_device() == 0
     want = flash_attention_btd(qf.to(first), kf.to(first), vf.to(first), 20)
     assert torch.equal(got.to(first), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H", [(1, 20), (8, 20), (64, 20), (4, 6)])
+def test_self_attention_decode_at_the_detection_step(dev, dtype, B, H):
+    """The float K3 where language detection runs it: one ``[sot]`` at
+    offset 0 in a cache of 128 positions (only key 0 visible), batches 1 to
+    64, turbo's 20 heads and tiny's 6."""
+    rng = np.random.default_rng(B * H)
+    q, (k, v), _ = _self_cache(rng, B, H, 128, dtype, dev)
+    before = self_attention_decode.launches
+    got = self_attention_decode(q, k, v, 0)
+    torch.cuda.synchronize()
+    assert self_attention_decode.launches == before + 1
+    ref = self_attention_decode_plain(q, k, v, 0)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float((got.float() - ref.float()).abs().max()) <= K3_TOL[dtype]
+    # one visible key: the output is its value row
+    want = v[:, :, :, 0].float()[:, :, None, :]
+    assert float((got.float() - want).abs().max()) <= K3_TOL[dtype]
+
+
+def test_engine_language_column_write_keeps_explicit_rows(dev):
+    """One admission batch of auto and explicit rows on the card (tiny,
+    fp32, int8 cross- and self-KV): the detected language tokens land in the
+    auto rows' prompts only; the explicit rows keep their own and decode
+    the texts they decode in a batch without auto rows."""
+    from whisper_tpu_torch.config import LANGUAGES, get_config
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    class IdText:
+        non_speech_tokens = get_tokenizer(num_languages=99).non_speech_tokens
+
+        def decode(self, ids):
+            return " ".join(str(int(t)) for t in ids)
+
+    cfg = get_config("tiny")
+    rng = np.random.default_rng(16)
+    clips = [(rng.standard_normal(16000 * s) * 0.1).astype(np.float32) for s in (3, 6, 2, 5)]
+    langs = ["auto", "zh", "auto", "en"]
+
+    def engine():
+        return ContinuousBatchingEngine(
+            init_params(cfg, seed=3, device="cpu").to_device(dev), IdText(), max_slots=4,
+            compute_dtype=torch.float32, steps_per_sync=4, max_tokens=8, kv_quant=True,
+            self_kv_quant=True, no_speech_threshold=None, logprob_threshold=None,
+            compression_ratio_threshold=None)
+
+    def run(eng, futs):
+        for _ in range(40):
+            if all(f.done() for f in futs):
+                break
+            eng._tick()
+        return [f.result(0) for f in futs]
+
+    eng = engine()
+    futs = [eng.submit(Request(audio=c, language=lang)) for c, lang in zip(clips, langs)]
+    eng._tick()  # admission: encode, detection, prefill, rows copied into slots 0-3
+    prompts = eng.tokens[:, :4].cpu().numpy()
+    for row, lang in zip(prompts, langs):
+        if lang == "auto":
+            assert 0 <= row[1] - cfg.lang_token_start < cfg.num_languages
+        else:
+            assert tuple(row) == cfg.sot_sequence(lang)
+    mixed = run(eng, futs)
+    assert all(r["language"] in LANGUAGES for r in mixed)
+    assert [r["language"] for r in mixed][1::2] == ["zh", "en"]
+    plain = engine()
+    alone = run(plain, [plain.submit(Request(audio=clips[i], language=langs[i])) for i in (1, 3)])
+    assert [r["text"] for r in alone] == [mixed[1]["text"], mixed[3]["text"]]

@@ -227,7 +227,7 @@ UNPORTED_REQUESTS = {
     "beam": dict(beam_size=2),
     "long": dict(audio=np.zeros(16000 * 31, np.float32)),
     "word_timestamps": dict(word_timestamps=True), "initial_prompt": dict(initial_prompt="hi"),
-    "condition_on_previous": dict(condition_on_previous=True), "auto": dict(language="auto"),
+    "condition_on_previous": dict(condition_on_previous=True),
     "on_partial": dict(on_partial=print),
 }
 
@@ -342,7 +342,7 @@ UNPORTED_HTTP = {
     "beam": {"X-Beam": "2"},
     "word_timestamps": {"X-Word-Timestamps": "1"}, "initial_prompt": {"X-Initial-Prompt": "hi"},
     "condition_on_previous": {"X-Condition-On-Previous": "1"}, "stream": {"X-Stream": "1"},
-    "format": {"X-Format": "srt"}, "language=auto": {"X-Language": "auto"}, "long": {},
+    "format": {"X-Format": "srt"}, "long": {},
 }
 
 
@@ -370,6 +370,7 @@ def test_client_module(http_server, tmp_path):
 
 
 def test_main_refuses_unported_flags_and_a_missing_card(monkeypatch):
+    # ["--checkpoint", "x"]: a checkpoint file that does not exist
     for flags in (["--tp", "2"], ["--dp", "2"], ["--backends", "h:1"], ["--checkpoint", "x"],
                   ["--timestamps"], ["--adaptive_sync"], ["--encode_chunks", "2"]):
         assert serve_main(["--device", "cpu", *flags]) != 0, flags

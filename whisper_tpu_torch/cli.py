@@ -12,8 +12,13 @@ Usage:
     python -m whisper_tpu_torch.cli --wav a.wav --model_type turbo --kv_quant \
         --encoder_attention bhtd --cross_decode dense
 
-Weights are the port's seeded random init (checkpoint loading is not ported
-yet), so the text is gibberish; the RTF line shows the path ran end to end.
+    # real weights (an OpenAI .pt, an HF directory or a bare .safetensors
+    # with --model_type), the language detected per clip
+    python -m whisper_tpu_torch.cli --wav a.wav --model_type turbo --checkpoint turbo.pt \
+        --language auto
+
+Without ``--checkpoint`` the weights are the port's seeded random init, so
+the text is gibberish; the RTF line shows the path ran end to end.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ def get_args(argv=None):
     p.add_argument("--wav", "-w", nargs="+", required=True, help="input WAV file(s)")
     p.add_argument("--model_type", "-t", default="tiny",
                    help="tiny|base|small|medium|large-v3|turbo|...")
-    p.add_argument("--language", "-l", default="zh", help="language code")
+    p.add_argument("--checkpoint", "-p", default=None,
+                   help="OpenAI .pt / HF dir / .safetensors weights (random init if omitted)")
+    p.add_argument("--language", "-l", default="zh", help="language code or 'auto'")
     p.add_argument("--task", default="transcribe", choices=["transcribe", "translate"])
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -88,7 +95,8 @@ def main(argv=None, report: Optional[dict] = None) -> int:
 
     t0 = time.perf_counter()
     pipe = WhisperPipeline(
-        model=args.model_type, language=args.language, task=args.task,
+        model=args.model_type, checkpoint=args.checkpoint,
+        language=None if args.language == "auto" else args.language, task=args.task,
         compute_dtype=args.dtype, seed=args.seed, timestamps=args.timestamps,
         max_tokens=args.max_tokens, initial_prompt=args.initial_prompt,
         quantize=args.quantize, quantize_logits=args.quantize_logits, w8a8=args.w8a8,

@@ -1,4 +1,4 @@
-"""Batched greedy and sampled decoding.
+"""Batched greedy and sampled decoding, and language detection.
 
 Port of ``whisper_tpu/decode.py``. The JAX package runs prefill and the whole
 token loop as one ``lax.while_loop``; here the loop is Python over eager
@@ -12,7 +12,7 @@ syncs are counted in the result. Every function takes a sharded model
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -24,6 +24,7 @@ from .models.model import (
     encoder_forward,
     new_kv_cache,
     quantize_cross_kv,
+    shard_values,
 )
 from .sampling import RuleState, apply_rules
 
@@ -208,6 +209,34 @@ def greedy_decode(model, mel: torch.Tensor, prompt: torch.Tensor,
     cross_kv = encode_cross_kv(model, mel, compute_dtype, kv_quant=kv_quant,
                                w8a8=w8a8, gelu=gelu, encoder_attention=encoder_attention)
     return greedy_decode_kv(model, cross_kv, prompt, compute_dtype, gelu=gelu, **kw)
+
+
+def detect_language_kv(model, cross_kv, compute_dtype=torch.float32,
+                       cross_decode: str = "fd") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Language ID against precomputed cross-KV (the JAX package's
+    ``detect_language_kv`` and ``_detect_language_from_kv``): one decoder
+    step on ``[sot]`` at offset 0 over a float self-KV cache of 128
+    positions in the compute dtype, whatever the caller's self-KV
+    quantization; softmax and argmax over the language tokens' logits.
+    With the int8 cross-KV the step runs the ``cross_decode`` kernel and the
+    float self-attention kernel once a decoder layer. Returns (lang_index
+    (B,) int64, an offset into the canonical language list; probs (B,
+    num_languages) fp32)."""
+    cfg = model.cfg
+    B = shard_values(cross_kv)[0][0].shape[1]  # every leaf is (L, B, ...)
+    kv = new_kv_cache(model, B, compute_dtype, ctx=128)
+    sot = torch.full((B, 1), cfg.sot, dtype=torch.int64, device=model.device)
+    logits, _ = decoder_forward(model, sot, 0, kv, cross_kv, compute_dtype,
+                                cross_decode=cross_decode)
+    lang_logits = logits[:, 0, cfg.lang_token_start: cfg.lang_token_start + cfg.num_languages]
+    return torch.argmax(lang_logits, dim=-1), torch.softmax(lang_logits, dim=-1)
+
+
+def detect_language(model, mel: torch.Tensor,
+                    compute_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encoder + float cross-KV + :func:`detect_language_kv` (the JAX
+    package's ``detect_language``)."""
+    return detect_language_kv(model, encode_cross_kv(model, mel, compute_dtype), compute_dtype)
 
 
 def extract_texts(result: GreedyResult, prompt_len: int, tokenizer,

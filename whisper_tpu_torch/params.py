@@ -5,7 +5,9 @@ arrays; a ``QTensor`` as any object with ``q`` and ``s``) into a
 :class:`~whisper_tpu_torch.models.model.Whisper`: stacked (L, ...) leaves
 become per-block tensors, int8 payloads keep their per-layer (1, d_out) fp32
 scales, and the conv weights go from JAX's WIO (3, C_in, C_out) to torch's
-(C_out, C_in, 3).
+(C_out, C_in, 3). ``to_jax_params`` is its inverse, with numpy leaves (bf16
+tensors as fp32, since numpy has no bf16): what the snapshot writer
+(``models/checkpoint.save_params``) stores.
 
 ``init_params`` is the port's own random init, with the same shapes and
 scales as the JAX ``init_params`` (but other numbers: it draws from a
@@ -76,6 +78,49 @@ def from_jax_params(tree: Dict[str, Any], cfg: WhisperConfig, *, device) -> Whis
         tok_emb_q8=_leaf(dec["tok_emb_q8"], device) if "tok_emb_q8" in dec else None,
     )
     return Whisper(cfg, encoder, decoder)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16 as fp32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _host_leaf(x):
+    return QTensor(_array(x.q), _array(x.s)) if isinstance(x, QTensor) else _array(x)
+
+
+def _stack_blocks(blocks) -> Dict[str, Dict[str, Any]]:
+    """Per-block sublayer dicts -> the stacked {sublayer: {name: (L, ...)}}."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for sub, leaves in blocks[0].sublayers().items():
+        out[sub] = {}
+        for key in leaves:
+            vals = [_host_leaf(blk.sublayers()[sub][key]) for blk in blocks]
+            out[sub][key] = (QTensor(np.stack([v.q for v in vals]), np.stack([v.s for v in vals]))
+                             if isinstance(vals[0], QTensor) else np.stack(vals))
+    return out
+
+
+def to_jax_params(model: Whisper) -> Dict[str, Any]:
+    """:class:`Whisper` -> the JAX pytree layout with numpy leaves (int8
+    weights as port QTensors of numpy arrays); the inverse of
+    :func:`from_jax_params`."""
+    enc, dec = model.encoder, model.decoder
+
+    def conv(p):
+        return {"w": _array(p["w"]).transpose(2, 1, 0), "b": _array(p["b"])}
+
+    decoder = {"tok_emb": _array(dec.tok_emb), "pos_emb": _array(dec.pos_emb),
+               "blocks": _stack_blocks(list(dec.blocks)),
+               "ln": {k: _array(v) for k, v in dec.ln.items()}}
+    if dec.tok_emb_q8 is not None:
+        decoder["tok_emb_q8"] = _host_leaf(dec.tok_emb_q8)
+    return {"encoder": {"conv1": conv(enc.conv1), "conv2": conv(enc.conv2),
+                        "pos_emb": _array(enc.pos_emb),
+                        "blocks": _stack_blocks(list(enc.blocks)),
+                        "ln_post": {k: _array(v) for k, v in enc.ln_post.items()}},
+            "decoder": decoder}
 
 
 def init_params(cfg: WhisperConfig, seed: int = 0, *, device) -> Whisper:

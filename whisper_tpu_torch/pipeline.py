@@ -7,10 +7,15 @@ with timestamps), ``transcribe`` and ``run``, with timestamps,
 and OpenAI's temperature-fallback ladder (``temperature_fallback``: the rows
 that fail the compression-ratio or logprob gate are decoded again at 0.2,
 0.4, ... 1.0 against the batch's cross-KV). As in the JAX package, the seek
-loop decodes greedily and without the ladder. Arguments of the JAX pipeline
-that this port does not carry yet raise ``NotImplementedError`` instead of
-being ignored: beam search, speculative decoding, word timestamps,
-checkpoint loading and language auto-detection.
+loop decodes greedily and without the ladder. ``checkpoint`` loads real
+weights (``models/checkpoint.load_checkpoint``: an OpenAI ``.pt``, an HF
+directory or a bare ``.safetensors``) and, as in the JAX package, turns the
+ladder on unless told otherwise. ``language=None`` detects each chunk's
+language from the batch's one cross-KV (``decode.detect_language_kv``) and
+builds each row's prompt from it; an utterance takes its first chunk's.
+Arguments of the JAX pipeline that this port does not carry yet raise
+``NotImplementedError`` instead of being ignored: beam search, speculative
+decoding and word timestamps.
 
 Runs on ``device`` ("cuda" by default); asking for cuda without a card
 raises. Nothing moves to the CPU unless the caller asks for it.
@@ -23,8 +28,9 @@ cross-attention kernels of every path (the JAX package's
 
 ``transcribe_batch`` marks its stages as ``torch.profiler`` ranges
 (``whisper.audio``, ``whisper.mel``, ``whisper.encoder``, ``whisper.cross_kv``,
-``whisper.decode``, ``whisper.texts``) so a profile of the real call splits
-its time by stage; outside a profile they cost a few microseconds each.
+``whisper.detect`` when it detects, ``whisper.decode``, ``whisper.texts``) so
+a profile of the real call splits its time by stage; outside a profile they
+cost a few microseconds each.
 """
 
 from __future__ import annotations
@@ -37,9 +43,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .config import N_SAMPLES, get_config
+from .config import LANGUAGES, N_SAMPLES, get_config
 from .decode import (
     GreedyResult,
+    detect_language_kv,
     encode_cross_kv,
     extract_texts,
     greedy_decode_kv,
@@ -52,6 +59,7 @@ from .longform import (
     split_audio,
     transcribe_seek,
 )
+from .models.checkpoint import load_checkpoint
 from .models.model import Whisper, cast_floating, check_selections
 from .ops.audio import load_audio
 from .ops.mel import log_mel_batch
@@ -140,11 +148,9 @@ class WhisperPipeline:
         params: Optional[Whisper] = None,
     ):
         unported = {
-            "checkpoint": checkpoint is not None,
             "beam_size > 1": bool(beam_size and beam_size > 1),
             "spec_draft": bool(spec_draft or spec_draft_checkpoint),
             "word_timestamps": word_timestamps,
-            "language=None (auto-detect)": language is None,
         }
         asked = [k for k, v in unported.items() if v]
         if asked:
@@ -154,9 +160,11 @@ class WhisperPipeline:
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
         check_selections(encoder_attention, cross_decode)
+        if checkpoint is not None and params is not None:
+            raise ValueError("pass checkpoint= or params=, not both")
         self.device = resolve_device(device)
         self.task = task
-        self.language = language
+        self.language = language  # None: detected per chunk
         self.compute_dtype = _DTYPES[compute_dtype]
         self.max_tokens = max_tokens
         self.timestamps = timestamps
@@ -169,7 +177,7 @@ class WhisperPipeline:
         self.cross_decode = cross_decode
         self.temperature = temperature
         # whisper's retry ladder only makes sense with trained weights: on
-        # when a checkpoint is given (none can be yet), unless asked for
+        # when a checkpoint is given, unless asked for
         self.temperature_fallback = (temperature_fallback if temperature_fallback is not None
                                      else checkpoint is not None)
         self.compression_ratio_threshold = compression_ratio_threshold
@@ -181,7 +189,9 @@ class WhisperPipeline:
         self.last_decode: Optional[GreedyResult] = None
         self.last_seek: Optional[dict] = None  # rounds, windows, steps of transcribe_longform
 
-        if params is None:
+        if checkpoint is not None:
+            params, _ = load_checkpoint(checkpoint, size=model, device=self.device)
+        elif params is None:
             params = init_params(get_config(model), seed, device=self.device)
         elif params.device != self.device:
             raise ValueError(f"params are on {params.device}, the pipeline on {self.device}")
@@ -233,10 +243,19 @@ class WhisperPipeline:
             # configs with a shorter audio context take the leading frames
             mel = mel[..., : 2 * self.cfg.n_audio_ctx]
 
+        # ONE encoder pass feeds language detection, the decode and the ladder
         cross_kv = encode_cross_kv(self.model, mel, self.compute_dtype,
                                    kv_quant=self.kv_quant, w8a8=self.w8a8, gelu=self.gelu,
                                    encoder_attention=self.encoder_attention)
-        prompts = np.tile(self._prompt(language)[None], (len(flat_waves), 1))
+        if language is None:
+            with record_function("whisper.detect"):
+                lang_idx, _ = detect_language_kv(self.model, cross_kv, self.compute_dtype,
+                                                 cross_decode=self.cross_decode)
+                codes = list(LANGUAGES)
+                langs = [codes[int(i)] for i in lang_idx.cpu().numpy()]  # per chunk
+        else:
+            langs = [language] * len(flat_waves)
+        prompts = np.stack([self._prompt(lang) for lang in langs])
         if self.timestamps:
             prompts = prompts[:, :-1]  # drop <|notimestamps|>
         sot_index = 0
@@ -274,10 +293,11 @@ class WhisperPipeline:
         out, pos = [], 0
         for u, nc in enumerate(len(cl) for cl in chunk_lists):
             chunk_texts = texts[pos: pos + nc]
-            merged = merge_texts(chunk_texts, language) if nc > 1 else chunk_texts[0]
+            lang = langs[pos]  # the utterance's language is its first chunk's
+            merged = merge_texts(chunk_texts, lang) if nc > 1 else chunk_texts[0]
             out.append(TranscribeResult(
-                text=postprocess(merged, language),
-                language=language,
+                text=postprocess(merged, lang),
+                language=lang,
                 tokens=np.concatenate([toks[pos + j, prompts.shape[1]: lens[pos + j]]
                                        for j in range(nc)]),
                 audio_seconds=len(waves[u]) / 16000.0,

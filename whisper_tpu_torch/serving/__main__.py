@@ -11,14 +11,15 @@ The zero-flag defaults are the JAX server's benched configuration: 8 slots,
 bf16, on the card, with the default kernels (``--encoder_attention btd
 --cross_decode fd``; the flags are the JAX package's ``WHISPER_TPU_FLASH``
 and ``WHISPER_TPU_DECODE_FLASH``) and the JAX server's temperature ladder
-``--temperature_fallback 0.2,0.4,0.6,0.8,1.0`` ('' turns it off). Weights
-are the port's seeded random init (checkpoint loading is not ported), so
-every request fails the logprob gate and climbs the whole ladder.
-``--tp N`` splits the model over the first N CUDA cards, as the JAX server
-does over N chips, and exits non-zero without them. Flags of features not
-ported yet (``--dp`` > 1, ``--backends``, ``--checkpoint``,
-``--timestamps``, ``--adaptive_sync``, ``--encode_chunks`` > 1) exit
-non-zero and name the feature.
+``--temperature_fallback 0.2,0.4,0.6,0.8,1.0`` ('' turns it off).
+``--checkpoint`` loads real weights (``models/checkpoint.load_checkpoint``
+with ``--model_type`` as its size); without it the weights are the port's
+seeded random init, so every request fails the logprob gate and climbs the
+whole ladder. ``--tp N`` splits the model over the first N CUDA cards, as
+the JAX server does over N chips, and exits non-zero without them. Flags of
+features not ported yet (``--dp`` > 1, ``--backends``, ``--timestamps``,
+``--adaptive_sync``, ``--encode_chunks`` > 1) exit non-zero and name the
+feature; so does a checkpoint that cannot be read.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--model_type", "-t", default="tiny")
-    p.add_argument("--checkpoint", "-p", default=None, help="not ported yet")
+    p.add_argument("--checkpoint", "-p", default=None,
+                   help="OpenAI .pt / HF dir / .safetensors weights (random init if omitted)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--slots", type=int, default=8, help="max concurrent decodes")
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
@@ -81,7 +83,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 def unported_flags(args: argparse.Namespace):
     asked = {"--dp > 1 (data-parallel replicas)": args.dp > 1,
              "--backends (router)": bool(args.backends),
-             "--checkpoint (checkpoint loading)": bool(args.checkpoint),
              "--timestamps": args.timestamps,
              "--adaptive_sync": args.adaptive_sync,
              "--encode_chunks > 1 (segmented admission encode)": args.encode_chunks > 1}
@@ -96,6 +97,7 @@ def build_engine(args: argparse.Namespace, mesh=None):
     import torch
 
     from ..config import get_config
+    from ..models.checkpoint import load_checkpoint
     from ..ops.quant import quantize_params
     from ..params import init_params
     from ..pipeline import resolve_device
@@ -104,8 +106,11 @@ def build_engine(args: argparse.Namespace, mesh=None):
 
     device = resolve_device(args.device)
     t0 = time.perf_counter()
-    cfg = get_config(args.model_type)
-    model = init_params(cfg, seed=0, device=device)
+    if args.checkpoint:
+        model, cfg = load_checkpoint(args.checkpoint, size=args.model_type, device=device)
+    else:
+        cfg = get_config(args.model_type)
+        model = init_params(cfg, seed=0, device=device)
     t_load = time.perf_counter() - t0
     t0 = time.perf_counter()
     if args.w8a8:
@@ -155,7 +160,8 @@ def main(argv=None) -> int:
 
     try:
         engine, phases = build_engine(args)
-    except (RuntimeError, ValueError) as e:  # cuda without a card, --tp without N cards
+    # cuda without a card, --tp without N cards, a checkpoint that cannot be read
+    except (RuntimeError, ValueError, OSError) as e:
         print(f"whisper_tpu_torch.serving: {e}", file=sys.stderr)
         return 1
     engine.start()

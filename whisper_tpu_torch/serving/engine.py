@@ -33,10 +33,18 @@ cross-KV are kept per rank over its local heads; slot bookkeeping is one
 copy on the lead device. Data parallelism runs across engines, so a mesh
 with ``n_data > 1`` is refused.
 
+``language="auto"`` detects a request's language from its cross-KV with one
+``[sot]`` decoder step (``decode.detect_language_kv``): on the slot path
+once per admission batch that holds an auto row, its language tokens
+written into those rows' prompts on the device, with no host read until
+harvest; on the aux worker, per micro-batch, read at once. The request keeps
+``language="auto"`` (a retried request detects again); the detected code
+goes into ``language_resolved`` and the reply's ``language``.
+
 Not ported yet, and refused with ``NotImplementedError``: beams, requests
 over 30 s, word timestamps, ``initial_prompt`` / ``condition_on_previous``,
-language auto-detection, ``on_partial`` streaming, timestamps, segmented
-admission encodes and adaptive round sizes.
+``on_partial`` streaming, timestamps, segmented admission encodes and
+adaptive round sizes.
 """
 
 from __future__ import annotations
@@ -52,8 +60,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import N_SAMPLES
-from ..decode import encode_cross_kv, extract_texts, greedy_decode_kv
+from ..config import LANGUAGES, N_SAMPLES
+from ..decode import detect_language_kv, encode_cross_kv, extract_texts, greedy_decode_kv
 from ..longform import compression_ratio
 from ..models.model import (
     Shards,
@@ -75,7 +83,7 @@ from ..text import postprocess
 @dataclass
 class Request:
     audio: np.ndarray          # mono f32 @16k, at most 30 s
-    language: str = "zh"
+    language: str = "zh"       # a code, or "auto" (None) to detect it
     task: str = "transcribe"
     beam_size: int = 1         # > 1 is not ported
     # per-request generated-token budget (None = the engine's max_tokens),
@@ -95,6 +103,13 @@ class Request:
     word_timestamps: bool = False        # not ported
     initial_prompt: Optional[str] = None  # not ported
     condition_on_previous: bool = False  # not ported
+    # "auto" requests keep language="auto" (a retried request detects
+    # again); the detected code lands here. On the slot path it stays on the
+    # device until harvest: _lang_holder is a dict the admission batch
+    # shares ({"idx": (bucket,) device tensor}), read once per batch.
+    language_resolved: Optional[str] = None
+    _lang_holder: Optional[dict] = None
+    _lang_row: int = 0
 
     def expired(self, now: Optional[float] = None) -> bool:
         if self.deadline_s is None:
@@ -123,6 +138,8 @@ class EngineStats:
     # and encoder passes they ran
     aux_batches_total: int = 0
     aux_steps_total: int = 0
+    # language-detection steps (admission and aux batches with an auto row)
+    detect_batches_total: int = 0
     # host-side phase breakdown of busy time: eager launches return before
     # the card finishes, so admit/step measure enqueue cost and the card's
     # execution pools into harvest_seconds_total at its one sync per tick
@@ -192,6 +209,10 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+def _auto(req: Request) -> bool:
+    return req.language in (None, "auto")
 
 
 def _cache_leaves(kv, cross) -> list:
@@ -371,13 +392,13 @@ class ContinuousBatchingEngine:
             "word_timestamps": req.word_timestamps,
             "initial_prompt": bool(req.initial_prompt),
             "condition_on_previous": req.condition_on_previous,
-            "language=auto": req.language in (None, "auto"),
             "on_partial streaming": req.on_partial is not None,
         }
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(f"not ported to whisper_tpu_torch yet: {', '.join(asked)}")
-        self.cfg.sot_sequence(req.language, req.task)  # ValueError on an unknown language
+        if not _auto(req):
+            self.cfg.sot_sequence(req.language, req.task)  # ValueError on an unknown language
         if req.temperature > 0:
             return self._submit_aux(req)
         try:
@@ -497,9 +518,25 @@ class ContinuousBatchingEngine:
         bucket = _bucket(len(newcomers), self.prefill_buckets)
         cross = self._encode(newcomers, bucket)
 
-        rows = [cfg.sot_sequence(r.language, r.task) for r in newcomers]
+        auto = [i for i, r in enumerate(newcomers) if _auto(r)]
+        if not cfg.is_multilingual:
+            for i in auto:
+                newcomers[i].language_resolved = "en"
+            auto = []
+        # an auto row's language column holds a placeholder until the
+        # detected token is written over it below, on the device
+        rows = [cfg.sot_sequence("en" if _auto(r) else r.language, r.task) for r in newcomers]
         prompts = np.asarray(rows + rows[:1] * (bucket - len(rows)), np.int64)
         prompts_dev = self._to_dev(prompts)
+        if auto:
+            idx = self._detect(cross)
+            mask = np.zeros((bucket,), bool)
+            mask[auto] = True
+            prompts_dev[:, 1] = torch.where(self._to_dev(mask), cfg.lang_token_start + idx,
+                                            prompts_dev[:, 1])
+            holder = {"idx": idx}
+            for i in auto:
+                newcomers[i]._lang_holder, newcomers[i]._lang_row = holder, i
         logits, kv = decoder_forward(self.model, prompts_dev, 0, self._new_cache(bucket), cross,
                                      dt, cross_decode=self.cross_decode)
         # OpenAI-style no-speech probability: softmax at the sot position
@@ -512,6 +549,26 @@ class ContinuousBatchingEngine:
         return _PreparedBatch(reqs=newcomers, kv=kv, cross=cross, first=first,
                               first_lp=first_lp, nsp=nsp, prompts=prompts_dev,
                               prompt_len=prompts.shape[1])
+
+    def _detect(self, cross) -> torch.Tensor:
+        """Language indices (bucket,) of a batch's cross-KV, on the device."""
+        with self._stats_lock:
+            self.stats.detect_batches_total += 1
+        idx, _ = detect_language_kv(self.model, cross, self.dt, cross_decode=self.cross_decode)
+        return idx
+
+    def _effective_language(self, req: Request) -> str:
+        """The request's language: explicit, else detected. The slot path's
+        detection is read from the device here, at harvest, once for its
+        whole admission batch."""
+        if not _auto(req):
+            return req.language
+        if req.language_resolved is None and req._lang_holder is not None:
+            holder = req._lang_holder
+            if "host" not in holder:
+                holder["host"] = holder["idx"].cpu().numpy()
+            req.language_resolved = list(LANGUAGES)[int(holder["host"][req._lang_row])]
+        return req.language_resolved or "en"
 
     def _admit_new(self):
         """Copy prepared admissions into free slots. Partial copies (fewer
@@ -736,7 +793,7 @@ class ContinuousBatchingEngine:
         _safe_set_result(req.future, {
             "success": True,
             "text": text,
-            "language": req.language,
+            "language": self._effective_language(req),
             "audio_seconds": audio_s,
             "wall_seconds": wall,
             "rtf": wall / max(audio_s, 1e-9),
@@ -763,7 +820,7 @@ class ContinuousBatchingEngine:
             P = self._slot_prompt_len[i]
             ids = tokens_h[i, P: offs_h[i]]
             ids = ids[ids != self.cfg.eot]
-            text = postprocess(self.tokenizer.decode(ids).strip(), req.language)
+            text = postprocess(self.tokenizer.decode(ids).strip(), self._effective_language(req))
             avg_lp = float(fstate_h[i, 0] / max(fstate_h[i, 1], 1.0))
             nsp = float(nsp_h[i])
             text, comp, quality_ok, silenced = self._quality_gate(text, nsp, avg_lp)
@@ -872,7 +929,13 @@ class ContinuousBatchingEngine:
                          | {self.beam_batch_max})
         bucket = _bucket(len(reqs), buckets)
         cross = self._encode(reqs, bucket)
-        rows = [cfg.sot_sequence(r.language, r.task) for r in reqs]
+        auto = [i for i, r in enumerate(reqs) if _auto(r)]
+        # a host read is fine here: the aux worker is off the decode thread
+        idx = self._detect(cross).cpu().numpy() if auto and cfg.is_multilingual else None
+        for i in auto:
+            reqs[i].language_resolved = "en" if idx is None else list(LANGUAGES)[int(idx[i])]
+        langs = [self._effective_language(r) for r in reqs]
+        rows = [cfg.sot_sequence(lang, r.task) for lang, r in zip(langs, reqs)]
         prompts = np.asarray(rows + rows[:1] * (bucket - len(rows)), np.int64)
         P = prompts.shape[1]
         result = greedy_decode_kv(
@@ -886,7 +949,7 @@ class ContinuousBatchingEngine:
         nsp_h = result.no_speech_prob.cpu().numpy()
         lp_h = result.avg_logprob.cpu().numpy()
         for i, r in enumerate(reqs):
-            text = postprocess(texts[i], r.language)
+            text = postprocess(texts[i], langs[i])
             text, comp, quality_ok, silenced = self._quality_gate(
                 text, float(nsp_h[i]), float(lp_h[i]))
             if self._maybe_retry(r, quality_ok, silenced):

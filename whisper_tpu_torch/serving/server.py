@@ -11,11 +11,12 @@ Port of ``whisper_tpu/serving/server.py``. Both reference wire protocols on
 
 ``GET /health`` and ``GET /metrics`` (engine stats); JSON responses with CORS
 headers. ``temperature`` (0 to 2) is served: above 0 the engine samples on
-its aux worker. Status codes: 400 for bad input, 501 for a request option
-this port does not serve yet (``beam`` > 1, ``word_timestamps``,
-``initial_prompt``, ``condition_on_previous``, ``stream``, ``format`` other
-than json, audio over 30 s, ``language=auto``; the reply names it), 503 when
-the engine's queue is full, 504 on timeout, 500 otherwise.
+its aux worker; ``language=auto`` is detected by the engine and the reply's
+``language`` names the code. Status codes: 400 for bad input, 501 for a
+request option this port does not serve yet (``beam`` > 1,
+``word_timestamps``, ``initial_prompt``, ``condition_on_previous``,
+``stream``, ``format`` other than json, audio over 30 s; the reply names
+it), 503 when the engine's queue is full, 504 on timeout, 500 otherwise.
 """
 
 from __future__ import annotations
