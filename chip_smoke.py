@@ -7,7 +7,7 @@ sm_90a, one process per source, in parallel), holds each against its plain
 PyTorch version at the shapes of the paths below (and a turbo layer's six
 W8A8 linears as one chain, K8q + K8 against the PyTorch composition they
 replace; K2 at the offline, serving, long-form and tp 2 rank batches, K3 at
-the three paths' windows on both caches, K5 at the offline and serving
+the paths' windows on both caches, K5 at the offline and serving
 batches, K7 at the offline and admission batches beside ``torch.stft``),
 checks what the binaries hold (the wgmma kernels' HGMMA/IGMMA and TMA
 loads, K2's and K5's bulk copies, K5's mma.sync, K3's cp.async, no I2F
@@ -48,12 +48,20 @@ drives each path while counting kernel launches:
   versions on the same cross-KV, the WER entry point
   (``whisper_tpu_torch.eval``) over 8 synthetic AIShell-format clips with
   that ``.pt``, the quantization gate at turbo (its fp32 control at zero),
-  and 8 ``language=auto`` clips to the turbo server.
+  and 8 ``language=auto`` clips to the turbo server;
+- the server's greedy options (ladder off): one burst of short clips,
+  clips of 60-90 s fanned out into windows and decoded window by window
+  under ``condition_on_previous``, ``initial_prompt`` contexts up to the cap
+  (slots behind per-slot pads), ``stream=1`` and ``format=txt``; 8 clips to
+  a server started with ``--timestamps``; and the 24-clip burst again with
+  ``--encode_chunks 4 --adaptive_sync`` (the segmented cross-KV held
+  bit-equal to the monolithic one).
 
 Then it checks small fp32 runs of the paths on the card against the CPU
 (the offline one under each selection, the TP engine against the one-rank
 engine on the CPU, a sampled decode with the same noise on both, language
-detection, the engine's ``language=auto`` replies). Prints
+detection, the engine's ``language=auto`` replies, prompted rows,
+timestamps and a long clip through the engine). Prints
 JSON lines; the last is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it. Needs a CUDA card: without one it exits 1 and prints
 no result. ``chip_tp.py`` runs the tensor-parallel phases over distinct
@@ -139,14 +147,21 @@ TOL = {"flash_attention_btd/bf16": 8e-3, "flash_attention_btd/fp32": 1e-4,
 # K3's shapes: (batch, self-KV positions, offsets drawn from [lo, hi], pads
 # drawn from [0, max]) of the offline path (prompt of 4, 64 new tokens,
 # cache bucketed to 128), the serving path (8 slots, 224-token budget, cache
-# bucketed to 256) and the long-form path (prompts of up to 1 + 223 + 3
+# bucketed to 256), its prompted slots (initial_prompt contexts of up to the
+# cap of 223 tokens: prompts of 1 + 223 + 4, offsets 229..255, a row's pad
+# 0..224, 224 for a row without context beside a capped one) and the
+# long-form path (prompts of up to 1 + 223 + 3
 # previous-text and sot tokens, left-padded by up to 60, 64 new tokens,
 # cache bucketed to 384); and the language-detection step, float cache only
 # (one [sot] at offset 0 in a cache of 128, the offline batch)
 K3_SHAPES = {"offline": (B, 128, 4, 4 + N_TOKENS - 1, None),
              "serving": (8, 256, 4, 4 + 224 - 1, None),
              "longform": (8, 384, 226, 226 + N_TOKENS - 1, 60),
-             "detect": (B, 128, 0, 0, None)}
+             "detect": (B, 128, 0, 0, None),
+             "prompted": (8, 256, 229, 255, 224)}
+# the shapes added after others: drawn from generators of their own, so the
+# inputs of every other K3 case and of the phases after K3 stay as they were
+K3_OWN_SEED = {"prompted": 29}
 # K8's shapes: the turbo encoder's (K, N) per layer (q, k, v, o; mlp w1;
 # mlp w2) at the offline batch (M = 1500 x 64) and at ragged admission sizes
 K8_KN = ((1280, 1280, 4), (1280, 5120, 1), (5120, 1280, 1))
@@ -615,13 +630,17 @@ def kernel_k3(dev, gen) -> dict:
     rng = np.random.default_rng(5)
     out = {}
     for path, (b, T, lo, hi, max_pad) in K3_SHAPES.items():
-        offsets = torch.from_numpy(rng.integers(lo, hi + 1, b)).to(dev)
-        pads = None if max_pad is None else torch.from_numpy(rng.integers(0, max_pad + 1, b)).to(dev)
+        r, g = rng, gen
+        if path in K3_OWN_SEED:
+            r = np.random.default_rng(K3_OWN_SEED[path])
+            g = torch.Generator(device=dev).manual_seed(K3_OWN_SEED[path])
+        offsets = torch.from_numpy(r.integers(lo, hi + 1, b)).to(dev)
+        pads = None if max_pad is None else torch.from_numpy(r.integers(0, max_pad + 1, b)).to(dev)
         first = 0 if pads is None else pads
         n_vis = float((offsets.clamp(max=T - 1) + 1 - first).sum()) * H_TEXT  # visible keys
-        q = torch.randn((b, H_TEXT, 1, DH), generator=gen, device=dev)
-        k = torch.randn((b, H_TEXT, T, DH), generator=gen, device=dev)
-        v = torch.rand((b, H_TEXT, T, DH), generator=gen, device=dev) * 2 - 1  # |V| <= 1
+        q = torch.randn((b, H_TEXT, 1, DH), generator=g, device=dev)
+        k = torch.randn((b, H_TEXT, T, DH), generator=g, device=dev)
+        v = torch.rand((b, H_TEXT, T, DH), generator=g, device=dev) * 2 - 1  # |V| <= 1
         kv_q, kv_s = (t.contiguous() for t in quantize_kv_heads(k, v))
         layouts = {
             "int8": (self_attention_decode_int8, self_attention_decode_int8_plain,
@@ -1325,21 +1344,64 @@ def _wav(x: np.ndarray) -> bytes:
             + b"data" + struct.pack("<I", len(pcm)) + pcm)
 
 
-def _post(url: str, clip: np.ndarray, multipart: bool) -> tuple:
-    """(status, reply, seconds) of one POST /asr."""
+def _ask(url: str, clip: np.ndarray, query=None, headers=None, multipart: bool = False) -> tuple:
+    """(status, reply, seconds) of one POST of ``clip`` to ``url`` with the
+    ``query`` options and extra ``headers``: f32 PCM, or with ``multipart``
+    a 16-bit WAV form field. The reply is the JSON body, the NDJSON lines of
+    a stream, or the text of another format."""
+    from urllib.parse import quote
+
+    if query:
+        url += ("&" if "?" in url else "?") + "&".join(f"{k}={quote(str(v))}"
+                                                    for k, v in query.items())
     if multipart:
         body = (b"--B\r\nContent-Disposition: form-data; name=\"wav\"; filename=\"a.wav\"\r\n"
                 b"Content-Type: audio/wav\r\n\r\n" + _wav(clip) + b"\r\n--B--\r\n")
-        headers = {"Content-Type": "multipart/form-data; boundary=B"}
+        ctype = "multipart/form-data; boundary=B"
     else:
-        body, headers = clip.astype("<f4").tobytes(), {"Content-Type": "application/octet-stream"}
+        body, ctype = clip.astype("<f4").tobytes(), "application/octet-stream"
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype,
+                                                          **(headers or {})})
     t0 = time.perf_counter()
     try:
-        with urllib.request.urlopen(urllib.request.Request(url, data=body, headers=headers),
-                                    timeout=600) as r:
-            return r.status, json.load(r), time.perf_counter() - t0
+        with urllib.request.urlopen(req, timeout=900) as r:
+            text, kind = r.read().decode(), r.headers.get("Content-Type", "")
+            seconds = time.perf_counter() - t0
+            if "ndjson" in kind:
+                return r.status, [json.loads(x) for x in text.splitlines() if x], seconds
+            return r.status, json.loads(text) if "json" in kind else text, seconds
     except urllib.error.HTTPError as e:
         return e.code, {"error": e.read().decode()}, time.perf_counter() - t0
+
+
+def _started(flags, mesh=None):
+    """The turbo server of ``python -m whisper_tpu_torch.serving`` with
+    ``flags`` (on ``mesh`` if given), started in-process on 127.0.0.1 and
+    warmed by one request (cuBLAS, the allocator): (engine, base URL, args,
+    server, its thread, startup phases, startup seconds)."""
+    from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
+    from whisper_tpu_torch.serving.server import make_server
+
+    args = parse_args(["--model_type", "turbo", "--host", "127.0.0.1", "--port", "0", *flags])
+    t0 = time.perf_counter()
+    engine, phases = build_engine(args, mesh=mesh)
+    engine.start()
+    srv = make_server(engine, args.host, args.port, request_timeout_s=900)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    warm = np.random.default_rng(9).standard_normal(16000 * 3).astype(np.float32) * 0.1
+    code, reply, _ = _ask(f"{base}/asr", warm)
+    if code != 200:
+        raise AssertionError(f"warm request answered {code}: {reply}")
+    return engine, base, args, srv, thread, phases, time.perf_counter() - t0
+
+
+def _stopped(engine, srv, thread):
+    srv.shutdown()
+    srv.server_close()
+    engine.stop()
+    thread.join(timeout=30)
 
 
 N_REQUESTS = 24
@@ -1361,33 +1423,19 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
     one if any (the server's default otherwise). Counts slot and aux
     (ladder) launches alike, detection steps included. Returns the record,
     and with ``keep_engine`` also the stopped engine and the clips."""
-    from whisper_tpu_torch.models.model import model_shards
-    from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
-    from whisper_tpu_torch.serving.server import make_server
-
-    args = parse_args(["--model_type", "turbo", "--host", "127.0.0.1", "--port", "0", *flags])
-    t0 = time.perf_counter()
-    engine, phases = build_engine(args, mesh=mesh)
-    engine.start()
-    srv = make_server(engine, args.host, args.port, request_timeout_s=600)
-    server = threading.Thread(target=srv.serve_forever, daemon=True)
-    server.start()
-    base = f"http://127.0.0.1:{srv.server_address[1]}"
-    url = f"{base}/asr" + (f"?language={language}" if language else "")
+    engine, base, args, srv, thread, phases, startup_s = _started(flags, mesh)
+    url = f"{base}/asr"
     try:
         rng = np.random.default_rng(2)
         clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
                  for s in rng.uniform(2.0, 30.0, N_REQUESTS)][:n_requests]
-        code, reply, _ = _post(url, clips[0][:16000 * 3], False)  # warm: cuBLAS, allocator
-        if code != 200:
-            raise AssertionError(f"warm request answered {code}: {reply}")
-        startup_s = time.perf_counter() - t0
+        query = {"language": language} if language else None
         st0 = engine.stats.snapshot()
         for fn in counters:
             fn.launches = 0
         t0 = time.perf_counter()
         with ThreadPoolExecutor(n_requests) as pool:
-            replies = list(pool.map(lambda i: _post(url, clips[i], i % 6 == 0),
+            replies = list(pool.map(lambda i: _ask(url, clips[i], query, multipart=i % 6 == 0),
                                     range(n_requests)))
         wall = time.perf_counter() - t0
         launches = _launches(counters)
@@ -1395,27 +1443,15 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
         with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
             metrics = json.load(r)
     finally:
-        srv.shutdown()
-        srv.server_close()
-        engine.stop()
-        server.join(timeout=30)
+        _stopped(engine, srv, thread)
     bad = [(code, reply) for code, reply, _ in replies
            if code != 200 or not reply.get("success") or not isinstance(reply.get("text"), str)
            or not 0 <= reply.get("tokens", -1) <= args.max_tokens]
     if bad:
         raise AssertionError(f"{len(bad)} of {n_requests} replies failed: {bad[:3]}")
-    cfg = engine.cfg
-    delta = {key: st1[key] - st0[key] for key in ("steps_total", "encode_batches_total",
-                                                  "aux_batches_total", "aux_steps_total",
-                                                  "retries_total", "ticks_total",
-                                                  "detect_batches_total")}
+    delta = _served_counts(engine, args, st0, st1, launches, f"{phase} {list(flags)}")
     steps, batches = delta["steps_total"], delta["encode_batches_total"]
     aux_batches, aux_steps = delta["aux_batches_total"], delta["aux_steps_total"]
-    tp = len(model_shards(engine.model))
-    _expect(f"{phase} {list(flags)} ({steps} + {aux_steps} aux steps, {batches} + {aux_batches} "
-            f"aux encodes)", launches, cfg, batches + aux_batches, steps + aux_steps,
-            args.encoder_attention, args.cross_decode, tp=tp,
-            detects=delta["detect_batches_total"])
     lat = np.array([sec for _, _, sec in replies])
     audio_s = sum(len(c) for c in clips) / 16000
     rec = {"phase": phase, "model": "turbo", "flags": "server defaults: "
@@ -1436,10 +1472,33 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
            "aux_batches": aux_batches, "aux_steps": aux_steps,
            "retries": delta["retries_total"], "detect_batches": delta["detect_batches_total"],
            "languages": [reply.get("language") for _, reply, _ in replies],
-           "launches": launches, "metrics": metrics}
+           "round_sizes": delta["round_sizes"], "launches": launches, "metrics": metrics}
+    if engine.encode_chunks > 1:
+        rec["encode_group_s"] = {str(b): t for b, t in engine._encode_seg_est.items()}
     if keep_engine:
         return rec, engine, clips[:n_requests], [reply for _, reply, _ in replies]
     return rec
+
+
+def _served_counts(engine, args, st0: dict, st1: dict, launches: dict, path: str) -> dict:
+    """The engine counters' change over a burst (stats snapshots ``st0`` and
+    ``st1``), and the check that ``launches`` are exactly what its encodes,
+    steps and detection steps launch (slot and aux work alike)."""
+    from whisper_tpu_torch.models.model import model_shards
+
+    delta = {key: st1[key] - st0[key] for key in (
+        "steps_total", "encode_batches_total", "aux_batches_total", "aux_steps_total",
+        "retries_total", "ticks_total", "detect_batches_total", "partials_total")}
+    delta["round_sizes"] = {k: n - st0["round_sizes"].get(k, 0)
+                            for k, n in st1["round_sizes"].items()
+                            if n > st0["round_sizes"].get(k, 0)}
+    steps, batches = delta["steps_total"], delta["encode_batches_total"]
+    aux_batches, aux_steps = delta["aux_batches_total"], delta["aux_steps_total"]
+    _expect(f"{path} ({steps} + {aux_steps} aux steps, {batches} + {aux_batches} aux encodes)",
+            launches, engine.cfg, batches + aux_batches, steps + aux_steps,
+            args.encoder_attention, args.cross_decode, tp=len(model_shards(engine.model)),
+            detects=delta["detect_batches_total"])
+    return delta
 
 
 def serving_ladder(counters) -> dict:
@@ -2167,6 +2226,189 @@ def serving_auto_reference_check() -> dict:
             "languages_and_texts_equal_cpu": True, "replies": out["cuda"]}
 
 
+N_OPTION_SHORT = 8
+PACED_FLAGS = ("--encode_chunks", "4", "--adaptive_sync")
+N_TIMESTAMP_REQUESTS = 8
+# initial_prompt texts of about 4, 30 and 90 tokens, and one far past the
+# turbo server's context cap (min(n_text_ctx // 2 - 1, kv_ctx - 13) = 223)
+PROMPTS = tuple(" ".join(f"word{i}" for i in range(n)) for n in (2, 15, 45, 400))
+
+
+def serving_options(counters) -> dict:
+    """The server's greedy options at turbo (its defaults, the ladder off):
+    one burst from client threads of 8 clips of 2-30 s, 2 of 60-90 s fanned
+    out into windows, 2 of 60-90 s with ``condition_on_previous=1``, 4 with
+    ``initial_prompt`` of about 4, 30, 90 and (capped) 223 tokens, 2 with
+    ``stream=1`` (one of 60-90 s) and 2 with ``format=txt``; exact launches
+    (every window is an admission row; the prompted rows decode behind
+    per-slot pads). Then, alone on the idle server, a short clip streamed
+    and the same clip as JSON: the final NDJSON line must equal the reply
+    (one admission of one row each, so the same shapes on the card)."""
+    from whisper_tpu_torch.longform import plan_chunks
+    from whisper_tpu_torch.serving.engine import Request
+
+    rng = np.random.default_rng(11)
+
+    def noise(lo, hi):
+        return (rng.standard_normal(int(16000 * rng.uniform(lo, hi))) * 0.1).astype(np.float32)
+
+    jobs = [("short", noise(2, 30), {}) for _ in range(N_OPTION_SHORT)]
+    jobs += [("long", noise(60, 90), {}) for _ in range(2)]
+    jobs += [("conditioned", noise(60, 90), {"condition_on_previous": 1}) for _ in range(2)]
+    jobs += [("prompted", noise(2, 30), {"initial_prompt": text}) for text in PROMPTS]
+    jobs += [("stream", noise(2, 30), {"stream": 1}), ("stream", noise(60, 90), {"stream": 1})]
+    jobs += [("txt", noise(2, 30), {"format": "txt"}) for _ in range(2)]
+    engine, base, args, srv, thread, _, startup_s = _started(GREEDY)
+    url = f"{base}/asr"
+    try:
+        st0 = engine.stats.snapshot()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            replies = list(pool.map(lambda job: _ask(url, job[1], job[2]), jobs))
+        wall = time.perf_counter() - t0
+        launches = _launches(counters)
+        st1 = engine.stats.snapshot()
+        twin = noise(2, 30)
+        alone = [_ask(url, twin, {"stream": 1}), _ask(url, twin)]
+    finally:
+        _stopped(engine, srv, thread)
+    bad = [(kind, code, str(reply)[:300]) for (kind, _, _), (code, reply, _) in zip(jobs, replies)
+           if code != 200]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(jobs)} option requests failed: {bad[:3]}")
+    delta = _served_counts(engine, args, st0, st1, launches, "serving_options")
+    out = {"short": [], "long": [], "conditioned": [], "prompted": [], "stream": [], "txt": []}
+    for (kind, clip, _), (_, reply, sec) in zip(jobs, replies):
+        out[kind].append((clip, reply, sec))
+    windows = {}
+    for kind in ("long", "conditioned"):
+        windows[kind] = [r["windows"] for _, r, _ in out[kind]]
+        want = [len(plan_chunks(len(c), 480000, engine.longform_overlap))
+                for c, _, _ in out[kind]]
+        if windows[kind] != want or any(bool(r.get("conditioned")) != (kind == "conditioned")
+                                        for _, r, _ in out[kind]):
+            raise AssertionError(f"{kind} replies: windows {windows[kind]}, expected {want}")
+    partials = []
+    for clip, lines, _ in out["stream"]:
+        *parts, final = lines
+        if not parts or any("partial" not in p for p in parts) or not final.get("success") \
+                or ("windows" in final) != (len(clip) > 480000):
+            raise AssertionError(f"a streamed reply is malformed: {str(lines)[:300]}")
+        partials.append(len(parts))
+    if not all(isinstance(t, str) and t.endswith("\n") for _, t, _ in out["txt"]):
+        raise AssertionError(f"format=txt bodies: {[t for _, t, _ in out['txt']]}")
+    (code_s, lines, _), (code_j, reply, _) = alone
+    drop = ("wall_seconds", "rtf")
+    final = {k: v for k, v in lines[-1].items() if k not in drop}
+    if code_s != 200 or code_j != 200 or final != {k: v for k, v in reply.items()
+                                                   if k not in drop}:
+        raise AssertionError(f"the streamed reply's final line differs from the JSON reply: "
+                             f"{lines[-1]} vs {reply}")
+    lat = np.array([sec for _, _, sec in replies])
+    return {"phase": "serving_options", "model": "turbo",
+            "flags": "server defaults, --temperature_fallback ''",
+            "requests": {k: len(v) for k, v in out.items()}, "startup_s": startup_s,
+            "wall_s": wall, "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p95_s": float(np.percentile(lat, 95)),
+            "latency_by_kind_s": {k: [sec for _, _, sec in v] for k, v in out.items()},
+            "audio_s": sum(len(c) for _, c, _ in jobs) / 16000, "windows": windows,
+            "partials_per_stream": partials, "stream_final_equals_json": True,
+            "prompt_tokens": [len(engine._context_ids(Request(audio=twin, initial_prompt=text)))
+                              for text in PROMPTS],
+            "ticks": delta["ticks_total"], "steps": delta["steps_total"],
+            "admission_batches": delta["encode_batches_total"],
+            "round_sizes": delta["round_sizes"], "partials": delta["partials_total"],
+            "launches": launches}
+
+
+def serving_timestamps(counters) -> dict:
+    """8 clips of 2-30 s to the turbo server started with ``--timestamps``
+    (ladder off): exact launches, and every text opens with a timestamp
+    token, as the grammar forces (unless the silence gate emptied it)."""
+    rec = serving(counters, GREEDY + ("--timestamps",), N_TIMESTAMP_REQUESTS,
+                  phase="serving_timestamps", keep_engine=True)
+    rec, _, _, replies = rec
+    off = [r for r in replies if not r["text"].startswith("<|")
+           and not (r["text"] == "" and r["no_speech_prob"] > 0.6)]
+    if off:
+        raise AssertionError(f"timestamp-mode texts without a leading timestamp: {off[:2]}")
+    rec["texts_head"] = [r["text"][:40] for r in replies]
+    return rec
+
+
+def serving_paced(counters) -> dict:
+    """The 24-clip burst of ``serving`` with the encode thread pacing a
+    4-group admission encode (``--encode_chunks 4``) and adaptive rounds
+    (``--adaptive_sync``): wall, latencies, the round sizes used and the
+    group times measured; then one bucket of 8 clips encoded by the stopped
+    engine both ways, whose int8 cross-KV must be bit-equal."""
+    from whisper_tpu_torch.serving.engine import Request
+
+    rec, engine, clips, _ = serving(counters, GREEDY + PACED_FLAGS, phase="serving_paced",
+                                    keep_engine=True)
+    reqs = [Request(audio=c) for c in clips[:8]]
+    seg = engine._encode(reqs, 8)
+    engine.encode_chunks = 1
+    mono = engine._encode(reqs, 8)
+    torch.cuda.synchronize()
+    differ = [i for i, (a, b) in enumerate(zip(seg, mono)) if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"segmented encode differs from the monolithic one in parts {differ}")
+    rec.update({"segmented_cross_kv_bit_equal": True, "encode_groups": 4,
+                "encode_group_layers": [round(i * L_AUDIO / 4) for i in range(5)]})
+    return rec
+
+
+def serving_options_reference_check() -> dict:
+    """A tiny fp32 engine (kvq + skvq, timestamps on) on the card and on the
+    CPU, rounds driven one tick at a time: two prompted rows (one at the
+    context cap, so pads > 0 in K3), an unprompted one and a 40 s clip fanned
+    out into two windows; equal tokens."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    tok = get_tokenizer(num_languages=99)
+
+    class IdText:
+        non_speech_tokens = tok.non_speech_tokens
+        encode = staticmethod(tok.encode)
+
+        def decode(self, ids):
+            return " ".join(str(int(t)) for t in ids)
+
+        decode_with_timestamps = decode
+
+    rng = np.random.default_rng(17)
+    clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
+             for s in (4, 9, 2, 40)]
+    prompts = ["hello there", " ".join(f"word{i}" for i in range(300)), None, None]
+    out, pads = {}, {}
+    for dev in ("cuda", "cpu"):
+        engine = ContinuousBatchingEngine(
+            init_params(get_config("tiny"), seed=3, device="cpu").to_device(dev), IdText(),
+            max_slots=4, compute_dtype=torch.float32, steps_per_sync=4, max_tokens=12,
+            kv_quant=True, self_kv_quant=True, timestamps=True, no_speech_threshold=None,
+            logprob_threshold=None, compression_ratio_threshold=None)
+        futs = [engine.submit(Request(audio=c, initial_prompt=p)) for c, p in zip(clips, prompts)]
+        pads[dev] = set()
+        for _ in range(80):
+            if all(f.done() for f in futs):
+                break
+            engine._tick()
+            pads[dev] |= set(engine._slot_pad)
+        out[dev] = [f.result(0)["text"] for f in futs]
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"option replies on the card differ from the CPU: {out}")
+    if max(pads["cuda"]) == 0:
+        raise AssertionError("no prompted row decoded behind a pad")
+    return {"phase": "serving_options_reference", "model": "tiny", "dtype": "float32",
+            "tokens_equal_cpu": True, "pads_seen": sorted(pads["cuda"]), "texts": out["cuda"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -2250,6 +2492,15 @@ def main() -> int:
     auto = serving_auto(counters)
     emit(auto)
     torch.cuda.empty_cache()
+    options = serving_options(counters)
+    emit(options)
+    torch.cuda.empty_cache()
+    stamped = serving_timestamps(counters)
+    emit(stamped)
+    torch.cuda.empty_cache()
+    paced = serving_paced(counters)
+    emit(paced)
+    torch.cuda.empty_cache()
     emit(reference_check())
     emit(serving_reference_check())
     emit(longform_reference_check())
@@ -2257,6 +2508,7 @@ def main() -> int:
     emit(ladder_reference_check())
     emit(language_reference_check())
     emit(serving_auto_reference_check())
+    emit(serving_options_reference_check())
     emit({"phase": "profiler", **PROFILER_MISSES})
 
     # each kernel's counts from the runs of the path that selects it; the
@@ -2277,12 +2529,16 @@ def main() -> int:
         k["tp_launches"] = tp["launches"][name]
         k["checkpoint_launches"] = ckpt["launches"][name]
         k["serving_auto_launches"] = auto["launches"][name]
+        for path, rec in (("serving_options", options), ("serving_timestamps", stamped),
+                          ("serving_paced", paced)):
+            k[f"{path}_launches"] = rec["launches"][name]
         if name == "self_attention_decode_int8":  # K3's float variant: the detection step
             k["float_launches"] = {path: rec["launches"]["self_attention_decode"]
                                    for path, rec in (("checkpoint", ckpt), ("serving_auto", auto))}
     keys = ("name", "route", "source", "replaces", "launches", "offline_launches",
             "serving_launches", "longform_launches", "ladder_launches", "tp_launches",
-            "checkpoint_launches", "serving_auto_launches", "float_launches",
+            "checkpoint_launches", "serving_auto_launches", "serving_options_launches",
+            "serving_timestamps_launches", "serving_paced_launches", "float_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}),

@@ -186,10 +186,12 @@ def _check_self(q, kv, kv8, offsets, pads, dtype):
 
 # the decode paths' windows: (batch, cache length, offsets drawn from
 # [lo, hi], pads drawn from [0, max_pad]): offline (prompt of 4, 64 new
-# tokens), serving (8 slots, 224-token budget), long-form (prompts of up to
-# 226 tokens, 64 new ones, left-padded by up to 60)
+# tokens), serving (8 slots, 224-token budget), the serving slots' prompted
+# rows (initial_prompt contexts up to the cap of 223 tokens: prompts of
+# 1 + 223 + 4, a row's pad up to 224), long-form (prompts of up to 226
+# tokens, 64 new ones, left-padded by up to 60)
 K3_WINDOWS = {"offline": (64, 128, 4, 67, 3), "serving": (8, 256, 4, 227, 3),
-              "longform": (8, 384, 226, 289, 60)}
+              "prompted": (8, 256, 229, 255, 224), "longform": (8, 384, 226, 289, 60)}
 
 
 @pytest.mark.parametrize("use_pads", [False, True], ids=["nopad", "pad"])
@@ -892,3 +894,37 @@ def test_engine_language_column_write_keeps_explicit_rows(dev):
     plain = engine()
     alone = run(plain, [plain.submit(Request(audio=clips[i], language=langs[i])) for i in (1, 3)])
     assert [r["text"] for r in alone] == [mixed[1]["text"], mixed[3]["text"]]
+
+
+def test_segmented_turbo_encode_is_bit_equal(dev):
+    """The serving engine's admission encode at turbo's full width (32
+    layers, D 1280, W8A8, bf16, int8 cross-KV) for one bucket of 4 clips:
+    split into 4 paced layer groups (``encode_chunks=4``) it gives the
+    monolithic encode's cross-KV bit for bit, with the same launches."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.ops.quant import quantize_params
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    cfg = get_config("turbo")
+    model = quantize_params(init_params(cfg, seed=0, device=dev))
+    eng = ContinuousBatchingEngine(model, get_tokenizer(num_languages=cfg.num_languages),
+                                   max_slots=4, max_tokens=32, kv_quant=True, self_kv_quant=True,
+                                   w8a8=True, encode_chunks=4)
+    rng = np.random.default_rng(61)
+    reqs = [Request(audio=(rng.standard_normal(16000 * s) * 0.1).astype(np.float32))
+            for s in (3, 11, 29, 17)]
+    counters = (flash_attention_btd, int8_gemm, quantize_rows, log10_mel)
+    runs = []
+    for chunks in (4, 1):
+        eng.encode_chunks = chunks
+        before = [fn.launches for fn in counters]
+        cross = eng._encode(reqs, 4)
+        torch.cuda.synchronize()
+        runs.append((cross, [fn.launches - b for fn, b in zip(counters, before)]))
+    (seg, seg_launches), (mono, mono_launches) = runs
+    assert len(eng._encode_seg_est[4]) == 4 and seg_launches == mono_launches
+    assert seg_launches == [32, 6 * 32, 4 * 32, 1]
+    for a, b in zip(seg, mono):
+        assert a.dtype == b.dtype and torch.equal(a, b)

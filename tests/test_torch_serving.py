@@ -225,10 +225,7 @@ def test_engine_per_request_max_tokens(jax_params):
 
 UNPORTED_REQUESTS = {
     "beam": dict(beam_size=2),
-    "long": dict(audio=np.zeros(16000 * 31, np.float32)),
-    "word_timestamps": dict(word_timestamps=True), "initial_prompt": dict(initial_prompt="hi"),
-    "condition_on_previous": dict(condition_on_previous=True),
-    "on_partial": dict(on_partial=print),
+    "word_timestamps": dict(word_timestamps=True),
 }
 
 
@@ -238,14 +235,6 @@ def test_engine_refuses_unported_request_options(jax_params, option):
     kw = {"audio": np.zeros(1600, np.float32), **UNPORTED_REQUESTS[option]}
     with pytest.raises(NotImplementedError, match="not ported"):
         eng.submit(Request(**kw))
-
-
-@pytest.mark.parametrize("option", [dict(timestamps=True), dict(encode_chunks=2),
-                                    dict(adaptive_sync=True)],
-                         ids=["timestamps", "encode_chunks", "adaptive_sync"])
-def test_engine_refuses_unported_engine_options(jax_params, option):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _engine(jax_params, **option)
 
 
 # ---------------------------------------------------------------- HTTP
@@ -338,18 +327,16 @@ def test_http_bad_inputs_answer_400(http_server, case):
     assert code == 400 and res["success"] is False
 
 
+# format=srt: its segments come from word timings, so it needs word_timestamps
 UNPORTED_HTTP = {
     "beam": {"X-Beam": "2"},
-    "word_timestamps": {"X-Word-Timestamps": "1"}, "initial_prompt": {"X-Initial-Prompt": "hi"},
-    "condition_on_previous": {"X-Condition-On-Previous": "1"}, "stream": {"X-Stream": "1"},
-    "format": {"X-Format": "srt"}, "long": {},
+    "word_timestamps": {"X-Word-Timestamps": "1"}, "format": {"X-Format": "srt"},
 }
 
 
 @pytest.mark.parametrize("option", list(UNPORTED_HTTP))
 def test_http_unported_options_answer_501(http_server, option):
-    seconds = 31 if option == "long" else 0.1
-    pcm = np.zeros(int(16000 * seconds), "<f4").tobytes()
+    pcm = np.zeros(1600, "<f4").tobytes()
     code, res = _post_error(f"{http_server}/asr", pcm,
                             {"Content-Type": "application/octet-stream", **UNPORTED_HTTP[option]})
     assert code == 501 and "not ported" in res["error"]
@@ -371,28 +358,36 @@ def test_client_module(http_server, tmp_path):
 
 def test_main_refuses_unported_flags_and_a_missing_card(monkeypatch):
     # ["--checkpoint", "x"]: a checkpoint file that does not exist
-    for flags in (["--tp", "2"], ["--dp", "2"], ["--backends", "h:1"], ["--checkpoint", "x"],
-                  ["--timestamps"], ["--adaptive_sync"], ["--encode_chunks", "2"]):
+    for flags in (["--tp", "2"], ["--dp", "2"], ["--backends", "h:1"], ["--checkpoint", "x"]):
         assert serve_main(["--device", "cpu", *flags]) != 0, flags
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert serve_main(["--model_type", "test-nano"]) != 0  # cuda, the default, and no card
 
 
-def test_main_serves_on_the_cpu():
-    """``python -m whisper_tpu_torch.serving --device cpu`` on test-nano
-    answers octet-stream and multipart, and 501 for an unported option."""
+def _serve(*flags):
+    """A ``python -m whisper_tpu_torch.serving`` process on test-nano, the
+    CPU, port 0 and ``flags``; returns (process, its URL)."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "whisper_tpu_torch.serving", "--model_type", "test-nano",
          "--device", "cpu", "--dtype", "float32", "--no-w8a8", "--host", "127.0.0.1",
-         "--port", "0", "--max_tokens", "6", "--steps_per_sync", "4"],
+         "--port", "0", "--max_tokens", "6", "--steps_per_sync", "4", *flags],
         stderr=subprocess.PIPE, text=True)
+    line = ""
+    deadline = time.monotonic() + 60
+    while "server on" not in line and time.monotonic() < deadline:
+        line = proc.stderr.readline()
+        if not line and proc.poll() is not None:
+            raise AssertionError("server exited")
+    return proc, "http://" + line.split(" on ")[1].split(" ")[0]
+
+
+def test_main_serves_on_the_cpu():
+    """``python -m whisper_tpu_torch.serving --device cpu`` on test-nano
+    answers octet-stream and multipart, and 501 for an unported option;
+    started with ``--timestamps --encode_chunks 2`` it answers with
+    timestamp tokens."""
+    proc, url = _serve()
     try:
-        line = ""
-        deadline = time.monotonic() + 60
-        while "server on" not in line and time.monotonic() < deadline:
-            line = proc.stderr.readline()
-            assert line or proc.poll() is None, "server exited"
-        url = "http://" + line.split(" on ")[1].split(" ")[0]
         pcm = _clips(7, (0.5,))[0].astype("<f4").tobytes()
         code, res = _post(f"{url}/asr", pcm, {"Content-Type": "application/octet-stream"})
         assert code == 200 and res["success"] and res["tokens"] <= 6
@@ -403,6 +398,14 @@ def test_main_serves_on_the_cpu():
         code, res = _post_error(f"{url}/asr", pcm, {"Content-Type": "application/octet-stream",
                                                    "X-Beam": "5"})
         assert code == 501
+    finally:
+        proc.terminate()
+        proc.wait(timeout=20)
+    proc, url = _serve("--timestamps", "--encode_chunks", "2")
+    try:
+        code, res = _post(f"{url}/asr?language=en", pcm,
+                          {"Content-Type": "application/octet-stream"})
+        assert code == 200 and res["success"] and res["text"].startswith("<|")
     finally:
         proc.terminate()
         proc.wait(timeout=20)

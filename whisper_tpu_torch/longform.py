@@ -7,6 +7,9 @@
 - Seek-based (:func:`transcribe_seek`, ``WhisperPipeline.
   transcribe_longform``): decode a 30 s window with timestamps, advance to
   the end of its last complete segment, repeat.
+- Served (the engine's requests over 30 s): per-window replies merged by
+  :func:`merge_transcripts`, at word level where every window has word
+  timings (:func:`merge_window_words`), else by text (:func:`merge_texts`).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import difflib
 import zlib
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -117,6 +120,76 @@ def merge_texts(texts: Sequence[str], language: str = "zh",
             continue
         out = out + sep + t if out else t
     return out
+
+
+def merge_window_words(window_words: Sequence[Optional[Sequence[dict]]],
+                       step_s: float, overlap_s: float) -> List[dict]:
+    """Merge per-window word lists (times local to each window, window j
+    starting at ``j * step_s``) into one absolute, time-ordered list.
+
+    Each overlap is cut at its midpoint on word start times: window j-1 owns
+    the words starting before the cut, window j those at or after it. Where
+    one side of an overlap heard nothing (a silence-gated window), the other
+    side's words there are kept. A word heard by both windows within 0.3 s
+    of the same start is emitted once.
+    """
+    n = len(window_words)
+    wins: List[List[dict]] = []
+    for j in range(n):
+        ws = window_words[j] or []
+        wins.append(sorted(
+            (dict(w, start=round(w["start"] + j * step_s, 3),
+                  end=round(w["end"] + j * step_s, 3)) for w in ws),
+            key=lambda w: (w["start"], w["end"])))
+    cuts = [j * step_s + overlap_s / 2.0 for j in range(1, n)]
+
+    def lo(j):
+        return cuts[j - 1] if j > 0 else float("-inf")
+
+    def hi(j):
+        return cuts[j] if j < n - 1 else float("inf")
+
+    out: List[dict] = []
+    for j in range(n):
+        for w in wins[j]:
+            if lo(j) <= w["start"] < hi(j):
+                out.append(w)
+            elif w["start"] < lo(j) and not any(
+                    x["start"] >= (j - 1) * step_s for x in wins[j - 1]):
+                out.append(w)  # window j-1 heard nothing in the shared overlap
+            elif (w["start"] >= hi(j) and j + 1 < n
+                    and not any(x["start"] < hi(j) + overlap_s / 2.0 for x in wins[j + 1])):
+                out.append(w)  # nor window j+1 in its half
+    out.sort(key=lambda w: (w["start"], w["end"]))
+    deduped: List[dict] = []
+    for w in out:
+        if (deduped and w["word"].strip() == deduped[-1]["word"].strip()
+                and abs(w["start"] - deduped[-1]["start"]) < 0.3):
+            continue  # one word heard on both sides of the cut
+        deduped.append(w)
+    return deduped
+
+
+def text_from_words(words: Sequence[dict], language: str) -> str:
+    """The transcript a merged word list spells, so a long reply's text and
+    words agree."""
+    text = "".join(w["word"] for w in words).strip()
+    if language in ("zh", "ja", "th", "yue"):
+        text = text.replace(" ", "")
+    return text
+
+
+def merge_transcripts(results: Sequence[dict], step_s: float, overlap_s: float,
+                      language: str) -> dict:
+    """Merge per-window replies (``{"text", "words"?}``) into ``{"text",
+    "words"?}``: at word level (:func:`merge_window_words`, the text spelled
+    from the merged words) when every window has a word list, else by text
+    (:func:`merge_texts`)."""
+    have_words = [r.get("words") for r in results]
+    if all(w is not None for w in have_words):
+        words = merge_window_words(have_words, step_s, overlap_s)
+        return {"text": text_from_words(words, language), "words": words}
+    return {"text": merge_texts([r.get("text", "") for r in results], language)}
 
 
 def _next_pow2(n: int, cap: int = 64) -> int:

@@ -16,9 +16,13 @@ and ``WHISPER_TPU_DECODE_FLASH``) and the JAX server's temperature ladder
 with ``--model_type`` as its size); without it the weights are the port's
 seeded random init, so every request fails the logprob gate and climbs the
 whole ladder. ``--tp N`` splits the model over the first N CUDA cards, as
-the JAX server does over N chips, and exits non-zero without them. Flags of
-features not ported yet (``--dp`` > 1, ``--backends``, ``--timestamps``,
-``--adaptive_sync``, ``--encode_chunks`` > 1) exit non-zero and name the
+the JAX server does over N chips, and exits non-zero without them.
+``--timestamps`` decodes with timestamp tokens, ``--encode_chunks N`` splits
+the admission encoder into N paced layer groups, ``--adaptive_sync`` sizes
+rounds at 1, 2 or 4 times ``--steps_per_sync``, and ``--router_overlap_s``
+is the overlap of the windows a request over 30 s is split into (the JAX
+server passes it to its engines and its router). Flags of features not
+ported yet (``--dp`` > 1, ``--backends``) exit non-zero and name the
 feature; so does a checkpoint that cannot be read.
 """
 
@@ -45,9 +49,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_tokens", type=int, default=224,
                    help="per-request generated-token budget; bounds the bucketed "
                         "self-KV cache (0 = unlimited full-context cache)")
-    p.add_argument("--timestamps", action="store_true", help="not ported yet")
+    p.add_argument("--timestamps", action="store_true",
+                   help="decode with timestamp tokens (<|t.tt|> in the text)")
     p.add_argument("--adaptive_sync", action=argparse.BooleanOptionalAction, default=False,
-                   help="not ported yet")
+                   help="grow a round to 2x/4x steps_per_sync while every active slot "
+                        "is far from its budget")
     p.add_argument("--kv_quant", action=argparse.BooleanOptionalAction, default=True,
                    help="int8-quantize the cross-attention KV state")
     p.add_argument("--self_kv_quant", action=argparse.BooleanOptionalAction, default=True,
@@ -60,6 +66,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "cards (heads + MLP over the model mesh axis)")
     p.add_argument("--dp", type=int, default=1, help="not ported yet (1 only)")
     p.add_argument("--backends", default=None, help="not ported yet")
+    p.add_argument("--router_overlap_s", type=float, default=2.0,
+                   help="overlap of the windows a request over 30 s is split into")
     p.add_argument("--timeout", type=float, default=300.0)
     p.add_argument("--no_speech_threshold", type=float, default=0.6,
                    help="silence gate: P(<|nospeech|>) above this (and not "
@@ -71,7 +79,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--admit_chunk", type=int, default=None,
                    help="max newcomers encoded per sync round while slots are "
                         "active (default slots/4)")
-    p.add_argument("--encode_chunks", type=int, default=1, help="not ported yet (1 only)")
+    p.add_argument("--encode_chunks", type=int, default=1,
+                   help=">1 splits the admission encoder into that many layer groups so "
+                        "decode rounds run between them")
     p.add_argument("--temperature_fallback", default="0.2,0.4,0.6,0.8,1.0",
                    help="comma-separated retry-ladder temperatures for low-quality "
                         "results ('' disables)")
@@ -82,10 +92,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def unported_flags(args: argparse.Namespace):
     asked = {"--dp > 1 (data-parallel replicas)": args.dp > 1,
-             "--backends (router)": bool(args.backends),
-             "--timestamps": args.timestamps,
-             "--adaptive_sync": args.adaptive_sync,
-             "--encode_chunks > 1 (segmented admission encode)": args.encode_chunks > 1}
+             "--backends (router)": bool(args.backends)}
     return [name for name, on in asked.items() if on]
 
 
@@ -142,7 +149,11 @@ def build_engine(args: argparse.Namespace, mesh=None):
         compression_ratio_threshold=(None if args.compression_ratio_threshold < 0
                                      else args.compression_ratio_threshold),
         admit_chunk=args.admit_chunk,
+        timestamps=args.timestamps,
         mesh=mesh,
+        encode_chunks=args.encode_chunks,
+        adaptive_sync=args.adaptive_sync,
+        longform_overlap_s=args.router_overlap_s,
         temperature_fallback=tuple(float(x) for x in args.temperature_fallback.split(",") if x),
         beam_batch_max=args.beam_batch_max,
     )
@@ -171,7 +182,7 @@ def main(argv=None) -> int:
           f"tp={args.tp}) startup: "
           f"load {phases['load_s']:.1f}s quantize {phases['quantize_s']:.1f}s "
           f"place {phases['place_s']:.1f}s "
-          f"kernel build {engine.stats.warmup_seconds:.1f}s", file=sys.stderr, flush=True)
+          f"warmup {engine.stats.warmup_seconds:.1f}s", file=sys.stderr, flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

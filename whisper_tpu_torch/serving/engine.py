@@ -1,31 +1,50 @@
-"""Continuous-batching inference engine: greedy slots, an aux worker for
-sampled decodes and the temperature ladder, on one card or a TP mesh.
+"""Continuous-batching inference engine: greedy slots, an encode thread, an
+aux worker for sampled decodes and the temperature ladder, on one card or a
+TP mesh.
 
 Port of ``whisper_tpu/serving/engine.py``. The engine keeps a fixed pool of
 ``max_slots`` decode slots on the device:
 
-- new requests are admitted between decode rounds: their mel, encoder,
-  cross-KV and prompt prefill run as one bucketed batch, and the resulting
-  cross-KV and self-KV are copied into free slots;
-- every round advances ALL slots ``steps_per_sync`` tokens with
-  :func:`~whisper_tpu_torch.models.model.decoder_step_multipos`, each slot at
-  its own cache offset, without reading the device from the host;
+- new requests are prepared ahead of the slots: their mel, encoder,
+  cross-KV and prompt prefill run as one bucketed batch (on the encode
+  thread after :meth:`start`), and the decode thread copies the resulting
+  cross-KV and self-KV into free slots;
+- every round advances ALL slots ``steps_per_sync`` tokens (with
+  ``adaptive_sync``, 2x or 4x that while every slot is far from its
+  budget) with :func:`~whisper_tpu_torch.models.model.decoder_step_multipos`,
+  each slot at its own cache offset behind its own masked left pad, without
+  reading the device from the host;
 - after a round, the slot state is packed into one int32 buffer whose copy
   to pinned host memory overlaps the next round; the next tick resolves it,
-  detokenizes the finished slots and frees them.
+  streams partial transcripts (``on_partial``), detokenizes the finished
+  slots and frees them.
 
-One thread (``_run``) owns the slot state and calls :meth:`_tick`; HTTP
-handler threads only :meth:`submit` and wait on futures. Admission runs
-inline in ``_tick`` (the JAX engine's single-thread mode), so tests drive
-rounds deterministically by calling ``_tick`` themselves.
+The decode thread (``_run``) owns the slot state and calls :meth:`_tick`;
+the encode thread (``_prepare_run``) prepares admission batches into
+``_ready``, guarded by ``_ready_cv``; HTTP handler threads only
+:meth:`submit` and wait on futures. Both threads enqueue on the device's one
+stream, so a prepared batch's work is ordered before the copy that admits
+it. An engine that was not started prepares inline in ``_tick``, so tests
+drive rounds deterministically by calling ``_tick`` themselves. With
+``encode_chunks > 1`` the admission encoder runs as that many layer groups,
+paced while slots decode so decode rounds reach the card between them.
+
+Prompts are right-aligned ``[pad..., sot_prev, context..., sot sequence]``
+rows: ``initial_prompt`` (and, for a request over 30 s with
+``condition_on_previous``, the transcript so far) rides as context behind a
+per-slot masked pad. ``timestamps`` drops ``<|notimestamps|>`` and runs the
+timestamp grammar. A request over 30 s is split into overlapping windows
+that decode as ordinary requests (one after another, each prompted with the
+text so far, under ``condition_on_previous``) and are merged
+(``longform.merge_transcripts``).
 
 The aux worker (its own thread after :meth:`start`, one round per
 :meth:`aux_round` in tests) decodes ``temperature > 0`` requests: a
-micro-batch of one temperature gets a bucketed encode through the engine's
-own encode function and a sampled ``greedy_decode_kv``, with its own caches.
-OpenAI's temperature ladder (``temperature_fallback``) sends a result that
-fails the compression-ratio or logprob gate there again at the next
-temperature, from the slots or from the aux worker itself.
+micro-batch of one temperature and context width gets a bucketed encode
+through the engine's own encode function and a sampled ``greedy_decode_kv``,
+with its own caches. OpenAI's temperature ladder (``temperature_fallback``)
+sends a result that fails the compression-ratio or logprob gate there again
+at the next temperature, from the slots or from the aux worker itself.
 
 Under a ``mesh`` (tensor parallelism over its MODEL axis) the weights are
 split per rank (``parallel.sharding.shard_params``) and the slot caches and
@@ -41,37 +60,47 @@ harvest; on the aux worker, per micro-batch, read at once. The request keeps
 ``language="auto"`` (a retried request detects again); the detected code
 goes into ``language_resolved`` and the reply's ``language``.
 
-Not ported yet, and refused with ``NotImplementedError``: beams, requests
-over 30 s, word timestamps, ``initial_prompt`` / ``condition_on_previous``,
-``on_partial`` streaming, timestamps, segmented admission encodes and
-adaptive round sizes.
+Not ported yet, and refused with ``NotImplementedError``: beams and word
+timestamps.
 """
 
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import LANGUAGES, N_SAMPLES
 from ..decode import detect_language_kv, encode_cross_kv, extract_texts, greedy_decode_kv
-from ..longform import compression_ratio
+from ..longform import (
+    _bucket_prev,
+    compression_ratio,
+    merge_texts,
+    merge_transcripts,
+    split_audio,
+)
 from ..models.model import (
     Shards,
     Whisper,
     cast_floating,
     check_selections,
+    compute_cross_kv,
     decoder_forward,
     decoder_step_multipos,
+    encoder_blocks,
+    encoder_post,
+    encoder_stem,
     model_shards,
     new_kv_cache,
+    quantize_cross_kv,
     shard_values,
 )
 from ..ops import _build
@@ -82,7 +111,7 @@ from ..text import postprocess
 
 @dataclass
 class Request:
-    audio: np.ndarray          # mono f32 @16k, at most 30 s
+    audio: np.ndarray          # mono f32 @16k; over 30 s is split into windows
     language: str = "zh"       # a code, or "auto" (None) to detect it
     task: str = "transcribe"
     beam_size: int = 1         # > 1 is not ported
@@ -96,13 +125,20 @@ class Request:
     _attempt: int = 0
     future: Future = field(default_factory=Future)
     enqueued_at: float = field(default_factory=time.perf_counter)
-    on_partial: Optional[object] = None  # streaming: not ported
+    # streaming: called with the partial transcript after each sync round
+    on_partial: Optional[object] = None  # Callable[[str], None]
     # engine-enforced deadline (seconds from enqueue; None = no limit).
     # Expired requests fail with TimeoutError and their slot is freed.
     deadline_s: Optional[float] = None
     word_timestamps: bool = False        # not ported
-    initial_prompt: Optional[str] = None  # not ported
-    condition_on_previous: bool = False  # not ported
+    # OpenAI's initial_prompt: free text prepended as [sot_prev, tokens]
+    # context, trimmed to n_text_ctx // 2 - 1 tokens (and to the slot
+    # cache), right-aligned behind a masked left pad. For a request over
+    # 30 s it seeds window 0; with condition_on_previous the windows decode
+    # one after another, each prompted with the transcript so far
+    initial_prompt: Optional[str] = None
+    condition_on_previous: bool = False
+    _prompt_ids: Optional[list] = None   # memoized context token ids
     # "auto" requests keep language="auto" (a retried request detects
     # again); the detected code lands here. On the slot path it stays on the
     # device until harvest: _lang_holder is a dict the admission batch
@@ -148,14 +184,19 @@ class EngineStats:
     harvest_seconds_total: float = 0.0
     ticks_total: int = 0          # sync rounds run
     steps_total: int = 0          # decode steps stepped over all slots
-    # admission encode + prefill (inline in _tick), inside step_seconds
+    # admission encode + prefill: on the encode thread after start(), so
+    # outside busy time; inline in _tick (inside step_seconds) without it
     encode_seconds_total: float = 0.0
     encode_batches_total: int = 0
     prepared_depth: int = 0       # requests encoded+prefilled awaiting a slot
-    warmup_seconds: float = 0.0   # start(): the CUDA kernels' build
+    warmup_seconds: float = 0.0   # start(): the kernels' build, the encode groups' timing
+    # decode rounds by their size in steps (adaptive_sync: base, 2x, 4x)
+    round_sizes: Dict[str, int] = field(default_factory=dict)
+    partials_total: int = 0       # on_partial calls made
 
     def snapshot(self) -> dict:
         d = dict(self.__dict__)
+        d["round_sizes"] = dict(self.round_sizes)
         busy = max(self.busy_seconds_total, 1e-9)
         d["audio_seconds_per_second"] = self.audio_seconds_total / busy
         d["rtf"] = busy / max(self.audio_seconds_total, 1e-9)
@@ -179,6 +220,7 @@ class _PreparedBatch:
     nsp: torch.Tensor              # (bucket,) no-speech prob
     prompts: torch.Tensor          # (bucket, P) prompt rows
     prompt_len: int
+    pads: np.ndarray               # (bucket,) masked left pad of each row
     consumed: int = 0              # rows already copied into slots
 
 
@@ -202,6 +244,33 @@ def _safe_set_exception(fut: Future, exc: BaseException) -> None:
 
 
 PREFILL_BUCKETS = (1, 2, 4, 8, 16, 32, 64)  # admission batch sizes
+
+
+class _SegmentClock:
+    """Durations of consecutive stretches of enqueued work: CUDA events on
+    the card (waited for by :meth:`seconds`), the host clock on the CPU,
+    whose work runs as it is enqueued."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = [self._now()]
+
+    def _now(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def mark(self):
+        self.marks.append(self._now())
+
+    def seconds(self) -> List[float]:
+        pairs = list(zip(self.marks, self.marks[1:]))
+        if not self.cuda:
+            return [b - a for a, b in pairs]
+        self.marks[-1].synchronize()
+        return [a.elapsed_time(b) / 1e3 for a, b in pairs]
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -229,7 +298,11 @@ class ContinuousBatchingEngine:
     cross-attention kernel (see ``models/model.py``).
     ``temperature_fallback`` is the retry ladder (off when empty, as for
     library users of the JAX engine; its server turns it on), and
-    ``beam_batch_max`` caps an aux micro-batch."""
+    ``beam_batch_max`` caps an aux micro-batch. ``timestamps`` decodes with
+    timestamp tokens; ``encode_chunks`` splits the admission encoder into
+    that many layer groups; ``adaptive_sync`` sizes rounds at 1, 2 or 4
+    times ``steps_per_sync``; ``longform_overlap_s`` is the overlap of the
+    windows a request over 30 s is split into."""
 
     def __init__(
         self,
@@ -255,12 +328,8 @@ class ContinuousBatchingEngine:
         temperature_fallback: Optional[Sequence[float]] = None,
         adaptive_sync: bool = False,
         beam_batch_max: int = 8,
+        longform_overlap_s: float = 2.0,
     ):
-        unported = {"timestamps": timestamps, "encode_chunks > 1": encode_chunks > 1,
-                    "adaptive_sync": adaptive_sync}
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(f"not ported to whisper_tpu_torch yet: {', '.join(asked)}")
         check_selections(encoder_attention, cross_decode)
         cfg = model.cfg
         self.mesh = mesh
@@ -278,6 +347,10 @@ class ContinuousBatchingEngine:
         self.device = model.device
         self.B = B = max_slots
         self.steps_per_sync = steps_per_sync
+        # a round grows to 2x / 4x steps_per_sync while EVERY active slot
+        # still needs that many tokens (off by default, as in JAX)
+        self.adaptive_sync = adaptive_sync
+        self.timestamps = timestamps
         self.prefill_buckets = tuple(b for b in PREFILL_BUCKETS if b <= max_slots) or (max_slots,)
         self.max_tokens = max_tokens
         self.kv_quant = kv_quant
@@ -297,15 +370,22 @@ class ContinuousBatchingEngine:
         # round, so one admission stalls the active slots by a small encoder
         # pass; an idle engine admits whole buckets
         self.admit_chunk = admit_chunk or max(1, max_slots // 4)
+        # > 1 splits the admission encoder into that many layer groups; with
+        # slots decoding, the encode thread waits about each group's measured
+        # time before enqueueing the next, so decode rounds run between them
+        self.encode_chunks = max(1, min(encode_chunks, cfg.n_audio_layer))
+        self._encode_seg_est: Dict[int, List[float]] = {}  # bucket -> seconds a group
+        # requests over 30 s split into windows this many samples apart
+        self.longform_overlap = int(longform_overlap_s * 16000)
         self.model = cast_floating(model, compute_dtype)
         self._suppress = torch.as_tensor(build_suppress_ids(cfg, tokenizer), dtype=torch.int64,
                                          device=self.device)
 
         T = cfg.n_text_ctx
         dev = self.device
-        # the prompts are sot sequences (<= 4 tokens), so a token budget
-        # bounds every cache write: the cache holds only the reachable
-        # positions, rounded up to 128
+        # the sot sequences are <= 4 tokens and a context prompt is capped to
+        # fit (_context_ids), so a token budget bounds every cache write: the
+        # cache holds only the reachable positions, rounded up to 128
         self.kv_ctx = min(T, -(-(4 + max_tokens) // 128) * 128) if max_tokens else T
         self.kv = self._new_cache(B)
         shards = model_shards(self.model)
@@ -334,10 +414,21 @@ class ContinuousBatchingEngine:
         # fstate = [sum_logprob, n_sampled], nsp = P(<|nospeech|>) at sot
         self.fstate = torch.zeros((B, 2), dtype=torch.float32, device=dev)
         self.nsp = torch.zeros((B,), dtype=torch.float32, device=dev)
+        # per-slot masked left pad: a prompt's context rides right-aligned,
+        # its pad positions out of attention and positional indexing
+        self.pads = torch.zeros((B,), dtype=torch.int64, device=dev)
 
         # host-side slot bookkeeping
         self._slot_req: List[Optional[Request]] = [None] * B
         self._slot_prompt_len: List[int] = [0] * B
+        self._slot_pad: List[int] = [0] * B
+        # host mirrors for adaptive round sizes: each slot's token limit (set
+        # at scatter) and the last resolved offsets (one round stale; -1 done)
+        self._slot_limit_h = np.full((B,), self.kv_ctx, np.int64)
+        self._last_offs_h: Optional[np.ndarray] = None
+        # steps of the round in flight: the sizing discounts what was really
+        # dispatched, not steps_per_sync
+        self._last_round_steps = steps_per_sync
         # per-slot admission generation, bumped by every _scatter_rows. The
         # pipelined harvest resolves a buffer packed ONE TICK AGO: if the
         # slot was freed and re-admitted in between, that buffer's row is the
@@ -351,8 +442,13 @@ class ContinuousBatchingEngine:
         # FIFO admission order: requests drain queue -> _pending and are
         # admitted strictly from the left
         self._pending: "deque[Request]" = deque()
-        self._ready: "deque[_PreparedBatch]" = deque()  # prepared, awaiting slots
+        # prepared batches awaiting slots (written by the encode thread, read
+        # by the decode thread) and the count of their requests, under
+        # _ready_cv; at most one slot pool's worth is prepared ahead
+        self._ready: "deque[_PreparedBatch]" = deque()
+        self._ready_cv = threading.Condition()
         self._prepared_reqs = 0
+        self._encode_thread: Optional[threading.Thread] = None
         # (pinned host copy, its CUDA event or None, _slot_gen at pack) of
         # the last round; resolved at the start of the next tick
         self._inflight_harvest = None
@@ -386,19 +482,19 @@ class ContinuousBatchingEngine:
             raise ValueError(f"temperature {req.temperature} not in [0, 2]")
         if req.task not in ("transcribe", "translate"):
             raise ValueError(f"bad task {req.task!r}")
-        unported = {
-            "beam_size > 1": req.beam_size > 1,
-            "audio over 30 s": len(req.audio) > N_SAMPLES,
-            "word_timestamps": req.word_timestamps,
-            "initial_prompt": bool(req.initial_prompt),
-            "condition_on_previous": req.condition_on_previous,
-            "on_partial streaming": req.on_partial is not None,
-        }
+        unported = {"beam_size > 1": req.beam_size > 1, "word_timestamps": req.word_timestamps}
         asked = [k for k, v in unported.items() if v]
         if asked:
             raise NotImplementedError(f"not ported to whisper_tpu_torch yet: {', '.join(asked)}")
         if not _auto(req):
             self.cfg.sot_sequence(req.language, req.task)  # ValueError on an unknown language
+        if len(req.audio) > N_SAMPLES:
+            return self._submit_longform(req)
+        return self._enqueue(req)
+
+    def _enqueue(self, req: Request) -> Future:
+        """A request of at most 30 s to the slots' queue, or (t > 0) to the
+        aux worker; OverloadedError when that queue is full."""
         if req.temperature > 0:
             return self._submit_aux(req)
         try:
@@ -406,6 +502,162 @@ class ContinuousBatchingEngine:
         except queue.Full:
             raise OverloadedError(f"queue full ({self._queue.maxsize} pending requests)") from None
         self.stats.queue_depth = self._queue.qsize() + len(self._pending)
+        return req.future
+
+    def _window(self, req: Request, audio: np.ndarray, language: Optional[str],
+                initial_prompt: Optional[str]) -> Request:
+        """One window of a request over 30 s, as an ordinary request whose
+        deadline counts from the parent's arrival."""
+        child = Request(audio=audio, language=language, task=req.task,
+                        deadline_s=req.deadline_s, beam_size=req.beam_size,
+                        temperature=req.temperature, word_timestamps=req.word_timestamps,
+                        initial_prompt=initial_prompt)
+        child.enqueued_at = req.enqueued_at
+        return child
+
+    def _merged_reply(self, req: Request, results: List[dict], lang: str, **extra) -> dict:
+        """The reply of a request over 30 s from its windows' replies."""
+        merged = merge_transcripts(results, (N_SAMPLES - self.longform_overlap) / 16000.0,
+                                   self.longform_overlap / 16000.0, lang)
+        wall = time.perf_counter() - req.enqueued_at
+        audio_s = len(req.audio) / 16000.0
+        lps = [r["avg_logprob"] for r in results]
+        return {"success": True, "text": merged["text"], "language": lang,
+                "audio_seconds": audio_s, "wall_seconds": wall,
+                "rtf": wall / max(audio_s, 1e-9), "windows": len(results), **extra,
+                "tokens": int(sum(r.get("tokens", 0) for r in results)),
+                "no_speech_prob": max(r["no_speech_prob"] for r in results),
+                "avg_logprob": float(sum(lps) / len(lps)),
+                "compression_ratio": max(r["compression_ratio"] for r in results),
+                "quality_ok": all(r["quality_ok"] for r in results)}
+
+    def _submit_longform(self, req: Request) -> Future:
+        """Split a request over 30 s into overlapping 30 s windows submitted
+        as ordinary requests; the parent future resolves with the merged
+        transcript. Each window passes the quality gates on its own, so
+        silent stretches drop out. The windows' callbacks run where their
+        futures resolve: on the decode thread or the aux worker."""
+        waves, _ = split_audio(req.audio, N_SAMPLES, self.longform_overlap)
+        n = len(waves)
+        if req.condition_on_previous and n > 1:
+            return self._submit_longform_conditioned(req, waves)
+        children: List[Request] = []
+        lock = threading.Lock()
+        results: List[Optional[dict]] = [None] * n
+
+        def effective_lang() -> str:
+            if not _auto(children[0]):
+                return children[0].language
+            return next((c.language_resolved for c in children if c.language_resolved), "en")
+
+        def partial_for(i: int, text: str):
+            if req.on_partial is None:
+                return
+            with lock:
+                prefix = ["" if results[j] is None else results[j]["text"] for j in range(i)]
+            try:
+                req.on_partial(merge_texts(prefix + [text], effective_lang()))
+            except Exception:  # noqa: BLE001 — a dead consumer stops its stream
+                req.on_partial = None
+
+        def on_child_done(i: int, fut: Future):
+            if req.future.cancelled():
+                for c in children:
+                    c.cancel()
+                return
+            if req.future.done():
+                return
+            exc = fut.exception() if not fut.cancelled() else None
+            if fut.cancelled() or exc is not None:
+                for c in children:
+                    c.cancel()
+                if exc is not None:
+                    _safe_set_exception(req.future, exc)
+                else:
+                    req.future.cancel()
+                return
+            with lock:
+                results[i] = fut.result()
+                done = all(r is not None for r in results)
+            if done:
+                _safe_set_result(req.future, self._merged_reply(req, results, effective_lang()))
+
+        if self._queue.maxsize and self._queue.qsize() + n > self._queue.maxsize:
+            raise OverloadedError(f"queue full ({self._queue.maxsize} pending requests; "
+                                  f"the request needs {n} windows)")
+        for i, w in enumerate(waves):
+            # a user initial_prompt seeds window 0 only, as OpenAI seeds once
+            child = self._window(req, w, req.language, req.initial_prompt if i == 0 else None)
+            if req.on_partial is not None:
+                child.on_partial = functools.partial(partial_for, i)
+            children.append(child)
+        for i, child in enumerate(children):
+            child.future.add_done_callback(functools.partial(on_child_done, i))
+            try:
+                self._enqueue(child)
+            except OverloadedError as e:
+                for c in children:
+                    c.cancel()
+                _safe_set_exception(req.future, e)
+                raise
+        return req.future
+
+    def _submit_longform_conditioned(self, req: Request, waves: List[np.ndarray]) -> Future:
+        """Windows decoded one after another, window i + 1 prompted with the
+        transcript so far (after any initial_prompt), as the offline seek
+        loop's condition-on-previous-text; the first window's detected
+        language carries to the rest. Window i + 1 is submitted from window
+        i's callback, on the decode thread: a full queue fails the parent."""
+        n = len(waves)
+        results: List[Optional[dict]] = [None] * n
+        lang_box = {"lang": req.language}
+
+        def context_for(i: int) -> Optional[str]:
+            parts = [req.initial_prompt.strip()] if req.initial_prompt else []
+            parts += [results[j]["text"] for j in range(i) if results[j]["text"]]
+            return " ".join(p for p in parts if p).strip() or None
+
+        def submit_window(i: int):
+            child = self._window(req, waves[i], lang_box["lang"], context_for(i))
+            if req.on_partial is not None:
+                prefix = [results[j]["text"] for j in range(i)]
+
+                def relay(text, _prefix=prefix):
+                    try:
+                        req.on_partial(merge_texts(_prefix + [text], lang_box["lang"] or "en"))
+                    except Exception:  # noqa: BLE001 — a dead consumer stops its stream
+                        req.on_partial = None
+                child.on_partial = relay
+            child.future.add_done_callback(functools.partial(on_window_done, i))
+            try:
+                self._enqueue(child)
+            except OverloadedError as e:
+                _safe_set_exception(req.future, e)
+
+        def on_window_done(i: int, fut: Future):
+            if req.future.done():
+                return
+            exc = fut.exception() if not fut.cancelled() else None
+            if fut.cancelled() or exc is not None:
+                if exc is not None:
+                    _safe_set_exception(req.future, exc)
+                else:
+                    req.future.cancel()
+                return
+            results[i] = fut.result()
+            # one utterance keeps one language: the detected one carries on
+            if lang_box["lang"] in (None, "", "auto"):
+                lang_box["lang"] = results[i].get("language") or lang_box["lang"]
+            if i + 1 < n:
+                submit_window(i + 1)
+                return
+            lang = lang_box["lang"]
+            if lang in (None, "", "auto"):
+                lang = next((r.get("language") for r in results if r.get("language")), "en")
+            _safe_set_result(req.future, self._merged_reply(req, results, lang,
+                                                            conditioned=True))
+
+        submit_window(0)
         return req.future
 
     def transcribe(self, audio: np.ndarray, language: str = "zh", task: str = "transcribe",
@@ -423,23 +675,33 @@ class ContinuousBatchingEngine:
         return req.future
 
     def start(self):
-        """Build the CUDA kernels (so no request pays for nvcc), then start
-        the decode thread and the aux worker."""
+        """Build the CUDA kernels (so no request pays for nvcc), time the
+        segmented encode's layer groups at every bucket (``encode_chunks >
+        1``: as JAX's warmup does, while no slot is active), then start the
+        decode thread, the encode thread and the aux worker."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             _build.build_all()
+        if self.encode_chunks > 1:
+            for b in self.prefill_buckets:
+                silence = [Request(audio=np.zeros(1600, np.float32))] * b
+                for _ in range(2):  # the second pass, past first-use costs, is kept
+                    self._encode_seg_est.pop(b, None)
+                    self._encode(silence, b)
         self.stats.warmup_seconds = time.perf_counter() - t0
-        self._thread = threading.Thread(target=self._run, daemon=True, name="cb-engine")
-        self._thread.start()
-        self._aux_thread = threading.Thread(target=self._aux_run, daemon=True, name="cb-aux")
-        self._aux_thread.start()
+        for name, target, tag in (("_thread", self._run, "cb-engine"),
+                                  ("_encode_thread", self._prepare_run, "cb-encode"),
+                                  ("_aux_thread", self._aux_run, "cb-aux")):
+            setattr(self, name, threading.Thread(target=target, daemon=True, name=tag))
+            getattr(self, name).start()
         return self
 
     def stop(self):
         self._stop.set()
-        with self._aux_cv:
-            self._aux_cv.notify_all()
-        for name in ("_thread", "_aux_thread"):
+        for cv in (self._aux_cv, self._ready_cv):
+            with cv:
+                cv.notify_all()
+        for name in ("_thread", "_encode_thread", "_aux_thread"):
             thread = getattr(self, name)
             if thread is not None:
                 thread.join(timeout=30)
@@ -457,13 +719,26 @@ class ContinuousBatchingEngine:
                 break
         self.stats.queue_depth = len(self._pending)
 
-    def _prepare_pending_once(self) -> bool:
-        """Take pending requests (bounded by the bucket size, admit_chunk
-        while slots are active, and one slot pool's worth prepared ahead),
-        run mel + encoder + cross-KV + prefill, and queue a _PreparedBatch.
-        Returns True if a batch was prepared."""
+    def _prepare_pending_once(self, block: bool = False) -> bool:
+        """One encode-thread iteration: take pending requests (bounded by the
+        bucket size, admit_chunk while slots are active, and one slot pool's
+        worth prepared ahead), run mel + encoder + cross-KV + prefill, and
+        queue a _PreparedBatch for the decode thread. ``block`` (the encode
+        thread) waits briefly for a request. Returns True if a batch was
+        prepared."""
+        if block and not self._pending:
+            try:
+                self._pending.append(self._queue.get(timeout=0.05))
+            except queue.Empty:
+                return False
         self._drain_queue()
-        cap = min(max(self.prefill_buckets), self.B - self._prepared_reqs)
+        with self._ready_cv:
+            ahead = self._prepared_reqs
+        cap = min(max(self.prefill_buckets), self.B - ahead)
+        if cap <= 0:
+            if block:
+                time.sleep(0.002)  # the prepared-ahead cap is reached: don't spin
+            return False
         if self.stats.active_slots > 0:
             cap = min(cap, self.admit_chunk)
         newcomers: List[Request] = []
@@ -487,17 +762,57 @@ class ContinuousBatchingEngine:
             for r in newcomers:
                 _safe_set_exception(r.future, e)
             return False
-        self._ready.append(batch)
-        self._prepared_reqs += len(newcomers)
-        self.stats.prepared_depth = self._prepared_reqs
+        with self._ready_cv:
+            self._ready.append(batch)
+            self._prepared_reqs += len(newcomers)
+            self.stats.prepared_depth = self._prepared_reqs
+            self._ready_cv.notify_all()
         self.stats.encode_seconds_total += time.perf_counter() - t0
         self.stats.encode_batches_total += 1
         return True
 
+    def _prepare_run(self):
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while not self._stop.is_set():
+            self._prepare_pending_once(block=True)
+
+    @functools.cached_property
+    def _encode_seg_fns(self) -> list:
+        """The admission encode as ``encode_chunks`` groups of encoder layers
+        split at ``round(i * L / n)``: the first runs the conv stem, the last
+        ``ln_post`` and the cross-KV (+ int8), so their composition is the
+        monolithic encode op for op."""
+        n, L = self.encode_chunks, self.cfg.n_audio_layer
+        bounds = [round(i * L / n) for i in range(n + 1)]
+        kw = dict(w8a8=self.w8a8, attn=self.encoder_attention)
+
+        def group(i):
+            def run(x):
+                if i == 0:
+                    x = encoder_stem(self.model, x, self.dt)
+                x = encoder_blocks(self.model, x, self.dt, bounds[i], bounds[i + 1], **kw)
+                if i < n - 1:
+                    return x
+                cross = compute_cross_kv(self.model, encoder_post(self.model, x), self.dt)
+                return quantize_cross_kv(cross) if self.kv_quant else cross
+            return run
+
+        return [group(i) for i in range(n)]
+
     def _encode(self, reqs: List[Request], bucket: int):
         """The engine's encode function: the requests' audio zero-padded to
         ``bucket`` rows -> mel -> encoder -> cross-KV (+int8), as the slots
-        and the aux worker share it. Only enqueues work on the card."""
+        and the aux worker share it. Only enqueues work on the card, except
+        that the first segmented encode of a bucket on an idle engine waits
+        for each group to time it.
+
+        With ``encode_chunks > 1`` the encoder runs group by group; while
+        slots are decoding, the thread sleeps about 0.9 of the group in
+        flight's time before enqueueing the next, so the decode thread's
+        round reaches the stream between them. The times are measured once a
+        bucket while no slot is active (CUDA events; host clock on the CPU),
+        never with slots active."""
         cfg = self.cfg
         audio = np.zeros((bucket, N_SAMPLES), np.float32)
         lengths = np.zeros((bucket,), np.int64)
@@ -505,17 +820,82 @@ class ContinuousBatchingEngine:
             a = np.asarray(r.audio, np.float32)[:N_SAMPLES]
             audio[i, : len(a)] = a
             lengths[i] = len(a)
-        mel = log_mel_batch(self._to_dev(audio), self._to_dev(lengths),
-                            n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
-        return encode_cross_kv(self.model, mel, self.dt, kv_quant=self.kv_quant, w8a8=self.w8a8,
-                               encoder_attention=self.encoder_attention)
+        segmented = self.encode_chunks > 1
+        est = self._encode_seg_est.get(bucket)
+        active = self.stats.active_slots > 0
+        clock = _SegmentClock(self.device) if segmented and est is None and not active else None
+        h = log_mel_batch(self._to_dev(audio), self._to_dev(lengths),
+                          n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
+        if not segmented:
+            return encode_cross_kv(self.model, h, self.dt, kv_quant=self.kv_quant,
+                                   w8a8=self.w8a8, encoder_attention=self.encoder_attention)
+        for i, fn in enumerate(self._encode_seg_fns):
+            if i and active and est is not None:
+                time.sleep(est[i - 1] * 0.9)
+            h = fn(h)
+            if clock is not None:
+                clock.mark()
+        if clock is not None:
+            self._encode_seg_est[bucket] = clock.seconds()
+        return h
+
+    def _context_ids(self, r: Request) -> list:
+        """The request's initial_prompt as context token ids, memoized on the
+        request (a retried request keeps its conditioning). OpenAI trims the
+        context to n_text_ctx // 2 - 1 tokens; it is also capped so that
+        [sot_prev, context, sot sequence] and 8 generated tokens fit the
+        slot cache."""
+        if r._prompt_ids is None:
+            ids: list = []
+            txt = (r.initial_prompt or "").strip()
+            if txt and hasattr(self.tokenizer, "encode"):
+                cap = min(self.cfg.n_text_ctx // 2 - 1, max(self.kv_ctx - 13, 0))
+                if cap > 0:
+                    ids = [int(t) for t in self.tokenizer.encode(" " + txt)[-cap:]]
+            r._prompt_ids = ids
+        return r._prompt_ids
+
+    def _prev_width(self, ctx_lens) -> int:
+        """A batch's shared context width (0: no context): the long-form
+        prompt buckets, clamped so the prompt fits the slot cache."""
+        longest = max(ctx_lens)
+        if longest == 0:
+            return 0
+        return min(_bucket_prev(longest), max(self.kv_ctx - 13, longest))
+
+    def _prompt_rows(self, reqs: List[Request], langs: List[str], prev_w: int, bucket: int):
+        """Right-aligned prompt rows over one width: ``[pad..., sot_prev,
+        context..., sot, lang, task(, notimestamps)]``, the pad masked out of
+        attention and positions (a row without context keeps its pad at
+        sot); rows past ``reqs`` repeat row 0. Returns (prompts (bucket, P)
+        int64, pads (bucket,) int64, sot_index)."""
+        cfg = self.cfg
+        seqs = [list(cfg.sot_sequence(lang, r.task)) for lang, r in zip(langs, reqs)]
+        if self.timestamps:
+            seqs = [seq[:-1] for seq in seqs]  # no <|notimestamps|>
+        P0 = len(seqs[0])
+        P = 1 + prev_w + P0 if prev_w else P0
+        prompts = np.full((bucket, P), cfg.eot, np.int64)
+        pads = np.full((bucket,), P - P0, np.int64)
+        for i, (r, seq) in enumerate(zip(reqs, seqs)):
+            prompts[i, -P0:] = seq
+            t = self._context_ids(r)[-prev_w:] if prev_w else []
+            if t:
+                pads[i] = prev_w - len(t)
+                prompts[i, pads[i]] = cfg.sot_prev
+                prompts[i, pads[i] + 1: pads[i] + 1 + len(t)] = t
+        prompts[len(reqs):] = prompts[0]
+        pads[len(reqs):] = pads[0]
+        return prompts, pads, P - P0
 
     def _prepare_batch(self, newcomers: List[Request]) -> _PreparedBatch:
-        """Bucketed mel -> encoder -> cross-KV (+int8) -> prefill, then the
-        no-speech probability and the first token under the rules. Only
-        enqueues work on the card: no host sync."""
+        """Bucketed mel -> encoder -> cross-KV (+int8) -> prefill of the
+        right-aligned prompts, then the no-speech probability at the shared
+        sot column and the first token under the rules. Only enqueues work
+        on the card: no host sync."""
         cfg, dt = self.cfg, self.dt
         bucket = _bucket(len(newcomers), self.prefill_buckets)
+        prev_w = self._prev_width([len(self._context_ids(r)) for r in newcomers])
         cross = self._encode(newcomers, bucket)
 
         auto = [i for i, r in enumerate(newcomers) if _auto(r)]
@@ -525,30 +905,32 @@ class ContinuousBatchingEngine:
             auto = []
         # an auto row's language column holds a placeholder until the
         # detected token is written over it below, on the device
-        rows = [cfg.sot_sequence("en" if _auto(r) else r.language, r.task) for r in newcomers]
-        prompts = np.asarray(rows + rows[:1] * (bucket - len(rows)), np.int64)
+        langs = ["en" if _auto(r) else r.language for r in newcomers]
+        prompts, pads, sot_index = self._prompt_rows(newcomers, langs, prev_w, bucket)
         prompts_dev = self._to_dev(prompts)
         if auto:
             idx = self._detect(cross)
             mask = np.zeros((bucket,), bool)
             mask[auto] = True
-            prompts_dev[:, 1] = torch.where(self._to_dev(mask), cfg.lang_token_start + idx,
-                                            prompts_dev[:, 1])
+            col = sot_index + 1  # the language token follows sot
+            prompts_dev[:, col] = torch.where(self._to_dev(mask), cfg.lang_token_start + idx,
+                                              prompts_dev[:, col])
             holder = {"idx": idx}
             for i in auto:
                 newcomers[i]._lang_holder, newcomers[i]._lang_row = holder, i
         logits, kv = decoder_forward(self.model, prompts_dev, 0, self._new_cache(bucket), cross,
-                                     dt, cross_decode=self.cross_decode)
+                                     dt, pad=self._to_dev(pads) if prev_w else None,
+                                     cross_decode=self.cross_decode)
         # OpenAI-style no-speech probability: softmax at the sot position
-        nsp = torch.softmax(logits[:, 0].to(torch.float32), dim=-1)[:, cfg.no_speech]
+        nsp = torch.softmax(logits[:, sot_index].to(torch.float32), dim=-1)[:, cfg.no_speech]
         last = apply_rules(logits[:, -1], RuleState.create(bucket, device=self.device), cfg,
-                           suppress_ids=self._suppress)
+                           suppress_ids=self._suppress, timestamps=self.timestamps)
         lp0 = torch.log_softmax(last.to(torch.float32), dim=-1)
         first = torch.argmax(last, dim=-1)
         first_lp = torch.gather(lp0, 1, first[:, None])[:, 0]
         return _PreparedBatch(reqs=newcomers, kv=kv, cross=cross, first=first,
                               first_lp=first_lp, nsp=nsp, prompts=prompts_dev,
-                              prompt_len=prompts.shape[1])
+                              prompt_len=prompts.shape[1], pads=pads)
 
     def _detect(self, cross) -> torch.Tensor:
         """Language indices (bucket,) of a batch's cross-KV, on the device."""
@@ -574,8 +956,11 @@ class ContinuousBatchingEngine:
         """Copy prepared admissions into free slots. Partial copies (fewer
         free slots than prepared rows) consume a batch across several
         ticks."""
-        while self._ready:
-            batch = self._ready[0]
+        while True:
+            with self._ready_cv:
+                batch = self._ready[0] if self._ready else None
+            if batch is None:
+                return
             free = self._free_slots()
             if not free:
                 return
@@ -597,11 +982,14 @@ class ContinuousBatchingEngine:
                 takers.append(r)
             if rows:
                 self._scatter_rows(batch, rows, takers)
-            self._prepared_reqs = max(0, self._prepared_reqs - (batch.consumed - start))
-            self.stats.prepared_depth = self._prepared_reqs
-            if batch.consumed < len(batch.reqs):
+            exhausted = batch.consumed >= len(batch.reqs)
+            with self._ready_cv:
+                self._prepared_reqs = max(0, self._prepared_reqs - (batch.consumed - start))
+                self.stats.prepared_depth = self._prepared_reqs
+                if exhausted and self._ready and self._ready[0] is batch:
+                    self._ready.popleft()
+            if not exhausted:
                 return  # out of free slots; the rest goes in next tick
-            self._ready.popleft()
 
     def _scatter_rows(self, batch: _PreparedBatch, rows: List[int], takers: List[Request]):
         """Copy prepared rows ``rows`` into as many free slots. Only valid,
@@ -620,6 +1008,7 @@ class ContinuousBatchingEngine:
             budget = r.max_tokens or self.max_tokens
             if budget:
                 lim[j] = min(lim[j], P + budget)
+        pad_rows = batch.pads[rows]
 
         # every rank's caches, each written the same way on its own device
         for dst_t, src_t in zip(_cache_leaves(self.kv, self.cross),
@@ -635,6 +1024,7 @@ class ContinuousBatchingEngine:
         self.active.index_fill_(0, dst, True)
         self.done.index_copy_(0, dst, first == cfg.eot)
         self.limit.index_copy_(0, dst, self._to_dev(lim))
+        self.pads.index_copy_(0, dst, self._to_dev(pad_rows))
         self.rs.last.index_copy_(0, dst, first)
         self.rs.penult.index_fill_(0, dst, -1)
         self.rs.max_ts.index_copy_(0, dst, torch.where(first >= cfg.timestamp_begin, first, 0))
@@ -644,11 +1034,20 @@ class ContinuousBatchingEngine:
         self.fstate.index_copy_(0, dst, torch.stack([first_lp, torch.ones_like(first_lp)], 1))
         self.nsp.index_copy_(0, dst, batch.nsp.index_select(0, src))
 
-        for i, r in zip(slots, takers):
+        for j, (i, r) in enumerate(zip(slots, takers)):
             self._slot_req[i] = r
             self._slot_prompt_len[i] = P
+            self._slot_pad[i] = int(pad_rows[j])
+            self._slot_limit_h[i] = int(lim[j])
             self._slot_gen[i] += 1  # in-flight packed buffers go stale here
+            if self._last_offs_h is not None:
+                self._last_offs_h[i] = P + 1  # a fresh slot starts after its prefill
         self.stats.active_slots = sum(r is not None for r in self._slot_req)
+
+    def _free_slot(self, i: int):
+        self._slot_req[i] = None
+        self._slot_prompt_len[i] = 0
+        self._slot_pad[i] = 0
 
     def _expire_slots(self):
         """Fail in-flight requests past their deadline (or cancelled) and free
@@ -663,8 +1062,7 @@ class ContinuousBatchingEngine:
             req = self._slot_req[i]
             _safe_set_exception(req.future, TimeoutError(
                 f"deadline {req.deadline_s}s expired mid-decode"))
-            self._slot_req[i] = None
-            self._slot_prompt_len[i] = 0
+            self._free_slot(i)
         self._deactivate(drop)
 
     def _deactivate(self, slots: List[int]):
@@ -690,8 +1088,9 @@ class ContinuousBatchingEngine:
             pos = torch.clamp(offsets - 1, min=0)
             cur = torch.gather(tokens, 1, pos[:, None])[:, 0]
             logits, _ = decoder_step_multipos(self.model, cur, pos, self.kv, self.cross, self.dt,
-                                              cross_decode=self.cross_decode)
-            logits = apply_rules(logits, rs, cfg, suppress_ids=self._suppress)
+                                              pads=self.pads, cross_decode=self.cross_decode)
+            logits = apply_rules(logits, rs, cfg, suppress_ids=self._suppress,
+                                 timestamps=self.timestamps)
             lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
             nxt = torch.argmax(logits, dim=-1)
             step_ok = active & ~done
@@ -709,6 +1108,27 @@ class ContinuousBatchingEngine:
             offsets = torch.where(step_ok, offsets + 1, offsets)
         self.tokens, self.offsets, self.done, self.rs, self.fstate = tokens, offsets, done, rs, fstate
         self.stats.steps_total += n_steps
+        key = str(n_steps)
+        self.stats.round_sizes[key] = self.stats.round_sizes.get(key, 0) + 1
+
+    def _adaptive_steps(self) -> int:
+        """This round's size: 1, 2 or 4 times steps_per_sync. From the
+        one-round-stale host offsets and the slots' limits: when the least
+        budget left among active slots, less the round in flight (its real
+        size), still covers a bigger round, take it; overshoot costs only
+        masked steps."""
+        base = self.steps_per_sync
+        if self._last_offs_h is None:
+            return base
+        rem = [int(self._slot_limit_h[i]) - int(self._last_offs_h[i]) for i in range(self.B)
+               if self._slot_req[i] is not None and self._last_offs_h[i] >= 0]
+        if not rem:
+            return base
+        m = min(rem) - self._last_round_steps
+        for mult in (4, 2):
+            if m >= base * mult:
+                return base * mult
+        return base
 
     # ------------------------------------------------------------- harvest
     def _pack_harvest_fn(self) -> torch.Tensor:
@@ -810,29 +1230,49 @@ class ContinuousBatchingEngine:
         with self._stats_lock:
             self.stats.busy_seconds_total += seconds
 
-    def _harvest_host(self, done_h, active_h, offs_h, tokens_h, fstate_h, nsp_h):
+    def _slot_text(self, i: int, offs_h, tokens_h) -> tuple:
+        """(generated ids, their text) of slot ``i`` in a resolved buffer;
+        with ``timestamps`` the timestamp tokens read as ``<|t.tt|>``."""
+        ids = tokens_h[i, self._slot_prompt_len[i]: offs_h[i]]
+        ids = ids[ids != self.cfg.eot]
+        decode = self.tokenizer.decode_with_timestamps if self.timestamps else self.tokenizer.decode
+        return ids, decode(ids)
+
+    def _emit_partials(self, tokens_h, offs_h, done_h, fresh):
+        """Each streaming slot's transcript so far, from the resolved buffer
+        (no device read); a slot re-admitted since its pack is skipped."""
+        for i in range(self.B):
+            req = self._slot_req[i]
+            if req is None or req.on_partial is None or done_h[i] or not fresh[i]:
+                continue
+            _, text = self._slot_text(i, offs_h, tokens_h)
+            try:
+                req.on_partial(postprocess(text, self._effective_language(req)))
+            except Exception:  # noqa: BLE001 — a dead consumer stops its stream
+                req.on_partial = None
+            self.stats.partials_total += 1
+
+    def _harvest_host(self, done_h, active_h, offs_h, tokens_h, fstate_h, nsp_h, fresh=None):
+        if fresh is None:
+            fresh = np.ones((self.B,), bool)
+        if any(r is not None and r.on_partial is not None for r in self._slot_req):
+            self._emit_partials(tokens_h, offs_h, done_h, fresh)
         ready = [i for i in range(self.B)
                  if active_h[i] and done_h[i] and self._slot_req[i] is not None]
         if not ready:
             return
         for i in ready:
             req = self._slot_req[i]
-            P = self._slot_prompt_len[i]
-            ids = tokens_h[i, P: offs_h[i]]
-            ids = ids[ids != self.cfg.eot]
-            text = postprocess(self.tokenizer.decode(ids).strip(), self._effective_language(req))
+            ids, text = self._slot_text(i, offs_h, tokens_h)
+            text = postprocess(text.strip(), self._effective_language(req))
             avg_lp = float(fstate_h[i, 0] / max(fstate_h[i, 1], 1.0))
             nsp = float(nsp_h[i])
             text, comp, quality_ok, silenced = self._quality_gate(text, nsp, avg_lp)
-            if self._maybe_retry(req, quality_ok, silenced):
-                # re-decoding on the aux worker at the next ladder
-                # temperature: free the slot, leave the future pending
-                self._slot_req[i] = None
-                self._slot_prompt_len[i] = 0
-                continue
-            self._resolve(req, text, int(len(ids)), nsp, avg_lp, comp, quality_ok)
-            self._slot_req[i] = None
-            self._slot_prompt_len[i] = 0
+            # a retried request re-decodes on the aux worker at the next
+            # ladder temperature: free the slot, leave the future pending
+            if not self._maybe_retry(req, quality_ok, silenced):
+                self._resolve(req, text, int(len(ids)), nsp, avg_lp, comp, quality_ok)
+            self._free_slot(i)
         self._deactivate(ready)
 
     def _fail_inflight(self, exc: BaseException):
@@ -841,14 +1281,15 @@ class ContinuousBatchingEngine:
         for i, req in enumerate(self._slot_req):
             if req is not None:
                 _safe_set_exception(req.future, exc)
-            self._slot_req[i] = None
-            self._slot_prompt_len[i] = 0
-        for batch in self._ready:
+            self._free_slot(i)
+        with self._ready_cv:
+            prepared = list(self._ready)
+            self._ready.clear()
+            self._prepared_reqs = 0
+            self.stats.prepared_depth = 0
+        for batch in prepared:
             for req in batch.reqs[batch.consumed:]:
                 _safe_set_exception(req.future, exc)
-        self._ready.clear()
-        self._prepared_reqs = 0
-        self.stats.prepared_depth = 0
         self._drain_queue()
         while self._pending:
             _safe_set_exception(self._pending.popleft().future, exc)
@@ -862,19 +1303,24 @@ class ContinuousBatchingEngine:
     def _tick(self):
         """One decode-thread round:
 
-        1. admission: encode + prefill pending requests (inline);
-        2. enqueue round N (steps_per_sync steps) and start its harvest copy;
-        3. resolve round N-1's copy (the card is busy with round N meanwhile)
-           and free finished slots;
+        1. without an encode thread (an engine not started): encode +
+           prefill pending requests inline;
+        2. enqueue round N (steps_per_sync steps, or the adaptive size) and
+           start its harvest copy;
+        3. resolve round N-1's copy (the card is busy with round N meanwhile),
+           stream partials and free finished slots;
         4. expire/cancel; copy prepared admissions into free slots.
         """
         t0 = time.perf_counter()
         self.stats.ticks_total += 1
-        self._prepare_pending_once()
+        if self._encode_thread is None:
+            self._prepare_pending_once()
         prev = self._inflight_harvest  # round N-1 copy, still in flight
         self._inflight_harvest = None
         if any(r is not None for r in self._slot_req):
-            self._steps(self.steps_per_sync)
+            n_steps = self._adaptive_steps() if self.adaptive_sync else self.steps_per_sync
+            self._last_round_steps = n_steps
+            self._steps(n_steps)
             self._start_harvest_copy()
         t1 = time.perf_counter()
         self.stats.step_seconds_total += t1 - t0
@@ -884,10 +1330,16 @@ class ContinuousBatchingEngine:
                 event.synchronize()
             h = host.numpy()
             # a slot re-admitted since the pack carries the PREVIOUS
-            # request's row in this buffer: don't harvest it
+            # request's row in this buffer: don't harvest it, don't stream
+            # its tokens, and don't let its offset size the next round
             fresh = prev_gen == self._slot_gen
-            self._harvest_host((h[:, 2] > 0) & fresh, h[:, 1] > 0, h[:, 0], h[:, 6:],
-                               h[:, 3:5].view(np.float32), h[:, 5:6].view(np.float32)[:, 0])
+            done_h, offs_h = h[:, 2] > 0, h[:, 0]
+            resolved = np.where(done_h, -1, offs_h)
+            self._last_offs_h = np.where(fresh, resolved, -1 if self._last_offs_h is None
+                                         else self._last_offs_h)
+            self._harvest_host(done_h & fresh, h[:, 1] > 0, offs_h, h[:, 6:],
+                               h[:, 3:5].view(np.float32), h[:, 5:6].view(np.float32)[:, 0],
+                               fresh)
         t2 = time.perf_counter()
         self.stats.harvest_seconds_total += t2 - t1
         self._expire_slots()
@@ -897,13 +1349,14 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------- aux worker
     def _aux_collect(self) -> List[Request]:
-        """Take a same-temperature micro-batch (at most ``beam_batch_max``)
-        from the left of the aux deque; requests of another temperature keep
-        their place."""
+        """Take a micro-batch of one temperature and one context width (at
+        most ``beam_batch_max``) from the left of the aux deque; the other
+        requests keep their place."""
         with self._aux_cv:
             batch: List[Request] = []
             keep: List[Request] = []
             now = time.perf_counter()
+            key = None
             while self._aux_pending and len(batch) < self.beam_batch_max:
                 r = self._aux_pending.popleft()
                 if r.future.cancelled():
@@ -912,17 +1365,19 @@ class ContinuousBatchingEngine:
                     _safe_set_exception(r.future, TimeoutError(
                         f"deadline {r.deadline_s}s expired in aux queue"))
                     continue
-                (batch if not batch or r.temperature == batch[0].temperature
-                 else keep).append(r)
+                rk = (r.temperature, self._prev_width([len(self._context_ids(r))]))
+                key = key or rk
+                (batch if rk == key else keep).append(r)
             self._aux_pending.extendleft(reversed(keep))
             return batch
 
     def _run_aux_batch(self, reqs: List[Request]):
         """One micro-batched sampled decode: bucketed encode through
         :meth:`_encode` (int8 cross-KV and the mesh apply), then
-        ``greedy_decode_kv`` at the batch's temperature (seed 0, as the JAX
-        engine's) with its own caches; results pass the same quality gate as
-        the slots' and may climb the ladder again."""
+        ``greedy_decode_kv`` of the slots' right-aligned prompts at the
+        batch's temperature (seed 0, as the JAX engine's) with its own
+        caches; results pass the same quality gate as the slots' and may
+        climb the ladder again."""
         cfg = self.cfg
         temp = reqs[0].temperature
         buckets = sorted({b for b in self.prefill_buckets if b <= self.beam_batch_max}
@@ -935,16 +1390,17 @@ class ContinuousBatchingEngine:
         for i in auto:
             reqs[i].language_resolved = "en" if idx is None else list(LANGUAGES)[int(idx[i])]
         langs = [self._effective_language(r) for r in reqs]
-        rows = [cfg.sot_sequence(lang, r.task) for lang, r in zip(langs, reqs)]
-        prompts = np.asarray(rows + rows[:1] * (bucket - len(rows)), np.int64)
+        prev_w = self._prev_width([len(self._context_ids(r)) for r in reqs])
+        prompts, pads, sot_index = self._prompt_rows(reqs, langs, prev_w, bucket)
         P = prompts.shape[1]
         result = greedy_decode_kv(
             self.model, cross, self._to_dev(prompts), self.dt, max_tokens=self.max_tokens,
             suppress_ids=self._suppress, apply_filters=True, self_kv_quant=self.self_kv_quant,
-            cross_decode=self.cross_decode, temperature=float(temp))
+            timestamps=self.timestamps, prompt_pad=self._to_dev(pads) if prev_w else None,
+            sot_index=sot_index, cross_decode=self.cross_decode, temperature=float(temp))
         self.stats.aux_batches_total += 1
         self.stats.aux_steps_total += result.steps
-        texts = extract_texts(result, P, self.tokenizer)
+        texts = extract_texts(result, P, self.tokenizer, timestamps=self.timestamps)
         lens = result.lengths.cpu().numpy()
         nsp_h = result.no_speech_prob.cpu().numpy()
         lp_h = result.avg_logprob.cpu().numpy()
@@ -981,20 +1437,19 @@ class ContinuousBatchingEngine:
                     self._aux_cv.wait()
             self.aux_round()
 
-    def _idle(self) -> bool:
-        return (all(r is None for r in self._slot_req) and self._inflight_harvest is None
-                and not self._ready and not self._pending)
-
     def _run(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         while not self._stop.is_set():
             try:
-                if self._idle():
-                    try:
-                        self._pending.append(self._queue.get(timeout=0.05))
-                    except queue.Empty:
-                        continue
+                if (all(r is None for r in self._slot_req)
+                        and self._inflight_harvest is None):
+                    # idle: wait for the encode thread to prepare work
+                    with self._ready_cv:
+                        if not self._ready:
+                            self._ready_cv.wait(timeout=0.05)
+                            if not self._ready:
+                                continue
                 self._tick()
             except Exception as e:  # noqa: BLE001 — engine thread must survive
                 self._fail_inflight(e)

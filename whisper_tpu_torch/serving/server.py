@@ -10,26 +10,34 @@ Port of ``whisper_tpu/serving/server.py``. Both reference wire protocols on
 - any other content type: a bare WAV body.
 
 ``GET /health`` and ``GET /metrics`` (engine stats); JSON responses with CORS
-headers. ``temperature`` (0 to 2) is served: above 0 the engine samples on
-its aux worker; ``language=auto`` is detected by the engine and the reply's
-``language`` names the code. Status codes: 400 for bad input, 501 for a
-request option this port does not serve yet (``beam`` > 1,
-``word_timestamps``, ``initial_prompt``, ``condition_on_previous``,
-``stream``, ``format`` other than json, audio over 30 s; the reply names
-it), 503 when the engine's queue is full, 504 on timeout, 500 otherwise.
+headers. Request options come from the query string, ``X-`` headers
+(``X-Initial-Prompt`` is read as UTF-8) or multipart fields:
+``temperature`` (0 to 2; above 0 the engine samples on its aux worker),
+``language=auto`` (detected; the reply's ``language`` names the code),
+``initial_prompt``, ``condition_on_previous`` (for audio over 30 s, which is
+split into windows and merged), ``format=txt`` (the CLI's writer,
+``text/plain``) and ``stream=1`` (``X-Stream: 1``: chunked NDJSON, one
+``{"partial": text}`` line per decode round, then the reply). Status codes:
+400 for bad input (``stream`` with a ``format`` other than json too), 501
+for a request option this port does not serve yet (``beam`` > 1,
+``word_timestamps``, and ``format`` srt, vtt and tsv, whose segments come
+from word timings; the reply names it), 503 when the engine's queue is
+full, 504 on timeout, 500 otherwise.
 """
 
 from __future__ import annotations
 
 import json
+import queue
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
 
+from ..formats import HTTP_CONTENT_TYPES, render_payload
 from ..ops.audio import WavFormatError, load_audio, pcm_f32_from_bytes
 from .engine import ContinuousBatchingEngine, OverloadedError, Request
 from .wire import parse_multipart
 
-FORMATS = ("json", "txt", "srt", "vtt", "tsv")  # the JAX server's; only json is ported
 _TRUE = ("1", "true", "yes", "on")
 _OPTIONS = ("language", "task", "beam", "temperature", "word_timestamps", "initial_prompt",
             "condition_on_previous", "format", "stream")
@@ -44,9 +52,13 @@ class WhisperHandler(BaseHTTPRequestHandler):
         pass
 
     def _send(self, code: int, payload: dict):
-        body = json.dumps(payload, ensure_ascii=False).encode()
+        self._send_text(code, json.dumps(payload, ensure_ascii=False),
+                        "application/json; charset=utf-8")
+
+    def _send_text(self, code: int, text: str, content_type: str):
+        body = text.encode("utf-8")
         self.send_response(code)
-        self.send_header("Content-Type", "application/json; charset=utf-8")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         # CORS, like the C++ server (cpp/src/WhisperHTTPServer.hpp:36-38)
         self.send_header("Access-Control-Allow-Origin", "*")
@@ -56,6 +68,47 @@ class WhisperHandler(BaseHTTPRequestHandler):
 
     def _fail(self, code: int, error: str):
         self._send(code, {"success": False, "error": error})
+
+    def _stream_request(self, req: Request):
+        """Chunked NDJSON: one ``{"partial": text}`` line each time the
+        transcript changes, then the reply (or an error object). The request
+        is submitted before the 200 goes out, so a refusal still gets its
+        status code."""
+        partials: "queue.Queue[str]" = queue.Queue()
+        req.on_partial = partials.put
+        fut = self.engine.submit(req)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson; charset=utf-8")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.send_header("Access-Control-Allow-Origin", "*")
+        self.end_headers()
+
+        def chunk(obj):
+            data = (json.dumps(obj, ensure_ascii=False) + "\n").encode()
+            self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+            self.wfile.flush()
+
+        t0, last = time.monotonic(), None
+        try:
+            while not fut.done():
+                try:
+                    p = partials.get(timeout=0.05)
+                except queue.Empty:
+                    p = None
+                if p is not None and p != last:
+                    chunk({"partial": p})
+                    last = p
+                if time.monotonic() - t0 > self.request_timeout_s:
+                    fut.cancel()
+                    break
+            try:
+                chunk(fut.result(timeout=0))
+            except Exception as e:  # noqa: BLE001 — the status line is gone: report inline
+                error = "inference timeout" if fut.cancelled() else f"{type(e).__name__}: {e}"
+                chunk({"success": False, "error": error})
+            self.wfile.write(b"0\r\n\r\n")
+        except (BrokenPipeError, ConnectionResetError):
+            req.on_partial = None  # the client went away
 
     def do_GET(self):
         if self.path == "/health":
@@ -77,6 +130,12 @@ class WhisperHandler(BaseHTTPRequestHandler):
         for key in _OPTIONS:
             value = self.headers.get("X-" + "-".join(w.capitalize() for w in key.split("_")))
             if value:
+                if key == "initial_prompt":
+                    # header values arrive as latin-1: recover a UTF-8 prompt
+                    try:
+                        value = value.encode("latin-1").decode("utf-8")
+                    except (UnicodeDecodeError, UnicodeEncodeError):
+                        pass
                 opts[key] = value
         length = int(self.headers.get("Content-Length", "0"))
         if length <= 0:
@@ -120,21 +179,28 @@ class WhisperHandler(BaseHTTPRequestHandler):
             if not (0.0 <= temperature <= 2.0):
                 raise ValueError("temperature must be in [0, 2]")
             fmt = opts.get("format", "json").lower()
-            if fmt not in FORMATS:
-                raise ValueError(f"bad format {fmt!r}; known: {sorted(FORMATS)}")
-            server_side = {"format != json": fmt != "json",
-                           "stream": opts.get("stream", "0").lower() in _TRUE}
-            asked = [name for name, on in server_side.items() if on]
-            if asked:
-                raise NotImplementedError(
-                    f"not ported to whisper_tpu_torch yet: {', '.join(asked)}")
-            fut = self.engine.submit(Request(
+            if fmt not in HTTP_CONTENT_TYPES:
+                raise ValueError(f"bad format {fmt!r}; known: {sorted(HTTP_CONTENT_TYPES)}")
+            # subtitle segments come from word timings (refused by the engine
+            # as word_timestamps until those are ported)
+            word_ts = (opts.get("word_timestamps", "0").lower() in _TRUE
+                       or fmt in ("srt", "vtt", "tsv"))
+            stream = opts.get("stream", "0").lower() in _TRUE
+            if stream and fmt != "json":
+                raise ValueError("format is not supported with streaming (NDJSON only)")
+            req = Request(
                 audio=audio, language=opts.get("language", "zh"),
                 task=opts.get("task", "transcribe"), beam_size=beam, temperature=temperature,
-                word_timestamps=opts.get("word_timestamps", "0").lower() in _TRUE,
-                initial_prompt=opts.get("initial_prompt") or None,
-                condition_on_previous=opts.get("condition_on_previous", "0").lower() in _TRUE))
-            self._send(200, fut.result(timeout=self.request_timeout_s))
+                word_timestamps=word_ts, initial_prompt=opts.get("initial_prompt") or None,
+                condition_on_previous=opts.get("condition_on_previous", "0").lower() in _TRUE)
+            if stream:
+                self._stream_request(req)
+                return
+            result = self.engine.submit(req).result(timeout=self.request_timeout_s)
+            if fmt == "json":
+                self._send(200, result)
+            else:
+                self._send_text(200, render_payload(result, fmt), HTTP_CONTENT_TYPES[fmt])
         except NotImplementedError as e:
             self._fail(501, str(e))
         except OverloadedError as e:
