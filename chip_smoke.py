@@ -55,13 +55,19 @@ drives each path while counting kernel launches:
   (slots behind per-slot pads), ``stream=1`` and ``format=txt``; 8 clips to
   a server started with ``--timestamps``; and the 24-clip burst again with
   ``--encode_chunks 4 --adaptive_sync`` (the segmented cross-KV held
-  bit-equal to the monolithic one).
+  bit-equal to the monolithic one);
+- beam search: ``WhisperPipeline(beam_size=5)`` over 16 seeded 30 s noise
+  clips at the offline configuration (64 tokens, ladder off), its wall
+  beside greedy on the same clips, the step's reorder and top-k, and one
+  layer-step's folded cross-attention beside K2 on expanded cross-KV; then
+  a burst of 24 clips to the turbo server (ladder off), 8 of them at
+  ``beam=5`` (multipart field and ``X-Beam``), on its aux worker.
 
 Then it checks small fp32 runs of the paths on the card against the CPU
 (the offline one under each selection, the TP engine against the one-rank
 engine on the CPU, a sampled decode with the same noise on both, language
 detection, the engine's ``language=auto`` replies, prompted rows,
-timestamps and a long clip through the engine). Prints
+timestamps and a long clip through the engine, beam search). Prints
 JSON lines; the last is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it. Needs a CUDA card: without one it exits 1 and prints
 no result. ``chip_tp.py`` runs the tensor-parallel phases over distinct
@@ -158,10 +164,12 @@ K3_SHAPES = {"offline": (B, 128, 4, 4 + N_TOKENS - 1, None),
              "serving": (8, 256, 4, 4 + 224 - 1, None),
              "longform": (8, 384, 226, 226 + N_TOKENS - 1, 60),
              "detect": (B, 128, 0, 0, None),
-             "prompted": (8, 256, 229, 255, 224)}
+             "prompted": (8, 256, 229, 255, 224),
+             "beam": (16 * 5, 128, 4, 4 + N_TOKENS - 1, None)}
 # the shapes added after others: drawn from generators of their own, so the
 # inputs of every other K3 case and of the phases after K3 stay as they were
-K3_OWN_SEED = {"prompted": 29}
+# (beam: the beam phase's 16 clips x 5 beams, one row a beam)
+K3_OWN_SEED = {"prompted": 29, "beam": 31}
 # K8's shapes: the turbo encoder's (K, N) per layer (q, k, v, o; mlp w1;
 # mlp w2) at the offline batch (M = 1500 x 64) and at ragged admission sizes
 K8_KN = ((1280, 1280, 4), (1280, 5120, 1), (5120, 1280, 1))
@@ -1188,18 +1196,21 @@ DECODE_KERNEL = {"fd": "cross_attention_decode_fd", "legacy": "cross_attention_d
 
 def _expect(path: str, launches: dict, cfg, encodes: int, steps: int,
             encoder_attention: str = "btd", cross_decode: str = "fd", tp: int = 1,
-            detects: int = 0) -> None:
+            detects: int = 0, beam_steps: int = 0) -> None:
     """Exact launch counts of a W8A8 + int8 cross- and self-KV path that ran
-    ``encodes`` encoder passes (one log-mel each), ``steps`` decoder steps
-    and ``detects`` language-detection steps on ``tp`` ranks: the selected
-    encoder and decode kernels once a layer on every rank, the kernels of
-    the other selections not at all; with tp > 1 every K1 launch is also the
-    sharded entry's. A detection step is one S=1 decoder step over a float
-    self-KV cache: the decode kernel and the float K3 once a layer."""
+    ``encodes`` encoder passes (one log-mel each), ``steps`` decoder steps,
+    ``detects`` language-detection steps and ``beam_steps`` beam steps on
+    ``tp`` ranks: the selected encoder and decode kernels once a layer on
+    every rank, the kernels of the other selections not at all; with tp > 1
+    every K1 launch is also the sharded entry's. A detection step is one S=1
+    decoder step over a float self-KV cache: the decode kernel and the
+    float K3 once a layer. A beam step runs the int8 K3 once a layer and no
+    decode kernel (its cross-attention is the folded plain product, as the
+    JAX package's einsum under ``beam_k``)."""
     want = {"log10_mel": encodes,
             "int8_gemm": 6 * cfg.n_audio_layer * encodes * tp,  # q, k, v, o, mlp1, mlp2
             "quantize_rows": 4 * cfg.n_audio_layer * encodes * tp,  # qkv once, o, mlp1, mlp2
-            "self_attention_decode_int8": cfg.n_text_layer * steps * tp,
+            "self_attention_decode_int8": cfg.n_text_layer * (steps + beam_steps) * tp,
             "self_attention_decode": cfg.n_text_layer * detects * tp,
             "flash_attention_btd_sharded": (cfg.n_audio_layer * encodes * tp
                                             if tp > 1 and encoder_attention == "btd" else 0)}
@@ -1344,11 +1355,13 @@ def _wav(x: np.ndarray) -> bytes:
             + b"data" + struct.pack("<I", len(pcm)) + pcm)
 
 
-def _ask(url: str, clip: np.ndarray, query=None, headers=None, multipart: bool = False) -> tuple:
+def _ask(url: str, clip: np.ndarray, query=None, headers=None, multipart: bool = False,
+         fields=None) -> tuple:
     """(status, reply, seconds) of one POST of ``clip`` to ``url`` with the
     ``query`` options and extra ``headers``: f32 PCM, or with ``multipart``
-    a 16-bit WAV form field. The reply is the JSON body, the NDJSON lines of
-    a stream, or the text of another format."""
+    a 16-bit WAV form field and the form fields ``fields``. The reply is the
+    JSON body, the NDJSON lines of a stream, or the text of another
+    format."""
     from urllib.parse import quote
 
     if query:
@@ -1356,7 +1369,10 @@ def _ask(url: str, clip: np.ndarray, query=None, headers=None, multipart: bool =
                                                     for k, v in query.items())
     if multipart:
         body = (b"--B\r\nContent-Disposition: form-data; name=\"wav\"; filename=\"a.wav\"\r\n"
-                b"Content-Type: audio/wav\r\n\r\n" + _wav(clip) + b"\r\n--B--\r\n")
+                b"Content-Type: audio/wav\r\n\r\n" + _wav(clip) + b"\r\n"
+                + b"".join(f"--B\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n"
+                           f"{v}\r\n".encode() for k, v in (fields or {}).items())
+                + b"--B--\r\n")
         ctype = "multipart/form-data; boundary=B"
     else:
         body, ctype = clip.astype("<f4").tobytes(), "application/octet-stream"
@@ -1480,24 +1496,27 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
     return rec
 
 
-def _served_counts(engine, args, st0: dict, st1: dict, launches: dict, path: str) -> dict:
+def _served_counts(engine, args, st0: dict, st1: dict, launches: dict, path: str,
+                   aux_beams: bool = False) -> dict:
     """The engine counters' change over a burst (stats snapshots ``st0`` and
     ``st1``), and the check that ``launches`` are exactly what its encodes,
-    steps and detection steps launch (slot and aux work alike)."""
+    steps and detection steps launch (slot and aux work alike; with
+    ``aux_beams`` every aux step is a beam step)."""
     from whisper_tpu_torch.models.model import model_shards
 
     delta = {key: st1[key] - st0[key] for key in (
         "steps_total", "encode_batches_total", "aux_batches_total", "aux_steps_total",
-        "retries_total", "ticks_total", "detect_batches_total", "partials_total")}
+        "retries_total", "ticks_total", "detect_batches_total", "partials_total",
+        "beam_requests_total")}
     delta["round_sizes"] = {k: n - st0["round_sizes"].get(k, 0)
                             for k, n in st1["round_sizes"].items()
                             if n > st0["round_sizes"].get(k, 0)}
     steps, batches = delta["steps_total"], delta["encode_batches_total"]
     aux_batches, aux_steps = delta["aux_batches_total"], delta["aux_steps_total"]
     _expect(f"{path} ({steps} + {aux_steps} aux steps, {batches} + {aux_batches} aux encodes)",
-            launches, engine.cfg, batches + aux_batches, steps + aux_steps,
+            launches, engine.cfg, batches + aux_batches, steps + (0 if aux_beams else aux_steps),
             args.encoder_attention, args.cross_decode, tp=len(model_shards(engine.model)),
-            detects=delta["detect_batches_total"])
+            detects=delta["detect_batches_total"], beam_steps=aux_steps if aux_beams else 0)
     return delta
 
 
@@ -2290,13 +2309,23 @@ def serving_options(counters) -> dict:
         if windows[kind] != want or any(bool(r.get("conditioned")) != (kind == "conditioned")
                                         for _, r, _ in out[kind]):
             raise AssertionError(f"{kind} replies: windows {windows[kind]}, expected {want}")
-    partials = []
+    partials, stream_tokens = [], []
+    spr = engine.steps_per_sync
     for clip, lines, _ in out["stream"]:
         *parts, final = lines
-        if not parts or any("partial" not in p for p in parts) or not final.get("success") \
-                or ("windows" in final) != (len(clip) > 480000):
-            raise AssertionError(f"a streamed reply is malformed: {str(lines)[:300]}")
+        # a window's first harvest follows its prefill token and one round of
+        # steps_per_sync steps, so a window that ends within that round
+        # streams no partial (as in the JAX engine): a reply of more tokens
+        # than a round per window must have partials, and one of at most a
+        # round's tokens must have none
+        n_tok, n_win = final.get("tokens", 0), final.get("windows", 1)
+        if any("partial" not in p for p in parts) or not final.get("success") \
+                or ("windows" in final) != (len(clip) > 480000) \
+                or (n_tok > spr * n_win and not parts) or (parts and n_tok <= spr):
+            raise AssertionError(f"a streamed reply is malformed ({spr} steps a round): "
+                                 f"{str(lines)[:300]}")
         partials.append(len(parts))
+        stream_tokens.append(n_tok)
     if not all(isinstance(t, str) and t.endswith("\n") for _, t, _ in out["txt"]):
         raise AssertionError(f"format=txt bodies: {[t for _, t, _ in out['txt']]}")
     (code_s, lines, _), (code_j, reply, _) = alone
@@ -2314,7 +2343,8 @@ def serving_options(counters) -> dict:
             "latency_p95_s": float(np.percentile(lat, 95)),
             "latency_by_kind_s": {k: [sec for _, _, sec in v] for k, v in out.items()},
             "audio_s": sum(len(c) for _, c, _ in jobs) / 16000, "windows": windows,
-            "partials_per_stream": partials, "stream_final_equals_json": True,
+            "partials_per_stream": partials, "tokens_per_stream": stream_tokens,
+            "stream_final_equals_json": True,
             "prompt_tokens": [len(engine._context_ids(Request(audio=twin, initial_prompt=text)))
                               for text in PROMPTS],
             "ticks": delta["ticks_total"], "steps": delta["steps_total"],
@@ -2407,6 +2437,261 @@ def serving_options_reference_check() -> dict:
         raise AssertionError("no prompted row decoded behind a pad")
     return {"phase": "serving_options_reference", "model": "tiny", "dtype": "float32",
             "tokens_equal_cpu": True, "pads_seen": sorted(pads["cuda"]), "texts": out["cuda"]}
+
+# ------------------------------------------------------------------ beams
+N_BEAM_CLIPS = 16
+BEAM_SIZE = 5
+N_BEAM_REQUESTS = 8
+# the beam path's pipeline: the offline configuration with the ladder off,
+# as benchmarks/beam_bench.py documents it (--model turbo --batch 16 --beam 5
+# --kv_quant), with the offline path's int8 self-KV and W8A8 encoder
+BEAM_PIPELINE = dict(model="turbo", device="cuda", compute_dtype="bfloat16", quantize=True,
+                     w8a8=True, kv_quant=True, self_kv_quant=True, max_tokens=N_TOKENS, seed=0,
+                     temperature_fallback=False)
+
+
+def _beam_step_parts(pipe, dev) -> dict:
+    """The beam step's own work beside its kernels, each timed alone at the
+    beam phase's shapes (CUDA events): the reorder (``_gather_cache``: the
+    int8 self-KV of 80 beams gathered at their parents, read and written
+    once: its bytes bound) and the step's three top-k sorts (16 rows of
+    5 x 51,866 candidates, then the finished and the running sets). Then
+    one layer-step's cross-attention two ways: the path's folded plain
+    ``attention_int8kv`` (16 utterances x 5 query rows against the shared
+    int8 cross-KV) and K2 over the same 80 query rows on cross-KV expanded
+    per beam (``index_cross_kv``'s layout, 5 x the bytes), held against
+    each other at K2's bf16 tolerance."""
+    from whisper_tpu_torch.beam import _gather_cache, _top_k
+    from whisper_tpu_torch.models.model import _fold_beams, _unfold_beams, attention_int8kv
+    from whisper_tpu_torch.models.model import new_kv_cache
+    from whisper_tpu_torch.ops.decode_attention import cross_attention_decode_fd
+
+    cfg = pipe.cfg
+    Bu, K = N_BEAM_CLIPS, BEAM_SIZE
+    N = Bu * K
+    gen = torch.Generator(device=dev).manual_seed(37)
+    P = len(cfg.sot_sequence(pipe.language, pipe.task))
+    kv_ctx = min(cfg.n_text_ctx, -(-(P + N_TOKENS) // 128) * 128)
+    kv = new_kv_cache(pipe.model, N, pipe.compute_dtype, kv_ctx, quant=True)
+    parents = torch.randint(0, K, (Bu, K), generator=gen, device=dev)
+    flat = (torch.arange(Bu, device=dev)[:, None] * K + parents).reshape(N)
+    kv_bytes = sum(t.numel() * t.element_size() for t in kv)
+    reorder_ms = cuda_ms(lambda: _gather_cache(kv, flat), reps=20)
+    cand = torch.randn((Bu, K * cfg.n_vocab), generator=gen, device=dev)
+    fin = torch.randn((Bu, 3 * K), generator=gen, device=dev)
+    run = torch.randn((Bu, 2 * K), generator=gen, device=dev)
+    topk_ms = cuda_ms(lambda: (_top_k(cand, 2 * K), _top_k(fin, K), _top_k(run, K)), reps=20)
+    del kv
+
+    k_q, k_s, v_q, v_s = _int8_cross_kv(dev, gen, Bu, H_TEXT)
+    q = torch.randn((N, H_TEXT, 1, DH), generator=gen, device=dev).to(torch.bfloat16)
+    idx = torch.arange(Bu, device=dev).repeat_interleave(K)
+    expanded = tuple(t.index_select(0, idx) for t in (k_q, k_s, v_q, v_s))
+
+    def folded():
+        return _unfold_beams(attention_int8kv(_fold_beams(q, K), k_q, k_s, v_q, v_s), K)
+
+    agree = check("cross_attention_decode_fd/bf16", cross_attention_decode_fd(q, *expanded),
+                  folded())
+    fold_ms = cuda_ms(folded, reps=20)
+    k2_ms = cuda_ms(lambda: cross_attention_decode_fd(q, *expanded), reps=20)
+    fold_bytes = sum(t.numel() * t.element_size() for t in (k_q, k_s, v_q, v_s))
+    expanded_bytes = sum(t.numel() * t.element_size() for t in expanded)
+    del expanded
+    return {"reorder_ms": reorder_ms, "reorder_bytes": 2 * kv_bytes,
+            "reorder_bound_ms": 1e3 * 2 * kv_bytes / PEAK_BYTES,
+            "topk_ms": topk_ms, "topk_shape": f"({Bu}, {K * cfg.n_vocab}) fp32 + two small",
+            "fold_ms": fold_ms, "k2_expanded_ms": k2_ms,
+            "fold_vs_k2_max_abs_err": agree["max_abs_err"],
+            "fold_shape": f"q ({Bu},{H_TEXT},{K},{DH}) bf16 vs k_q/v_q ({Bu},{H_TEXT},{DH},"
+                          f"{T_AUDIO}) int8", "cross_kv_bytes_per_layer": fold_bytes,
+            "expanded_cross_kv_bytes_per_layer": expanded_bytes,
+            "timing": "CUDA events over 20 calls each, one layer-step for the cross-attention"}
+
+
+def beam_phase(counters) -> dict:
+    """The beam path: 16 seeded 30 s noise clips through
+    ``WhisperPipeline(beam_size=5).transcribe_batch`` (``BEAM_PIPELINE``):
+    built, warmed, run once with the counts at 0 and checked (exact
+    launches: the encoder's as offline, the int8 K3 once a layer a beam
+    step, no cross-attention kernel), its wall beside the greedy wall of the
+    same clips in the same process, then :func:`_beam_step_parts`."""
+    from whisper_tpu_torch.beam import BeamResult
+    from whisper_tpu_torch.config import N_SAMPLES
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+
+    t0 = time.perf_counter()
+    pipe = WhisperPipeline(beam_size=BEAM_SIZE, **BEAM_PIPELINE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(17)
+    clips = list(rng.standard_normal((N_BEAM_CLIPS, N_SAMPLES)).astype(np.float32) * 0.1)
+    pipe.transcribe_batch(clips)  # warm
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = pipe.transcribe_batch(clips)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dec, cfg = pipe.last_decode, pipe.cfg
+    P = len(cfg.sot_sequence(pipe.language, pipe.task))
+    lens, toks = dec.lengths.cpu().numpy(), dec.all_tokens.cpu().numpy()
+    if not isinstance(dec, BeamResult) or len(results) != N_BEAM_CLIPS:
+        raise AssertionError(f"the beam path returned {type(dec).__name__}, {len(results)} texts")
+    if toks.shape != (N_BEAM_CLIPS, BEAM_SIZE, cfg.n_text_ctx):
+        raise AssertionError(f"finished set of shape {toks.shape}")
+    if not ((lens >= P) & (lens <= P + N_TOKENS)).all():
+        raise AssertionError(f"beam lengths out of range: {lens.tolist()}")
+    if not ((toks >= 0) & (toks < cfg.n_vocab)).all():
+        raise AssertionError("beam token ids out of the vocabulary")
+    if not (torch.isfinite(dec.scores).all() and torch.isfinite(dec.no_speech_prob).all()):
+        raise AssertionError("non-finite beam scores")
+    _expect("beam", launches, cfg, 1, 0, beam_steps=dec.steps)
+
+    pipe.beam_size = 0  # greedy on the same clips, the same process
+    pipe.transcribe_batch(clips)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.transcribe_batch(clips)
+    torch.cuda.synchronize()
+    greedy_wall = time.perf_counter() - t0
+    greedy = pipe.last_decode
+    pipe.beam_size = BEAM_SIZE
+    parts = _beam_step_parts(pipe, pipe.device)
+    finished = (dec.all_scores > -5e29).sum(dim=1).cpu().tolist()
+    del pipe
+    return {"phase": "beam", "model": "turbo", "batch": N_BEAM_CLIPS, "beam_size": BEAM_SIZE,
+            "max_tokens": N_TOKENS, "dtype": "bfloat16",
+            "quant": "int8 weights + w8a8 encoder + kvq + skvq", "ladder": False,
+            "init_s": init_s, "wall_s": wall, "steps": dec.steps, "host_syncs": dec.host_syncs,
+            "greedy_wall_s": greedy_wall, "greedy_steps": greedy.steps,
+            "beam_over_greedy": wall / greedy_wall, "generated": (lens - P).tolist(),
+            "finished_per_clip": finished, "launches": launches, "peak_mem_gb": peak_gb,
+            **parts}
+
+
+def serving_beam(counters) -> dict:
+    """The turbo server at its defaults with the ladder off (the greedy
+    core), one burst from client threads of 8 noise clips of 2-30 s at
+    ``beam=5`` (half as a multipart field, half as ``X-Beam``) among 16
+    greedy ones: every beam reply names ``beam_size`` 5 and no greedy one
+    does, ``beam_requests_total`` grows by 8, and the launches are exact
+    (slot steps run K2 and K3, the aux worker's beam steps K3 alone)."""
+    rng = np.random.default_rng(23)
+    clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
+             for s in rng.uniform(2.0, 30.0, N_REQUESTS)]
+    beam = set(range(0, 3 * N_BEAM_REQUESTS, 3))  # every third request
+
+    def ask(i):
+        if i not in beam:
+            return _ask(url, clips[i])
+        if i % 2:
+            return _ask(url, clips[i], headers={"X-Beam": str(BEAM_SIZE)})
+        return _ask(url, clips[i], multipart=True, fields={"beam": BEAM_SIZE})
+
+    engine, base, args, srv, thread, _, startup_s = _started(GREEDY)
+    url = f"{base}/asr"
+    try:
+        st0 = engine.stats.snapshot()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(N_REQUESTS) as pool:
+            replies = list(pool.map(ask, range(N_REQUESTS)))
+        wall = time.perf_counter() - t0
+        launches = _launches(counters)
+        st1 = engine.stats.snapshot()
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+            metrics = json.load(r)
+    finally:
+        _stopped(engine, srv, thread)
+    bad = [(i, code, str(reply)[:300]) for i, (code, reply, _) in enumerate(replies)
+           if code != 200 or not reply.get("success")
+           or reply.get("beam_size") != (BEAM_SIZE if i in beam else None)]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {N_REQUESTS} replies failed: {bad[:3]}")
+    delta = _served_counts(engine, args, st0, st1, launches, "serving_beam", aux_beams=True)
+    if delta["beam_requests_total"] != N_BEAM_REQUESTS or delta["retries_total"]:
+        raise AssertionError(f"beam_requests_total grew by {delta['beam_requests_total']}, "
+                             f"{delta['retries_total']} retries")
+    lat = {kind: np.array([sec for i, (_, _, sec) in enumerate(replies)
+                           if (i in beam) == (kind == "beam")]) for kind in ("beam", "greedy")}
+    return {"phase": "serving_beam", "model": "turbo",
+            "flags": "server defaults, --temperature_fallback ''",
+            "requests": {"beam": len(beam), "greedy": N_REQUESTS - len(beam)},
+            "beam_size": BEAM_SIZE, "startup_s": startup_s, "wall_s": wall,
+            **{f"latency_{kind}_p{q}_s": float(np.percentile(v, q))
+               for kind, v in lat.items() for q in (50, 95)},
+            "audio_s": sum(len(c) for c in clips) / 16000,
+            "tokens": [reply["tokens"] for _, reply, _ in replies],
+            "beam_requests": delta["beam_requests_total"],
+            "metrics_beam_requests_total": metrics["beam_requests_total"],
+            "ticks": delta["ticks_total"], "steps": delta["steps_total"],
+            "admission_batches": delta["encode_batches_total"],
+            "aux_batches": delta["aux_batches_total"], "aux_steps": delta["aux_steps_total"],
+            "launches": launches}
+
+
+def beam_reference_check() -> dict:
+    """Small fp32 beam searches (tiny, 3 beams) on the card through its
+    kernels against the CPU with the same weights: tokens, lengths and
+    finished sets equal. With float KV (the float K3) the scores agree
+    within 1e-4. With int8 cross- and self-KV (the int8 K3) they are
+    reported, not bounded: a value the card computes in another summation
+    order can round to the next int8 level, and on the CPU alone a 1e-6
+    relative change of the mel moves the int8 scores by 5e-4 and the float
+    scores by 5e-7. Each on the random weights, whose beams run to the cap
+    (the fallback to the best running beam), and on weights leaning towards
+    eot (the final LayerNorm's bias a seeded u, eot's embedding 0.03 u),
+    whose beams all finish (the finished set)."""
+    from whisper_tpu_torch.beam import beam_search
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.sampling import build_suppress_ids
+
+    rng = np.random.default_rng(12)
+    cfg = get_config("tiny")
+    mel = rng.standard_normal((3, cfg.n_mels, 2 * cfg.n_audio_ctx)).astype(np.float32)
+    prompt = np.tile(np.asarray([cfg.sot_sequence("en")], np.int64), (3, 1))
+    u = torch.from_numpy(np.random.default_rng(0).standard_normal(cfg.n_text_state)
+                         .astype(np.float32))
+    rec = {"phase": "beam_reference", "model": "tiny", "dtype": "float32", "beam_size": 3}
+    for quant in (False, True):
+        for lean in (None, 0.03):
+            out = {}
+            for dev in ("cuda", "cpu"):
+                params = init_params(cfg, seed=3, device="cpu")
+                if lean:
+                    params.decoder.ln["b"] = 0.5 * u
+                    params.decoder.tok_emb[cfg.eot] = lean * u
+                params = params.to_device(dev)
+                supp = torch.from_numpy(build_suppress_ids(cfg)).long().to(dev)
+                out[dev] = beam_search(params, torch.from_numpy(mel).to(dev),
+                                       torch.from_numpy(prompt).to(dev), kv_quant=quant,
+                                       self_kv_quant=quant, beam_size=3, max_tokens=12,
+                                       suppress_ids=supp)
+            card, cpu = out["cuda"], out["cpu"]
+            case = f"{'int8' if quant else 'float'} KV, {'eot-leaning' if lean else 'random'}"
+            for field in ("tokens", "lengths", "all_tokens"):
+                if not torch.equal(getattr(card, field).cpu(), getattr(cpu, field)):
+                    raise AssertionError(f"beam {field} on the card differ from the CPU ({case}): "
+                                         f"{getattr(card, field).cpu().tolist()} vs "
+                                         f"{getattr(cpu, field).tolist()}")
+            err = float((card.scores.cpu() - cpu.scores).abs().max())
+            if not quant and err > 1e-4:
+                raise AssertionError(f"beam scores on the card differ from the CPU by {err} "
+                                     f"({case})")
+            rec[case] = {
+                "tokens_equal_cpu": True, "scores_max_abs_err": err,
+                "scores_tol": None if quant else 1e-4, "steps": card.steps,
+                "finished": (card.all_scores > -5e29).sum(dim=1).cpu().tolist(),
+                "tokens": [t[4:int(n)] for t, n in zip(card.tokens.cpu().tolist(),
+                                                        card.lengths.cpu().tolist())]}
+    return rec
 
 
 def main() -> int:
@@ -2501,6 +2786,12 @@ def main() -> int:
     paced = serving_paced(counters)
     emit(paced)
     torch.cuda.empty_cache()
+    beams = beam_phase(counters)
+    emit(beams)
+    torch.cuda.empty_cache()
+    served_beams = serving_beam(counters)
+    emit(served_beams)
+    torch.cuda.empty_cache()
     emit(reference_check())
     emit(serving_reference_check())
     emit(longform_reference_check())
@@ -2509,6 +2800,7 @@ def main() -> int:
     emit(language_reference_check())
     emit(serving_auto_reference_check())
     emit(serving_options_reference_check())
+    emit(beam_reference_check())
     emit({"phase": "profiler", **PROFILER_MISSES})
 
     # each kernel's counts from the runs of the path that selects it; the
@@ -2530,7 +2822,8 @@ def main() -> int:
         k["checkpoint_launches"] = ckpt["launches"][name]
         k["serving_auto_launches"] = auto["launches"][name]
         for path, rec in (("serving_options", options), ("serving_timestamps", stamped),
-                          ("serving_paced", paced)):
+                          ("serving_paced", paced), ("beam", beams),
+                          ("serving_beam", served_beams)):
             k[f"{path}_launches"] = rec["launches"][name]
         if name == "self_attention_decode_int8":  # K3's float variant: the detection step
             k["float_launches"] = {path: rec["launches"]["self_attention_decode"]
@@ -2538,7 +2831,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "offline_launches",
             "serving_launches", "longform_launches", "ladder_launches", "tp_launches",
             "checkpoint_launches", "serving_auto_launches", "serving_options_launches",
-            "serving_timestamps_launches", "serving_paced_launches", "float_launches",
+            "serving_timestamps_launches", "serving_paced_launches", "beam_launches",
+            "serving_beam_launches", "float_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}),

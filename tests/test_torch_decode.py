@@ -15,7 +15,7 @@ from whisper_tpu.pipeline import WhisperPipeline as JaxPipeline
 from whisper_tpu.sampling import build_suppress_ids as jax_suppress_ids
 from whisper_tpu.tokenizer import get_tokenizer as jax_tokenizer
 from whisper_tpu_torch.config import get_config as port_config
-from whisper_tpu_torch.decode import encode_cross_kv, greedy_decode
+from whisper_tpu_torch.decode import GreedyResult, encode_cross_kv, greedy_decode
 from whisper_tpu_torch.models.model import KVCache, decoder_forward, encoder_forward
 from whisper_tpu_torch.params import from_jax_params
 from whisper_tpu_torch.pipeline import WhisperPipeline
@@ -214,14 +214,19 @@ def test_pipeline_texts_equal_jax():
 
 
 def test_pipeline_refuses_unported_options():
-    """Still refused: beam, word timestamps, speculative decoding.
-    Timestamps, initial_prompt, seek-based long-form, sampling and its
-    ladder, checkpoints and the auto language are ported (tests below, in
-    test_torch_longform.py, test_torch_ladder.py, test_torch_checkpoint.py
-    and test_torch_language.py)."""
-    for kw in (dict(beam_size=5), dict(word_timestamps=True), dict(spec_draft="tiny")):
+    """Still refused: word timestamps, speculative decoding. Beams 0 and 1
+    decode greedily (beams above 1 are held against JAX in
+    test_torch_beam_serving.py). Timestamps, initial_prompt, seek-based
+    long-form, sampling and its ladder, checkpoints and the auto language
+    are ported (tests below, in test_torch_longform.py, test_torch_ladder.py,
+    test_torch_checkpoint.py and test_torch_language.py)."""
+    for kw in (dict(word_timestamps=True), dict(spec_draft="tiny")):
         with pytest.raises(NotImplementedError):
             WhisperPipeline(model="test-nano", device="cpu", **kw)
+    for beam in (0, 1):
+        pipe = WhisperPipeline(model="test-nano", device="cpu", beam_size=beam, max_tokens=4)
+        pipe.transcribe_batch([np.zeros(16000, np.float32)])
+        assert isinstance(pipe.last_decode, GreedyResult)
     pipe = WhisperPipeline(model="test-nano", device="cpu", timestamps=True,
                            initial_prompt="hi", max_tokens=4)
     (res,) = pipe.transcribe_longform([np.zeros(16000, np.float32)])

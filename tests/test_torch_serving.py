@@ -224,7 +224,6 @@ def test_engine_per_request_max_tokens(jax_params):
 
 
 UNPORTED_REQUESTS = {
-    "beam": dict(beam_size=2),
     "word_timestamps": dict(word_timestamps=True),
 }
 
@@ -235,6 +234,20 @@ def test_engine_refuses_unported_request_options(jax_params, option):
     kw = {"audio": np.zeros(1600, np.float32), **UNPORTED_REQUESTS[option]}
     with pytest.raises(NotImplementedError, match="not ported"):
         eng.submit(Request(**kw))
+
+
+def test_engine_serves_a_beam_submit(jax_params):
+    """A beam request is served by the aux worker (its tokens against the
+    JAX engine's in test_torch_beam_serving.py); above max_beam_size it is
+    a ValueError."""
+    eng = _engine(jax_params, max_beam_size=4)
+    fut = eng.submit(Request(audio=_clips(5, (1.0,))[0], beam_size=2))
+    assert eng.aux_round() == 1
+    reply = fut.result(0)
+    assert reply["success"] and reply["beam_size"] == 2
+    assert eng.stats.beam_requests_total == 1 and eng.stats.aux_batches_total == 1
+    with pytest.raises(ValueError, match="exceeds"):
+        eng.submit(Request(audio=np.zeros(1600, np.float32), beam_size=5))
 
 
 # ---------------------------------------------------------------- HTTP
@@ -329,7 +342,6 @@ def test_http_bad_inputs_answer_400(http_server, case):
 
 # format=srt: its segments come from word timings, so it needs word_timestamps
 UNPORTED_HTTP = {
-    "beam": {"X-Beam": "2"},
     "word_timestamps": {"X-Word-Timestamps": "1"}, "format": {"X-Format": "srt"},
 }
 
@@ -342,6 +354,13 @@ def test_http_unported_options_answer_501(http_server, option):
     assert code == 501 and "not ported" in res["error"]
 
 
+def test_http_beam_above_the_cap_answers_400(http_server):
+    pcm = np.zeros(1600, "<f4").tobytes()
+    code, res = _post_error(f"{http_server}/asr", pcm,
+                            {"Content-Type": "application/octet-stream", "X-Beam": "9"})
+    assert code == 400 and "1..8" in res["error"]
+
+
 def test_client_module(http_server, tmp_path):
     """client.py against the live server, both protocols."""
     host, port = "127.0.0.1", int(http_server.rsplit(":", 1)[1])
@@ -351,9 +370,8 @@ def test_client_module(http_server, tmp_path):
     r1 = client.transcribe_file(str(path), host, port, use_multipart=True, timeout=60)
     r2 = client.transcribe_file(str(path), host, port, use_multipart=False, timeout=60)
     assert r1["success"] and r2["success"] and r1["text"] == r2["text"]
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        client.transcribe_file(str(path), host, port, beam=3, timeout=60)
-    assert ei.value.code == 501
+    r3 = client.transcribe_file(str(path), host, port, beam=3, timeout=60)
+    assert r3["success"] and r3["beam_size"] == 3
 
 
 def test_main_refuses_unported_flags_and_a_missing_card(monkeypatch):
@@ -383,9 +401,9 @@ def _serve(*flags):
 
 def test_main_serves_on_the_cpu():
     """``python -m whisper_tpu_torch.serving --device cpu`` on test-nano
-    answers octet-stream and multipart, and 501 for an unported option;
-    started with ``--timestamps --encode_chunks 2`` it answers with
-    timestamp tokens."""
+    answers octet-stream and multipart, a beam of 5 (400 above its
+    ``--max_beam_size``), and 501 for an unported option; started with
+    ``--timestamps --encode_chunks 2`` it answers with timestamp tokens."""
     proc, url = _serve()
     try:
         pcm = _clips(7, (0.5,))[0].astype("<f4").tobytes()
@@ -395,8 +413,14 @@ def test_main_serves_on_the_cpu():
                 + _wav_bytes(_clips(7, (0.5,))[0]) + b"\r\n--B--\r\n")
         code, res = _post(f"{url}/asr", body, {"Content-Type": "multipart/form-data; boundary=B"})
         assert code == 200 and isinstance(res["text"], str)
+        code, res = _post(f"{url}/asr", pcm, {"Content-Type": "application/octet-stream",
+                                             "X-Beam": "5"})
+        assert code == 200 and res["success"]
         code, res = _post_error(f"{url}/asr", pcm, {"Content-Type": "application/octet-stream",
-                                                   "X-Beam": "5"})
+                                                   "X-Beam": "9"})
+        assert code == 400
+        code, res = _post_error(f"{url}/asr", pcm, {"Content-Type": "application/octet-stream",
+                                                   "X-Word-Timestamps": "1"})
         assert code == 501
     finally:
         proc.terminate()

@@ -4,6 +4,8 @@ Usage:
     python -m whisper_tpu_torch.cli --wav demo.wav --model_type tiny --language zh --device cuda
     python -m whisper_tpu_torch.cli --wav a.wav b.wav --model_type turbo --dtype bfloat16 \
         --quantize --w8a8 --kv_quant --self_kv_quant --max_tokens 64
+    # beam search (5 beams an utterance; 0 or 1 decodes greedily)
+    python -m whisper_tpu_torch.cli --wav a.wav --model_type turbo --kv_quant --beam 5
     # seek-based long-form with timestamps, one subtitle file per input
     python -m whisper_tpu_torch.cli --wav long.wav --model_type turbo --longform \
         --timestamps --max_tokens 64 -f srt -o out/
@@ -56,6 +58,7 @@ def get_args(argv=None):
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--seed", type=int, default=0, help="seed of the random init")
+    p.add_argument("--beam", type=int, default=0, help="beam size (0/1 = greedy)")
     p.add_argument("--timestamps", action="store_true", help="emit timestamp tokens")
     p.add_argument("--quantize", action="store_true",
                    help="int8-quantize attention/MLP weights")
@@ -97,7 +100,8 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     pipe = WhisperPipeline(
         model=args.model_type, checkpoint=args.checkpoint,
         language=None if args.language == "auto" else args.language, task=args.task,
-        compute_dtype=args.dtype, seed=args.seed, timestamps=args.timestamps,
+        compute_dtype=args.dtype, seed=args.seed, beam_size=args.beam,
+        timestamps=args.timestamps,
         max_tokens=args.max_tokens, initial_prompt=args.initial_prompt,
         quantize=args.quantize, quantize_logits=args.quantize_logits, w8a8=args.w8a8,
         gelu=args.gelu, kv_quant=args.kv_quant, self_kv_quant=args.self_kv_quant,

@@ -239,10 +239,10 @@ def detect_language(model, mel: torch.Tensor,
     return detect_language_kv(model, encode_cross_kv(model, mel, compute_dtype), compute_dtype)
 
 
-def extract_texts(result: GreedyResult, prompt_len: int, tokenizer,
-                  timestamps: bool = False) -> list:
-    """Host side: token buffer -> list of decoded strings; with
-    ``timestamps`` the timestamp tokens are kept as ``<|t.tt|>``."""
+def extract_texts(result, prompt_len: int, tokenizer, timestamps: bool = False) -> list:
+    """Host side: the token buffer of a ``GreedyResult`` or a
+    ``beam.BeamResult`` -> list of decoded strings; with ``timestamps`` the
+    timestamp tokens are kept as ``<|t.tt|>``."""
     toks = result.tokens.cpu().numpy()
     lens = result.lengths.cpu().numpy()
     decode = tokenizer.decode_with_timestamps if timestamps else tokenizer.decode

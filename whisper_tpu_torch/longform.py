@@ -83,7 +83,8 @@ def _fuzzy_overlap(a: str, b: str, max_probe: int = 48,
 def silence_mask(result, no_speech_threshold, logprob_threshold) -> np.ndarray:
     """OpenAI no-speech gate: a window is silent when its no-speech
     probability exceeds ``no_speech_threshold``, unless the decode was
-    confident anyway (avg_logprob above ``logprob_threshold``)."""
+    confident anyway (avg_logprob above ``logprob_threshold``). ``result``
+    is a ``GreedyResult`` or a ``beam.BeamResult``."""
     nsp = result.no_speech_prob.cpu().numpy()
     if no_speech_threshold is None:
         return np.zeros(nsp.shape[0], bool)
@@ -257,12 +258,15 @@ def transcribe_seek(pipe, waves: Sequence[np.ndarray], language: str):
     window and keeps its segments, the open last one with end ``None``. A
     window judged silent (``silence_mask``) emits nothing and advances a full
     window. With ``pipe.condition_on_previous_text`` each window's prompt
-    carries the accepted text so far (:func:`_prompts`).
+    carries the accepted text so far (:func:`_prompts`). With
+    ``pipe.beam_size > 1`` each round decodes by beam search, as in the JAX
+    package.
 
     ``pipe`` is a ``WhisperPipeline``. Returns per utterance
     (text, segments [(start_s, end_s or None, text)]). Counts its rounds,
     windows and decoder steps into ``pipe.last_seek``.
     """
+    from .beam import beam_search
     from .decode import extract_texts, greedy_decode
     from .ops.mel import log_mel_batch
     from .text import parse_segments, postprocess
@@ -288,14 +292,19 @@ def transcribe_seek(pipe, waves: Sequence[np.ndarray], language: str):
         prompts, pads, sot_index = _prompts(pipe, live, texts, bucket, sot_seq)
         mel = log_mel_batch(torch.from_numpy(batch).to(dev), torch.from_numpy(lengths).to(dev),
                             n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
-        res = greedy_decode(
-            pipe.model, mel, torch.from_numpy(prompts).to(dev), pipe.compute_dtype,
-            kv_quant=pipe.kv_quant, w8a8=pipe.w8a8, gelu=pipe.gelu,
-            encoder_attention=pipe.encoder_attention, cross_decode=pipe.cross_decode,
-            max_tokens=pipe.max_tokens, suppress_ids=pipe._suppress_ids, timestamps=True,
-            apply_filters=True, self_kv_quant=pipe.self_kv_quant,
-            prompt_pad=None if pads is None else torch.from_numpy(pads).to(dev),
-            sot_index=sot_index)
+        kw = dict(kv_quant=pipe.kv_quant, w8a8=pipe.w8a8, gelu=pipe.gelu,
+                  encoder_attention=pipe.encoder_attention, max_tokens=pipe.max_tokens,
+                  suppress_ids=pipe._suppress_ids, timestamps=True, apply_filters=True,
+                  self_kv_quant=pipe.self_kv_quant,
+                  prompt_pad=None if pads is None else torch.from_numpy(pads).to(dev),
+                  sot_index=sot_index)
+        prompt_t = torch.from_numpy(prompts).to(dev)
+        if pipe.beam_size and pipe.beam_size > 1:
+            res = beam_search(pipe.model, mel, prompt_t, pipe.compute_dtype,
+                              beam_size=pipe.beam_size, **kw)
+        else:
+            res = greedy_decode(pipe.model, mel, prompt_t, pipe.compute_dtype,
+                                cross_decode=pipe.cross_decode, **kw)
         stats["rounds"] += 1
         stats["windows"] += len(live)
         stats["steps"] += res.steps

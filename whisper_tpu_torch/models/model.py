@@ -25,7 +25,10 @@ kernel ``cross_decode`` names (the JAX package's
 :func:`~whisper_tpu_torch.ops.decode_attention.cross_attention_decode_dense`.
 The JAX value ``0`` of both knobs (XLA's einsum attention) has no
 counterpart: on the card every attention at these sites runs a kernel, and
-an unknown selection raises ``ValueError``. The W8A8 encoder's linears go
+an unknown selection raises ``ValueError``. Beam search's step
+(``decoder_forward(beam_k=K)``) is the exception JAX makes too: its
+cross-attention folds the beams into the query axis and is the plain
+product, with no kernel selected. The W8A8 encoder's linears go
 through two kernels: the row quantization
 :func:`~whisper_tpu_torch.ops.quantize_rows.quantize_rows` (K8q) and the int8
 GEMM with the scale epilogue fused in,
@@ -664,6 +667,7 @@ def decoder_forward(
     pad: Optional[torch.Tensor] = None,  # (B,) masked left-pad length
     gelu: str = "erf",
     cross_decode: str = "fd",
+    beam_k: Optional[int] = None,  # cross_kv batch is B // beam_k (shared)
 ):
     """Run S decoder positions starting at ``offset`` against the KV cache.
 
@@ -680,6 +684,14 @@ def decoder_forward(
     "legacy" or "dense", see the module docstring); prefill (S > 1) takes
     :func:`attention_kvt` / :func:`attention_int8kv_perpos` and
     :func:`attention_int8kv`, as the JAX package does.
+
+    ``beam_k``: the K beams of an utterance share its cross-KV, so beam
+    search passes the cross-KV UNEXPANDED (batch B // beam_k) and the
+    cross-attention folds each utterance's K beams into the query axis
+    (:func:`_fold_beams`): one :func:`attention_int8kv` (or
+    :func:`attention` for a float cross-KV) of K queries a row, as the JAX
+    package's einsum, never a decode kernel. Self-attention stays per beam
+    (batch B) and keeps its kernel.
     """
     check_selections(cross_decode=cross_decode)
     cfg = model.cfg
@@ -741,31 +753,50 @@ def decoder_forward(
                     o = attention_kvt(qh, c.k[layer].to(dt), c.v[layer].to(dt), mask=vis_r)
             outs.append(_merge_heads(o))
         x = x + _row_parallel(outs, [blk.attn["wo"] for blk in blks], b0.attn["bo"], dt)
-        x = _cross_and_mlp(x, blks, layer, crosses, kv_quant and S == 1, n_head, dt, gelu,
-                           cross_decode)
+        x = _cross_and_mlp(x, blks, layer, crosses, kv_quant and S == 1 and beam_k is None,
+                           n_head, dt, gelu, cross_decode, beam_k)
 
     x = layer_norm(x, dec.ln["g"], dec.ln["b"])
     return _model_logits(model, x, dt), kv
 
 
+def _fold_beams(qh: torch.Tensor, k: int) -> torch.Tensor:
+    """(Bu*K, H, S, dh) -> (Bu, H, K*S, dh): each utterance's K beams as
+    the query rows of one attention against its shared cross-KV."""
+    N, H, S, dh = qh.shape
+    return qh.reshape(N // k, k, H, S, dh).transpose(1, 2).reshape(N // k, H, k * S, dh)
+
+
+def _unfold_beams(o: torch.Tensor, k: int) -> torch.Tensor:
+    """The inverse of :func:`_fold_beams`."""
+    Bu, H, KS, dh = o.shape
+    return o.reshape(Bu, H, k, KS // k, dh).transpose(1, 2).reshape(Bu * k, H, KS // k, dh)
+
+
 def _cross_and_mlp(x, blks, layer: int, crosses, decode_kernel: bool, n_head: int, dt,
-                   gelu: str, cross_decode: str = "fd") -> torch.Tensor:
+                   gelu: str, cross_decode: str = "fd",
+                   beam_k: Optional[int] = None) -> torch.Tensor:
     """A decoder block after its self-attention, over the ranks' blocks
     ``blks`` and cross-KVs ``crosses``: cross-attention on each rank's local
     heads (where ``decode_kernel``, the int8 decode kernel ``cross_decode``
-    selects) and the MLP, residuals included."""
+    selects; under ``beam_k`` the beams folded into the query axis) and the
+    MLP, residuals included."""
     b0 = blks[0]
     h = layer_norm(x, b0.cross_ln["g"], b0.cross_ln["b"])
     outs = []
     for ckv, (q,) in zip(crosses, _column(
             h, [[(blk.cross["wq"], blk.cross["bq"])] for blk in blks], dt)):
         qh = _split_heads(q, n_head)
+        if beam_k is not None:
+            qh = _fold_beams(qh, beam_k)
         if decode_kernel:
             o = _cross_decode_kernel(cross_decode)(qh, *(t[layer] for t in ckv))
         elif len(ckv) == 4:
             o = attention_int8kv(qh, *(t[layer] for t in ckv))
         else:
             o = attention(qh, ckv[0][layer].to(dt), ckv[1][layer].to(dt))
+        if beam_k is not None:
+            o = _unfold_beams(o, beam_k)
         outs.append(_merge_heads(o))
     x = x + _row_parallel(outs, [blk.cross["wo"] for blk in blks], b0.cross["bo"], dt)
     h = layer_norm(x, b0.mlp_ln["g"], b0.mlp_ln["b"])

@@ -1,4 +1,4 @@
-"""End-to-end ASR pipeline: audio -> mel -> encode -> greedy decode -> text.
+"""End-to-end ASR pipeline: audio -> mel -> encode -> greedy or beam decode -> text.
 
 Port of ``whisper_tpu/pipeline.py``'s ``WhisperPipeline``:
 ``transcribe_batch`` (fixed windows), ``transcribe_longform`` (seek-based,
@@ -6,16 +6,18 @@ with timestamps), ``transcribe`` and ``run``, with timestamps,
 ``initial_prompt``, condition-on-previous-text, a sampling ``temperature``
 and OpenAI's temperature-fallback ladder (``temperature_fallback``: the rows
 that fail the compression-ratio or logprob gate are decoded again at 0.2,
-0.4, ... 1.0 against the batch's cross-KV). As in the JAX package, the seek
-loop decodes greedily and without the ladder. ``checkpoint`` loads real
+0.4, ... 1.0 against the batch's cross-KV) and beam search (``beam_size``
+above 1: ``beam.beam_search_kv``; the ladder retries a beam decode's failed
+rows by sampling, one beam each, as after greedy). As in the JAX package,
+the seek loop runs without the ladder. ``checkpoint`` loads real
 weights (``models/checkpoint.load_checkpoint``: an OpenAI ``.pt``, an HF
 directory or a bare ``.safetensors``) and, as in the JAX package, turns the
 ladder on unless told otherwise. ``language=None`` detects each chunk's
 language from the batch's one cross-KV (``decode.detect_language_kv``) and
 builds each row's prompt from it; an utterance takes its first chunk's.
 Arguments of the JAX pipeline that this port does not carry yet raise
-``NotImplementedError`` instead of being ignored: beam search, speculative
-decoding and word timestamps.
+``NotImplementedError`` instead of being ignored: speculative decoding and
+word timestamps.
 
 Runs on ``device`` ("cuda" by default); asking for cuda without a card
 raises. Nothing moves to the CPU unless the caller asks for it.
@@ -44,6 +46,7 @@ import torch
 from torch.profiler import record_function
 
 from .config import LANGUAGES, N_SAMPLES, get_config
+from .beam import beam_search_kv
 from .decode import (
     GreedyResult,
     detect_language_kv,
@@ -110,7 +113,8 @@ def resolve_device(device) -> torch.device:
 
 
 class WhisperPipeline:
-    """Load once, transcribe many: batched greedy transcription."""
+    """Load once, transcribe many: batched greedy or beam transcription
+    (``beam_size`` 0 or 1: greedy)."""
 
     def __init__(
         self,
@@ -148,7 +152,6 @@ class WhisperPipeline:
         params: Optional[Whisper] = None,
     ):
         unported = {
-            "beam_size > 1": bool(beam_size and beam_size > 1),
             "spec_draft": bool(spec_draft or spec_draft_checkpoint),
             "word_timestamps": word_timestamps,
         }
@@ -167,6 +170,7 @@ class WhisperPipeline:
         self.language = language  # None: detected per chunk
         self.compute_dtype = _DTYPES[compute_dtype]
         self.max_tokens = max_tokens
+        self.beam_size = beam_size
         self.timestamps = timestamps
         self.apply_filters = apply_filters
         self.kv_quant = kv_quant
@@ -186,7 +190,7 @@ class WhisperPipeline:
         self.condition_on_previous_text = condition_on_previous_text
         self.initial_prompt = initial_prompt
         self.longform_overlap = int(longform_overlap_s * 16000)
-        self.last_decode: Optional[GreedyResult] = None
+        self.last_decode = None  # the GreedyResult or BeamResult of the last batch
         self.last_seek: Optional[dict] = None  # rounds, windows, steps of transcribe_longform
 
         if checkpoint is not None:
@@ -268,15 +272,20 @@ class WhisperPipeline:
             prompts = np.concatenate([np.tile(prefix[None], (len(prompts), 1)), prompts], axis=1)
             sot_index = len(prefix)
         with record_function("whisper.decode"):
-            result = greedy_decode_kv(
-                self.model, cross_kv, torch.from_numpy(prompts).to(self.device),
-                self.compute_dtype, max_tokens=self.max_tokens,
-                suppress_ids=self._suppress_ids, apply_filters=self.apply_filters,
-                self_kv_quant=self.self_kv_quant, gelu=self.gelu,
-                timestamps=self.timestamps, sot_index=sot_index, cross_decode=self.cross_decode,
-                temperature=self.temperature)
-            # OpenAI's ladder falls back from t=0 to sampling at rising
-            # temperatures, re-decoding only the rows that failed
+            kw = dict(max_tokens=self.max_tokens, suppress_ids=self._suppress_ids,
+                      apply_filters=self.apply_filters, self_kv_quant=self.self_kv_quant,
+                      gelu=self.gelu, timestamps=self.timestamps, sot_index=sot_index)
+            prompt_t = torch.from_numpy(prompts).to(self.device)
+            if self.beam_size and self.beam_size > 1:
+                result = beam_search_kv(self.model, cross_kv, prompt_t, self.compute_dtype,
+                                        beam_size=self.beam_size, **kw)
+            else:
+                result = greedy_decode_kv(self.model, cross_kv, prompt_t, self.compute_dtype,
+                                          cross_decode=self.cross_decode,
+                                          temperature=self.temperature, **kw)
+            # OpenAI's ladder falls back from beam or greedy at t=0 to
+            # sampling at rising temperatures, re-decoding only the rows
+            # that failed
             if self.temperature_fallback:
                 result = self._temperature_retry(result, cross_kv, prompts, sot_index)
         self.last_decode = result
@@ -307,7 +316,7 @@ class WhisperPipeline:
             pos += nc
         return out
 
-    def _needs_retry(self, result: GreedyResult, prompts: np.ndarray) -> np.ndarray:
+    def _needs_retry(self, result, prompts: np.ndarray) -> np.ndarray:
         """OpenAI failure criteria: repetitive text or low confidence,
         except silent rows, which are skipped, not retried."""
         texts = extract_texts(result, prompts.shape[1], self.tokenizer,
@@ -318,13 +327,14 @@ class WhisperPipeline:
                        dtype=bool)
         return bad & ~silence_mask(result, self.no_speech_threshold, self.logprob_threshold)
 
-    def _temperature_retry(self, result: GreedyResult, cross_kv, prompts: np.ndarray,
-                           sot_index: int = 0) -> GreedyResult:
-        """Whisper's temperature ladder: re-decode the failed rows at 0.2,
-        0.4, ... 1.0 (those above ``self.temperature``), each rung with seed
+    def _temperature_retry(self, result, cross_kv, prompts: np.ndarray, sot_index: int = 0):
+        """Whisper's temperature ladder: re-decode the failed rows of a greedy
+        or beam decode at 0.2, 0.4, ... 1.0 (those above
+        ``self.temperature``) by sampling, each rung with seed
         ``int(temp * 1000)``, until the quality criteria pass. Reuses the
         batch's cross-KV (indexed, not re-encoded); keeps the first decode's
-        no-speech probabilities."""
+        no-speech probabilities. After a retry the result is a
+        ``GreedyResult``, as in the JAX package."""
         for temp in [t for t in (0.2, 0.4, 0.6, 0.8, 1.0) if t > self.temperature]:
             bad = self._needs_retry(result, prompts)
             if not bad.any():
@@ -340,9 +350,10 @@ class WhisperPipeline:
             tokens, lengths, avg_lp = (t.clone() for t in (result.tokens, result.lengths,
                                                             result.avg_logprob))
             tokens[idx], lengths[idx], avg_lp[idx] = sub.tokens, sub.lengths, sub.avg_logprob
-            result = result._replace(tokens=tokens, lengths=lengths, avg_logprob=avg_lp,
-                                     steps=result.steps + sub.steps,
-                                     host_syncs=result.host_syncs + sub.host_syncs)
+            result = GreedyResult(tokens=tokens, lengths=lengths,
+                                  no_speech_prob=result.no_speech_prob, avg_logprob=avg_lp,
+                                  steps=result.steps + sub.steps,
+                                  host_syncs=result.host_syncs + sub.host_syncs)
         return result
 
     def transcribe(self, audio: Union[str, bytes, np.ndarray],

@@ -3,6 +3,8 @@ end, the single-engine path of ``python -m whisper_tpu.serving``.
 
     python -m whisper_tpu_torch.serving --model_type turbo --port 8000
     python -m whisper_tpu_torch.serving --model_type turbo --tp 2 --port 8000
+    python -m whisper_tpu_torch.serving --model_type turbo --max_beam_size 8 \
+        --length_penalty 1.0 --port 8000   # then POST /asr?beam=5
     python -m whisper_tpu_torch.serving --model_type test-nano --device cpu \\
         --dtype float32 --no-w8a8 --port 8000
 
@@ -21,7 +23,9 @@ the JAX server does over N chips, and exits non-zero without them.
 the admission encoder into N paced layer groups, ``--adaptive_sync`` sizes
 rounds at 1, 2 or 4 times ``--steps_per_sync``, and ``--router_overlap_s``
 is the overlap of the windows a request over 30 s is split into (the JAX
-server passes it to its engines and its router). Flags of features not
+server passes it to its engines and its router). ``--max_beam_size`` caps a
+request's ``beam`` (above it: a 400) and ``--length_penalty`` is the beams'
+GoogleNMT alpha (default: mean log-prob). Flags of features not
 ported yet (``--dp`` > 1, ``--backends``) exit non-zero and name the
 feature; so does a checkpoint that cannot be read.
 """
@@ -85,8 +89,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--temperature_fallback", default="0.2,0.4,0.6,0.8,1.0",
                    help="comma-separated retry-ladder temperatures for low-quality "
                         "results ('' disables)")
+    p.add_argument("--max_beam_size", type=int, default=8,
+                   help="per-request beam=K ceiling")
     p.add_argument("--beam_batch_max", type=int, default=8,
-                   help="aux worker (sampled decodes, ladder retries) micro-batch size")
+                   help="aux worker (beams, sampled decodes, ladder retries) micro-batch size")
+    p.add_argument("--length_penalty", type=float, default=None,
+                   help="GoogleNMT length-penalty alpha for beam scoring "
+                        "(default: mean logprob)")
     return p.parse_args(argv)
 
 
@@ -156,6 +165,8 @@ def build_engine(args: argparse.Namespace, mesh=None):
         longform_overlap_s=args.router_overlap_s,
         temperature_fallback=tuple(float(x) for x in args.temperature_fallback.split(",") if x),
         beam_batch_max=args.beam_batch_max,
+        max_beam_size=args.max_beam_size,
+        length_penalty=args.length_penalty,
     )
     return engine, {"load_s": t_load, "quantize_s": t_quant,
                     "place_s": time.perf_counter() - t0}

@@ -1,6 +1,6 @@
 """Continuous-batching inference engine: greedy slots, an encode thread, an
-aux worker for sampled decodes and the temperature ladder, on one card or a
-TP mesh.
+aux worker for beams, sampled decodes and the temperature ladder, on one
+card or a TP mesh.
 
 Port of ``whisper_tpu/serving/engine.py``. The engine keeps a fixed pool of
 ``max_slots`` decode slots on the device:
@@ -39,12 +39,16 @@ text so far, under ``condition_on_previous``) and are merged
 (``longform.merge_transcripts``).
 
 The aux worker (its own thread after :meth:`start`, one round per
-:meth:`aux_round` in tests) decodes ``temperature > 0`` requests: a
-micro-batch of one temperature and context width gets a bucketed encode
-through the engine's own encode function and a sampled ``greedy_decode_kv``,
-with its own caches. OpenAI's temperature ladder (``temperature_fallback``)
-sends a result that fails the compression-ratio or logprob gate there again
-at the next temperature, from the slots or from the aux worker itself.
+:meth:`aux_round` in tests) decodes ``beam_size > 1`` and ``temperature >
+0`` requests (the JAX engine's beam worker): a micro-batch of one effective
+beam size, temperature and context width gets a bucketed encode through the
+engine's own encode function, then ``beam.beam_search_kv`` (t = 0, K > 1,
+with ``length_penalty``) or a sampled ``greedy_decode_kv`` (t > 0: beams
+only at t = 0, as in OpenAI's decoder, so a retried beam request samples
+one beam), with its own caches. ``max_beam_size`` caps a request's K.
+OpenAI's temperature ladder (``temperature_fallback``) sends a result that
+fails the compression-ratio or logprob gate there again at the next
+temperature, from the slots or from the aux worker itself.
 
 Under a ``mesh`` (tensor parallelism over its MODEL axis) the weights are
 split per rank (``parallel.sharding.shard_params``) and the slot caches and
@@ -60,8 +64,7 @@ harvest; on the aux worker, per micro-batch, read at once. The request keeps
 ``language="auto"`` (a retried request detects again); the detected code
 goes into ``language_resolved`` and the reply's ``language``.
 
-Not ported yet, and refused with ``NotImplementedError``: beams and word
-timestamps.
+Not ported yet, and refused with ``NotImplementedError``: word timestamps.
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..beam import beam_search_kv
 from ..config import LANGUAGES, N_SAMPLES
 from ..decode import detect_language_kv, encode_cross_kv, extract_texts, greedy_decode_kv
 from ..longform import (
@@ -114,7 +118,7 @@ class Request:
     audio: np.ndarray          # mono f32 @16k; over 30 s is split into windows
     language: str = "zh"       # a code, or "auto" (None) to detect it
     task: str = "transcribe"
-    beam_size: int = 1         # > 1 is not ported
+    beam_size: int = 1         # > 1: beam search on the aux worker
     # per-request generated-token budget (None = the engine's max_tokens),
     # capped by the engine's bucketed cache
     max_tokens: Optional[int] = None
@@ -170,10 +174,11 @@ class EngineStats:
     no_speech_total: int = 0      # requests gated to "" by the silence rule
     low_quality_total: int = 0    # compression-ratio / logprob criteria failed
     retries_total: int = 0        # temperature-ladder re-decodes
-    # aux worker (sampled decodes): micro-batches, and the S=1 decoder steps
-    # and encoder passes they ran
+    # aux worker (beams and sampled decodes): micro-batches, and the S=1
+    # decoder steps they ran
     aux_batches_total: int = 0
     aux_steps_total: int = 0
+    beam_requests_total: int = 0  # requests served by beam search (K > 1)
     # language-detection steps (admission and aux batches with an auto row)
     detect_batches_total: int = 0
     # host-side phase breakdown of busy time: eager launches return before
@@ -297,8 +302,10 @@ class ContinuousBatchingEngine:
     encode's attention kernel and ``cross_decode`` the decode step's int8
     cross-attention kernel (see ``models/model.py``).
     ``temperature_fallback`` is the retry ladder (off when empty, as for
-    library users of the JAX engine; its server turns it on), and
-    ``beam_batch_max`` caps an aux micro-batch. ``timestamps`` decodes with
+    library users of the JAX engine; its server turns it on),
+    ``beam_batch_max`` caps an aux micro-batch, ``max_beam_size`` a
+    request's beam size, and ``length_penalty`` is the beams' GoogleNMT
+    alpha (None: mean log-prob). ``timestamps`` decodes with
     timestamp tokens; ``encode_chunks`` splits the admission encoder into
     that many layer groups; ``adaptive_sync`` sizes rounds at 1, 2 or 4
     times ``steps_per_sync``; ``longform_overlap_s`` is the overlap of the
@@ -329,6 +336,8 @@ class ContinuousBatchingEngine:
         adaptive_sync: bool = False,
         beam_batch_max: int = 8,
         longform_overlap_s: float = 2.0,
+        max_beam_size: int = 8,
+        length_penalty: Optional[float] = None,
     ):
         check_selections(encoder_attention, cross_decode)
         cfg = model.cfg
@@ -366,6 +375,8 @@ class ContinuousBatchingEngine:
         # aux worker at the next temperature instead of resolving
         self.temperature_fallback = tuple(temperature_fallback or ())
         self.beam_batch_max = beam_batch_max
+        self.max_beam_size = max_beam_size
+        self.length_penalty = length_penalty
         # while slots are decoding, at most this many newcomers encode per
         # round, so one admission stalls the active slots by a small encoder
         # pass; an idle engine admits whole buckets
@@ -478,14 +489,15 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------- API
     def submit(self, req: Request) -> Future:
+        if req.beam_size > self.max_beam_size:
+            raise ValueError(f"beam_size {req.beam_size} exceeds the engine cap "
+                             f"{self.max_beam_size}")
         if not (0.0 <= req.temperature <= 2.0):
             raise ValueError(f"temperature {req.temperature} not in [0, 2]")
         if req.task not in ("transcribe", "translate"):
             raise ValueError(f"bad task {req.task!r}")
-        unported = {"beam_size > 1": req.beam_size > 1, "word_timestamps": req.word_timestamps}
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(f"not ported to whisper_tpu_torch yet: {', '.join(asked)}")
+        if req.word_timestamps:
+            raise NotImplementedError("not ported to whisper_tpu_torch yet: word_timestamps")
         if not _auto(req):
             self.cfg.sot_sequence(req.language, req.task)  # ValueError on an unknown language
         if len(req.audio) > N_SAMPLES:
@@ -493,9 +505,9 @@ class ContinuousBatchingEngine:
         return self._enqueue(req)
 
     def _enqueue(self, req: Request) -> Future:
-        """A request of at most 30 s to the slots' queue, or (t > 0) to the
-        aux worker; OverloadedError when that queue is full."""
-        if req.temperature > 0:
+        """A request of at most 30 s to the slots' queue, or (beams, t > 0)
+        to the aux worker; OverloadedError when that queue is full."""
+        if req.beam_size > 1 or req.temperature > 0:
             return self._submit_aux(req)
         try:
             self._queue.put_nowait(req)
@@ -665,6 +677,12 @@ class ContinuousBatchingEngine:
         fut = self.submit(Request(audio=audio, language=language, task=task,
                                   beam_size=beam_size))
         return fut.result(timeout=timeout)
+
+    def transcribe_beam(self, audio: np.ndarray, language: str = "zh",
+                        task: str = "transcribe", beam_size: int = 5,
+                        timeout: Optional[float] = 120.0) -> dict:
+        return self.transcribe(audio, language=language, task=task, timeout=timeout,
+                               beam_size=beam_size)
 
     def _submit_aux(self, req: Request) -> Future:
         with self._aux_cv:
@@ -1201,16 +1219,17 @@ class ContinuousBatchingEngine:
         return True
 
     def _resolve(self, req: Request, text: str, n_tok: int, nsp: float, avg_lp: float,
-                 comp: float, quality_ok: bool):
-        """Count a finished request and set its reply (from the slots or the
-        aux worker)."""
+                 comp: float, quality_ok: bool, beam_size: Optional[int] = None):
+        """Count a finished request and set its reply (from the slots, or
+        from the aux worker, whose replies name the ``beam_size`` decoded)."""
         wall = time.perf_counter() - req.enqueued_at
         audio_s = len(req.audio) / 16000.0
         with self._stats_lock:
             self.stats.requests_total += 1
+            self.stats.beam_requests_total += (beam_size or 1) > 1
             self.stats.tokens_total += n_tok
             self.stats.audio_seconds_total += audio_s
-        _safe_set_result(req.future, {
+        reply = {
             "success": True,
             "text": text,
             "language": self._effective_language(req),
@@ -1224,7 +1243,10 @@ class ContinuousBatchingEngine:
             "avg_logprob": avg_lp,
             "compression_ratio": comp,
             "quality_ok": quality_ok,
-        })
+        }
+        if beam_size is not None:
+            reply["beam_size"] = beam_size
+        _safe_set_result(req.future, reply)
 
     def _add_busy(self, seconds: float):
         with self._stats_lock:
@@ -1349,9 +1371,10 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------- aux worker
     def _aux_collect(self) -> List[Request]:
-        """Take a micro-batch of one temperature and one context width (at
-        most ``beam_batch_max``) from the left of the aux deque; the other
-        requests keep their place."""
+        """Take a micro-batch of one effective beam size, temperature and
+        context width (at most ``beam_batch_max``) from the left of the aux
+        deque; the other requests keep their place. A request at t > 0
+        samples (beams only at t = 0), so its effective beam size is 1."""
         with self._aux_cv:
             batch: List[Request] = []
             keep: List[Request] = []
@@ -1365,21 +1388,24 @@ class ContinuousBatchingEngine:
                     _safe_set_exception(r.future, TimeoutError(
                         f"deadline {r.deadline_s}s expired in aux queue"))
                     continue
-                rk = (r.temperature, self._prev_width([len(self._context_ids(r))]))
+                prev_w = self._prev_width([len(self._context_ids(r))])
+                rk = ((1, r.temperature, prev_w) if r.temperature > 0
+                      else (r.beam_size, 0.0, prev_w))
                 key = key or rk
                 (batch if rk == key else keep).append(r)
             self._aux_pending.extendleft(reversed(keep))
             return batch
 
     def _run_aux_batch(self, reqs: List[Request]):
-        """One micro-batched sampled decode: bucketed encode through
-        :meth:`_encode` (int8 cross-KV and the mesh apply), then
-        ``greedy_decode_kv`` of the slots' right-aligned prompts at the
-        batch's temperature (seed 0, as the JAX engine's) with its own
-        caches; results pass the same quality gate as the slots' and may
-        climb the ladder again."""
+        """One aux micro-batch: bucketed encode through :meth:`_encode` (int8
+        cross-KV and the mesh apply), then, on the slots' right-aligned
+        prompts with its own caches, ``beam_search_kv`` at the batch's beam
+        size (t = 0) or ``greedy_decode_kv`` at its temperature (seed 0, as
+        the JAX engine's); results pass the same quality gate as the slots'
+        and may climb the ladder again (sampling one beam)."""
         cfg = self.cfg
         temp = reqs[0].temperature
+        K = reqs[0].beam_size if temp == 0 else 1
         buckets = sorted({b for b in self.prefill_buckets if b <= self.beam_batch_max}
                          | {self.beam_batch_max})
         bucket = _bucket(len(reqs), buckets)
@@ -1393,11 +1419,16 @@ class ContinuousBatchingEngine:
         prev_w = self._prev_width([len(self._context_ids(r)) for r in reqs])
         prompts, pads, sot_index = self._prompt_rows(reqs, langs, prev_w, bucket)
         P = prompts.shape[1]
-        result = greedy_decode_kv(
-            self.model, cross, self._to_dev(prompts), self.dt, max_tokens=self.max_tokens,
-            suppress_ids=self._suppress, apply_filters=True, self_kv_quant=self.self_kv_quant,
-            timestamps=self.timestamps, prompt_pad=self._to_dev(pads) if prev_w else None,
-            sot_index=sot_index, cross_decode=self.cross_decode, temperature=float(temp))
+        kw = dict(max_tokens=self.max_tokens, suppress_ids=self._suppress, apply_filters=True,
+                  self_kv_quant=self.self_kv_quant, timestamps=self.timestamps,
+                  prompt_pad=self._to_dev(pads) if prev_w else None, sot_index=sot_index)
+        if temp > 0:
+            result = greedy_decode_kv(self.model, cross, self._to_dev(prompts), self.dt,
+                                      cross_decode=self.cross_decode, temperature=float(temp),
+                                      **kw)
+        else:
+            result = beam_search_kv(self.model, cross, self._to_dev(prompts), self.dt,
+                                    beam_size=K, length_penalty=self.length_penalty, **kw)
         self.stats.aux_batches_total += 1
         self.stats.aux_steps_total += result.steps
         texts = extract_texts(result, P, self.tokenizer, timestamps=self.timestamps)
@@ -1411,7 +1442,7 @@ class ContinuousBatchingEngine:
             if self._maybe_retry(r, quality_ok, silenced):
                 continue  # re-decoding at the next ladder temperature
             self._resolve(r, text, int(max(lens[i] - P, 0)), float(nsp_h[i]), float(lp_h[i]),
-                          comp, quality_ok)
+                          comp, quality_ok, beam_size=K)
 
     def aux_round(self) -> int:
         """Run one aux micro-batch if any is pending (the aux thread's round,

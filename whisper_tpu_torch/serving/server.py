@@ -12,17 +12,19 @@ Port of ``whisper_tpu/serving/server.py``. Both reference wire protocols on
 ``GET /health`` and ``GET /metrics`` (engine stats); JSON responses with CORS
 headers. Request options come from the query string, ``X-`` headers
 (``X-Initial-Prompt`` is read as UTF-8) or multipart fields:
+``beam`` (1 to the engine's ``max_beam_size``; above 1 the engine's aux
+worker decodes by beam search and the reply carries ``beam_size``),
 ``temperature`` (0 to 2; above 0 the engine samples on its aux worker),
 ``language=auto`` (detected; the reply's ``language`` names the code),
 ``initial_prompt``, ``condition_on_previous`` (for audio over 30 s, which is
 split into windows and merged), ``format=txt`` (the CLI's writer,
 ``text/plain``) and ``stream=1`` (``X-Stream: 1``: chunked NDJSON, one
 ``{"partial": text}`` line per decode round, then the reply). Status codes:
-400 for bad input (``stream`` with a ``format`` other than json too), 501
-for a request option this port does not serve yet (``beam`` > 1,
-``word_timestamps``, and ``format`` srt, vtt and tsv, whose segments come
-from word timings; the reply names it), 503 when the engine's queue is
-full, 504 on timeout, 500 otherwise.
+400 for bad input (``stream`` with a ``format`` other than json too, a
+``beam`` outside 1..``max_beam_size``), 501 for a request option this port
+does not serve yet (``word_timestamps``, and ``format`` srt, vtt and tsv,
+whose segments come from word timings; the reply names it), 503 when the
+engine's queue is full, 504 on timeout, 500 otherwise.
 """
 
 from __future__ import annotations
@@ -170,8 +172,8 @@ class WhisperHandler(BaseHTTPRequestHandler):
                 beam = int(opts.get("beam", "1"))
             except ValueError:
                 raise ValueError(f"bad beam {opts['beam']!r}") from None
-            if beam < 1:
-                raise ValueError("beam must be >= 1")
+            if not 1 <= beam <= self.engine.max_beam_size:
+                raise ValueError(f"beam must be in 1..{self.engine.max_beam_size}")
             try:
                 temperature = float(opts.get("temperature", "0"))
             except ValueError:
