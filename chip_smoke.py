@@ -61,13 +61,21 @@ drives each path while counting kernel launches:
   beside greedy on the same clips, the step's reorder and top-k, and one
   layer-step's folded cross-attention beside K2 on expanded cross-KV; then
   a burst of 24 clips to the turbo server (ladder off), 8 of them at
-  ``beam=5`` (multipart field and ``X-Beam``), on its aux worker.
+  ``beam=5`` (multipart field and ``X-Beam``), on its aux worker;
+- word timestamps: ``WhisperPipeline(word_timestamps=True)`` at the
+  offline configuration on its 64 clips, its wall beside the same pipeline
+  without words, the alignment pass's card time and the host's DTW; then a
+  burst of 12 requests to the turbo server (ladder off) with words: short
+  clips, ``format=srt``, ``vtt`` and ``tsv``, a clip of 60-90 s, a
+  ``beam=5`` and a ``temperature=0.4`` one (the align worker behind the
+  slots and the aux worker).
 
 Then it checks small fp32 runs of the paths on the card against the CPU
 (the offline one under each selection, the TP engine against the one-rank
 engine on the CPU, a sampled decode with the same noise on both, language
 detection, the engine's ``language=auto`` replies, prompted rows,
-timestamps and a long clip through the engine, beam search). Prints
+timestamps and a long clip through the engine, beam search, the alignment
+matrix and words of teacher-forced text and the same pass on a mesh). Prints
 JSON lines; the last is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it. Needs a CUDA card: without one it exits 1 and prints
 no result. ``chip_tp.py`` runs the tensor-parallel phases over distinct
@@ -2694,6 +2702,342 @@ def beam_reference_check() -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ words
+N_WORDS_SHORT = 6
+WORDS_TOL = 1e-4  # the alignment matrix, card vs CPU: fp32 sums in another order
+WORDS_MESH_TOL = 1e-5  # two ranks' head sums added on the lead device
+WORDS_TEXTS = {"en": " The quick brown fox, jumps over the lazy dog. Then it naps in the sun, "
+                     "dreaming of fields, rivers and the long road home.",
+               "zh": "我们今天去公园散步，天气很好。晚上回家做饭，然后看书。"}
+
+
+def _check_words(words, audio_s: float, where: str) -> None:
+    """A reply's words: a list whose words lie in [0, audio_s + 0.5] with
+    start <= end, starts sorted."""
+    if not isinstance(words, list):
+        raise AssertionError(f"{where}: words {words!r} is no list")
+    starts = [w["start"] for w in words]
+    if starts != sorted(starts) or not all(0 <= w["start"] <= w["end"] <= audio_s + 0.5
+                                           for w in words):
+        raise AssertionError(f"{where}: word times out of order or range: {words[:4]}")
+
+
+def words_phase(counters) -> dict:
+    """``WhisperPipeline(word_timestamps=True)`` at the offline
+    configuration (turbo B64 / 64 tokens / kvq + skvq + W8A8 / bf16, ladder
+    off) on the offline phase's 64 clips: warmed, the same pipeline without
+    words timed, then the run with words with the counts at 0. Launches are
+    exactly the decode's (the alignment pass is plain PyTorch); every row
+    has a word list of ordered words inside its clip. Reports the
+    alignment pass's card time (CUDA events) and the host's DTW and word
+    grouping."""
+    from whisper_tpu_torch import pipeline as pipeline_module
+    from whisper_tpu_torch.config import N_SAMPLES
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+
+    clock = {"pass_events": [], "dtw_s": 0.0}
+    real_pass, real_words = pipeline_module.alignment_matrix, pipeline_module.row_words
+
+    def timed_pass(*args, **kw):  # CUDA events around each sub-batch's pass
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_pass(*args, **kw)
+        end.record()
+        clock["pass_events"].append((start, end))
+        return out
+
+    def timed_words(*args, **kw):  # the host's DTW and grouping of one row
+        t0 = time.perf_counter()
+        out = real_words(*args, **kw)
+        clock["dtw_s"] += time.perf_counter() - t0
+        return out
+
+    pipe = WhisperPipeline(model="turbo", device="cuda", compute_dtype="bfloat16",
+                           quantize=True, w8a8=True, kv_quant=True, self_kv_quant=True,
+                           max_tokens=N_TOKENS, seed=0, temperature_fallback=False,
+                           word_timestamps=True)
+    rng = np.random.default_rng(0)  # the offline phase's clips
+    clips = list(rng.standard_normal((B, N_SAMPLES)).astype(np.float32) * 0.1)
+    pipe.transcribe_batch(clips)  # warm
+    pipe.word_timestamps = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = pipe.transcribe_batch(clips)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    pipe.word_timestamps = True
+    pipeline_module.alignment_matrix, pipeline_module.row_words = timed_pass, timed_words
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        results = pipe.transcribe_batch(clips)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline_module.alignment_matrix, pipeline_module.row_words = real_pass, real_words
+    launches = _launches(counters)
+    dec = pipe.last_decode
+    _expect("words", launches, pipe.cfg, 1, dec.steps)
+    for i, r in enumerate(results):
+        _check_words(r.words, r.audio_seconds, f"words row {i}")
+    if [r.text for r in results] != [r.text for r in plain]:
+        raise AssertionError("the texts with words differ from the texts without")
+    counts = [len(r.words) for r in results]
+    if not any(counts):
+        raise AssertionError("no row has a word")
+    P = len(pipe.cfg.sot_sequence(pipe.language, pipe.task))
+    S = min(max(32, 32 * math.ceil((int(dec.lengths.max()) + 1) / 32)), pipe.cfg.n_text_ctx)
+    rec = {"phase": "words", "model": "turbo", "batch": B, "max_tokens": N_TOKENS,
+           "dtype": "bfloat16", "quant": "int8 weights + w8a8 encoder + kvq + skvq",
+           "ladder": False, "wall_s": wall, "plain_wall_s": plain_wall,
+           "words_over_plain": wall / plain_wall,
+           "align_pass_s": sum(a.elapsed_time(b) for a, b in clock["pass_events"]) / 1e3,
+           "align_pass_timing": "CUDA events around each sub-batch's alignment_matrix",
+           "dtw_and_grouping_s": clock["dtw_s"], "align_batches": len(clock["pass_events"]),
+           "align_S": S, "generated_mean": float((dec.lengths.cpu().numpy() - P).mean()),
+           "words": sum(counts), "rows_with_words": sum(c > 0 for c in counts),
+           "words_head": [(w["word"], w["start"], w["end"]) for w in results[0].words[:3]],
+           "decode_steps": dec.steps, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del pipe
+    return rec
+
+
+_SRT_TIME = r"\d\d:\d\d:\d\d,\d{3}"
+_VTT_TIME = r"\d\d:\d\d:\d\d\.\d{3}"
+
+
+def _parse_subtitles(fmt: str, body: str) -> int:
+    """The number of cues of an srt, vtt or tsv body; raises where the body
+    does not parse: srt numbered 1, 2, ... with ``start --> end``, vtt
+    opening ``WEBVTT`` with ``start --> end`` cues, tsv a ``start end text``
+    header and integer milliseconds, start <= end."""
+    if fmt == "tsv":
+        head, *rows = body.rstrip("\n").split("\n")
+        if head != "start\tend\ttext":
+            raise AssertionError(f"tsv header {head!r}")
+        for row in rows:
+            start, end, _ = row.split("\t", 2)
+            if not (start.isdigit() and end.isdigit() and int(start) <= int(end)):
+                raise AssertionError(f"tsv row {row!r}")
+        return len(rows)
+    if fmt == "vtt":
+        if not body.startswith("WEBVTT\n\n"):
+            raise AssertionError(f"vtt body opens {body[:20]!r}")
+        body = body[len("WEBVTT\n\n"):]
+    cues = [c for c in body.split("\n\n") if c.strip()]
+    for i, cue in enumerate(cues, 1):
+        lines = cue.split("\n")
+        if fmt == "srt":
+            if lines[0] != str(i):
+                raise AssertionError(f"srt cue {i} numbered {lines[0]!r}")
+            lines = lines[1:]
+        time_re = _SRT_TIME if fmt == "srt" else _VTT_TIME
+        if not re.fullmatch(f"{time_re} --> {time_re}", lines[0]) or len(lines) < 2:
+            raise AssertionError(f"{fmt} cue {i}: {cue!r}")
+    return len(cues)
+
+
+def serving_words(counters) -> dict:
+    """The turbo server at its defaults with the ladder off (the greedy
+    core), one burst from client threads of 12 requests: 6 clips of 2-30 s
+    with ``word_timestamps=1``, one each of ``format=srt``, ``vtt`` and
+    ``tsv``, one of 60-90 s with words (its windows' words merged), and one
+    ``beam=5`` and one ``temperature=0.4`` request with words (the aux
+    worker). No reply has ``align_error``, every reply asked for words has
+    a list, the subtitle bodies parse, and the launches are exactly the
+    decode's (the aux worker's beam steps K3 alone, its sampled steps K2
+    and K3; the align worker launches none)."""
+    rng = np.random.default_rng(43)
+
+    def noise(lo, hi):
+        return (rng.standard_normal(int(16000 * rng.uniform(lo, hi))) * 0.1).astype(np.float32)
+
+    words = {"word_timestamps": 1}
+    jobs = [("words", noise(2, 30), words) for _ in range(N_WORDS_SHORT)]
+    jobs += [(fmt, noise(2, 30), {"format": fmt}) for fmt in ("srt", "vtt", "tsv")]
+    jobs += [("long", noise(60, 90), words), ("beam", noise(2, 30), {**words, "beam": BEAM_SIZE}),
+             ("sampled", noise(2, 30), {**words, "temperature": 0.4})]
+    engine, base, args, srv, thread, _, startup_s = _started(GREEDY)
+    url = f"{base}/asr"
+    aux_steps = {"beam": 0, "sampled": 0}
+    run_aux = engine._run_aux_batch
+
+    def counted(reqs):  # the aux steps by kind: beam steps launch K3 alone
+        before = engine.stats.aux_steps_total
+        run_aux(reqs)
+        kind = "beam" if reqs[0].temperature == 0 and reqs[0].beam_size > 1 else "sampled"
+        aux_steps[kind] += engine.stats.aux_steps_total - before
+
+    engine._run_aux_batch = counted
+    try:
+        st0 = engine.stats.snapshot()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            replies = list(pool.map(lambda job: _ask(url, job[1], job[2]), jobs))
+        wall = time.perf_counter() - t0
+        launches = _launches(counters)
+        st1 = engine.stats.snapshot()
+        with urllib.request.urlopen(f"{base}/metrics", timeout=30) as r:
+            metrics = json.load(r)
+    finally:
+        _stopped(engine, srv, thread)
+    bad = [(kind, code, str(reply)[:300]) for (kind, _, _), (code, reply, _) in zip(jobs, replies)
+           if code != 200 or (isinstance(reply, dict) and "align_error" in reply)]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(jobs)} word requests failed: {bad[:3]}")
+    cues = {}
+    for (kind, clip, _), (_, reply, _) in zip(jobs, replies):
+        if kind in ("srt", "vtt", "tsv"):
+            cues[kind] = _parse_subtitles(kind, reply)
+            continue
+        _check_words(reply.get("words"), len(clip) / 16000, f"serving_words {kind}")
+    by_kind = {kind: reply for (kind, _, _), (_, reply, _) in zip(jobs, replies)}
+    if (by_kind["beam"].get("beam_size") != BEAM_SIZE or by_kind["sampled"]["temperature"] != 0.4
+            or by_kind["long"].get("windows", 1) < 2):
+        raise AssertionError(f"aux or long replies: {str(by_kind)[:400]}")
+    delta = {key: st1[key] - st0[key] for key in (
+        "steps_total", "encode_batches_total", "aux_batches_total", "aux_steps_total",
+        "detect_batches_total", "align_total", "align_batches_total", "ticks_total")}
+    if sum(aux_steps.values()) != delta["aux_steps_total"]:
+        raise AssertionError(f"aux steps by kind {aux_steps} != {delta['aux_steps_total']}")
+    _expect(f"serving_words ({delta['steps_total']} slot steps, aux {aux_steps})", launches,
+            engine.cfg, delta["encode_batches_total"] + delta["aux_batches_total"],
+            delta["steps_total"] + aux_steps["sampled"], args.encoder_attention,
+            args.cross_decode, detects=delta["detect_batches_total"],
+            beam_steps=aux_steps["beam"])
+    lat = np.array([sec for _, _, sec in replies])
+    return {"phase": "serving_words", "model": "turbo",
+            "flags": "server defaults, --temperature_fallback ''",
+            "requests": {k: sum(1 for j in jobs if j[0] == k) for k in dict.fromkeys(
+                j[0] for j in jobs)}, "startup_s": startup_s, "wall_s": wall,
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p95_s": float(np.percentile(lat, 95)),
+            "latency_by_kind_s": {kind: sec for (kind, _, _), (_, _, sec) in zip(jobs, replies)},
+            "audio_s": sum(len(c) for _, c, _ in jobs) / 16000,
+            "align_total": delta["align_total"], "align_batches_total": delta["align_batches_total"],
+            "metrics_align_total": metrics["align_total"],
+            "words_per_reply": [len(r["words"]) for (k, _, _), (_, r, _) in zip(jobs, replies)
+                                if k not in cues], "cues": cues,
+            "long_windows": by_kind["long"]["windows"], "ticks": delta["ticks_total"],
+            "steps": delta["steps_total"], "admission_batches": delta["encode_batches_total"],
+            "aux_batches": delta["aux_batches_total"], "aux_steps": aux_steps,
+            "launches": launches}
+
+
+def _dtw_parting(m_a: np.ndarray, m_b: np.ndarray) -> dict:
+    """Where the DTW paths over two alignment matrices part: the first
+    divergent cell and the margin between ``m_a``'s best and second-best
+    moves into it (its accumulated costs), beside the two matrices' summed
+    difference, which bounds how far the costs can move."""
+    from whisper_tpu_torch.align import dtw_path
+
+    a, b = dtw_path(-m_a.astype(np.float64)), dtw_path(-m_b.astype(np.float64))
+    n = next((k for k in range(min(len(a[0]), len(b[0])))
+              if (a[0][k], a[1][k]) != (b[0][k], b[1][k])), None)
+    if n is None:
+        return {"cell": None}
+    cost = -m_a.astype(np.float64)
+    N, M = cost.shape
+    D = np.full((N + 1, M + 1), np.inf)
+    D[0, 0] = 0.0
+    for i in range(1, N + 1):
+        for j in range(1, M + 1):
+            D[i, j] = cost[i - 1, j - 1] + min(D[i - 1, j - 1], D[i - 1, j], D[i, j - 1])
+    i, j = int(a[0][n - 1]) + 1, int(a[1][n - 1]) + 1
+    moves = sorted([D[i, j], D[i - 1, j + 1] if j + 1 <= M else np.inf,
+                    D[i + 1, j] if i + 1 <= N else np.inf])
+    return {"cell": [i, j], "margin": float(moves[1] - moves[0]),
+            "drift": float(np.abs(m_a - m_b).sum())}
+
+
+def words_reference_check(device: str = "cuda") -> dict:
+    """tiny, fp32 (TF32 off): a word-heavy teacher-forced English row and a
+    zh row over the cross-KV of two seeded clips (computed once on the CPU,
+    int8, then dequantized on each side), through ``alignment_matrix`` on
+    the card and on the CPU with the same weights: within WORDS_TOL on the
+    rows and frames the host reads, and the same words (where a DTW near-tie
+    parts the paths, the first divergent cell and its margin are reported,
+    and the margin must lie within the matrices' difference). The same pass
+    on a (1, 2) mesh of two ranks on the card equals the unsharded one
+    within WORDS_MESH_TOL. ``device`` is the card's side."""
+    from whisper_tpu_torch.align import (alignment_head_mask, alignment_matrix,
+                                         dequantize_cross_kv, row_words)
+    from whisper_tpu_torch.config import N_SAMPLES, get_config
+    from whisper_tpu_torch.decode import encode_cross_kv
+    from whisper_tpu_torch.models.model import Shards
+    from whisper_tpu_torch.ops.mel import log_mel_batch
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.parallel.sharding import make_mesh, shard_params
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    cfg = get_config("tiny")
+    tok = get_tokenizer(num_languages=cfg.num_languages, task="transcribe")
+    rng = np.random.default_rng(19)
+    seconds = (12.0, 25.0)
+    audio = np.zeros((2, N_SAMPLES), np.float32)
+    for i, s in enumerate(seconds):
+        audio[i, :int(16000 * s)] = rng.standard_normal(int(16000 * s)) * 0.1
+    lengths = torch.tensor([int(16000 * s) for s in seconds])
+    cpu_model = init_params(cfg, seed=3, device="cpu")
+    mel = log_mel_batch(torch.from_numpy(audio), lengths, n_mels=cfg.n_mels)
+    cross_q = encode_cross_kv(cpu_model, mel, torch.float32, kv_quant=True)
+    langs = list(WORDS_TEXTS)
+    prompts = [list(cfg.sot_sequence(lang)) for lang in langs]
+    seqs = [p + tok.encode(WORDS_TEXTS[lang]) + [cfg.eot] for p, lang in zip(prompts, langs)]
+    S = 32 * math.ceil(max(map(len, seqs)) / 32)
+    tokens = np.full((2, S), cfg.eot, np.int64)
+    row_mask = np.zeros((2, S), bool)
+    for i, seq in enumerate(seqs):
+        tokens[i, :len(seq)] = seq
+        row_mask[i, len(prompts[i]):len(seq)] = True
+    frames = np.array([min(math.ceil(16000 * s / 320), cfg.n_audio_ctx) for s in seconds])
+    hm = torch.from_numpy(alignment_head_mask(cfg).astype(np.float32))
+    out = {}
+    for dev in (device, "cpu"):
+        model = init_params(cfg, seed=3, device="cpu").to_device(dev)
+        fp = dequantize_cross_kv(tuple(t.to(dev) for t in cross_q))
+        args = [torch.from_numpy(a).to(dev) for a in (tokens, row_mask, frames)]
+        matrix, tlp = alignment_matrix(model, args[0], fp, hm.to(dev), *args[1:])
+        out[dev] = (matrix.cpu().numpy(), tlp.cpu().numpy())
+        if dev == device:
+            halves = Shards([tuple(t[:, :, h * 3:(h + 1) * 3] for t in fp) for h in range(2)])
+            sharded = shard_params(init_params(cfg, seed=3, device="cpu").to_device(dev),
+                                   make_mesh(1, 2, devices=[dev, dev]))
+            mesh_m, _ = alignment_matrix(sharded, args[0], halves, hm.to(dev), *args[1:])
+            mesh_m = mesh_m.cpu().numpy()
+    rec = {"phase": "words_reference", "model": "tiny", "dtype": "float32",
+           "cross_kv": "int8 from the CPU, dequantized on each side", "rows": {}}
+    for i, (lang, seq) in enumerate(zip(langs, seqs)):
+        pl, L, F = len(prompts[i]), len(seq), int(frames[i])
+        (card, card_lp), (cpu, cpu_lp) = out[device], out["cpu"]
+        err = float(np.abs(card[i, pl:L, :F] - cpu[i, pl:L, :F]).max())
+        lp_err = float(np.abs(card_lp[i, :L - 1] - cpu_lp[i, :L - 1]).max())
+        mesh_err = float(np.abs(mesh_m[i, pl:L, :F] - card[i, pl:L, :F]).max())
+        if err > WORDS_TOL or lp_err > WORDS_TOL or mesh_err > WORDS_MESH_TOL:
+            raise AssertionError(f"words_reference {lang}: matrix {err}, log-probs {lp_err} "
+                                 f"(tol {WORDS_TOL}), mesh {mesh_err} (tol {WORDS_MESH_TOL})")
+        got, want = (row_words(m, lp, tokens[i], pl, L, F, lang, tok)
+                     for m, lp in ((card[i], card_lp[i]), (cpu[i], cpu_lp[i])))
+        key = [(w["word"], w["start"], w["end"]) for w in got]
+        parting = None
+        if key != [(w["word"], w["start"], w["end"]) for w in want]:
+            parting = _dtw_parting(card[i, pl:L - 1, :F], cpu[i, pl:L - 1, :F])
+            if parting["cell"] is None or parting["margin"] > parting["drift"]:
+                raise AssertionError(f"words_reference {lang}: words differ without a DTW "
+                                     f"near-tie: {parting}; {key} vs {want}")
+        rec["rows"][lang] = {"matrix_max_abs_err": err, "tol": WORDS_TOL,
+                             "logprob_max_abs_err": lp_err, "mesh_max_abs_err": mesh_err,
+                             "mesh_tol": WORDS_MESH_TOL, "words_equal": parting is None,
+                             "dtw_parting": parting, "words": len(got), "frames": F,
+                             "words_head": key[:4]}
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -2792,6 +3136,12 @@ def main() -> int:
     served_beams = serving_beam(counters)
     emit(served_beams)
     torch.cuda.empty_cache()
+    worded = words_phase(counters)
+    emit(worded)
+    torch.cuda.empty_cache()
+    served_words = serving_words(counters)
+    emit(served_words)
+    torch.cuda.empty_cache()
     emit(reference_check())
     emit(serving_reference_check())
     emit(longform_reference_check())
@@ -2801,6 +3151,7 @@ def main() -> int:
     emit(serving_auto_reference_check())
     emit(serving_options_reference_check())
     emit(beam_reference_check())
+    emit(words_reference_check())
     emit({"phase": "profiler", **PROFILER_MISSES})
 
     # each kernel's counts from the runs of the path that selects it; the
@@ -2823,7 +3174,8 @@ def main() -> int:
         k["serving_auto_launches"] = auto["launches"][name]
         for path, rec in (("serving_options", options), ("serving_timestamps", stamped),
                           ("serving_paced", paced), ("beam", beams),
-                          ("serving_beam", served_beams)):
+                          ("serving_beam", served_beams), ("words", worded),
+                          ("serving_words", served_words)):
             k[f"{path}_launches"] = rec["launches"][name]
         if name == "self_attention_decode_int8":  # K3's float variant: the detection step
             k["float_launches"] = {path: rec["launches"]["self_attention_decode"]
@@ -2832,7 +3184,8 @@ def main() -> int:
             "serving_launches", "longform_launches", "ladder_launches", "tp_launches",
             "checkpoint_launches", "serving_auto_launches", "serving_options_launches",
             "serving_timestamps_launches", "serving_paced_launches", "beam_launches",
-            "serving_beam_launches", "float_launches",
+            "serving_beam_launches", "words_launches", "serving_words_launches",
+            "float_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}),

@@ -214,15 +214,21 @@ def test_pipeline_texts_equal_jax():
 
 
 def test_pipeline_refuses_unported_options():
-    """Still refused: word timestamps, speculative decoding. Beams 0 and 1
-    decode greedily (beams above 1 are held against JAX in
-    test_torch_beam_serving.py). Timestamps, initial_prompt, seek-based
+    """Still refused: speculative decoding. Word timestamps are served (held
+    against JAX in test_torch_words_serving.py): a result carries its word
+    list. Beams 0 and 1 decode greedily (beams above 1 are held against JAX
+    in test_torch_beam_serving.py). Timestamps, initial_prompt, seek-based
     long-form, sampling and its ladder, checkpoints and the auto language
     are ported (tests below, in test_torch_longform.py, test_torch_ladder.py,
     test_torch_checkpoint.py and test_torch_language.py)."""
-    for kw in (dict(word_timestamps=True), dict(spec_draft="tiny")):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(spec_draft="tiny"), dict(spec_draft_checkpoint="draft.pt")):
+        with pytest.raises(NotImplementedError, match="spec_draft"):
             WhisperPipeline(model="test-nano", device="cpu", **kw)
+    pipe = WhisperPipeline(model="test-nano", device="cpu", word_timestamps=True, max_tokens=4,
+                           language="en")
+    (res,) = pipe.transcribe_batch([np.random.default_rng(2).standard_normal(16000)
+                                    .astype(np.float32) * 0.1])
+    assert isinstance(res.words, list) and res.words
     for beam in (0, 1):
         pipe = WhisperPipeline(model="test-nano", device="cpu", beam_size=beam, max_tokens=4)
         pipe.transcribe_batch([np.zeros(16000, np.float32)])

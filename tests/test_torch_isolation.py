@@ -53,7 +53,8 @@ assert not bad, bad
                                     "whisper_tpu_torch.models.checkpoint",
                                     "whisper_tpu_torch.eval.quant_gate",
                                     "whisper_tpu_torch.eval.wer",
-                                    "whisper_tpu_torch.eval.__main__"])
+                                    "whisper_tpu_torch.eval.__main__",
+                                    "whisper_tpu_torch.align"])
 def test_new_modules_import_alone(module):
     """Each module of the long-form, kernel-selection, tensor-parallel and
     real-weights slices, imported alone, loads none of the forbidden modules (and no

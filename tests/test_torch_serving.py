@@ -50,11 +50,17 @@ class IdTok:
     """Decodes to the ids themselves, so a reply carries its tokens; the
     suppressed non-speech set is the real tokenizer's."""
 
+    eot = PCFG.eot
+
     def __init__(self):
         self.non_speech_tokens = get_tokenizer(num_languages=PCFG.num_languages).non_speech_tokens
 
     def decode(self, ids):
         return " ".join(str(int(i)) for i in ids)
+
+    def split_to_word_tokens(self, ids):
+        """One word a token, for word timings."""
+        return [f" {int(i)}" for i in ids], [[int(i)] for i in ids]
 
 
 def _ids(res: dict):
@@ -223,17 +229,27 @@ def test_engine_per_request_max_tokens(jax_params):
     assert _ids(a) == _ids(b)[:3]  # the same clip: the short one is a prefix
 
 
-UNPORTED_REQUESTS = {
+# request options the engine refused until they were ported; each is served
+# now (word timings against the JAX engine in test_torch_words_serving.py)
+FORMERLY_REFUSED_REQUESTS = {
     "word_timestamps": dict(word_timestamps=True),
 }
 
 
-@pytest.mark.parametrize("option", list(UNPORTED_REQUESTS))
+@pytest.mark.parametrize("option", list(FORMERLY_REFUSED_REQUESTS))
 def test_engine_refuses_unported_request_options(jax_params, option):
+    """No request option is refused as not ported any more: the option is
+    accepted and its reply carries what it asks for (``words``)."""
     eng = _engine(jax_params)
-    kw = {"audio": np.zeros(1600, np.float32), **UNPORTED_REQUESTS[option]}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.submit(Request(**kw))
+    kw = {"audio": _clips(4, (1.0,))[0], **FORMERLY_REFUSED_REQUESTS[option]}
+    fut = eng.submit(Request(**kw))
+    deadline = time.monotonic() + 60
+    while not fut.done() and time.monotonic() < deadline:  # the align worker is a thread
+        eng._tick()
+        time.sleep(0.005)
+    reply = fut.result(timeout=0)
+    assert isinstance(reply["words"], list) and "align_error" not in reply
+    eng.stop()
 
 
 def test_engine_serves_a_beam_submit(jax_params):
@@ -340,18 +356,28 @@ def test_http_bad_inputs_answer_400(http_server, case):
     assert code == 400 and res["success"] is False
 
 
-# format=srt: its segments come from word timings, so it needs word_timestamps
-UNPORTED_HTTP = {
+# options the server answered 501 until word timings were ported; format=srt
+# builds its segments from word timings, so it turns word_timestamps on
+FORMERLY_501_HTTP = {
     "word_timestamps": {"X-Word-Timestamps": "1"}, "format": {"X-Format": "srt"},
 }
 
 
-@pytest.mark.parametrize("option", list(UNPORTED_HTTP))
+@pytest.mark.parametrize("option", list(FORMERLY_501_HTTP))
 def test_http_unported_options_answer_501(http_server, option):
-    pcm = np.zeros(1600, "<f4").tobytes()
-    code, res = _post_error(f"{http_server}/asr", pcm,
-                            {"Content-Type": "application/octet-stream", **UNPORTED_HTTP[option]})
-    assert code == 501 and "not ported" in res["error"]
+    """Both options are served now: 200 with the reply's words, or an srt
+    body of numbered cues."""
+    pcm = _clips(8, (1.0,))[0].astype("<f4").tobytes()
+    req = urllib.request.Request(f"{http_server}/asr", data=pcm, headers={
+        "Content-Type": "application/octet-stream", **FORMERLY_501_HTTP[option]})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        code, body = r.status, r.read().decode()
+    assert code == 200
+    if option == "format":
+        assert body.startswith("1\n") and " --> " in body
+    else:
+        reply = json.loads(body)
+        assert isinstance(reply["words"], list) and reply["words"]
 
 
 def test_http_beam_above_the_cap_answers_400(http_server):
@@ -402,7 +428,8 @@ def _serve(*flags):
 def test_main_serves_on_the_cpu():
     """``python -m whisper_tpu_torch.serving --device cpu`` on test-nano
     answers octet-stream and multipart, a beam of 5 (400 above its
-    ``--max_beam_size``), and 501 for an unported option; started with
+    ``--max_beam_size``) and word timestamps (the option answered 501
+    before it was ported); started with
     ``--timestamps --encode_chunks 2`` it answers with timestamp tokens."""
     proc, url = _serve()
     try:
@@ -419,9 +446,9 @@ def test_main_serves_on_the_cpu():
         code, res = _post_error(f"{url}/asr", pcm, {"Content-Type": "application/octet-stream",
                                                    "X-Beam": "9"})
         assert code == 400
-        code, res = _post_error(f"{url}/asr", pcm, {"Content-Type": "application/octet-stream",
-                                                   "X-Word-Timestamps": "1"})
-        assert code == 501
+        code, res = _post(f"{url}/asr", pcm, {"Content-Type": "application/octet-stream",
+                                             "X-Word-Timestamps": "1"})
+        assert code == 200 and isinstance(res["words"], list) and "align_error" not in res
     finally:
         proc.terminate()
         proc.wait(timeout=20)

@@ -53,6 +53,8 @@ class IdTok:
     """Decodes to the ids themselves; encodes prompts and suppresses
     non-speech as the real tokenizer does."""
 
+    eot = PCFG.eot
+
     def __init__(self):
         tok = get_tokenizer(num_languages=PCFG.num_languages)
         self.non_speech_tokens = tok.non_speech_tokens
@@ -62,6 +64,10 @@ class IdTok:
         return " ".join(str(int(i)) for i in ids)
 
     decode_with_timestamps = decode
+
+    def split_to_word_tokens(self, ids):
+        """One word a token, for word timings."""
+        return [f" {int(i)}" for i in ids], [[int(i)] for i in ids]
 
 
 @pytest.fixture(scope="module")
@@ -275,13 +281,18 @@ def test_http_stream_with_a_subtitle_format_is_400(server):
 
 @pytest.mark.parametrize("fmt", ["srt", "vtt", "tsv"])
 def test_http_subtitle_formats_need_word_timestamps(server, fmt):
-    """srt, vtt and tsv are built from word timings (the JAX server sets
-    word_timestamps for them): 501 naming word_timestamps until those are
-    ported."""
+    """srt, vtt and tsv are built from word timings, so the server turns
+    word_timestamps on for them (as the JAX server does; they answered 501
+    before word timings were ported): 200, and the body is the JAX writer's
+    rendering of the same clip's JSON reply with word_timestamps=1."""
     host, _ = server
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        _post(host, f"/asr?format={fmt}", np.zeros(1600, "<f4").tobytes(), OCTET)
-    assert ei.value.code == 501 and "word_timestamps" in json.load(ei.value)["error"]
+    pcm = _clips(58, (1.5,))[0].astype("<f4").tobytes()
+    code, ctype, text = _post(host, f"/asr?format={fmt}", pcm, OCTET)
+    _, _, body = _post(host, "/asr?word_timestamps=1", pcm, OCTET)
+    reply = json.loads(body)
+    assert code == 200 and isinstance(reply["words"], list) and reply["words"]
+    assert text == jax_render_payload(reply, fmt)
+    assert {"srt": " --> ", "vtt": "WEBVTT", "tsv": "start\tend\ttext"}[fmt] in text
 
 
 def test_http_initial_prompt(server):

@@ -14,6 +14,10 @@ Usage:
     python -m whisper_tpu_torch.cli --wav a.wav --model_type turbo --kv_quant \
         --encoder_attention bhtd --cross_decode dense
 
+    # word timings (one line a word in txt; srt/vtt/tsv segments from words)
+    python -m whisper_tpu_torch.cli --wav a.wav --model_type turbo --kv_quant \
+        --word_timestamps -f srt -o out/
+
     # real weights (an OpenAI .pt, an HF directory or a bare .safetensors
     # with --model_type), the language detected per clip
     python -m whisper_tpu_torch.cli --wav a.wav --model_type turbo --checkpoint turbo.pt \
@@ -79,9 +83,15 @@ def get_args(argv=None):
     p.add_argument("--initial_prompt", default=None,
                    help="free text to prime the decoder with (names, jargon, style), "
                         "prepended as [sot_prev, tokens] context")
+    p.add_argument("--word_timestamps", action="store_true",
+                   help="per-word timings via cross-attention DTW (align.py)")
+    p.add_argument("--alignment_heads", default=None,
+                   help="JSON sidecar with per-model alignment-head masks "
+                        "(default: last half of the decoder layers)")
     p.add_argument("--output_format", "-f", default="txt",
                    choices=["txt", "json", "srt", "vtt", "tsv"],
-                   help="transcript format; srt/vtt/tsv need --timestamps for segment times")
+                   help="transcript format; srt/vtt/tsv need --timestamps or --word_timestamps "
+                        "for segment times")
     p.add_argument("--output_dir", "-o", default=None,
                    help="write one <input-stem>.<format> per input here (default: stdout)")
     return p.parse_args(argv)
@@ -106,7 +116,9 @@ def main(argv=None, report: Optional[dict] = None) -> int:
         quantize=args.quantize, quantize_logits=args.quantize_logits, w8a8=args.w8a8,
         gelu=args.gelu, kv_quant=args.kv_quant, self_kv_quant=args.self_kv_quant,
         encoder_attention=args.encoder_attention, cross_decode=args.cross_decode,
-        condition_on_previous_text=not args.no_condition, device=args.device)
+        condition_on_previous_text=not args.no_condition,
+        word_timestamps=args.word_timestamps, alignment_heads=args.alignment_heads,
+        device=args.device)
     print(f"Init model cost: {time.perf_counter() - t0:.3f}s", file=sys.stderr)
     t0 = time.perf_counter()
     if args.longform:
@@ -129,6 +141,9 @@ def main(argv=None, report: Optional[dict] = None) -> int:
             write_result(r, args.output_format, sys.stdout)
         else:
             print(f"{path}\t[{r.language}]\t{r.text}")
+            if args.word_timestamps and r.words:
+                for w in r.words:
+                    print(f"  {w['start']:7.2f} -> {w['end']:7.2f}  {w['word']}")
         print(f"  audio {r.audio_seconds:.2f}s  wall {r.wall_seconds:.2f}s  RTF {r.rtf:.4f}",
               file=sys.stderr)
     return 0

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .mel import _dft_bank, _frame, mel_filterbank
+from .mel import _frame, mel_filterbank
 
 N_FFT, HOP = 400, 160  # the only framing the CUDA kernel takes
 
@@ -58,16 +58,28 @@ def fft_table() -> np.ndarray:
     return t
 
 
+@functools.lru_cache(maxsize=4)
+def _dft_bank_f64(n_fft: int) -> np.ndarray:
+    """``mel._dft_bank`` (the windowed cos/sin bank, (n_fft, 2 * (n_fft // 2
+    + 1))) kept in float64."""
+    n_freqs = n_fft // 2 + 1
+    n = np.arange(n_fft)
+    window = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / n_fft))
+    ang = 2.0 * np.pi * np.arange(n_freqs)[:, None] * n[None, :] / n_fft
+    return np.concatenate([np.cos(ang) * window, -np.sin(ang) * window], axis=0).T
+
+
 def log10_mel_plain(audio_padded: torch.Tensor, n_mels: int, n_fft: int, hop: int,
                     n_frames: int) -> torch.Tensor:
     """Plain version, all fp32: frames @ windowed DFT bank, |.|^2, mel
     filterbank @ power, log10(max(., 1e-10))."""
     device = audio_padded.device
-    frames = _frame(audio_padded.to(torch.float32), n_frames, n_fft, hop)
-    spec = torch.matmul(frames, torch.from_numpy(_dft_bank(n_fft)).to(device))  # (B, T, 2F)
+    frames = _frame(audio_padded.to(torch.float32).double(), n_frames, n_fft, hop)
+    bank = torch.from_numpy(_dft_bank_f64(n_fft)).to(device)
+    spec = torch.matmul(frames, bank)  # (B, T, 2F) float64
     n_freqs = n_fft // 2 + 1
     re, im = spec[..., :n_freqs], spec[..., n_freqs:]
-    power = (re * re + im * im).transpose(1, 2)  # (B, F, T)
+    power = (re * re + im * im).to(torch.float32).transpose(1, 2)  # (B, F, T)
     mel = torch.matmul(torch.from_numpy(mel_filterbank(n_mels, n_fft)).to(device), power)
     return torch.log10(torch.clamp(mel, min=1e-10))
 

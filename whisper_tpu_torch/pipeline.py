@@ -15,9 +15,13 @@ directory or a bare ``.safetensors``) and, as in the JAX package, turns the
 ladder on unless told otherwise. ``language=None`` detects each chunk's
 language from the batch's one cross-KV (``decode.detect_language_kv``) and
 builds each row's prompt from it; an utterance takes its first chunk's.
-Arguments of the JAX pipeline that this port does not carry yet raise
-``NotImplementedError`` instead of being ignored: speculative decoding and
-word timestamps.
+``word_timestamps`` adds word timings to ``transcribe_batch``'s results
+(``TranscribeResult.words``) from one teacher-forced pass over each
+sub-batch of the decoded sequences (``align.alignment_matrix``) and a DTW on
+the host; ``alignment_heads`` names a JSON sidecar of alignment heads. A
+clip over 30 s gets its windows' words merged and its text spelled from
+them. Speculative decoding, which this port does not carry yet, raises
+``NotImplementedError`` instead of being ignored.
 
 Runs on ``device`` ("cuda" by default); asking for cuda without a card
 raises. Nothing moves to the CPU unless the caller asks for it.
@@ -30,13 +34,15 @@ cross-attention kernels of every path (the JAX package's
 
 ``transcribe_batch`` marks its stages as ``torch.profiler`` ranges
 (``whisper.audio``, ``whisper.mel``, ``whisper.encoder``, ``whisper.cross_kv``,
-``whisper.detect`` when it detects, ``whisper.decode``, ``whisper.texts``) so
+``whisper.detect`` when it detects, ``whisper.decode``, ``whisper.texts``,
+``whisper.align`` with word timestamps) so
 a profile of the real call splits its time by stage; outside a profile they
 cost a few microseconds each.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Union
@@ -45,8 +51,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .config import LANGUAGES, N_SAMPLES, get_config
+from .align import alignment_head_mask, alignment_matrix, dequantize_cross_kv, row_words
 from .beam import beam_search_kv
+from .config import LANGUAGES, N_SAMPLES, get_config
 from .decode import (
     GreedyResult,
     detect_language_kv,
@@ -58,8 +65,10 @@ from .decode import (
 from .longform import (
     compression_ratio,
     merge_texts,
+    merge_window_words,
     silence_mask,
     split_audio,
+    text_from_words,
     transcribe_seek,
 )
 from .models.checkpoint import load_checkpoint
@@ -84,6 +93,7 @@ class TranscribeResult:
     wall_seconds: float
     no_speech_prob: float = 0.0
     segments_list: Optional[list] = None  # explicit segments (seek-based long-form)
+    words: Optional[list] = None  # [{word, start, end, probability}] (align.py)
 
     @property
     def rtf(self) -> float:
@@ -146,18 +156,14 @@ class WhisperPipeline:
         initial_prompt: Optional[str] = None,
         longform_overlap_s: float = 2.0,
         word_timestamps: bool = False,
+        alignment_heads: Optional[str] = None,
         spec_draft: Optional[str] = None,
         spec_draft_checkpoint: Optional[str] = None,
         device="cuda",
         params: Optional[Whisper] = None,
     ):
-        unported = {
-            "spec_draft": bool(spec_draft or spec_draft_checkpoint),
-            "word_timestamps": word_timestamps,
-        }
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(f"not ported to whisper_tpu_torch yet: {', '.join(asked)}")
+        if spec_draft or spec_draft_checkpoint:
+            raise NotImplementedError("not ported to whisper_tpu_torch yet: spec_draft")
         if task not in ("transcribe", "translate"):
             raise ValueError(f"task must be transcribe or translate, not {task!r}")
         if compute_dtype not in _DTYPES:
@@ -190,6 +196,11 @@ class WhisperPipeline:
         self.condition_on_previous_text = condition_on_previous_text
         self.initial_prompt = initial_prompt
         self.longform_overlap = int(longform_overlap_s * 16000)
+        # word timings (align.py): one teacher-forced pass over each batch's
+        # decoded sequences; transcribe_batch only (the seek path reports
+        # segment times instead)
+        self.word_timestamps = word_timestamps
+        self.alignment_heads = alignment_heads
         self.last_decode = None  # the GreedyResult or BeamResult of the last batch
         self.last_seek: Optional[dict] = None  # rounds, windows, steps of transcribe_longform
 
@@ -297,13 +308,29 @@ class WhisperPipeline:
             toks = result.tokens.cpu().numpy()
             lens = result.lengths.cpu().numpy()
             nsp = result.no_speech_prob.cpu().numpy()
+        chunk_words = None
+        if self.word_timestamps:
+            with record_function("whisper.align"):
+                samples = np.array([min(len(w), N_SAMPLES) for w in flat_waves])
+                chunk_words = self._align_words(cross_kv, toks, lens, prompts.shape[1],
+                                                samples, langs, silent)
         wall = time.perf_counter() - t0
 
+        window_step_s = (N_SAMPLES - self.longform_overlap) / 16000.0
+        overlap_s = self.longform_overlap / 16000.0
         out, pos = [], 0
         for u, nc in enumerate(len(cl) for cl in chunk_lists):
             chunk_texts = texts[pos: pos + nc]
             lang = langs[pos]  # the utterance's language is its first chunk's
-            merged = merge_texts(chunk_texts, lang) if nc > 1 else chunk_texts[0]
+            words = None
+            if chunk_words is not None:
+                # windows merged at word level: a midpoint cut on start times
+                words = merge_window_words(chunk_words[pos: pos + nc], window_step_s, overlap_s)
+            if words is not None and nc > 1:
+                # the text spelled from the merged words, so the two agree
+                merged = text_from_words(words, lang)
+            else:
+                merged = merge_texts(chunk_texts, lang) if nc > 1 else chunk_texts[0]
             out.append(TranscribeResult(
                 text=postprocess(merged, lang),
                 language=lang,
@@ -312,9 +339,49 @@ class WhisperPipeline:
                 audio_seconds=len(waves[u]) / 16000.0,
                 wall_seconds=wall / len(audios),
                 no_speech_prob=float(nsp[pos]),
+                words=words,
             ))
             pos += nc
         return out
+
+    def _align_words(self, cross_kv, toks: np.ndarray, lens: np.ndarray, prompt_len: int,
+                     samples: np.ndarray, langs: List[str], silent: np.ndarray) -> List[list]:
+        """Each chunk's word timings from the teacher-forced pass over its
+        decoded sequence (:func:`~whisper_tpu_torch.align.alignment_matrix`:
+        the head selection, standardization, median filter and head mean on
+        the device, so only the reduced (b, S, Ta) matrix reaches the host),
+        in sub-batches of 8: S is the longest sequence plus its eot, rounded
+        up to a multiple of 32 (at least 32, at most n_text_ctx), and each
+        sub-batch's cross-KV is dequantized on its own. A silent row gets no
+        words."""
+        cfg = self.cfg
+        head_mask = torch.as_tensor(alignment_head_mask(cfg, self.alignment_heads),
+                                    dtype=torch.float32, device=self.device)
+        n = len(toks)
+        words: List[list] = [[] for _ in range(n)]
+        for lo in range(0, n, 8):
+            hi = min(lo + 8, n)
+            S = min(max(32, 32 * math.ceil((int(max(lens[lo:hi])) + 1) / 32)), cfg.n_text_ctx)
+            seqs = np.full((hi - lo, S), cfg.eot, np.int64)
+            row_mask = np.zeros((hi - lo, S), bool)
+            frame_len = np.zeros((hi - lo,), np.int64)
+            for i in range(lo, hi):
+                L = min(int(lens[i]) + 1, S)
+                seqs[i - lo, :L] = toks[i, :L]
+                row_mask[i - lo, prompt_len:L] = True
+                frame_len[i - lo] = min(math.ceil(samples[i] / 320), cfg.n_audio_ctx)
+            fp = dequantize_cross_kv(tuple(a[:, lo:hi] for a in cross_kv))
+            matrix, tlp = alignment_matrix(
+                self.model, torch.from_numpy(seqs).to(self.device), fp, head_mask,
+                torch.from_numpy(row_mask).to(self.device),
+                torch.from_numpy(frame_len).to(self.device), self.compute_dtype, gelu=self.gelu)
+            matrix, tlp = matrix.cpu().numpy(), tlp.cpu().numpy()
+            for i in range(lo, hi):
+                if not silent[i]:  # a silence-gated row has no words
+                    words[i] = row_words(matrix[i - lo], tlp[i - lo], seqs[i - lo], prompt_len,
+                                         min(int(lens[i]) + 1, S), int(frame_len[i - lo]),
+                                         langs[i], self.tokenizer)
+        return words
 
     def _needs_retry(self, result, prompts: np.ndarray) -> np.ndarray:
         """OpenAI failure criteria: repetitive text or low confidence,

@@ -64,7 +64,18 @@ harvest; on the aux worker, per micro-batch, read at once. The request keeps
 ``language="auto"`` (a retried request detects again); the detected code
 goes into ``language_resolved`` and the reply's ``language``.
 
-Not ported yet, and refused with ``NotImplementedError``: word timestamps.
+``word_timestamps`` adds word timings to a reply (``words``): a finished
+request's decoded sequence and a copy of its cross-KV go to the align
+worker (its own thread, started by the first such request), which
+micro-batches up to ``align_batch_max`` queued jobs into one
+``align.alignment_matrix`` pass (the batch a power-of-two bucket padded with
+the first job's cross-KV, S bucketed to a multiple of 32), then runs the DTW
+and word grouping on the host and resolves the futures. The slots' cross-KV
+is rewritten in place when a slot is re-admitted, so the harvest copies a
+slot's cross-KV before freeing it. Replies of the aux worker (beams, sampled
+decodes, ladder retries) are aligned the same way, and a request over 30 s
+gets its windows' words merged. A failed alignment answers ``words: None``
+with ``align_error``; the worker keeps serving.
 """
 
 from __future__ import annotations
@@ -81,6 +92,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..align import alignment_head_mask, alignment_matrix, dequantize_cross_kv, row_words
 from ..beam import beam_search_kv
 from ..config import LANGUAGES, N_SAMPLES
 from ..decode import detect_language_kv, encode_cross_kv, extract_texts, greedy_decode_kv
@@ -94,6 +106,7 @@ from ..longform import (
 from ..models.model import (
     Shards,
     Whisper,
+    _pack,
     cast_floating,
     check_selections,
     compute_cross_kv,
@@ -134,7 +147,9 @@ class Request:
     # engine-enforced deadline (seconds from enqueue; None = no limit).
     # Expired requests fail with TimeoutError and their slot is freed.
     deadline_s: Optional[float] = None
-    word_timestamps: bool = False        # not ported
+    # per-word timings (align.py), from one teacher-forced pass over the
+    # finished sequence on the align worker
+    word_timestamps: bool = False
     # OpenAI's initial_prompt: free text prepended as [sot_prev, tokens]
     # context, trimmed to n_text_ctx // 2 - 1 tokens (and to the slot
     # cache), right-aligned behind a masked left pad. For a request over
@@ -179,6 +194,8 @@ class EngineStats:
     aux_batches_total: int = 0
     aux_steps_total: int = 0
     beam_requests_total: int = 0  # requests served by beam search (K > 1)
+    align_total: int = 0          # word-timestamp alignments completed
+    align_batches_total: int = 0  # micro-batched alignment passes run
     # language-detection steps (admission and aux batches with an auto row)
     detect_batches_total: int = 0
     # host-side phase breakdown of busy time: eager launches return before
@@ -338,6 +355,7 @@ class ContinuousBatchingEngine:
         longform_overlap_s: float = 2.0,
         max_beam_size: int = 8,
         length_penalty: Optional[float] = None,
+        align_batch_max: int = 8,
     ):
         check_selections(encoder_attention, cross_decode)
         cfg = model.cfg
@@ -475,6 +493,13 @@ class ContinuousBatchingEngine:
         self._aux_cv = threading.Condition()
         self._aux_thread: Optional[threading.Thread] = None
         self._aux_max_queue = max_queue
+        # word-timestamp align worker (its thread started by the first job):
+        # queued jobs are micro-batched into one bucketed alignment pass
+        self._align_q: "deque[tuple]" = deque()
+        self._align_cv = threading.Condition()
+        self._align_thread: Optional[threading.Thread] = None
+        self.align_batch_max = align_batch_max
+        self._align_mask: Optional[torch.Tensor] = None  # (L, H) alignment heads, made once
 
     def _new_cache(self, batch: int):
         return new_kv_cache(self.model, batch, self.dt, self.kv_ctx, quant=self.self_kv_quant)
@@ -496,8 +521,6 @@ class ContinuousBatchingEngine:
             raise ValueError(f"temperature {req.temperature} not in [0, 2]")
         if req.task not in ("transcribe", "translate"):
             raise ValueError(f"bad task {req.task!r}")
-        if req.word_timestamps:
-            raise NotImplementedError("not ported to whisper_tpu_torch yet: word_timestamps")
         if not _auto(req):
             self.cfg.sot_sequence(req.language, req.task)  # ValueError on an unknown language
         if len(req.audio) > N_SAMPLES:
@@ -534,14 +557,19 @@ class ContinuousBatchingEngine:
         wall = time.perf_counter() - req.enqueued_at
         audio_s = len(req.audio) / 16000.0
         lps = [r["avg_logprob"] for r in results]
-        return {"success": True, "text": merged["text"], "language": lang,
-                "audio_seconds": audio_s, "wall_seconds": wall,
-                "rtf": wall / max(audio_s, 1e-9), "windows": len(results), **extra,
-                "tokens": int(sum(r.get("tokens", 0) for r in results)),
-                "no_speech_prob": max(r["no_speech_prob"] for r in results),
-                "avg_logprob": float(sum(lps) / len(lps)),
-                "compression_ratio": max(r["compression_ratio"] for r in results),
-                "quality_ok": all(r["quality_ok"] for r in results)}
+        reply = {"success": True, "text": merged["text"], "language": lang,
+                 "audio_seconds": audio_s, "wall_seconds": wall,
+                 "rtf": wall / max(audio_s, 1e-9), "windows": len(results), **extra,
+                 "tokens": int(sum(r.get("tokens", 0) for r in results)),
+                 "no_speech_prob": max(r["no_speech_prob"] for r in results),
+                 "avg_logprob": float(sum(lps) / len(lps)),
+                 "compression_ratio": max(r["compression_ratio"] for r in results),
+                 "quality_ok": all(r["quality_ok"] for r in results)}
+        # the merged words when every window has its list; a conditioned
+        # request answers an empty list otherwise, a fanned-out one none
+        if req.word_timestamps and ("words" in merged or extra.get("conditioned")):
+            reply["words"] = merged.get("words", [])
+        return reply
 
     def _submit_longform(self, req: Request) -> Future:
         """Split a request over 30 s into overlapping 30 s windows submitted
@@ -716,10 +744,10 @@ class ContinuousBatchingEngine:
 
     def stop(self):
         self._stop.set()
-        for cv in (self._aux_cv, self._ready_cv):
+        for cv in (self._aux_cv, self._ready_cv, self._align_cv):
             with cv:
                 cv.notify_all()
-        for name in ("_thread", "_encode_thread", "_aux_thread"):
+        for name in ("_thread", "_encode_thread", "_aux_thread", "_align_thread"):
             thread = getattr(self, name)
             if thread is not None:
                 thread.join(timeout=30)
@@ -1219,9 +1247,12 @@ class ContinuousBatchingEngine:
         return True
 
     def _resolve(self, req: Request, text: str, n_tok: int, nsp: float, avg_lp: float,
-                 comp: float, quality_ok: bool, beam_size: Optional[int] = None):
+                 comp: float, quality_ok: bool, beam_size: Optional[int] = None, align=None):
         """Count a finished request and set its reply (from the slots, or
-        from the aux worker, whose replies name the ``beam_size`` decoded)."""
+        from the aux worker, whose replies name the ``beam_size`` decoded).
+        With ``word_timestamps`` the reply goes to ``align`` (a callable
+        that queues it for the align worker) when one is given, and carries
+        an empty ``words`` list otherwise (silence, no text)."""
         wall = time.perf_counter() - req.enqueued_at
         audio_s = len(req.audio) / 16000.0
         with self._stats_lock:
@@ -1246,6 +1277,12 @@ class ContinuousBatchingEngine:
         }
         if beam_size is not None:
             reply["beam_size"] = beam_size
+        if req.word_timestamps:
+            if align is not None:
+                if not req.future.done():
+                    align(reply)
+                return
+            reply["words"] = []
         _safe_set_result(req.future, reply)
 
     def _add_busy(self, seconds: float):
@@ -1293,9 +1330,118 @@ class ContinuousBatchingEngine:
             # a retried request re-decodes on the aux worker at the next
             # ladder temperature: free the slot, leave the future pending
             if not self._maybe_retry(req, quality_ok, silenced):
-                self._resolve(req, text, int(len(ids)), nsp, avg_lp, comp, quality_ok)
+                align = None
+                if req.word_timestamps and text and not silenced:
+                    align = functools.partial(self._submit_align, req, i, tokens_h, offs_h)
+                self._resolve(req, text, int(len(ids)), nsp, avg_lp, comp, quality_ok,
+                              align=align)
             self._free_slot(i)
         self._deactivate(ready)
+
+    # ------------------------------------------------------------- word alignment
+    def _submit_align(self, req: Request, slot: int, tokens_h, offs_h, reply: dict):
+        """Queue a harvested slot's reply for word alignment. The slot's
+        cross-KV is COPIED (each rank's under a mesh): a re-admission
+        rewrites the slot in place, and the align worker reads it later on
+        its own thread. The copy is enqueued on the stream before any later
+        admission's write. The sequence loses its masked left pad, so the
+        teacher-forced pass sees it at its own positions; its context tokens
+        stay, out of the word rows."""
+        cross_row = _pack([tuple(x[:, slot:slot + 1].clone() for x in c)
+                                 for c in shard_values(self.cross)])
+        pad = self._slot_pad[slot]
+        seq = np.concatenate([tokens_h[slot, pad:int(offs_h[slot])], [self.cfg.eot]])
+        self._queue_align(req, reply, cross_row=cross_row, seq=seq,
+                          prompt_len=self._slot_prompt_len[slot] - pad,
+                          lang=self._effective_language(req))
+
+    def _queue_align(self, req: Request, reply: dict, *, cross_row, seq: np.ndarray,
+                     prompt_len: int, lang: str):
+        """The align queue's one entry, for the slots' harvest and the aux
+        worker alike; starts the align worker with the first job."""
+        job = (req, reply, cross_row, seq.astype(np.int64), prompt_len, lang,
+               min(len(req.audio), N_SAMPLES))
+        with self._align_cv:
+            if self._align_thread is None:
+                self._align_thread = threading.Thread(target=self._align_run, daemon=True,
+                                                      name="cb-align")
+                self._align_thread.start()
+            self._align_q.append(job)
+            self._align_cv.notify()
+
+    def _align_run(self):
+        """Align worker loop: up to ``align_batch_max`` queued jobs at a time
+        into ONE bucketed alignment pass. A failure the batch does not catch
+        itself fails that batch's replies (``align_error``), not the worker."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while True:
+            with self._align_cv:
+                while not self._align_q and not self._stop.is_set():
+                    self._align_cv.wait()
+                if not self._align_q and self._stop.is_set():
+                    return
+                jobs = []
+                while self._align_q and len(jobs) < self.align_batch_max:
+                    jobs.append(self._align_q.popleft())
+            try:
+                self._align_batch(jobs)
+            except Exception as e:  # noqa: BLE001 — the worker must survive
+                for req, reply, *_ in jobs:
+                    reply.setdefault("align_error", f"{type(e).__name__}: {e}")
+                    reply.setdefault("words", None)
+                    _safe_set_result(req.future, reply)
+
+    def _align_batch(self, jobs: list):
+        """One micro-batched alignment pass and each job's DTW and words:
+        the batch padded to a power-of-two bucket with the first job's
+        cross-KV, S the longest sequence rounded up to a multiple of 32 (at
+        least 32, at most n_text_ctx), each row's frames its audio's
+        (ceil(samples / 320), at most n_audio_ctx)."""
+        cfg = self.cfg
+        k = len(jobs)
+        try:
+            if self._align_mask is None:
+                self._align_mask = torch.as_tensor(alignment_head_mask(cfg), dtype=torch.float32,
+                                                   device=self.device)
+            Bb = 1 << max(0, k - 1).bit_length()  # power-of-two batch bucket
+            S = min(max(32, 32 * max(-(-len(j[3]) // 32) for j in jobs)), cfg.n_text_ctx)
+            toks = np.full((Bb, S), cfg.eot, np.int64)
+            row_mask = np.zeros((Bb, S), bool)
+            frames = np.ones((Bb,), np.int64)
+            for j, (_, _, _, seq, pl, _, samples) in enumerate(jobs):
+                L = min(len(seq), S)
+                toks[j, :L] = seq[:L]
+                row_mask[j, pl:L] = True
+                frames[j] = min(-(-samples // 320), cfg.n_audio_ctx)
+            rows = [shard_values(j[2]) for j in jobs]
+            rows += [rows[0]] * (Bb - k)
+            cross = _pack([tuple(torch.cat([r[rank][part] for r in rows], dim=1)
+                                       for part in range(len(rows[0][rank])))
+                                 for rank in range(len(rows[0]))])
+            matrix, tlp = alignment_matrix(self.model, self._to_dev(toks),
+                                           dequantize_cross_kv(cross), self._align_mask,
+                                           self._to_dev(row_mask), self._to_dev(frames), self.dt)
+            matrix, tlp = matrix.cpu().numpy(), tlp.cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — words are best-effort
+            for req, reply, *_ in jobs:
+                reply["words"] = None
+                reply["align_error"] = f"{type(e).__name__}: {e}"
+                _safe_set_result(req.future, reply)
+            return
+        with self._stats_lock:
+            self.stats.align_batches_total += 1
+        for j, (req, reply, _, _, pl, lang, _) in enumerate(jobs):
+            try:
+                reply["words"] = row_words(matrix[j], tlp[j], toks[j], pl,
+                                           min(len(jobs[j][3]), S), int(frames[j]), lang,
+                                           self.tokenizer)
+                with self._stats_lock:
+                    self.stats.align_total += 1
+            except Exception as e:  # noqa: BLE001
+                reply["words"] = None
+                reply["align_error"] = f"{type(e).__name__}: {e}"
+            _safe_set_result(req.future, reply)
 
     def _fail_inflight(self, exc: BaseException):
         """Fail every in-flight, prepared and queued request; reset slot
@@ -1435,14 +1581,26 @@ class ContinuousBatchingEngine:
         lens = result.lengths.cpu().numpy()
         nsp_h = result.no_speech_prob.cpu().numpy()
         lp_h = result.avg_logprob.cpu().numpy()
+        toks_h = result.tokens.cpu().numpy() if any(r.word_timestamps for r in reqs) else None
         for i, r in enumerate(reqs):
             text = postprocess(texts[i], langs[i])
             text, comp, quality_ok, silenced = self._quality_gate(
                 text, float(nsp_h[i]), float(lp_h[i]))
             if self._maybe_retry(r, quality_ok, silenced):
                 continue  # re-decoding at the next ladder temperature
+            align = None
+            if r.word_timestamps and text and not silenced:
+                # aligned here too, so a retried request keeps its words: the
+                # sequence without its masked left pad, and the batch's
+                # cross-KV rows (a fresh tensor per batch that nothing
+                # writes, so views do)
+                seq = np.concatenate([toks_h[i, int(pads[i]): int(lens[i])], [cfg.eot]])
+                cross_row = _pack([tuple(x[:, i:i + 1] for x in c)
+                                         for c in shard_values(cross)])
+                align = functools.partial(self._queue_align, r, cross_row=cross_row, seq=seq,
+                                          prompt_len=P - int(pads[i]), lang=langs[i])
             self._resolve(r, text, int(max(lens[i] - P, 0)), float(nsp_h[i]), float(lp_h[i]),
-                          comp, quality_ok, beam_size=K)
+                          comp, quality_ok, beam_size=K, align=align)
 
     def aux_round(self) -> int:
         """Run one aux micro-batch if any is pending (the aux thread's round,

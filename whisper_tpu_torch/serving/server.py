@@ -17,14 +17,16 @@ worker decodes by beam search and the reply carries ``beam_size``),
 ``temperature`` (0 to 2; above 0 the engine samples on its aux worker),
 ``language=auto`` (detected; the reply's ``language`` names the code),
 ``initial_prompt``, ``condition_on_previous`` (for audio over 30 s, which is
-split into windows and merged), ``format=txt`` (the CLI's writer,
-``text/plain``) and ``stream=1`` (``X-Stream: 1``: chunked NDJSON, one
-``{"partial": text}`` line per decode round, then the reply). Status codes:
-400 for bad input (``stream`` with a ``format`` other than json too, a
-``beam`` outside 1..``max_beam_size``), 501 for a request option this port
-does not serve yet (``word_timestamps``, and ``format`` srt, vtt and tsv,
-whose segments come from word timings; the reply names it), 503 when the
-engine's queue is full, 504 on timeout, 500 otherwise.
+split into windows and merged), ``word_timestamps`` (the reply's
+``words``, from the engine's align worker), ``format`` txt, srt, vtt or tsv
+(the CLI's writers; srt, vtt and tsv build their segments from word
+timings, so they turn ``word_timestamps`` on, as the JAX server does) and
+``stream=1`` (``X-Stream: 1``: chunked NDJSON, one ``{"partial": text}``
+line per decode round, then the reply). Status codes: 400 for bad input
+(``stream`` with a ``format`` other than json too, a ``beam`` outside
+1..``max_beam_size``), 501 for a request option the engine refuses as not
+ported (the reply names it), 503 when the engine's queue is full, 504 on
+timeout, 500 otherwise.
 """
 
 from __future__ import annotations
@@ -183,8 +185,7 @@ class WhisperHandler(BaseHTTPRequestHandler):
             fmt = opts.get("format", "json").lower()
             if fmt not in HTTP_CONTENT_TYPES:
                 raise ValueError(f"bad format {fmt!r}; known: {sorted(HTTP_CONTENT_TYPES)}")
-            # subtitle segments come from word timings (refused by the engine
-            # as word_timestamps until those are ported)
+            # subtitle segments come from word timings
             word_ts = (opts.get("word_timestamps", "0").lower() in _TRUE
                        or fmt in ("srt", "vtt", "tsv"))
             stream = opts.get("stream", "0").lower() in _TRUE

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import base64
 import os
+import string
 import unicodedata
 from dataclasses import dataclass, field
 from functools import cached_property, lru_cache
@@ -250,6 +251,52 @@ class Tokenizer:
                 if len(toks) == 1 or sym in notes:
                     ids.add(toks[0])
         return tuple(sorted(ids))
+
+    # ---- word splitting (OpenAI Whisper's algorithm, as the JAX package's)
+    def split_to_word_tokens(self, tokens: Sequence[int]):
+        """(words, token groups) of ``tokens``: per codepoint run in the
+        scripts without spaces between words (zh, ja, th, lo, my, yue), by
+        spaces otherwise."""
+        if self.language in {"zh", "ja", "th", "lo", "my", "yue"}:
+            return self.split_tokens_on_unicode(tokens)
+        return self.split_tokens_on_spaces(tokens)
+
+    def split_tokens_on_unicode(self, tokens: Sequence[int]):
+        """Group tokens into the shortest runs that decode to whole
+        codepoints. Byte-level BPE can split a multi-byte UTF-8 character
+        across tokens; a run is complete once its decode holds no U+FFFD,
+        unless the whole text has U+FFFD at that offset."""
+        full_text = self.decode_with_timestamps(tokens)
+        bad = "\ufffd"
+        words: List[str] = []
+        groups: List[List[int]] = []
+        pending: List[int] = []
+        done_len = 0
+        for tok in map(int, tokens):
+            pending.append(tok)
+            text = self.decode_with_timestamps(pending)
+            i = text.find(bad)
+            if i < 0 or full_text[done_len + i] == bad:
+                words.append(text)
+                groups.append(pending)
+                pending = []
+                done_len += len(text)
+        return words, groups
+
+    def split_tokens_on_spaces(self, tokens: Sequence[int]):
+        """Merge codepoint runs into space-delimited words: a run starts a
+        word after a space, as a special token or as punctuation."""
+        words: List[str] = []
+        groups: List[List[int]] = []
+        for piece, toks in zip(*self.split_tokens_on_unicode(tokens)):
+            if (not words or toks[0] >= self.eot or piece.startswith(" ")
+                    or piece.strip() in string.punctuation):
+                words.append(piece)
+                groups.append(list(toks))
+            else:
+                words[-1] += piece
+                groups[-1] += toks
+        return words, groups
 
 
 def get_tokenizer(
