@@ -68,14 +68,20 @@ drives each path while counting kernel launches:
   burst of 12 requests to the turbo server (ladder off) with words: short
   clips, ``format=srt``, ``vtt`` and ``tsv``, a clip of 60-90 s, a
   ``beam=5`` and a ``temperature=0.4`` one (the align worker behind the
-  slots and the aux worker).
+  slots and the aux worker);
+- speculative decoding: ``WhisperPipeline(spec_draft="distil-large-v3")``
+  over 16 seeded 30 s noise clips (turbo target at the offline
+  configuration, a random draft, 64 tokens, gamma 4), its wall beside
+  greedy's, the target as its own draft, and the costs of a round (the
+  target's step and window, the draft's step) at turbo and at large-v3.
 
 Then it checks small fp32 runs of the paths on the card against the CPU
 (the offline one under each selection, the TP engine against the one-rank
 engine on the CPU, a sampled decode with the same noise on both, language
 detection, the engine's ``language=auto`` replies, prompted rows,
 timestamps and a long clip through the engine, beam search, the alignment
-matrix and words of teacher-forced text and the same pass on a mesh). Prints
+matrix and words of teacher-forced text and the same pass on a mesh,
+speculative decodes and a verify window across the cache's end). Prints
 JSON lines; the last is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it. Needs a CUDA card: without one it exits 1 and prints
 no result. ``chip_tp.py`` runs the tensor-parallel phases over distinct
@@ -1204,7 +1210,7 @@ DECODE_KERNEL = {"fd": "cross_attention_decode_fd", "legacy": "cross_attention_d
 
 def _expect(path: str, launches: dict, cfg, encodes: int, steps: int,
             encoder_attention: str = "btd", cross_decode: str = "fd", tp: int = 1,
-            detects: int = 0, beam_steps: int = 0) -> None:
+            detects: int = 0, beam_steps: int = 0, draft=None) -> None:
     """Exact launch counts of a W8A8 + int8 cross- and self-KV path that ran
     ``encodes`` encoder passes (one log-mel each), ``steps`` decoder steps,
     ``detects`` language-detection steps and ``beam_steps`` beam steps on
@@ -1214,18 +1220,28 @@ def _expect(path: str, launches: dict, cfg, encodes: int, steps: int,
     decoder step over a float self-KV cache: the decode kernel and the
     float K3 once a layer. A beam step runs the int8 K3 once a layer and no
     decode kernel (its cross-attention is the folded plain product, as the
-    JAX package's einsum under ``beam_k``)."""
-    want = {"log10_mel": encodes,
-            "int8_gemm": 6 * cfg.n_audio_layer * encodes * tp,  # q, k, v, o, mlp1, mlp2
-            "quantize_rows": 4 * cfg.n_audio_layer * encodes * tp,  # qkv once, o, mlp1, mlp2
-            "self_attention_decode_int8": cfg.n_text_layer * (steps + beam_steps) * tp,
+    JAX package's einsum under ``beam_k``). ``draft`` = (the draft's
+    config, its 1-wide steps) adds a speculative draft: one encode of its
+    own (its log-mel only where its mel bank differs from ``cfg``'s) and
+    its steps, each the decode kernel and the int8 K3 once a draft layer;
+    the verify windows and both prefills are plain products."""
+    dcfg, dsteps = draft if draft else (None, 0)
+    d_layers = dcfg.n_audio_layer if dcfg else 0  # the draft's encoder layers
+    d_step_layers = dcfg.n_text_layer * dsteps if dcfg else 0
+    enc_layers = cfg.n_audio_layer * encodes + d_layers
+    want = {"log10_mel": encodes + int(bool(dcfg) and dcfg.n_mels != cfg.n_mels),
+            "int8_gemm": 6 * enc_layers * tp,  # q, k, v, o, mlp1, mlp2
+            "quantize_rows": 4 * enc_layers * tp,  # qkv once, o, mlp1, mlp2
+            "self_attention_decode_int8": (cfg.n_text_layer * (steps + beam_steps)
+                                           + d_step_layers) * tp,
             "self_attention_decode": cfg.n_text_layer * detects * tp,
-            "flash_attention_btd_sharded": (cfg.n_audio_layer * encodes * tp
+            "flash_attention_btd_sharded": (enc_layers * tp
                                             if tp > 1 and encoder_attention == "btd" else 0)}
     for sel, name in ENCODER_KERNEL.items():
-        want[name] = cfg.n_audio_layer * encodes * tp if sel == encoder_attention else 0
+        want[name] = enc_layers * tp if sel == encoder_attention else 0
     for sel, name in DECODE_KERNEL.items():
-        want[name] = cfg.n_text_layer * (steps + detects) * tp if sel == cross_decode else 0
+        want[name] = ((cfg.n_text_layer * (steps + detects) + d_step_layers) * tp
+                      if sel == cross_decode else 0)
     for name, n in want.items():
         if launches[name] != n:
             raise AssertionError(f"{path}: {name} ran {launches[name]} times, expected {n}")
@@ -3038,6 +3054,311 @@ def words_reference_check(device: str = "cuda") -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ speculative decoding
+N_SPEC_CLIPS = 16
+SPEC_GAMMA = 4
+SPEC_DRAFT = "distil-large-v3"
+SPEC_TOL = 1e-5  # card vs CPU, tiny fp32: the window, avg_logprob, no_speech_prob
+# the speculative path: benchmarks/spec_bench.py's defaults (--model turbo
+# --draft distil-large-v3 --batch 16 --tokens 64 --gamma 4) at the offline
+# configuration's quantization; the suppression filters off (greedy argmax
+# only, as the spec path requires)
+SPEC_PIPELINE = dict(model="turbo", device="cuda", compute_dtype="bfloat16", quantize=True,
+                     w8a8=True, kv_quant=True, self_kv_quant=True, max_tokens=N_TOKENS, seed=0,
+                     apply_filters=False, spec_gamma=SPEC_GAMMA)
+
+
+def _break_even(step_ms: float, draft_ms: float, verify_ms: float, gamma: int) -> dict:
+    """``benchmarks/spec_bench.py``'s economics: a round costs ``gamma``
+    draft steps and one verify window and emits sum_{j<=gamma} alpha^j
+    tokens at acceptance alpha, each worth one target step; alpha* is the
+    least alpha on a grid of 2,001 at which the round pays (None: none
+    does)."""
+    round_ms = gamma * draft_ms + verify_ms
+    alphas = np.linspace(0, 1, 2001)
+    ok = sum(alphas ** j for j in range(gamma + 1)) * step_ms >= round_ms
+    return {"target_step_ms": step_ms, "draft_step_ms": draft_ms,
+            f"verify_w{gamma + 1}_ms": verify_ms, "draft_over_step": draft_ms / step_ms,
+            "verify_over_step": verify_ms / step_ms, "round_ms": round_ms,
+            "tokens_per_round_needed": round_ms / step_ms,
+            "break_even_alpha": float(alphas[ok][0]) if ok.any() else None}
+
+
+def _spec_costs(target, cross_t, draft, cross_d, gamma: int, dt) -> dict:
+    """The three costs of a round at the spec batch, each by CUDA events
+    over 20 calls (the host's launches included, as the decode loop pays
+    them): the target's 1-wide step (``decoder_step_multipos``: K2 and the
+    int8 K3 once a layer), its window of ``gamma + 1`` and the draft's
+    step, all at the offset after a prompt of 4 in caches of 128."""
+    from whisper_tpu_torch.models.model import (
+        decoder_step_multipos, decoder_window_multipos, new_kv_cache)
+
+    B = cross_t[0].shape[1]
+    dev = cross_t[0].device
+    offs = torch.full((B,), 5, dtype=torch.int64, device=dev)
+    tok = torch.full((B,), 123, dtype=torch.int64, device=dev)
+    win = torch.full((B, gamma + 1), 123, dtype=torch.int64, device=dev)
+    kv_t = new_kv_cache(target, B, dt, 128, quant=True)
+    kv_d = new_kv_cache(draft, B, dt, 128, quant=True)
+    step = cuda_ms(lambda: decoder_step_multipos(target, tok, offs, kv_t, cross_t, dt), reps=20)
+    verify = cuda_ms(lambda: decoder_window_multipos(target, win, offs, kv_t, cross_t, dt),
+                     reps=20)
+    dstep = cuda_ms(lambda: decoder_step_multipos(draft, tok, offs, kv_d, cross_d, dt), reps=20)
+    return {"target": target.cfg.name, "draft": draft.cfg.name, "batch": B,
+            **_break_even(step, dstep, verify, gamma)}
+
+
+def _first_divergences(pipe, cross_kv, spec, greedy, P: int) -> list:
+    """Per row: whether the speculative tokens equal greedy's and, where
+    not, the first position that differs (counted from the first new token)
+    and the target's top-2 log-prob margin there, teacher-forced on
+    greedy's shared prefix (one bf16 prefill, int8 self-KV)."""
+    from whisper_tpu_torch.decode import index_cross_kv
+    from whisper_tpu_torch.models.model import decoder_forward, new_kv_cache
+
+    st, gt = spec.tokens.cpu(), greedy.tokens.cpu()
+    rows = []
+    for b in range(st.shape[0]):
+        diff = torch.nonzero(st[b] != gt[b])
+        if not len(diff):
+            rows.append({"row": b, "equal": True})
+            continue
+        d = int(diff[0])
+        idx = torch.tensor([b], device=pipe.device)
+        kv = new_kv_cache(pipe.model, 1, pipe.compute_dtype, 128, quant=True)
+        logits, _ = decoder_forward(pipe.model, gt[b:b + 1, :d].to(pipe.device), 0, kv,
+                                    index_cross_kv(cross_kv, idx), pipe.compute_dtype)
+        top2 = torch.topk(torch.log_softmax(logits[0, -1].float(), dim=-1), 2).values
+        rows.append({"row": b, "equal": False, "first_divergence": d - P,
+                     "top2_margin": float(top2[0] - top2[1])})
+    return rows
+
+
+def spec_phase(counters) -> dict:
+    """The speculative path: 16 seeded 30 s noise clips through
+    ``WhisperPipeline(spec_draft="distil-large-v3").transcribe_batch``
+    (``SPEC_PIPELINE``: turbo target, a random distil-large-v3 draft of
+    seed 1, 64 tokens, gamma 4): built, warmed, run once with the counts at
+    0 and checked (exact launches: K7 once, both encoders' K1, K8 and K8q,
+    K2 and the int8 K3 for the draft's 2 layers x (gamma - 1) steps a
+    round, nothing for the windows and the prefills), its wall beside the
+    same pipeline without its draft (greedy) on the same clips, the tokens
+    against greedy's row by row (reported, not asserted: bf16 windows sum
+    in another order), then the target as its own draft (the alpha ~ 1
+    ceiling; at most ceil(63 / (gamma + 1)) + 1 rounds), the wall's split
+    (each encode and the decodes alone on one cross-KV) and the economics
+    at turbo and at a large-v3 target (its 32 decoder layers; steps only)."""
+    from whisper_tpu_torch.config import N_SAMPLES, get_config
+    from whisper_tpu_torch.decode import encode_cross_kv, greedy_decode_kv
+    from whisper_tpu_torch.models.model import cast_floating
+    from whisper_tpu_torch.ops.mel import log_mel_batch
+    from whisper_tpu_torch.ops.quant import quantize_params
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.spec_decode import SpecResult, speculative_decode_kv
+
+    t0 = time.perf_counter()
+    pipe = WhisperPipeline(spec_draft=SPEC_DRAFT, **SPEC_PIPELINE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(43)
+    clips = list(rng.standard_normal((N_SPEC_CLIPS, N_SAMPLES)).astype(np.float32) * 0.1)
+    pipe.transcribe_batch(clips)  # warm
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = pipe.transcribe_batch(clips)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    spec, cfg, dcfg, dev = pipe.last_decode, pipe.cfg, pipe.draft.cfg, pipe.device
+    stats = dict(pipe.last_spec_stats)
+    P = len(cfg.sot_sequence(pipe.language, pipe.task))
+    lens, toks = spec.lengths.cpu().numpy(), spec.tokens.cpu().numpy()
+    if not isinstance(spec, SpecResult) or len(results) != N_SPEC_CLIPS:
+        raise AssertionError(f"the spec path returned {type(spec).__name__}, {len(results)} texts")
+    if not ((lens >= P) & (lens <= P + N_TOKENS)).all():
+        raise AssertionError(f"spec lengths out of range: {lens.tolist()}")
+    if not ((toks >= 0) & (toks < cfg.n_vocab)).all():
+        raise AssertionError("spec token ids out of the vocabulary")
+    if not (torch.isfinite(spec.avg_logprob).all() and torch.isfinite(spec.no_speech_prob).all()):
+        raise AssertionError("non-finite spec log-probabilities")
+    if spec.host_syncs != spec.rounds + 1 or stats["drafted"] <= 0:
+        raise AssertionError(f"spec counts: {stats}, {spec.host_syncs} host syncs")
+    _expect("spec", launches, cfg, 1, 0, draft=(dcfg, (SPEC_GAMMA - 1) * spec.rounds))
+
+    draft, pipe.draft = pipe.draft, None  # greedy on the same clips, the same process
+    pipe.transcribe_batch(clips)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.transcribe_batch(clips)
+    torch.cuda.synchronize()
+    greedy_wall = time.perf_counter() - t0
+    greedy = pipe.last_decode
+    pipe.draft = draft
+
+    # the decodes alone on one cross-KV: greedy, and the target as its own draft
+    batch, lengths = pipe._prepare_batch(clips)
+    mel = log_mel_batch(batch, lengths, n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
+    cross = encode_cross_kv(pipe.model, mel, pipe.compute_dtype, kv_quant=True, w8a8=True)
+    prompt = torch.tensor([cfg.sot_sequence(pipe.language, pipe.task)] * N_SPEC_CLIPS,
+                          device=pipe.device)
+    rows = _first_divergences(pipe, cross, spec, greedy, P)
+    decode_kw = dict(compute_dtype=pipe.compute_dtype, max_tokens=N_TOKENS, self_kv_quant=True)
+
+    def self_draft():
+        return speculative_decode_kv(pipe.model, cross, pipe.model, cross, prompt,
+                                     gamma=SPEC_GAMMA, **decode_kw)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ceiling, self_s = timed(self_draft)
+    plain, greedy_decode_s = timed(lambda: greedy_decode_kv(pipe.model, cross, prompt,
+                                                             **decode_kw))
+    max_rounds = math.ceil((N_TOKENS - 1) / (SPEC_GAMMA + 1)) + 1
+    if ceiling.rounds > max_rounds:
+        raise AssertionError(f"the self-draft ran {ceiling.rounds} rounds, more than "
+                             f"{max_rounds}")
+    # the wall's split: the target's encode (as greedy's), the draft's, the decode
+    _, encode_s = timed(lambda: encode_cross_kv(pipe.model, mel, pipe.compute_dtype,
+                                                kv_quant=True, w8a8=True))
+    cross_d, draft_encode_s = timed(lambda: pipe._draft_cross_kv(batch, lengths, mel))
+    _, spec_decode_s = timed(lambda: speculative_decode_kv(
+        pipe.model, cross, draft, cross_d, prompt, gamma=SPEC_GAMMA, **decode_kw))
+    economics = [_spec_costs(pipe.model, cross, draft, cross_d, SPEC_GAMMA,
+                             pipe.compute_dtype)]
+    del pipe, cross
+    torch.cuda.empty_cache()
+    # large-v3: turbo's encoder and 32 decoder layers, the target
+    # distil-large-v3 is distilled from; random, seed 0, quantized as turbo
+    large = init_params(get_config("large-v3"), 0, device=dev)
+    quantize_params(large)
+    large = cast_floating(large, torch.bfloat16)
+    cross_l = encode_cross_kv(large, mel, torch.bfloat16, kv_quant=True, w8a8=True)
+    economics.append(_spec_costs(large, cross_l, draft, cross_d, SPEC_GAMMA, torch.bfloat16))
+    del large, cross_l, draft, cross_d
+    equal = sum(r["equal"] for r in rows)
+    return {"phase": "spec", "model": "turbo", "draft": SPEC_DRAFT, "batch": N_SPEC_CLIPS,
+            "gamma": SPEC_GAMMA, "max_tokens": N_TOKENS, "dtype": "bfloat16",
+            "quant": "int8 weights + w8a8 encoders + kvq + skvq", "apply_filters": False,
+            "init_s": init_s, "wall_s": wall, "greedy_wall_s": greedy_wall,
+            "spec_over_greedy": wall / greedy_wall, "rounds": spec.rounds,
+            "host_syncs": spec.host_syncs, "greedy_steps": greedy.steps, **stats,
+            "generated": (lens - P).tolist(), "rows_equal_greedy": equal,
+            "rows": [r for r in rows if not r["equal"]],
+            "split_s": {"target_encode": encode_s, "draft_encode": draft_encode_s,
+                        "spec_decode": spec_decode_s, "greedy_decode": greedy_decode_s,
+                        "spec_decode_per_round_ms": 1e3 * spec_decode_s / spec.rounds},
+            "self_draft": {"rounds": ceiling.rounds, "max_rounds": max_rounds,
+                           "accepted": int(ceiling.accepted), "drafted": int(ceiling.drafted),
+                           "acceptance": int(ceiling.accepted) / max(int(ceiling.drafted), 1),
+                           "decode_s": self_s, "greedy_decode_s": greedy_decode_s,
+                           "over_greedy": self_s / greedy_decode_s,
+                           "rows_equal_greedy": int((ceiling.tokens == plain.tokens)
+                                                    .all(dim=1).sum())},
+            "economics": economics, "launches": launches, "peak_mem_gb": peak_gb,
+            "timing": "walls by the host clock around synchronized calls; the economics by "
+                      "CUDA events over 20 calls each"}
+
+
+def spec_reference_check(device: str = "cuda") -> dict:
+    """Small fp32 speculative decodes (tiny, gamma 3, 12 tokens, a tiny
+    draft of another seed and the target as its own draft; float caches and
+    int8 cross- and self-KV) on the card through its kernels against the
+    same runs on the CPU: tokens, lengths and the counts equal, and equal to
+    greedy's on each device; avg_logprob and no_speech_prob within 1e-5
+    with float caches (int8: reported, a value the card computes in another
+    order can round to the next int8 level). Then one window of 5 at
+    offsets 0, 60, 124 and 126 of a 128-position cache (the last two rows
+    cross its end) from the same seeded cache on both: logits and the float
+    cache within 1e-5, the dropped positions untouched. ``device`` is the
+    card's side."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.decode import encode_cross_kv, greedy_decode_kv
+    from whisper_tpu_torch.models.model import KVCache, decoder_window_multipos
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.spec_decode import speculative_decode_kv
+
+    rng = np.random.default_rng(13)
+    cfg = get_config("tiny")
+    mel = rng.standard_normal((3, cfg.n_mels, 2 * cfg.n_audio_ctx)).astype(np.float32)
+    prompt = np.tile(np.asarray([cfg.sot_sequence("en")], np.int64), (3, 1))
+    rec = {"phase": "spec_reference", "model": "tiny", "dtype": "float32", "gamma": 3,
+           "tol": SPEC_TOL}
+    for quant in (False, True):
+        for draft_seed in (5, 3):
+            out = {}
+            for dev in (device, "cpu"):
+                # the same CPU-drawn weights on both sides
+                target = init_params(cfg, seed=3, device="cpu").to_device(dev)
+                draft = init_params(cfg, seed=draft_seed, device="cpu").to_device(dev)
+                m, p = torch.from_numpy(mel).to(dev), torch.from_numpy(prompt).to(dev)
+                ct = encode_cross_kv(target, m, kv_quant=quant)
+                cd = encode_cross_kv(draft, m, kv_quant=quant)
+                spec = speculative_decode_kv(target, ct, draft, cd, p, gamma=3, max_tokens=12,
+                                             self_kv_quant=quant)
+                greedy = greedy_decode_kv(target, ct, p, max_tokens=12, self_kv_quant=quant)
+                if not torch.equal(spec.tokens, greedy.tokens):
+                    raise AssertionError(f"spec tokens differ from greedy's on {dev}: "
+                                         f"{spec.tokens.tolist()} vs {greedy.tokens.tolist()}")
+                out[dev] = spec
+            card, cpu = out[device], out["cpu"]
+            case = (f"{'int8' if quant else 'float'} KV, "
+                    f"{'self draft' if draft_seed == 3 else 'draft of seed 5'}")
+            counts = {w: (int(r.accepted), int(r.drafted), r.rounds) for w, r in out.items()}
+            if (not torch.equal(card.tokens.cpu(), cpu.tokens)
+                    or not torch.equal(card.lengths.cpu(), cpu.lengths)
+                    or counts[device] != counts["cpu"]):
+                raise AssertionError(f"spec on the card differs from the CPU ({case}): "
+                                     f"{card.tokens.cpu().tolist()} vs {cpu.tokens.tolist()}, "
+                                     f"{counts}")
+            errs = {f: float((getattr(card, f).cpu() - getattr(cpu, f)).abs().max())
+                    for f in ("avg_logprob", "no_speech_prob")}
+            if not quant and max(errs.values()) > SPEC_TOL:
+                raise AssertionError(f"spec log-probs on the card differ from the CPU ({case}): "
+                                     f"{errs}")
+            rec[case] = {"tokens_equal_cpu_and_greedy": True, "accepted_drafted_rounds":
+                         counts[device], **{f"{f}_max_abs_err": e for f, e in errs.items()},
+                         "tokens": [t[4:int(n)] for t, n in zip(card.tokens.cpu().tolist(),
+                                                                 card.lengths.cpu().tolist())]}
+
+    offsets = np.array([0, 60, 124, 126])
+    toks = rng.integers(0, 50000, (4, 5))
+    L, H, dh = cfg.n_text_layer, cfg.n_text_head, cfg.head_dim_text
+    k0, v0 = (rng.standard_normal((L, 4, H, dh, 128)).astype(np.float32) for _ in range(2))
+    out = {}
+    for dev in (device, "cpu"):
+        target = init_params(cfg, seed=3, device="cpu").to_device(dev)
+        cross = encode_cross_kv(target, torch.from_numpy(mel[[0, 1, 2, 0]]).to(dev))
+        kv = KVCache(torch.from_numpy(k0.copy()).to(dev), torch.from_numpy(v0.copy()).to(dev))
+        logits, kv = decoder_window_multipos(target, torch.from_numpy(toks).to(dev),
+                                             torch.from_numpy(offsets).to(dev), kv, cross)
+        out[dev] = (logits.cpu(), kv.k.cpu(), kv.v.cpu())
+    written = np.zeros((4, 128), bool)
+    for b, o in enumerate(offsets):
+        written[b, o:min(o + 5, 128)] = True
+    for a, init in zip(out[device][1:], (k0, v0)):
+        if not np.array_equal(np.moveaxis(a.numpy(), -1, 2)[:, ~written],
+                              np.moveaxis(init, -1, 2)[:, ~written]):
+            raise AssertionError("the window wrote a position outside its rows' windows")
+    errs = {name: float((c - h).abs().max())
+            for name, c, h in zip(("logits", "k", "v"), out[device], out["cpu"])}
+    if max(errs.values()) > SPEC_TOL:
+        raise AssertionError(f"the window on the card differs from the CPU: {errs}")
+    rec["window"] = {"offsets": offsets.tolist(), "cache": 128, "W": 5,
+                     **{f"{n}_max_abs_err": e for n, e in errs.items()}}
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3142,6 +3463,9 @@ def main() -> int:
     served_words = serving_words(counters)
     emit(served_words)
     torch.cuda.empty_cache()
+    speculative = spec_phase(counters)
+    emit(speculative)
+    torch.cuda.empty_cache()
     emit(reference_check())
     emit(serving_reference_check())
     emit(longform_reference_check())
@@ -3152,6 +3476,7 @@ def main() -> int:
     emit(serving_options_reference_check())
     emit(beam_reference_check())
     emit(words_reference_check())
+    emit(spec_reference_check())
     emit({"phase": "profiler", **PROFILER_MISSES})
 
     # each kernel's counts from the runs of the path that selects it; the
@@ -3175,7 +3500,7 @@ def main() -> int:
         for path, rec in (("serving_options", options), ("serving_timestamps", stamped),
                           ("serving_paced", paced), ("beam", beams),
                           ("serving_beam", served_beams), ("words", worded),
-                          ("serving_words", served_words)):
+                          ("serving_words", served_words), ("spec", speculative)):
             k[f"{path}_launches"] = rec["launches"][name]
         if name == "self_attention_decode_int8":  # K3's float variant: the detection step
             k["float_launches"] = {path: rec["launches"]["self_attention_decode"]
@@ -3185,7 +3510,7 @@ def main() -> int:
             "checkpoint_launches", "serving_auto_launches", "serving_options_launches",
             "serving_timestamps_launches", "serving_paced_launches", "beam_launches",
             "serving_beam_launches", "words_launches", "serving_words_launches",
-            "float_launches",
+            "spec_launches", "float_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}),

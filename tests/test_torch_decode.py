@@ -213,17 +213,30 @@ def test_pipeline_texts_equal_jax():
         assert a.language == b.language == "zh"
 
 
-def test_pipeline_refuses_unported_options():
-    """Still refused: speculative decoding. Word timestamps are served (held
+def test_pipeline_refuses_unported_options(tmp_path):
+    """Nothing of the pipeline is refused any more. Both spellings of a
+    speculative draft (a preset, a checkpoint file) build a pipeline with a
+    draft that decodes (held against JAX in test_torch_spec_pipeline.py).
+    Word timestamps are served (held
     against JAX in test_torch_words_serving.py): a result carries its word
     list. Beams 0 and 1 decode greedily (beams above 1 are held against JAX
     in test_torch_beam_serving.py). Timestamps, initial_prompt, seek-based
     long-form, sampling and its ladder, checkpoints and the auto language
     are ported (tests below, in test_torch_longform.py, test_torch_ladder.py,
     test_torch_checkpoint.py and test_torch_language.py)."""
-    for kw in (dict(spec_draft="tiny"), dict(spec_draft_checkpoint="draft.pt")):
-        with pytest.raises(NotImplementedError, match="spec_draft"):
-            WhisperPipeline(model="test-nano", device="cpu", **kw)
+    from test_torch_checkpoint import DIMS, openai_state_dict
+
+    path = str(tmp_path / "draft.pt")
+    sd = openai_state_dict(jax.tree.map(np.asarray, jm.init_params(CFG, jax.random.PRNGKey(1))),
+                           CFG)
+    torch.save({"dims": DIMS, "model_state_dict": {k: torch.from_numpy(v.copy())
+                                                   for k, v in sd.items()}}, path)
+    for kw in (dict(spec_draft="test-nano"), dict(spec_draft_checkpoint=path)):
+        pipe = WhisperPipeline(model="test-nano", device="cpu", apply_filters=False,
+                               max_tokens=4, **kw)
+        assert pipe.draft is not None and pipe.draft.cfg.n_vocab == pipe.cfg.n_vocab
+        pipe.transcribe_batch([np.zeros(16000, np.float32)])
+        assert pipe.last_spec_stats["rounds"] == pipe.last_decode.rounds >= 1
     pipe = WhisperPipeline(model="test-nano", device="cpu", word_timestamps=True, max_tokens=4,
                            language="en")
     (res,) = pipe.transcribe_batch([np.random.default_rng(2).standard_normal(16000)

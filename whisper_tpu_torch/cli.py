@@ -18,6 +18,11 @@ Usage:
     python -m whisper_tpu_torch.cli --wav a.wav --model_type turbo --kv_quant \
         --word_timestamps -f srt -o out/
 
+    # speculative decoding: a distil-large-v3 draft proposes 4 tokens a round
+    # (greedy argmax only: the suppression filters are off)
+    python -m whisper_tpu_torch.cli --wav a.wav --model_type turbo --kv_quant \
+        --spec_draft distil-large-v3 --spec_gamma 4
+
     # real weights (an OpenAI .pt, an HF directory or a bare .safetensors
     # with --model_type), the language detected per clip
     python -m whisper_tpu_torch.cli --wav a.wav --model_type turbo --checkpoint turbo.pt \
@@ -94,6 +99,13 @@ def get_args(argv=None):
                         "for segment times")
     p.add_argument("--output_dir", "-o", default=None,
                    help="write one <input-stem>.<format> per input here (default: stdout)")
+    p.add_argument("--spec_draft", default=None,
+                   help="draft model size for speculative decoding (spec_decode.py; "
+                        "greedy-only, implies the OpenAI suppression filters are OFF)")
+    p.add_argument("--spec_draft_checkpoint", default=None,
+                   help="draft checkpoint path (.pt/safetensors)")
+    p.add_argument("--spec_gamma", type=int, default=4,
+                   help="draft tokens proposed per verify window")
     return p.parse_args(argv)
 
 
@@ -106,6 +118,7 @@ def main(argv=None, report: Optional[dict] = None) -> int:
     from .formats import write_result
     from .pipeline import WhisperPipeline
 
+    speculative = bool(args.spec_draft or args.spec_draft_checkpoint)
     t0 = time.perf_counter()
     pipe = WhisperPipeline(
         model=args.model_type, checkpoint=args.checkpoint,
@@ -118,7 +131,14 @@ def main(argv=None, report: Optional[dict] = None) -> int:
         encoder_attention=args.encoder_attention, cross_decode=args.cross_decode,
         condition_on_previous_text=not args.no_condition,
         word_timestamps=args.word_timestamps, alignment_heads=args.alignment_heads,
+        # spec decode is argmax-only; the suppression grammar is sequential
+        # state the verify window cannot replay
+        apply_filters=not speculative, spec_draft=args.spec_draft,
+        spec_draft_checkpoint=args.spec_draft_checkpoint, spec_gamma=args.spec_gamma,
         device=args.device)
+    if speculative:
+        print("speculative decoding: suppression filters disabled "
+              "(greedy/argmax-only path)", file=sys.stderr)
     print(f"Init model cost: {time.perf_counter() - t0:.3f}s", file=sys.stderr)
     t0 = time.perf_counter()
     if args.longform:
@@ -145,6 +165,11 @@ def main(argv=None, report: Optional[dict] = None) -> int:
                 for w in r.words:
                     print(f"  {w['start']:7.2f} -> {w['end']:7.2f}  {w['word']}")
         print(f"  audio {r.audio_seconds:.2f}s  wall {r.wall_seconds:.2f}s  RTF {r.rtf:.4f}",
+              file=sys.stderr)
+    if pipe.last_spec_stats is not None:
+        s = pipe.last_spec_stats
+        print(f"speculative: acceptance {s['acceptance']:.1%} "
+              f"({s['accepted']}/{s['drafted']} draft tokens, {s['rounds']} rounds)",
               file=sys.stderr)
     return 0
 

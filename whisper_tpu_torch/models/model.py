@@ -45,8 +45,10 @@ and cross-KV come as :class:`Shards`, one per rank over its local heads. A
 The KV caches are updated IN PLACE (JAX returns new arrays). In
 :func:`decoder_forward` a write that would fall outside a cache raises: JAX's
 ``dynamic_update_slice`` clamps the start instead, which would silently
-overwrite other positions. In :func:`decoder_step_multipos` a row whose
-write falls outside the cache is dropped, as JAX's scatter drops it.
+overwrite other positions. In :func:`decoder_step_multipos` and
+:func:`decoder_window_multipos` (W tokens a row, the verify window of
+``spec_decode``) a write that falls outside the cache is dropped, as JAX's
+scatter drops it.
 """
 
 from __future__ import annotations
@@ -807,14 +809,29 @@ def _cross_and_mlp(x, blks, layer: int, crosses, decode_kernel: bool, n_head: in
 
 def _write_rows(cache: torch.Tensor, rows: torch.Tensor, at: torch.Tensor,
                 inside: torch.Tensor, new: torch.Tensor) -> None:
-    """cache[rows[b], ..., at[b]] = new[b] for every row b whose position is
-    ``inside`` the cache; the other rows write back the value already there,
-    so their write is dropped (JAX's scatter ``mode="drop"``). ``at`` is
-    clamped into the cache only so that the dropped rows index something;
-    every row writes its own b, so no two writes meet. No host sync."""
+    """cache[rows[b], ..., at[b]] = new[b] for every entry whose position is
+    ``inside`` the cache; the other entries write back the value already
+    there, so their write is dropped (JAX's scatter ``mode="drop"``).
+    ``at`` (and ``inside``) is (B,) for one position a row or (B, W) for a
+    window, with ``rows`` (B,) or (B, 1); a dropped entry's ``at`` only has
+    to index the cache, and no two entries of ``(rows, at)`` may meet
+    (``index_put_`` picks an arbitrary winner among duplicates on CUDA). No
+    host sync."""
     old = cache[rows, ..., at]
-    keep = inside.reshape(-1, *([1] * (new.dim() - 1)))
+    keep = inside.reshape(*inside.shape, *([1] * (new.dim() - inside.dim())))
     cache[rows, ..., at] = torch.where(keep, new.to(cache.dtype), old)
+
+
+def _window_targets(q_abs: torch.Tensor, T: int):
+    """(at, inside) of a window's absolute positions ``q_abs`` (B, W), W <=
+    T, in a cache of T positions: an entry at or past T is dropped, and its
+    write-back goes to ``min(q, T + j) - W``, a position its row does not
+    write in this window (below the row's first position, or T - W + j for
+    a row wholly past the edge), so no two entries meet."""
+    W = q_abs.shape[1]
+    j = torch.arange(W, device=q_abs.device)[None, :]
+    inside = q_abs < T
+    return torch.where(inside, q_abs, torch.minimum(q_abs, T + j) - W), inside
 
 
 def decoder_step_multipos(
@@ -895,3 +912,87 @@ def decoder_step_multipos(
 
     x = layer_norm(x, dec.ln["g"], dec.ln["b"])
     return _model_logits(model, x, dt)[:, 0], kv
+
+
+def decoder_window_multipos(
+    model: Whisper,
+    tokens: torch.Tensor,   # (B, W) int64: a token window a stream
+    offsets: torch.Tensor,  # (B,) int64: each stream's first write/attend position, >= 0
+    kv,                     # KVCache or QKVCache, updated in place
+    cross_kv,               # (k, v) each (L, B, H, Ta, dh), or the int8 4-tuple
+    compute_dtype=torch.float32,
+    gelu: str = "erf",
+) -> Tuple[torch.Tensor, object]:
+    """W tokens a stream, each stream at its own position: the verify
+    window of speculative decoding (port of the JAX
+    ``decoder_window_multipos``), the twin of :func:`decoder_step_multipos`.
+
+    Row b's tokens sit at ``offsets[b] .. offsets[b] + W - 1``: their K/V
+    are written there (quantized per position for a :class:`QKVCache`),
+    and query j sees every key ``t <= offsets[b] + j`` of the cache, so
+    stale entries past the window (a rejected draft's) stay hidden. Writes
+    at or past the cache's end are dropped, as JAX's ``mode="drop"``
+    scatter drops them (:func:`_window_targets`); positional indices are
+    clipped to the table. The attentions are the plain products the JAX
+    window computes (:func:`attention_kvt` / :func:`attention_int8kv_perpos`,
+    then :func:`attention_int8kv` / :func:`attention` for cross): the JAX
+    window takes no Pallas path, and the port's decode kernels take one
+    query a row. Returns (logits (B, W, n_vocab) fp32, kv); ``logits[:, j]``
+    predicts the token at ``offsets + j + 1``. Nothing here reads the device
+    from the host.
+    """
+    cfg = model.cfg
+    shards = model_shards(model)
+    dec = shards[0].decoder
+    dt = compute_dtype
+    B, W = tokens.shape
+    kvs, crosses = shard_values(kv), shard_values(cross_kv)
+    T = kvs[0][0].shape[-1]
+    if W > T:
+        raise ValueError(f"a window of {W} tokens does not fit a cache of {T} positions")
+    n_head, dh = cfg.n_text_head // len(shards), cfg.head_dim_text
+
+    q_abs = offsets[:, None] + torch.arange(W, device=tokens.device)[None, :]  # (B, W)
+    pos_idx = torch.clamp(q_abs, 0, dec.pos_emb.shape[0] - 1)
+    x = _embed(model, tokens).to(dt) + dec.pos_emb[pos_idx].to(dt)  # (B, W, D)
+    key_pos = torch.arange(T, device=tokens.device)[None, None, :]
+    vis = (key_pos <= q_abs[:, :, None])[:, None]  # (B, 1, W, T)
+    at, inside = _window_targets(q_abs, T)
+    # the window's state on each rank's device (one copy a call)
+    local = {}
+    for s in shards:
+        if s.device not in local:
+            local[s.device] = tuple(_to(t, s.device) for t in (
+                torch.arange(B, device=tokens.device)[:, None], at, inside, vis))
+
+    kv_quant = len(crosses[0]) == 4
+    self_quant = isinstance(kvs[0], QKVCache)
+    for layer in range(cfg.n_text_layer):
+        blks = [s.decoder.blocks[layer] for s in shards]
+        b0 = blks[0]
+        h = layer_norm(x, b0.attn_ln["g"], b0.attn_ln["b"])
+        outs = []
+        for c, (q, k_new, v_new) in zip(kvs, _column(
+                h, [[(blk.attn["wq"], blk.attn["bq"]), (blk.attn["wk"], None),
+                     (blk.attn["wv"], blk.attn["bv"])] for blk in blks], dt)):
+            rows, at_r, inside_r, vis_r = local[q.device]
+            qh = _split_heads(q, n_head)
+            kh = k_new.reshape(B, W, n_head, dh)
+            vh = v_new.reshape(B, W, n_head, dh)
+            if self_quant:
+                # per (row, position): (B, H, 2, dh, W) / (B, H, 2, W), laid
+                # out as the indexed (B, W, H, 2, dh) / (B, W, H, 2)
+                qn, sn = quantize_kv_heads(kh.transpose(1, 2), vh.transpose(1, 2))
+                _write_rows(c.q[layer], rows, at_r, inside_r, qn.permute(0, 4, 1, 2, 3))
+                _write_rows(c.s[layer], rows, at_r, inside_r, sn.permute(0, 3, 1, 2))
+                o = attention_int8kv_perpos(qh, c.q[layer], c.s[layer], mask=vis_r)
+            else:
+                _write_rows(c.k[layer], rows, at_r, inside_r, kh)
+                _write_rows(c.v[layer], rows, at_r, inside_r, vh)
+                o = attention_kvt(qh, c.k[layer].to(dt), c.v[layer].to(dt), mask=vis_r)
+            outs.append(_merge_heads(o))
+        x = x + _row_parallel(outs, [blk.attn["wo"] for blk in blks], b0.attn["bo"], dt)
+        x = _cross_and_mlp(x, blks, layer, crosses, False, n_head, dt, gelu)
+
+    x = layer_norm(x, dec.ln["g"], dec.ln["b"])
+    return _model_logits(model, x, dt), kv

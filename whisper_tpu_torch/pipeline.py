@@ -20,8 +20,12 @@ builds each row's prompt from it; an utterance takes its first chunk's.
 sub-batch of the decoded sequences (``align.alignment_matrix``) and a DTW on
 the host; ``alignment_heads`` names a JSON sidecar of alignment heads. A
 clip over 30 s gets its windows' words merged and its text spelled from
-them. Speculative decoding, which this port does not carry yet, raises
-``NotImplementedError`` instead of being ignored.
+them. ``spec_draft`` (a preset name) or ``spec_draft_checkpoint`` decodes
+speculatively (``spec_decode.speculative_decode_kv``): the draft encodes the
+same audio (with its own mel bank where its ``n_mels`` differ) and proposes
+``spec_gamma`` tokens a round for the target to verify; greedy argmax only,
+so the suppression filters, timestamps, beams, sampling and the seek loop
+refuse it with ``ValueError``, as in the JAX package.
 
 Runs on ``device`` ("cuda" by default); asking for cuda without a card
 raises. Nothing moves to the CPU unless the caller asks for it.
@@ -34,8 +38,9 @@ cross-attention kernels of every path (the JAX package's
 
 ``transcribe_batch`` marks its stages as ``torch.profiler`` ranges
 (``whisper.audio``, ``whisper.mel``, ``whisper.encoder``, ``whisper.cross_kv``,
-``whisper.detect`` when it detects, ``whisper.decode``, ``whisper.texts``,
-``whisper.align`` with word timestamps) so
+``whisper.detect`` when it detects, ``whisper.draft_encoder`` with a
+draft, ``whisper.decode``, ``whisper.texts``, ``whisper.align`` with word
+timestamps) so
 a profile of the real call splits its time by stage; outside a profile they
 cost a few microseconds each.
 """
@@ -78,6 +83,7 @@ from .ops.mel import log_mel_batch
 from .ops.quant import quantize_logits_emb, quantize_params
 from .params import init_params
 from .sampling import build_suppress_ids
+from .spec_decode import speculative_decode_kv
 from .text import parse_segments, postprocess
 from .tokenizer import get_tokenizer
 
@@ -123,8 +129,8 @@ def resolve_device(device) -> torch.device:
 
 
 class WhisperPipeline:
-    """Load once, transcribe many: batched greedy or beam transcription
-    (``beam_size`` 0 or 1: greedy)."""
+    """Load once, transcribe many: batched greedy, beam (``beam_size``
+    above 1) or speculative (a draft) transcription."""
 
     def __init__(
         self,
@@ -159,11 +165,11 @@ class WhisperPipeline:
         alignment_heads: Optional[str] = None,
         spec_draft: Optional[str] = None,
         spec_draft_checkpoint: Optional[str] = None,
+        spec_gamma: int = 4,
         device="cuda",
         params: Optional[Whisper] = None,
+        draft_params: Optional[Whisper] = None,
     ):
-        if spec_draft or spec_draft_checkpoint:
-            raise NotImplementedError("not ported to whisper_tpu_torch yet: spec_draft")
         if task not in ("transcribe", "translate"):
             raise ValueError(f"task must be transcribe or translate, not {task!r}")
         if compute_dtype not in _DTYPES:
@@ -171,6 +177,8 @@ class WhisperPipeline:
         check_selections(encoder_attention, cross_decode)
         if checkpoint is not None and params is not None:
             raise ValueError("pass checkpoint= or params=, not both")
+        if spec_draft_checkpoint is not None and draft_params is not None:
+            raise ValueError("pass spec_draft_checkpoint= or draft_params=, not both")
         self.device = resolve_device(device)
         self.task = task
         self.language = language  # None: detected per chunk
@@ -216,6 +224,38 @@ class WhisperPipeline:
         if quantize_logits:
             quantize_logits_emb(params)
         self.model = cast_floating(params, self.compute_dtype)
+
+        # speculative decoding: greedy argmax only (the suppression grammar
+        # is sequential state the verify window cannot replay), so every
+        # other decode option refuses it rather than ignoring it
+        self.spec_gamma = spec_gamma
+        self.draft: Optional[Whisper] = None
+        self.last_spec_stats: Optional[dict] = None
+        if spec_draft or spec_draft_checkpoint or draft_params is not None:
+            if apply_filters or timestamps or (beam_size and beam_size > 1) or temperature > 0:
+                raise ValueError("speculative decoding is greedy/argmax-only: use "
+                                 "apply_filters=False, timestamps=False, beam_size<=1, "
+                                 "temperature=0")
+            if spec_draft_checkpoint is not None:
+                draft_params, _ = load_checkpoint(spec_draft_checkpoint,
+                                                  size=spec_draft or "tiny", device=self.device)
+            elif draft_params is None:
+                if checkpoint is not None:
+                    # a real target with a random draft decodes right but
+                    # slower (acceptance ~0): the feature's point defeated
+                    raise ValueError("target has a real checkpoint but the draft would be "
+                                     "random-init (acceptance ~0, pure slowdown): pass "
+                                     "spec_draft_checkpoint")
+                draft_params = init_params(get_config(spec_draft), seed + 1, device=self.device)
+            elif draft_params.device != self.device:
+                raise ValueError(f"draft_params are on {draft_params.device}, "
+                                 f"the pipeline on {self.device}")
+            if draft_params.cfg.n_vocab != self.cfg.n_vocab:
+                raise ValueError(f"draft vocab {draft_params.cfg.n_vocab} != target "
+                                 f"{self.cfg.n_vocab}: draft and target must share a tokenizer")
+            if quantize:
+                quantize_params(draft_params)
+            self.draft = cast_floating(draft_params, self.compute_dtype)
 
         if not self.cfg.is_multilingual:
             raise NotImplementedError("English-only (.en) vocabularies are not ported yet")
@@ -282,6 +322,7 @@ class WhisperPipeline:
             prefix = np.asarray([self.cfg.sot_prev, *ptoks], np.int64)
             prompts = np.concatenate([np.tile(prefix[None], (len(prompts), 1)), prompts], axis=1)
             sot_index = len(prefix)
+        cross_d = self._draft_cross_kv(batch, lengths, mel) if self.draft is not None else None
         with record_function("whisper.decode"):
             kw = dict(max_tokens=self.max_tokens, suppress_ids=self._suppress_ids,
                       apply_filters=self.apply_filters, self_kv_quant=self.self_kv_quant,
@@ -290,6 +331,8 @@ class WhisperPipeline:
             if self.beam_size and self.beam_size > 1:
                 result = beam_search_kv(self.model, cross_kv, prompt_t, self.compute_dtype,
                                         beam_size=self.beam_size, **kw)
+            elif self.draft is not None:
+                result = self._speculative(cross_kv, cross_d, prompt_t, sot_index)
             else:
                 result = greedy_decode_kv(self.model, cross_kv, prompt_t, self.compute_dtype,
                                           cross_decode=self.cross_decode,
@@ -343,6 +386,32 @@ class WhisperPipeline:
             ))
             pos += nc
         return out
+
+    def _draft_cross_kv(self, batch, lengths, mel):
+        """The draft's encode of the batch: its own mel bank where its
+        ``n_mels`` differ (the filterbanks are different frequency maps, so
+        a slice of the target's mel would feed it garbage), else the
+        target's mel."""
+        dcfg = self.draft.cfg
+        with record_function("whisper.draft_encoder"):
+            mel_d = (mel if dcfg.n_mels == self.cfg.n_mels
+                     else log_mel_batch(batch, lengths, n_mels=dcfg.n_mels))
+            return encode_cross_kv(self.draft, mel_d[..., : 2 * dcfg.n_audio_ctx],
+                                   self.compute_dtype, kv_quant=self.kv_quant, w8a8=self.w8a8,
+                                   gelu=self.gelu, encoder_attention=self.encoder_attention)
+
+    def _speculative(self, cross_kv, cross_d, prompt_t, sot_index: int):
+        """The speculative decode; records ``last_spec_stats``."""
+        result = speculative_decode_kv(
+            self.model, cross_kv, self.draft, cross_d, prompt_t, gamma=self.spec_gamma,
+            compute_dtype=self.compute_dtype, max_tokens=self.max_tokens,
+            self_kv_quant=self.self_kv_quant, sot_index=sot_index, gelu=self.gelu,
+            cross_decode=self.cross_decode)
+        accepted, drafted = int(result.accepted), int(result.drafted)
+        self.last_spec_stats = {"accepted": accepted, "drafted": drafted,
+                                "rounds": result.rounds,
+                                "acceptance": accepted / max(drafted, 1)}
+        return result
 
     def _align_words(self, cross_kv, toks: np.ndarray, lens: np.ndarray, prompt_len: int,
                      samples: np.ndarray, langs: List[str], silent: np.ndarray) -> List[list]:
@@ -419,7 +488,8 @@ class WhisperPipeline:
             tokens[idx], lengths[idx], avg_lp[idx] = sub.tokens, sub.lengths, sub.avg_logprob
             result = GreedyResult(tokens=tokens, lengths=lengths,
                                   no_speech_prob=result.no_speech_prob, avg_logprob=avg_lp,
-                                  steps=result.steps + sub.steps,
+                                  # a speculative result counts rounds, not steps
+                                  steps=getattr(result, "steps", 0) + sub.steps,
                                   host_syncs=result.host_syncs + sub.host_syncs)
         return result
 
@@ -435,7 +505,12 @@ class WhisperPipeline:
         """Seek-based long-form (:func:`~whisper_tpu_torch.longform.
         transcribe_seek`): timestamp-conditioned sliding windows, batched
         across utterances, so windows end at segment boundaries. Each result
-        carries its segments in ``segments_list``."""
+        carries its segments in ``segments_list``. Refuses a draft: the seek
+        loop decodes with the timestamp grammar."""
+        if self.draft is not None:
+            raise ValueError("speculative decoding is not supported on the seek-based "
+                             "longform path; use transcribe/transcribe_batch (fixed windows) "
+                             "with spec_draft")
         t0 = time.perf_counter()
         language = language or self.language or "en"
         waves = [load_audio(a) for a in audios]
