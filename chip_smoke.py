@@ -73,7 +73,18 @@ drives each path while counting kernel launches:
   over 16 seeded 30 s noise clips (turbo target at the offline
   configuration, a random draft, 64 tokens, gamma 4), its wall beside
   greedy's, the target as its own draft, and the costs of a round (the
-  target's step and window, the draft's step) at turbo and at large-v3.
+  target's step and window, the draft's step) at turbo and at large-v3;
+- data parallelism: ``python -m whisper_tpu_torch.serving --dp 2`` at turbo
+  (ladder off) as a process of its own, both workers on this card, answering
+  the 24-clip burst, a 75 s request the router splits over both workers and
+  the same request streamed (the workers' launches read from their
+  ``/metrics``), then SIGTERM, after which no worker may live; meshes with
+  data rows on the card (tiny greedy, beam and speculative decodes against
+  the unsharded model, the turbo W8A8 encoder bit for bit, and the offline
+  path with its model at (2, 1) beside the unsharded one);
+- the utils: ``StageTimer`` around the offline run's stages,
+  ``profiler_trace`` around a decode step, the native IO library where
+  cmake can build it.
 
 Then it checks small fp32 runs of the paths on the card against the CPU
 (the offline one under each selection, the TP engine against the one-rank
@@ -81,7 +92,8 @@ engine on the CPU, a sampled decode with the same noise on both, language
 detection, the engine's ``language=auto`` replies, prompted rows,
 timestamps and a long clip through the engine, beam search, the alignment
 matrix and words of teacher-forced text and the same pass on a mesh,
-speculative decodes and a verify window across the cache's end). Prints
+speculative decodes and a verify window across the cache's end, and a
+``--dp 2`` fleet of tiny fp32 workers against the single-engine server). Prints
 JSON lines; the last is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it. Needs a CUDA card: without one it exits 1 and prints
 no result. ``chip_tp.py`` runs the tensor-parallel phases over distinct
@@ -94,6 +106,8 @@ import json
 import math
 import os
 import re
+import signal
+import socket
 import struct
 import subprocess
 import sys
@@ -3359,6 +3373,454 @@ def spec_reference_check(device: str = "cuda") -> dict:
     return rec
 
 
+# ------------------------------------------------------------- data parallelism
+DP_LONG_S = 75  # a request the router splits into 3 windows over the fleet
+DP_FLAGS = ("--dp", "2", "--model_type", "turbo", *GREEDY)
+REF_LONG_S = 45  # the reference's request over 30 s: 2 windows
+N_REF_CLIPS = 6
+REF_FLAGS = ("--model_type", "tiny", "--dtype", "float32", "--no-w8a8", "--max_tokens", "24",
+             *GREEDY)
+DATA_MESHES = ((2, 1), (2, 2), (4, 1))
+MESH_PIPELINE = dict(model="turbo", device="cuda", compute_dtype="bfloat16", quantize=True,
+                     w8a8=True, kv_quant=True, self_kv_quant=True, max_tokens=N_TOKENS, seed=0)
+
+
+def _free_ports(n: int) -> int:
+    """A base port p with p .. p + n - 1 free on 127.0.0.1 (a fleet's router
+    and its workers)."""
+    rng = np.random.default_rng()
+    for _ in range(200):
+        base = int(rng.integers(20000, 60000))
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no {n} consecutive free ports")
+
+
+def _alive(pid: int) -> bool:
+    """Whether process ``pid`` still runs (a zombie has ended)."""
+    try:
+        os.kill(pid, 0)
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (ProcessLookupError, FileNotFoundError):
+        return False
+
+
+class _Served:
+    """``python -m whisper_tpu_torch.serving`` with ``flags`` as a process
+    of its own on 127.0.0.1 (its own session, so its workers can be found
+    and killed as one group), every replica on this card
+    (``CUDA_VISIBLE_DEVICES``): up once it prints its ready line; its
+    standard error (and its workers') is kept in ``lines``."""
+
+    def __init__(self, flags, workers: int = 0, timeout_s: float = 600):
+        port = _free_ports(1 + workers)
+        card = (os.environ.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0]
+        self.url = f"http://127.0.0.1:{port}"
+        self.lines = []
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "whisper_tpu_torch.serving", "--host", "127.0.0.1",
+             "--port", str(port), *flags],
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=card), stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        threading.Thread(target=self._read, daemon=True).start()
+        ready = "router on" if workers else "server on"
+        while not any(ready in line for line in self.lines):
+            if self.proc.poll() is not None or time.perf_counter() - t0 > timeout_s:
+                self.kill()
+                raise AssertionError(f"{flags} did not come up: " + "\n".join(self.lines[-20:]))
+            time.sleep(0.2)
+        self.startup_s = time.perf_counter() - t0
+
+    def _read(self):
+        for line in self.proc.stderr:
+            self.lines.append(line.rstrip())
+
+    def worker_pids(self) -> list:
+        line = next(x for x in self.lines if "router on" in x)
+        return [int(p) for p in re.search(r"pids \[([\d, ]+)\]", line).group(1).split(",")]
+
+    def metrics(self) -> dict:
+        with urllib.request.urlopen(f"{self.url}/metrics", timeout=60) as r:
+            return json.load(r)
+
+    def terminate(self) -> int:
+        """SIGTERM, as a service manager stops it; its exit code."""
+        self.proc.send_signal(signal.SIGTERM)
+        return self.proc.wait(timeout=60)
+
+    def kill(self):
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        self.proc.wait(timeout=60)
+
+
+def _fleet_counts(m0: dict, m1: dict, cfg, path: str) -> dict:
+    """Each worker's kernel launches and engine counters between the router
+    ``/metrics`` reads ``m0`` and ``m1`` (the workers' own ``/metrics``
+    rows), each worker's launches held to exactly what its encodes, steps
+    and detection steps launch (``_expect``; ladder off, so no aux work);
+    returns the launches summed over the fleet."""
+    total = {}
+    for b0, b1 in zip(m0["backends"], m1["backends"]):
+        launches = {k: n - b0["kernel_launches"][k] for k, n in b1["kernel_launches"].items()}
+        d = {k: b1[k] - b0[k] for k in ("encode_batches_total", "aux_batches_total",
+                                        "steps_total", "aux_steps_total",
+                                        "detect_batches_total")}
+        _expect(f"{path} {b1['url']} ({d})", launches, cfg,
+                d["encode_batches_total"] + d["aux_batches_total"],
+                d["steps_total"] + d["aux_steps_total"], detects=d["detect_batches_total"])
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def dp_router(counters) -> dict:
+    """The data-parallel fleet: ``python -m whisper_tpu_torch.serving --dp 2``
+    at turbo (the server's defaults, ladder off) as a process of its own,
+    both workers on this card. The 24-clip burst of the serving phase, one
+    75 s request (split by the router into 3 windows over both workers) and
+    the same request streamed (window partials relayed in window order),
+    through the router; the workers' launches read from their ``/metrics``
+    and held exact; then SIGTERM, after which no worker may be alive."""
+    from whisper_tpu_torch.config import get_config
+
+    rng = np.random.default_rng(2)
+    clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
+             for s in rng.uniform(2.0, 30.0, N_REQUESTS)]
+    long = (np.random.default_rng(12).standard_normal(16000 * DP_LONG_S) * 0.1).astype(np.float32)
+    fleet = _Served(DP_FLAGS, workers=2)
+    try:
+        url = f"{fleet.url}/asr"
+        pids = fleet.worker_pids()
+        # one warm request each (least-in-flight sends two at once apart)
+        with ThreadPoolExecutor(2) as pool:
+            warm = list(pool.map(lambda i: _ask(url, clips[i][:16000 * 3]), range(2)))
+        m0 = fleet.metrics()
+        if [b["router_requests"] for b in m0["backends"]] != [1, 1] or any(
+                code != 200 for code, _, _ in warm):
+            raise AssertionError(f"warm requests: {warm}, {m0['backends']}")
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(N_REQUESTS) as pool:
+            replies = list(pool.map(lambda i: _ask(url, clips[i], multipart=i % 6 == 0),
+                                    range(N_REQUESTS)))
+        wall = time.perf_counter() - t0
+        m_burst = fleet.metrics()
+        code, split, split_s = _ask(url, long)
+        scode, lines, stream_s = _ask(url, long, {"stream": "1"})
+        m1 = fleet.metrics()
+        if any(fn.launches for fn in counters):
+            raise AssertionError("the fleet's kernels ran in this process")
+    except BaseException:
+        fleet.kill()
+        raise
+    rc = fleet.terminate()
+    alive = [p for p in pids if _alive(p)]
+    fleet.kill()  # nothing should be left in its group: a no-op then
+    if rc != 0 or alive:
+        raise AssertionError(f"after SIGTERM: exit {rc}, workers alive {alive}")
+    bad = [(c, r) for c, r, _ in replies if c != 200 or not r.get("success")]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {N_REQUESTS} replies failed: {bad[:3]}")
+    if code != 200 or split.get("split") != "router" or split.get("windows") != 3:
+        raise AssertionError(f"the {DP_LONG_S} s request: {code} {split}")
+    final, partials = lines[-1], [x for x in lines[:-1] if "partial" in x]
+    windows = [p["window"] for p in partials]
+    if (scode != 200 or not final.get("success") or final.get("split") != "router"
+            or final.get("windows") != 3 or not partials or windows != sorted(windows)):
+        raise AssertionError(f"the streamed {DP_LONG_S} s request: {scode} {lines[-3:]}")
+    per = [b["router_requests"] - a["router_requests"]
+           for a, b in zip(m0["backends"], m1["backends"])]
+    if min(per) < 1 or m1["router_split_requests"] - m0["router_split_requests"] != 2:
+        raise AssertionError(f"fan-out {per}, splits {m1['router_split_requests']}")
+    cfg = get_config("turbo")
+    burst = _fleet_counts(m0, m_burst, cfg, "dp_router burst")
+    launches = _fleet_counts(m0, m1, cfg, "dp_router")
+    lat = np.array([sec for _, _, sec in replies])
+    audio_s = sum(len(c) for c in clips) / 16000
+    up = next(x for x in fleet.lines if "router on" in x)
+    return {"phase": "dp_router", "model": "turbo", "dp": 2,
+            "flags": "--dp 2, server defaults, --temperature_fallback '' "
+                     "(both workers on this card: CUDA_VISIBLE_DEVICES)",
+            "startup_s": fleet.startup_s,
+            "workers_up_s": float(re.search(r"workers up in ([\d.]+)s", up).group(1)),
+            "requests": N_REQUESTS, "wall_s": wall, "requests_per_s": N_REQUESTS / wall,
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p95_s": float(np.percentile(lat, 95)),
+            "audio_s_per_s": audio_s / wall,
+            "burst_router_requests": [b["router_requests"] - a["router_requests"]
+                                      for a, b in zip(m0["backends"], m_burst["backends"])],
+            "router_requests": [b["router_requests"] for b in m1["backends"]],
+            "router_split_requests": m1["router_split_requests"],
+            "split_windows": split["windows"], "split_s": split_s,
+            "split_tokens": split["tokens"], "stream_s": stream_s,
+            "stream_partial_windows": windows, "stream_windows": final["windows"],
+            "worker_pids": pids, "sigterm_exit": rc, "workers_alive_after": alive,
+            "burst_launches": burst, "launches": launches}
+
+
+def router_reference_check() -> dict:
+    """tiny, fp32, int8 cross- and self-KV, ladder off, the seeded weights
+    of the other reference phases (written as a ``.pt`` both servers load):
+    six clips one at a time and one 45 s request (2 windows, split by the
+    router over both workers) to a ``--dp 2`` fleet on the card, and the
+    same to the single-engine server on the card (which windows the long
+    one itself): the texts must be equal."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.params import init_params
+
+    rng = np.random.default_rng(14)
+    clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
+             for s in rng.uniform(2.0, 12.0, N_REF_CLIPS)]
+    clips.append((rng.standard_normal(16000 * REF_LONG_S) * 0.1).astype(np.float32))
+    texts, replies = {}, {}
+    served = {}
+    folder = tempfile.TemporaryDirectory()
+    pt = os.path.join(folder.name, "tiny.pt")
+    _write_openai_pt(init_params(get_config("tiny"), seed=3, device="cpu"), pt)
+    try:
+        for name, extra, workers in (("fleet", ["--dp", "2"], 2), ("single", [], 0)):
+            served[name] = _Served([*extra, *REF_FLAGS, "--checkpoint", pt], workers=workers)
+        for name, srv in served.items():
+            out = [_ask(f"{srv.url}/asr", c) for c in clips]
+            if any(code != 200 for code, _, _ in out):
+                raise AssertionError(f"{name}: {[r for _, r, _ in out]}")
+            replies[name] = [r for _, r, _ in out]
+            texts[name] = [r["text"] for r in replies[name]]
+        m = served["fleet"].metrics()
+    finally:
+        for srv in served.values():
+            srv.kill()
+        folder.cleanup()
+    if texts["fleet"] != texts["single"]:
+        raise AssertionError(f"fleet texts differ from the single server's: {texts}")
+    long_fleet, long_single = replies["fleet"][-1], replies["single"][-1]
+    if long_fleet.get("split") != "router" or long_fleet["windows"] != long_single["windows"]:
+        raise AssertionError(f"the {REF_LONG_S} s request: {long_fleet} vs {long_single}")
+    per = [b["router_requests"] for b in m["backends"]]
+    if min(per) < 1:
+        raise AssertionError(f"the fleet's backends served {per}")
+    return {"phase": "router_reference", "model": "tiny", "dtype": "float32",
+            "texts_equal_single_server": True, "windows": long_fleet["windows"],
+            "router_requests": per, "texts": texts["fleet"]}
+
+
+def data_mesh(counters, device: str = "cuda") -> dict:
+    """Meshes with data rows on the card (every block of a mesh on it):
+    tiny fp32 greedy (int8 cross- and self-KV) at (2, 1), (2, 2) and
+    (4, 1), beam 2 and the self-draft speculative decode (gamma 2) at
+    (2, 2), each equal to the unsharded model's tokens; the turbo W8A8
+    encoder at (2, 1) and (2, 2) bit-equal to the unsharded one; then the
+    offline path (turbo B64 / 64 tokens / kvq+skvq+w8a8 / bf16,
+    ``transcribe_batch``) with its model placed at (2, 1), timed beside the
+    unsharded model in the same process, its launches exact (every block a
+    K1 launch a layer, each also K1s's: 32 layers x 2 data rows x 1 rank).
+    Returns the record and the unsharded offline pipeline and clips.
+    ``device`` (and ``MESH_PIPELINE``) let it rehearse on the CPU."""
+    from whisper_tpu_torch.beam import beam_search
+    from whisper_tpu_torch.config import N_SAMPLES, get_config
+    from whisper_tpu_torch.decode import encode_cross_kv, greedy_decode
+    from whisper_tpu_torch.models.model import DataParallelWhisper, encoder_forward
+    from whisper_tpu_torch.ops.mel import log_mel_batch
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.parallel.sharding import make_mesh, shard_params
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.spec_decode import speculative_decode_kv
+
+    dev = torch.device(device)
+
+    def mesh(n_data, tp):
+        return make_mesh(n_data, tp, devices=[dev] * (n_data * tp))
+
+    rec = {"phase": "data_mesh", "meshes_tiny": [list(s) for s in DATA_MESHES]}
+    cfg = get_config("tiny")
+    tiny = init_params(cfg, seed=3, device="cpu").to_device(dev)
+    rng = np.random.default_rng(13)
+    mel = torch.from_numpy(rng.standard_normal((4, cfg.n_mels, 2 * cfg.n_audio_ctx)).astype(
+        np.float32)).to(dev)
+    prompt = torch.tensor([cfg.sot_sequence("en")] * 4, device=dev)
+    kw = dict(max_tokens=12, kv_quant=True, self_kv_quant=True)
+    ref = greedy_decode(tiny, mel, prompt, **kw).tokens
+    for shape in DATA_MESHES:
+        got = greedy_decode(shard_params(tiny, mesh(*shape)), mel, prompt, **kw).tokens
+        if not torch.equal(got, ref):
+            raise AssertionError(f"tiny greedy at {shape} differs from unsharded")
+    m22 = shard_params(tiny, mesh(2, 2))
+    beams = [beam_search(m, mel, prompt, beam_size=2, **kw).tokens for m in (tiny, m22)]
+    if not torch.equal(*beams):
+        raise AssertionError("tiny beam 2 at (2, 2) differs from unsharded")
+    spec = []
+    for m in (tiny, m22):
+        cross = encode_cross_kv(m, mel, kv_quant=True)
+        spec.append(speculative_decode_kv(m, cross, m, cross, prompt, gamma=2, max_tokens=12,
+                                          self_kv_quant=True).tokens)
+    if not torch.equal(*spec):
+        raise AssertionError("tiny self-draft spec at (2, 2) differs from unsharded")
+    rec.update({"tiny_greedy_equal": True, "tiny_beam_equal": True, "tiny_spec_equal": True,
+                "tiny_spec_equals_greedy": bool(torch.equal(spec[0], ref))})
+    del tiny, m22
+
+    # the offline path, unsharded then at (2, 1), in turns of warm + timed
+    pipe = WhisperPipeline(**MESH_PIPELINE)
+    audio = np.random.default_rng(0).standard_normal((B, N_SAMPLES)).astype(np.float32) * 0.1
+    clips = list(audio)
+    one = pipe.model
+    walls, toks = {}, {}
+    for name, model in (("unsharded", one), ("(2, 1)", shard_params(one, mesh(2, 1)))):
+        pipe.model = model
+        pipe.transcribe_batch(clips)  # warm
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        pipe.transcribe_batch(clips)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches = _launches(counters)
+        blocks = 2 if isinstance(model, DataParallelWhisper) else 1
+        _expect(f"data_mesh offline {name}", launches, pipe.cfg, 1, pipe.last_decode.steps,
+                tp=blocks)
+        toks[name] = pipe.last_decode.tokens
+        if blocks == 2:
+            rec["launches"] = launches
+            if launches["flash_attention_btd_sharded"] != pipe.cfg.n_audio_layer * 2:
+                raise AssertionError(f"K1s ran {launches['flash_attention_btd_sharded']} times")
+        del model
+    pipe.model = one
+    rec.update({"offline": f"{pipe.cfg.name} B{B} / {N_TOKENS} tokens / kvq+skvq+w8a8 / "
+                           f"{MESH_PIPELINE['compute_dtype']}, transcribe_batch",
+                "wall_s": walls["(2, 1)"], "unsharded_wall_s": walls["unsharded"],
+                "wall_ratio": walls["(2, 1)"] / walls["unsharded"],
+                "tokens_equal_unsharded_rows": int((toks["(2, 1)"] == toks["unsharded"])
+                                                   .all(dim=1).sum()),
+                "k1s_launches": rec["launches"]["flash_attention_btd_sharded"]})
+    # the W8A8 encoder over 4 clips' mel, bit for bit
+    enc_clips = np.zeros((4, N_SAMPLES), np.float32)
+    enc_clips[:] = audio[:4]
+    mel4 = log_mel_batch(torch.from_numpy(enc_clips).to(dev),
+                         torch.full((4,), N_SAMPLES, device=dev),
+                         n_mels=pipe.cfg.n_mels)[..., : 2 * pipe.cfg.n_audio_ctx]
+    dt = pipe.compute_dtype
+    want = encoder_forward(one, mel4, dt, w8a8=True)
+    for shape in ((2, 1), (2, 2)):
+        got = encoder_forward(shard_params(one, mesh(*shape)), mel4, dt, w8a8=True)
+        if not torch.equal(got, want):
+            raise AssertionError(f"the W8A8 encoder at {shape} differs from unsharded by "
+                                 f"{float((got - want).abs().max())}")
+    rec["w8a8_encoder_bit_equal"] = ["(2, 1)", "(2, 2)"]
+    return rec, pipe, clips
+
+
+def utils_phase(pipe, clips) -> dict:
+    """The port's utils on the card: a ``StageTimer`` around the offline
+    run's stages (the pipeline's mel, encode, decode and text calls, each
+    synchronized), ``profiler_trace`` around one turbo decode step (the
+    trace file's bytes and its kernels of the card), and the native IO
+    library where cmake can build it (its WAV parse and edit distance
+    against the numpy and Python versions)."""
+    import shutil
+
+    import whisper_tpu_torch.pipeline as pl
+    from whisper_tpu_torch.decode import encode_cross_kv
+    from whisper_tpu_torch.eval import wer
+    from whisper_tpu_torch.models.model import decoder_forward, new_kv_cache
+    from whisper_tpu_torch.ops import audio as au
+    from whisper_tpu_torch.utils import native
+    from whisper_tpu_torch.utils.profiling import StageTimer, profiler_trace
+
+    timer = StageTimer()
+    stages = ("log_mel_batch", "encode_cross_kv", "greedy_decode_kv", "extract_texts")
+    saved = {name: getattr(pl, name) for name in stages}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            with timer.stage(name):
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(pl, name, timed(name, fn))
+    try:
+        t0 = time.perf_counter()
+        pipe.transcribe_batch(clips)
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(pl, name, fn)
+    timer.add_audio(len(clips) * 30.0)
+    report = timer.report()
+    if set(report["stages"]) != set(stages):
+        raise AssertionError(f"stages timed: {list(report['stages'])}")
+
+    # one decode step of the offline model at 8 rows, traced
+    dt, dev, cfg, n = pipe.compute_dtype, pipe.device, pipe.cfg, min(8, len(clips))
+    mel = pl.log_mel_batch(torch.from_numpy(np.stack(clips[:n])).to(dev),
+                           torch.full((n,), 480000, device=dev),
+                           n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
+    cross = encode_cross_kv(pipe.model, mel, dt, kv_quant=True, w8a8=True)
+    kv = new_kv_cache(pipe.model, n, dt, 128, quant=True)
+    prompt = torch.tensor([cfg.sot_sequence("zh")] * n, device=dev)
+    logits, kv = decoder_forward(pipe.model, prompt, 0, kv, cross, dt)
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiler_trace(logdir) as path:
+            decoder_forward(pipe.model, nxt, prompt.shape[1], kv, cross, dt)
+            torch.cuda.synchronize()
+        trace_bytes = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+
+    rec = {"phase": "utils", "stage_timer": report, "timed_wall_s": wall,
+           "trace_bytes": trace_bytes, "trace_kernels": len(kernels),
+           "trace_kernel_names": kernels[:12]}
+    with tempfile.TemporaryDirectory() as build:
+        if shutil.which("cmake"):
+            cpp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cpp")
+            made = subprocess.run(f"cmake -S {cpp} -B {build} -DCMAKE_BUILD_TYPE=Release "
+                                  f"&& make -C {build} -j8 whisper_tpu", shell=True,
+                                  capture_output=True, text=True)
+            if made.returncode == 0:
+                os.environ["WHISPER_TPU_NATIVE_LIB"] = os.path.join(build, "libwhisper_tpu.so")
+        native.load_native.cache_clear()
+        try:
+            rec["native"] = "loaded" if native.native_available() else "absent"
+            if rec["native"] == "loaded":
+                x = np.random.default_rng(15).standard_normal(16000 * 2) * 0.2
+                data = _wav(x)
+                got, rate = native.load_wav_native(data, 16000)
+                want = au.to_mono(au.parse_wav(data)[0])
+                err = float(np.abs(got - want).max())
+                pairs = [("kitten", "sitting"), ("今天天气", "今天天汽"), ("", "abc")]
+                dist = [native.edit_distance_native(a, b) for a, b in pairs]
+                if rate != 16000 or err > 1e-7 or dist != [wer._levenshtein(a, b)
+                                                            for a, b in pairs]:
+                    raise AssertionError(f"native: rate {rate}, wav err {err}, distances {dist}")
+                rec.update({"native_wav_max_abs_err": err, "native_edit_distances": dist})
+        finally:
+            os.environ.pop("WHISPER_TPU_NATIVE_LIB", None)
+            native.load_native.cache_clear()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3466,6 +3928,13 @@ def main() -> int:
     speculative = spec_phase(counters)
     emit(speculative)
     torch.cuda.empty_cache()
+    fleet = dp_router(counters)
+    emit(fleet)
+    meshed, pipe, clips = data_mesh(counters)
+    emit(meshed)
+    emit(utils_phase(pipe, clips))
+    del pipe
+    torch.cuda.empty_cache()
     emit(reference_check())
     emit(serving_reference_check())
     emit(longform_reference_check())
@@ -3477,6 +3946,7 @@ def main() -> int:
     emit(beam_reference_check())
     emit(words_reference_check())
     emit(spec_reference_check())
+    emit(router_reference_check())
     emit({"phase": "profiler", **PROFILER_MISSES})
 
     # each kernel's counts from the runs of the path that selects it; the
@@ -3486,7 +3956,7 @@ def main() -> int:
                "cross_attention_decode_dense": "bhtd+dense"}
     for k in kernels:
         name = k["name"]
-        # K1s runs on the TP path only
+        # K1s: its TP path's count (its data-mesh count beside it)
         k["launches"] = (tp if name == "flash_attention_btd_sharded" else
                          runs[own_run.get(name, "btd+fd")])["launches"][name]
         k["offline_launches"] = {sel: rec["launches"][name] for sel, rec in runs.items()}
@@ -3500,7 +3970,8 @@ def main() -> int:
         for path, rec in (("serving_options", options), ("serving_timestamps", stamped),
                           ("serving_paced", paced), ("beam", beams),
                           ("serving_beam", served_beams), ("words", worded),
-                          ("serving_words", served_words), ("spec", speculative)):
+                          ("serving_words", served_words), ("spec", speculative),
+                          ("dp_router", fleet), ("data_mesh", meshed)):
             k[f"{path}_launches"] = rec["launches"][name]
         if name == "self_attention_decode_int8":  # K3's float variant: the detection step
             k["float_launches"] = {path: rec["launches"]["self_attention_decode"]
@@ -3510,7 +3981,7 @@ def main() -> int:
             "checkpoint_launches", "serving_auto_launches", "serving_options_launches",
             "serving_timestamps_launches", "serving_paced_launches", "beam_launches",
             "serving_beam_launches", "words_launches", "serving_words_launches",
-            "spec_launches", "float_launches",
+            "spec_launches", "dp_router_launches", "data_mesh_launches", "float_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}),

@@ -11,10 +11,16 @@ from whisper_tpu.config import HOP_LENGTH, N_FFT, N_SAMPLES
 from whisper_tpu.ops.mel import _power_spectrum as jax_power_spectrum
 from whisper_tpu.ops.mel import _dft_bank as jax_dft_bank
 from whisper_tpu.ops.mel import log_mel_batch as jax_log_mel_batch
+from whisper_tpu.ops.mel import log_mel_spectrogram as jax_log_mel_spectrogram
 from whisper_tpu.ops.mel import mel_filterbank as jax_mel_filterbank
 from whisper_tpu.ops.mel_pallas import log10_mel_pallas
 from whisper_tpu_torch.ops.log10_mel import log10_mel, log10_mel_plain
-from whisper_tpu_torch.ops.mel import _dft_bank, log_mel_batch, mel_filterbank
+from whisper_tpu_torch.ops.mel import (
+    _dft_bank,
+    log_mel_batch,
+    log_mel_spectrogram,
+    mel_filterbank,
+)
 
 torch.set_num_threads(2)
 
@@ -89,3 +95,35 @@ def test_log10_mel_cpu_counts_no_launch():
     before = log10_mel.launches
     log10_mel(torch.zeros((1, 2000)), 80, N_FFT, HOP_LENGTH, 5)
     assert log10_mel.launches == before
+
+
+@pytest.mark.parametrize("padding", ["feature_zero", "audio_zero"])
+@pytest.mark.parametrize("seconds", [3.0048, 30.0, 33.5])
+def test_log_mel_spectrogram_matches_jax(padding, seconds):
+    """The exact-length path against the JAX ``log_mel_spectrogram``: under
+    and over 30 s, cut or padded to 3000 frames and unpadded, both
+    paddings; (n,) input. A cut spectrogram's last 50 frames are zero with
+    ``feature_zero`` only."""
+    n = int(16000 * seconds)
+    t = np.arange(n) / 16000.0
+    audio = (0.3 * np.sin(2 * np.pi * 440 * t)
+             + 0.05 * np.random.default_rng(n).standard_normal(n)).astype(np.float32)
+    for pad_to in (3000, None):
+        ref = np.asarray(jax_log_mel_spectrogram(jnp.asarray(audio), pad_to=pad_to,
+                                                 padding=padding))
+        got = log_mel_spectrogram(torch.from_numpy(audio), pad_to=pad_to, padding=padding)
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
+    if n > 16000 * 30 and padding == "feature_zero":
+        assert float(got.abs().max()) > 0  # (the unpadded one)
+        cut = log_mel_spectrogram(audio, pad_to=3000, padding=padding)
+        assert float(cut[..., -50:].abs().max()) == 0.0
+
+
+def test_log_mel_spectrogram_batch_and_mels_match_jax():
+    """(B, n) input and 128 mel bins."""
+    audio = (np.random.default_rng(5).standard_normal((2, 20000)) * 0.1).astype(np.float32)
+    ref = np.asarray(jax_log_mel_spectrogram(jnp.asarray(audio), n_mels=128))
+    got = log_mel_spectrogram(torch.from_numpy(audio), n_mels=128)
+    assert got.shape == ref.shape == (2, 128, 3000)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)

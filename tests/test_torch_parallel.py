@@ -1,8 +1,10 @@
-"""Tensor parallelism in the port (CPU, fp32 unless W8A8): the mesh and
-specs against ``whisper_tpu/parallel/sharding.py``, the sharded BTD entry
-against JAX's (Pallas in interpret mode on the conftest's virtual CPU
-devices), sharded decode and the TP engine against the unsharded port and
-JAX. Ranks of a port mesh may share a device (``devices=["cpu"] * tp``), as
+"""Tensor and data parallelism in the port (CPU, fp32 unless W8A8): the mesh
+and specs against ``whisper_tpu/parallel/sharding.py``, the sharded BTD
+entry against JAX's (Pallas in interpret mode on the conftest's virtual CPU
+devices), sharded decode (greedy, beam, speculative, detection, the
+alignment pass) on (data, model) meshes and the engine against the
+unsharded port and JAX (``tests/test_sharding.py``'s shapes). Ranks and
+data rows of a port mesh may share a device (``devices=["cpu"] * n``), as
 on one card."""
 
 import os
@@ -16,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as P
 
 from whisper_tpu.config import WhisperConfig as JaxConfig
@@ -28,7 +31,22 @@ from whisper_tpu.serving.engine import ContinuousBatchingEngine as JaxEngine
 from whisper_tpu.serving.engine import Request as JaxRequest
 from whisper_tpu_torch.config import WhisperConfig, get_config
 from whisper_tpu_torch.decode import greedy_decode
-from whisper_tpu_torch.models.model import ShardedWhisper, encoder_forward
+from whisper_tpu.beam import beam_search as jax_beam_search
+from whisper_tpu.decode import detect_language_kv as jax_detect_language_kv
+from whisper_tpu.decode import encode_cross_kv as jax_encode_cross_kv
+from whisper_tpu.spec_decode import speculative_decode_kv as jax_speculative_decode_kv
+from whisper_tpu_torch.align import alignment_matrix
+from whisper_tpu_torch.beam import beam_search
+from whisper_tpu_torch.decode import detect_language_kv, encode_cross_kv
+from whisper_tpu_torch.models.model import (
+    DataParallelWhisper,
+    DataRows,
+    ShardedWhisper,
+    decoder_forward,
+    encoder_forward,
+    new_kv_cache,
+)
+from whisper_tpu_torch.spec_decode import speculative_decode_kv
 from whisper_tpu_torch.ops.flash_attention import (
     flash_attention_btd,
     flash_attention_btd_local,
@@ -285,10 +303,182 @@ def test_tp_engine_equals_unsharded_port_and_jax():
 
 
 def test_engine_refuses_data_parallel_mesh():
-    with pytest.raises(NotImplementedError, match="1.12"):
-        ContinuousBatchingEngine(init_params(get_config("test-nano"), 0, device="cpu"), IdTok(),
-                                 compute_dtype=torch.float32, mesh=_cpu_mesh(1, n_data=2),
-                                 **OPTS)
+    """The engine now takes a mesh with data rows, as the JAX engine does,
+    and runs its slots on row 0: on a (2, 1) CPU mesh it gives the
+    unsharded engine's texts (the name is from when it refused one)."""
+    jp = jax_init_params(jax_get_config("test-nano"), jax.random.PRNGKey(0))
+    cfg = get_config("test-nano")
+    rng = np.random.default_rng(22)
+    clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
+             for s in (0.6, 2.5, 1.2)]
+    texts = []
+    for mesh in (None, _cpu_mesh(1, n_data=2)):
+        model = from_jax_params(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+        eng = ContinuousBatchingEngine(model, IdTok(), compute_dtype=torch.float32, mesh=mesh,
+                                       **OPTS)
+        assert not isinstance(eng.model, DataParallelWhisper)
+        futs = [eng.submit(Request(audio=c, language="zh")) for c in clips]
+        for _ in range(40):
+            if all(f.done() for f in futs):
+                break
+            eng._tick()
+        texts.append([f.result(0)["text"] for f in futs])
+    assert texts[1] == texts[0]
+
+
+# ---------------------------------------------------------------- data rows
+def _setup():
+    """``tests/test_sharding.py``'s inputs on the port's nano-shard model:
+    4 clips, prompt [5, 6, 7, 8], and the unsharded JAX greedy tokens."""
+    cfg, jp, model = _nano(51864)
+    rng = np.random.default_rng(0)
+    mel = rng.standard_normal((4, cfg.n_mels, 64)).astype(np.float32)
+    prompt = np.tile(np.asarray([[5, 6, 7, 8]]), (4, 1))
+    return cfg, jp, model, mel, prompt
+
+
+def _jax_on_mesh(mesh, jp, cfg, mel, prompt):
+    """JAX params and inputs placed on a JAX mesh as ``tests/test_sharding.py``
+    places them."""
+    ds = js.data_specs()
+    return (js.shard_params(jp, mesh, cfg),
+            jax.device_put(jnp.asarray(mel), NamedSharding(mesh, ds["mel"])),
+            jax.device_put(jnp.asarray(prompt, jnp.int32), NamedSharding(mesh, ds["tokens"])))
+
+
+@pytest.mark.parametrize("n_data,tp", [(4, 2), (2, 4), (4, 1), (1, 2)])
+def test_data_mesh_greedy_equals_unsharded_and_jax_mesh(n_data, tp):
+    """Greedy fp32 tokens on an (n_data, tp) port mesh equal the unsharded
+    port's and JAX's ``greedy_decode`` on a JAX mesh of the same shape,
+    with the fp32 and the int8 caches; each data row holds its own split
+    and its block of the caches."""
+    cfg, jp, model, mel, prompt = _setup()
+    sp, mel_s, prompt_s = _jax_on_mesh(_jax_mesh(n_data, tp), jp, cfg, mel, prompt)
+    want = np.asarray(jax_greedy_decode(sp, mel_s, prompt_s, cfg, max_tokens=8).tokens)
+    sharded = shard_params(model, _cpu_mesh(tp, n_data))
+    if n_data > 1:
+        assert isinstance(sharded, DataParallelWhisper) and len(sharded.rows) == n_data
+        assert all(len(r.shards) == tp for r in sharded.rows)
+        cross = encode_cross_kv(sharded, torch.from_numpy(mel))
+        assert isinstance(cross, DataRows) and [c[0].shape[1] for c in
+                                                (r if tp == 1 else r[0] for r in cross)] == \
+            [4 // n_data] * n_data
+    for kvq, skvq in ((False, False), (True, True)):
+        one, many = (greedy_decode(m, torch.from_numpy(mel), torch.from_numpy(prompt),
+                                   max_tokens=8, kv_quant=kvq, self_kv_quant=skvq).tokens.numpy()
+                     for m in (model, sharded))
+        np.testing.assert_array_equal(many, one)
+        if not kvq:
+            np.testing.assert_array_equal(many, want)
+
+
+def test_data_mesh_beam_equals_unsharded_and_jax_mesh():
+    """Beam 2 at (4, 2): each data row holds whole utterances' beams, so the
+    reorder stays inside its row."""
+    cfg, jp, model, mel, prompt = _setup()
+    sp, mel_s, prompt_s = _jax_on_mesh(_jax_mesh(4, 2), jp, cfg, mel, prompt)
+    want = np.asarray(jax_beam_search(sp, mel_s, prompt_s, cfg, beam_size=2,
+                                      apply_filters=False, max_tokens=6).tokens)
+    sharded = shard_params(model, _cpu_mesh(2, 4))
+    for m in (model, sharded):
+        got = beam_search(m, torch.from_numpy(mel), torch.from_numpy(prompt), beam_size=2,
+                          apply_filters=False, max_tokens=6).tokens.numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_data_mesh_spec_and_detection_equal_unsharded_and_jax():
+    """At (2, 2): the self-draft speculative decode (gamma 2) gives the
+    unsharded greedy tokens and JAX's speculative decode; detection gives
+    JAX's languages and probabilities."""
+    cfg, jp, model, mel, prompt = _setup()
+    jcross = jax_encode_cross_kv(jp, jnp.asarray(mel), cfg)
+    jspec = jax_speculative_decode_kv(jp, jcross, jp, jcross, jnp.asarray(prompt, jnp.int32),
+                                      cfg, cfg, gamma=2, max_tokens=8)
+    jidx, jprobs = jax_detect_language_kv(jp, jcross, cfg)
+    sharded = shard_params(model, _cpu_mesh(2, 2))
+    greedy = greedy_decode(model, torch.from_numpy(mel), torch.from_numpy(prompt),
+                           max_tokens=8).tokens
+    for m in (model, sharded):
+        cross = encode_cross_kv(m, torch.from_numpy(mel))
+        spec = speculative_decode_kv(m, cross, m, cross, torch.from_numpy(prompt), gamma=2,
+                                     max_tokens=8)
+        assert torch.equal(spec.tokens, greedy)
+        np.testing.assert_array_equal(spec.tokens.numpy(), np.asarray(jspec.tokens))
+        assert int(spec.accepted) == int(jspec.accepted)
+        idx, probs = detect_language_kv(m, cross)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+        np.testing.assert_allclose(probs.numpy(), np.asarray(jprobs), rtol=0, atol=1e-6)
+
+
+def test_data_mesh_alignment_matrix_equals_unsharded():
+    """The alignment pass at (2, 2) on teacher-forced tokens: each data row
+    reduces its block; within 1e-5 of the unsharded matrix (two ranks'
+    head sums added on the lead device)."""
+    cfg, _, model, mel, _ = _setup()
+    sharded = shard_params(model, _cpu_mesh(2, 2))
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, 1000, (4, 9)))
+    head_mask = torch.zeros((cfg.n_text_layer, cfg.n_text_head))
+    head_mask[1] = 1.0
+    row_mask = torch.zeros((4, 9), dtype=torch.bool)
+    row_mask[:, 3:8] = True
+    frame_len = torch.tensor([32, 20, 32, 9])
+    outs = [alignment_matrix(m, tokens, encode_cross_kv(m, torch.from_numpy(mel)), head_mask,
+                             row_mask, frame_len) for m in (model, sharded)]
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_data,tp", [(2, 1), (2, 2)])
+def test_w8a8_encoder_bit_equal_across_data_rows(n_data, tp):
+    """The W8A8 encoder with data rows gives the unsharded encoder's bits
+    (K8q quantizes per row, so a data split changes no scale), with either
+    attention kernel; the W8A8 + int8-KV decode gives its tokens."""
+    _, _, model = _nano(51864)
+    quantize_params(model)
+    quantize_logits_emb(model)
+    sharded = shard_params(model, _cpu_mesh(tp, n_data))
+    mel = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (4, 80, 64)).astype(np.float32))
+    for attn in ("btd", "bhtd"):
+        assert torch.equal(encoder_forward(sharded, mel, w8a8=True, attn=attn),
+                           encoder_forward(model, mel, w8a8=True, attn=attn))
+    prompt = torch.tensor([[5, 6, 7, 8]] * 4)
+    one, many = (greedy_decode(m, mel, prompt, max_tokens=8, kv_quant=True, self_kv_quant=True,
+                               w8a8=True).tokens for m in (model, sharded))
+    assert torch.equal(one, many)
+
+
+def test_data_mesh_refuses_an_uneven_batch():
+    """A batch the data rows do not divide is refused, as JAX's
+    ``device_put`` of a data-sharded array refuses it; a beam step splits by
+    whole utterances; caches and cross-KV must come per data row."""
+    _, _, model, mel, prompt = _setup()
+    mesh = _cpu_mesh(2, 4)
+    sharded = shard_params(model, mesh)
+    mel4, prompt4 = torch.from_numpy(mel), torch.from_numpy(prompt)
+    with pytest.raises(ValueError, match="a batch of 3 rows does not split over 4 data rows"):
+        greedy_decode(sharded, mel4[:3], prompt4[:3], max_tokens=4)
+    two = shard_params(model, _cpu_mesh(1, 2))
+    with pytest.raises(ValueError, match="in whole groups of 4"):
+        decoder_forward(two, prompt4[:, :1], 0, None, None, beam_k=4)
+    with pytest.raises(TypeError, match="DataRows"):
+        decoder_forward(sharded, prompt4, 0, new_kv_cache(model, 4),
+                        encode_cross_kv(sharded, mel4))
+
+
+def test_serving_mesh_places(monkeypatch):
+    """``distributed.serving_mesh(tp)`` puts the host's cards beyond ``tp``
+    on the DATA axis; ``shard_params`` now places that mesh (run with a
+    count of 4 cards and their devices stood in for by the CPU)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(distributed, "make_mesh", lambda n_data, n_model: make_mesh(
+        n_data, n_model, devices=["cpu"] * (n_data * n_model)))
+    _, _, model = _nano(51864)
+    for tp, rows in ((1, 4), (2, 2), (4, 1)):
+        mesh = distributed.serving_mesh(tp)
+        assert mesh.shape == {DATA_AXIS: rows, MODEL_AXIS: tp}
+        placed = shard_params(model, mesh)
+        assert isinstance(placed, DataParallelWhisper if rows > 1 else ShardedWhisper)
 
 
 def test_main_refuses_tp_without_cards(monkeypatch):

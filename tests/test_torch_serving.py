@@ -402,7 +402,7 @@ def test_client_module(http_server, tmp_path):
 
 def test_main_refuses_unported_flags_and_a_missing_card(monkeypatch):
     # ["--checkpoint", "x"]: a checkpoint file that does not exist
-    for flags in (["--tp", "2"], ["--dp", "2"], ["--backends", "h:1"], ["--checkpoint", "x"]):
+    for flags in (["--tp", "2"], ["--checkpoint", "x"]):
         assert serve_main(["--device", "cpu", *flags]) != 0, flags
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert serve_main(["--model_type", "test-nano"]) != 0  # cuda, the default, and no card

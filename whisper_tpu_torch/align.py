@@ -22,6 +22,9 @@ runs rank by rank over each rank's local heads, as ``decoder_forward`` does:
 maps on the lead device and divides once by the whole mask's count (JAX
 gets the same from XLA's one cross-shard reduction);
 :func:`alignment_cross_attn` concatenates the ranks' heads in rank order.
+Under a :class:`~whisper_tpu_torch.models.model.DataParallelWhisper` each
+data row runs the pass on its block of the batch and the results are
+gathered on the lead device.
 
 Alignment-head selection: by default all heads of the last half of the
 decoder layers (OpenAI's default for a model without a stored mask). Exact
@@ -42,13 +45,18 @@ import torch
 from .config import HOP_LENGTH, SAMPLE_RATE, WhisperConfig
 from .models.model import (
     NEG,
+    DataParallelWhisper,
+    DataRows,
     Shards,
     _column,
     _embed,
+    _gather,
     _gelu,
     _merge_heads,
     _model_logits,
+    _row_blocks,
     _row_parallel,
+    _row_values,
     _split_heads,
     _to,
     layer_norm,
@@ -131,6 +139,12 @@ def alignment_cross_attn(model, tokens: torch.Tensor, cross_kv,
     (L, B, H, S, Ta) fp32, softmax over Ta, and token_logprobs (B, S-1) fp32,
     log P(tokens[:, i+1] | tokens[:, :i+1]), used for per-word confidence).
     """
+    if isinstance(model, DataParallelWhisper):
+        outs = [alignment_cross_attn(m, t, c, compute_dtype, gelu)
+                for m, t, c in zip(model.rows, _row_blocks(model, tokens),
+                                   _row_values(model, cross_kv, "cross_kv"))]
+        return (torch.cat([_to(a, model.device) for a, _ in outs], dim=1),
+                _gather(model, [t for _, t in outs]))
     L, R = model.cfg.n_text_layer, len(model_shards(model))
     maps = [[None] * R for _ in range(L)]
 
@@ -195,6 +209,13 @@ def alignment_matrix(model, tokens: torch.Tensor, cross_kv, head_mask: torch.Ten
     """
     if medfilt_width < 1 or medfilt_width % 2 == 0:
         raise ValueError(f"medfilt_width must be odd >= 1, got {medfilt_width}")
+    if isinstance(model, DataParallelWhisper):
+        outs = [alignment_matrix(m, t, c, head_mask, r, f, compute_dtype, medfilt_width, gelu)
+                for m, t, c, r, f in zip(model.rows, _row_blocks(model, tokens),
+                                         _row_values(model, cross_kv, "cross_kv"),
+                                         _row_blocks(model, row_mask),
+                                         _row_blocks(model, frame_len))]
+        return _gather(model, [a for a, _ in outs]), _gather(model, [t for _, t in outs])
     shards = model_shards(model)
     n_head = model.cfg.n_text_head // len(shards)
     lead = tokens.device
@@ -231,9 +252,9 @@ def alignment_matrix(model, tokens: torch.Tensor, cross_kv, head_mask: torch.Ten
 def dequantize_cross_kv(cross_kv):
     """int8 4-tuple (``quantize_cross_kv`` layout) -> float 2-tuple
     (L, B, H, Ta, dh) fp32; a float 2-tuple as it is; :class:`Shards` rank
-    by rank."""
-    if isinstance(cross_kv, Shards):
-        return Shards(dequantize_cross_kv(c) for c in cross_kv)
+    by rank and :class:`DataRows` row by row."""
+    if isinstance(cross_kv, (Shards, DataRows)):
+        return type(cross_kv)(dequantize_cross_kv(c) for c in cross_kv)
     if len(cross_kv) == 2:
         return cross_kv
     k_q, k_s, v_q, v_s = cross_kv  # q: (L, B, H, dh, Ta); s: (L, B, H, 1, dh)

@@ -31,7 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .decode import encode_cross_kv
-from .models.model import Shards, decoder_forward, new_kv_cache
+from .models.model import DataRows, Shards, decoder_forward, new_kv_cache
 from .sampling import NEG_INF, RuleState, apply_rules
 
 
@@ -65,16 +65,22 @@ def _top_k(x: torch.Tensor, k: int):
 
 
 def _map_cache(kv, fn):
-    """``fn`` on every tensor of a self-KV cache (each rank's, under a
-    mesh), into a cache of the same kind."""
-    if isinstance(kv, Shards):
-        return Shards(_map_cache(c, fn) for c in kv)
+    """``fn`` on every tensor of a self-KV cache (each rank's of each data
+    row's, under a mesh), into a cache of the same kind."""
+    if isinstance(kv, (Shards, DataRows)):
+        return type(kv)(_map_cache(c, fn) for c in kv)
     return type(kv)(*(fn(t) for t in kv))
 
 
 def _gather_cache(kv, flat: torch.Tensor):
     """The beams' reorder of a self-KV cache: axis 1 (the B*K stream axis)
-    of every tensor gathered at ``flat`` (b*K + parent), into new tensors."""
+    of every tensor gathered at ``flat`` (b*K + parent), into new tensors.
+    A beam's parent is a beam of its utterance, so under data rows each
+    row's block of ``flat`` indexes the row's own block."""
+    if isinstance(kv, DataRows):
+        n = flat.shape[0] // len(kv)
+        return DataRows(_gather_cache(c, flat[d * n:(d + 1) * n] - d * n)
+                        for d, c in enumerate(kv))
     return _map_cache(kv, lambda t: t.index_select(1, flat.to(t.device)))
 
 

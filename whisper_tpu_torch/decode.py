@@ -7,7 +7,9 @@ S=1 step per token, each followed by the rules (``sampling.apply_rules``),
 log_softmax and argmax (at ``temperature > 0``, a categorical draw). The
 all-done early exit reads one flag from the device per step; those host
 syncs are counted in the result. Every function takes a sharded model
-(``parallel.sharding.shard_params``) wherever it takes a ``Whisper``.
+(``parallel.sharding.shard_params``, on a mesh of any (data, model) shape)
+wherever it takes a ``Whisper``: under data rows the model functions split
+each step's batch over the rows, and the loop reads one flag for them all.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from torch.profiler import record_function
 
 from .models.model import (
+    DataRows,
     Shards,
     compute_cross_kv,
     decoder_forward,
@@ -56,7 +59,10 @@ def encode_cross_kv(model, mel: torch.Tensor, compute_dtype=torch.float32,
 def index_cross_kv(cross_kv, idx: torch.Tensor):
     """A batch subset of a (possibly int8, possibly sharded) cross-KV: every
     leaf is (L, B, ...), batch on axis 1. The temperature ladder re-decodes
-    only the failed rows against it, without re-running the encoder."""
+    only the failed rows against it, without re-running the encoder. Its
+    rows are those of one data row (the pipeline places no data rows)."""
+    if isinstance(cross_kv, DataRows):
+        raise TypeError("index_cross_kv takes the cross-KV of one data row, not DataRows")
     if isinstance(cross_kv, Shards):
         return Shards(index_cross_kv(c, idx) for c in cross_kv)
     return tuple(a.index_select(1, idx.to(a.device)) for a in cross_kv)
@@ -211,6 +217,14 @@ def greedy_decode(model, mel: torch.Tensor, prompt: torch.Tensor,
     return greedy_decode_kv(model, cross_kv, prompt, compute_dtype, gelu=gelu, **kw)
 
 
+def cross_batch(cross_kv) -> int:
+    """The batch of a (possibly int8, sharded or data-row) cross-KV: every
+    leaf is (L, B, ...)."""
+    if isinstance(cross_kv, DataRows):
+        return sum(cross_batch(c) for c in cross_kv)
+    return shard_values(cross_kv)[0][0].shape[1]
+
+
 def detect_language_kv(model, cross_kv, compute_dtype=torch.float32,
                        cross_decode: str = "fd") -> Tuple[torch.Tensor, torch.Tensor]:
     """Language ID against precomputed cross-KV (the JAX package's
@@ -223,7 +237,7 @@ def detect_language_kv(model, cross_kv, compute_dtype=torch.float32,
     (B,) int64, an offset into the canonical language list; probs (B,
     num_languages) fp32)."""
     cfg = model.cfg
-    B = shard_values(cross_kv)[0][0].shape[1]  # every leaf is (L, B, ...)
+    B = cross_batch(cross_kv)
     kv = new_kv_cache(model, B, compute_dtype, ctx=128)
     sot = torch.full((B, 1), cfg.sot, dtype=torch.int64, device=model.device)
     logits, _ = decoder_forward(model, sot, 0, kv, cross_kv, compute_dtype,

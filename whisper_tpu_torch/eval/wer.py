@@ -92,7 +92,15 @@ def _levenshtein(ref: Sequence, hyp: Sequence) -> int:
 
 
 def edit_distance(ref: str, hyp: str) -> int:
-    """Levenshtein distance over characters."""
+    """Levenshtein distance over characters: the native library's where it
+    loads (``utils/native.py``), else :func:`_levenshtein`."""
+    try:
+        from ..utils.native import edit_distance_native, load_native
+
+        if load_native() is not None:
+            return edit_distance_native(ref, hyp)
+    except Exception:
+        pass
     return _levenshtein(ref, hyp)
 
 

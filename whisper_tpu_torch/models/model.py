@@ -42,6 +42,14 @@ device (:func:`_row_parallel`), so no process group is needed, and caches
 and cross-KV come as :class:`Shards`, one per rank over its local heads. A
 ``Whisper`` is the one-rank case of the same code.
 
+Data parallelism: on a mesh with more than one data row ``shard_params``
+gives a :class:`DataParallelWhisper`, one ``ShardedWhisper`` per row. Every
+forward function splits its batch into the rows' contiguous blocks (the
+JAX package's DATA axis of ``data_specs``), runs each block as above on its
+row's devices and gathers the outputs on the lead device; caches and
+cross-KV stay per row, as :class:`DataRows`. A batch the rows do not divide
+raises ``ValueError``, as JAX's ``device_put`` of a data-sharded array does.
+
 The KV caches are updated IN PLACE (JAX returns new arrays). In
 :func:`decoder_forward` a write that would fall outside a cache raises: JAX's
 ``dynamic_update_slice`` clamps the start instead, which would silently
@@ -207,6 +215,65 @@ class Shards(tuple):
     """Per-rank values under a :class:`ShardedWhisper`, in rank order: its
     self-KV caches (each over the rank's local heads) and its cross-KV
     tuples."""
+
+
+class DataParallelWhisper:
+    """A :class:`Whisper` on a (data, model) mesh with ``n_data > 1``
+    (``parallel.sharding.shard_params``): ``rows[d]`` is the
+    :class:`ShardedWhisper` of data row d, its ranks on
+    ``mesh.devices[d, :]``. Every forward function of this module takes it
+    and runs row d on the d-th contiguous block of the batch (one SPMD
+    program's DATA axis, in row order in one process); the outputs are
+    gathered on the lead device (``rows[0]``'s), and caches and cross-KV
+    stay per row as :class:`DataRows`. The decode loops are unchanged: they
+    read one all-done flag a step for all rows."""
+
+    def __init__(self, cfg: WhisperConfig, rows, mesh):
+        self.cfg = cfg
+        self.rows = tuple(rows)
+        self.mesh = mesh
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows[0].device
+
+
+class DataRows(tuple):
+    """Per-data-row values under a :class:`DataParallelWhisper`, in row
+    order: self-KV caches and cross-KV, each over its row's block of the
+    batch (a :class:`Shards` where a row has several ranks)."""
+
+
+def _row_size(model: DataParallelWhisper, n: int, unit: int = 1) -> int:
+    """Rows of a data row's block of an ``n``-row batch; ``unit`` rows (an
+    utterance's beams) must stay in one block."""
+    n_data = len(model.rows)
+    if n % (n_data * unit):
+        raise ValueError(f"a batch of {n} rows does not split over {n_data} data rows"
+                         + (f" in whole groups of {unit}" if unit > 1 else ""))
+    return n // n_data
+
+
+def _row_blocks(model: DataParallelWhisper, t: Optional[torch.Tensor], unit: int = 1) -> list:
+    """The data rows' contiguous blocks of ``t`` along dim 0, each on its
+    row's lead device (a view where it is there already); None for every
+    row where ``t`` is None."""
+    if t is None:
+        return [None] * len(model.rows)
+    n = _row_size(model, t.shape[0], unit)
+    return [_to(t[d * n:(d + 1) * n], m.device) for d, m in enumerate(model.rows)]
+
+
+def _row_values(model: DataParallelWhisper, x, what: str) -> DataRows:
+    if not (isinstance(x, DataRows) and len(x) == len(model.rows)):
+        raise TypeError(f"{what} under {len(model.rows)} data rows must be DataRows of as "
+                        "many (new_kv_cache and compute_cross_kv make them)")
+    return x
+
+
+def _gather(model: DataParallelWhisper, blocks) -> torch.Tensor:
+    """The rows' output blocks as one batch on the lead device."""
+    return torch.cat([_to(b, model.device) for b in blocks], dim=0)
 
 
 def model_shards(model) -> Tuple[Whisper, ...]:
@@ -473,10 +540,14 @@ def encoder_blocks(model, x: torch.Tensor, compute_dtype=torch.float32,
     :func:`~whisper_tpu_torch.ops.flash_attention.flash_attention_btd_local`,
     the sharded entry's launch; ``bhtd``: K6 per rank) and its partial
     ``wo``; the MLP splits the same way (:func:`_column`,
-    :func:`_row_parallel`). W8A8 then gives the one-rank encoder's bits."""
+    :func:`_row_parallel`). W8A8 then gives the one-rank encoder's bits.
+    Every K1 launch under a mesh of more than one block (data rows or
+    ranks) also counts as one of ``flash_attention_btd_sharded``'s."""
     check_selections(encoder_attention=attn)
     dt = compute_dtype
     shards = model_shards(model)
+    on_mesh = (isinstance(model, ShardedWhisper) and model.mesh is not None
+               and model.mesh.devices.size > 1)
     n_local = model.cfg.n_audio_head // len(shards)
     for i in range(len(shards[0].encoder.blocks))[lo:hi]:
         blks = [s.encoder.blocks[i] for s in shards]
@@ -486,7 +557,8 @@ def encoder_blocks(model, x: torch.Tensor, compute_dtype=torch.float32,
                       [[(blk.attn["wq"], blk.attn["bq"]), (blk.attn["wk"], None),
                         (blk.attn["wv"], blk.attn["bv"])] for blk in blks], dt, w8a8)
         if attn == "btd":
-            outs = flash_attention_btd_local(*zip(*qkv), model.cfg.n_audio_head)
+            outs = flash_attention_btd_local(*zip(*qkv), model.cfg.n_audio_head,
+                                             sharded=on_mesh)
         else:
             outs = [_merge_heads(flash_attention(
                 *(_split_heads(t, n_local).contiguous() for t in p))) for p in qkv]
@@ -507,6 +579,9 @@ def encoder_forward(model, mel: torch.Tensor, compute_dtype=torch.float32,
                     w8a8: bool = False, gelu: str = "erf", attn: str = "btd") -> torch.Tensor:
     """Conv stem + transformer encoder -> audio features (B, Ta, D) fp32;
     ``attn`` as in :func:`encoder_blocks`."""
+    if isinstance(model, DataParallelWhisper):
+        return _gather(model, [encoder_forward(m, x, compute_dtype, w8a8, gelu, attn)
+                               for m, x in zip(model.rows, _row_blocks(model, mel))])
     x = encoder_stem(model, mel, compute_dtype, gelu)
     x = encoder_blocks(model, x, compute_dtype, w8a8=w8a8, gelu=gelu, attn=attn)
     return encoder_post(model, x)
@@ -515,7 +590,11 @@ def encoder_forward(model, mel: torch.Tensor, compute_dtype=torch.float32,
 def compute_cross_kv(model, audio_features: torch.Tensor, compute_dtype=torch.float32):
     """Per-decoder-layer cross-attention K/V, head-major (L, B, H, Ta, dh).
     Under a mesh, :class:`Shards` of each rank's (k, v) over its local
-    heads, on its device."""
+    heads, on its device; under data rows, :class:`DataRows` of each row's
+    over its block of the batch."""
+    if isinstance(model, DataParallelWhisper):
+        return DataRows(compute_cross_kv(m, a, compute_dtype)
+                        for m, a in zip(model.rows, _row_blocks(model, audio_features)))
     dt = compute_dtype
     shards = model_shards(model)
     H = model.cfg.n_text_head // len(shards)
@@ -540,8 +619,8 @@ def quantize_cross_kv(cross_kv):
     fp32 scales (L, B, H, 1, dh). Quantizes one layer at a time to bound the
     fp32 transient. The scales are per head, so :class:`Shards` quantize
     rank by rank to the one-rank result."""
-    if isinstance(cross_kv, Shards):
-        return Shards(quantize_cross_kv(c) for c in cross_kv)
+    if isinstance(cross_kv, (Shards, DataRows)):
+        return type(cross_kv)(quantize_cross_kv(c) for c in cross_kv)
     out = []
     for x in cross_kv:
         L, B, H, Ta, dh = x.shape
@@ -594,7 +673,11 @@ def new_kv_cache(model, batch: int, dtype=torch.float32, ctx: Optional[int] = No
                  quant: bool = False):
     """A self-KV cache for ``model``: a :class:`KVCache` (a
     :class:`QKVCache` with ``quant``) on its device, or under a mesh
-    :class:`Shards` of each rank's cache over its local heads."""
+    :class:`Shards` of each rank's cache over its local heads; under data
+    rows :class:`DataRows` of each row's over its block of ``batch``."""
+    if isinstance(model, DataParallelWhisper):
+        rows = _row_size(model, batch)
+        return DataRows(new_kv_cache(m, rows, dtype, ctx, quant) for m in model.rows)
     shards = model_shards(model)
     H = model.cfg.n_text_head // len(shards)
     return _pack([QKVCache.create(model.cfg, batch, ctx, device=s.device, heads=H) if quant
@@ -693,9 +776,18 @@ def decoder_forward(
     (:func:`_fold_beams`): one :func:`attention_int8kv` (or
     :func:`attention` for a float cross-KV) of K queries a row, as the JAX
     package's einsum, never a decode kernel. Self-attention stays per beam
-    (batch B) and keeps its kernel.
+    (batch B) and keeps its kernel. Under data rows each row's block holds
+    whole utterances' beams.
     """
     check_selections(cross_decode=cross_decode)
+    if isinstance(model, DataParallelWhisper):
+        unit = beam_k or 1
+        outs = [decoder_forward(m, t, offset, c, x, compute_dtype, p, gelu, cross_decode, beam_k)
+                for m, t, c, x, p in zip(model.rows, _row_blocks(model, tokens, unit),
+                                         _row_values(model, kv, "kv"),
+                                         _row_values(model, cross_kv, "cross_kv"),
+                                         _row_blocks(model, pad, unit))]
+        return _gather(model, [o[0] for o in outs]), DataRows(o[1] for o in outs)
     cfg = model.cfg
     shards = model_shards(model)
     dec = shards[0].decoder
@@ -860,6 +952,14 @@ def decoder_step_multipos(
     host.
     """
     check_selections(cross_decode=cross_decode)
+    if isinstance(model, DataParallelWhisper):
+        outs = [decoder_step_multipos(m, t, o, c, x, compute_dtype, p, gelu, cross_decode)
+                for m, t, o, c, x, p in zip(model.rows, _row_blocks(model, tokens),
+                                            _row_blocks(model, offsets),
+                                            _row_values(model, kv, "kv"),
+                                            _row_values(model, cross_kv, "cross_kv"),
+                                            _row_blocks(model, pads))]
+        return _gather(model, [o[0] for o in outs]), DataRows(o[1] for o in outs)
     cfg = model.cfg
     shards = model_shards(model)
     dec = shards[0].decoder
@@ -941,6 +1041,13 @@ def decoder_window_multipos(
     predicts the token at ``offsets + j + 1``. Nothing here reads the device
     from the host.
     """
+    if isinstance(model, DataParallelWhisper):
+        outs = [decoder_window_multipos(m, t, o, c, x, compute_dtype, gelu)
+                for m, t, o, c, x in zip(model.rows, _row_blocks(model, tokens),
+                                         _row_blocks(model, offsets),
+                                         _row_values(model, kv, "kv"),
+                                         _row_values(model, cross_kv, "cross_kv"))]
+        return _gather(model, [o[0] for o in outs]), DataRows(o[1] for o in outs)
     cfg = model.cfg
     shards = model_shards(model)
     dec = shards[0].decoder

@@ -1,8 +1,9 @@
 """Host-side audio IO: WAV/PCM parsing, downmix, resampling.
 
-A copy of ``whisper_tpu/ops/audio.py`` without its native-loader branch: the
-numpy WAV parser, the polyphase resampler and the raw-PCM wire decoder are
-the behaviour.
+A copy of ``whisper_tpu/ops/audio.py``: the numpy WAV parser, the polyphase
+resampler and the raw-PCM wire decoder, and in :func:`load_audio` the
+native library's WAV loader (``utils/native.py``) first where it loads, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -123,6 +124,9 @@ def load_audio(
 
     Mirrors the reference entrypoints: WAV file (python/whisper.py:126-129,
     cpp/src/api/ax_whisper_api.cpp:88-124) and raw PCM (RunPCM, :139-163).
+    WAV bytes go through the native library where it loads (its error on a
+    bad file becomes a :class:`WavFormatError`), else the numpy parser and
+    resampler.
     """
     if isinstance(source, np.ndarray):
         x = to_mono(np.asarray(source, dtype=np.float32))
@@ -134,6 +138,16 @@ def load_audio(
     else:
         with open(source, "rb") as f:
             data = f.read()
+    try:
+        from ..utils.native import load_native, load_wav_native
+
+        if load_native() is not None:
+            samples, _ = load_wav_native(data, sample_rate)
+            return samples
+    except ValueError as e:
+        raise WavFormatError(str(e))
+    except Exception:
+        pass  # fall back to the numpy parser
     chans, rate = parse_wav(data)
     x = to_mono(chans)
     if rate != sample_rate:

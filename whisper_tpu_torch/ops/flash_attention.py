@@ -33,6 +33,7 @@ of each layout; TMA needs 16-byte aligned q, k and v.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -108,20 +109,23 @@ flash_attention_btd.launches = 0  # kernel launches; only the CUDA branch counts
 
 
 # ------------------------------------------------- tensor parallel (K1 sharded)
-def flash_attention_btd_local(qs, ks, vs, n_head: int) -> list:
+def flash_attention_btd_local(qs, ks, vs, n_head: int, sharded: Optional[bool] = None) -> list:
     """K1 on each model shard's local projections: ``qs[r]``, ``ks[r]``,
     ``vs[r]`` are rank r's (B, T, D / tp) columns, its ``n_head // tp``
     heads, on its device; returns rank r's (B, T, D / tp) outputs. Attention
-    is per head, so no collective is needed. With more than one shard every
-    launch on the card also counts as one of
-    ``flash_attention_btd_sharded``'s; a single shard is the unsharded K1."""
+    is per head, so no collective is needed. With ``sharded`` (by default:
+    more than one shard) every launch on the card also counts as one of
+    ``flash_attention_btd_sharded``'s, as for one data row's block of a
+    mesh; otherwise it is the unsharded K1."""
     tp = len(qs)
     if n_head % tp:
         raise ValueError(f"n_head={n_head} not divisible by TP={tp}")
+    if sharded is None:
+        sharded = tp > 1
     outs = []
     for q, k, v in zip(qs, ks, vs):
         outs.append(flash_attention_btd(q, k, v, n_head // tp))
-        if tp > 1 and q.device.type == "cuda":
+        if sharded and q.device.type == "cuda":
             flash_attention_btd_sharded.launches += 1
     return outs
 
@@ -155,7 +159,7 @@ def flash_attention_btd_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
         devs = mesh.devices[d]
         blocks = [[t[d * rows:(d + 1) * rows, :, m * width:(m + 1) * width].contiguous().to(dev)
                    for m, dev in enumerate(devs)] for t in (q, k, v)]
-        outs = flash_attention_btd_local(*blocks, n_head)
+        outs = flash_attention_btd_local(*blocks, n_head, sharded=mesh.devices.size > 1)
         out_rows.append(torch.cat([o.to(q.device) for o in outs], dim=-1))
     return torch.cat(out_rows, dim=0)
 

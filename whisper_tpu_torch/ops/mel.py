@@ -1,12 +1,16 @@
 """Log-mel spectrogram frontend.
 
-Port of ``whisper_tpu/ops/mel.py``'s fixed-shape batched path. The Hann
-window, the DFT bank and the slaney mel filterbank are numpy copies. The raw
-log10 mel (framing, windowed DFT, power, mel projection, log10) is
+Port of ``whisper_tpu/ops/mel.py``: the fixed-shape batched path
+(:func:`log_mel_batch`) and the exact-length one
+(:func:`log_mel_spectrogram`). The Hann window, the DFT bank and the slaney
+mel filterbank are numpy copies. In the batched path the raw log10 mel
+(framing, windowed DFT, power, mel projection, log10) is
 :func:`~whisper_tpu_torch.ops.log10_mel.log10_mel`, the hand-written fused
-kernel on the card and its plain framed-copy + fp32 matmul version on the
-CPU; the reflect padding, the per-utterance masked -8 dB clamp and the
-zeroed tail stay here, as they stay outside the TPU kernel.
+kernel on the card and its plain framed-copy + matmul version on the CPU;
+the reflect padding, the per-utterance masked -8 dB clamp and the zeroed
+tail stay here, as they stay outside the TPU kernel. The exact-length path
+is plain PyTorch on the audio's device (JAX's is an XLA dense DFT, no
+Pallas): the same plain version, its DFT in float64.
 """
 
 from __future__ import annotations
@@ -116,3 +120,42 @@ def log_mel_batch(audio: torch.Tensor, lengths: torch.Tensor, n_mels: int = 80,
     per_max = masked.amax(dim=(1, 2))
     feats = (torch.maximum(log_spec, per_max[:, None, None] - 8.0) + 4.0) / 4.0
     return torch.where(valid[:, None, :], feats, torch.zeros_like(feats))
+
+
+def log_mel_spectrogram(audio, n_mels: int = 80, n_fft: int = N_FFT, hop: int = HOP_LENGTH,
+                        pad_to: Optional[int] = N_FRAMES,
+                        padding: str = "feature_zero") -> torch.Tensor:
+    """Exact-length log-mel: ``audio`` (n,) or (B, n) float32 (a tensor or
+    an array) -> (B, n_mels, T) fp32 on its device, T = 1 + n // hop before
+    ``pad_to``.
+
+    The clamp's maximum is over the whole (unpadded) spectrogram. With
+    ``pad_to`` the frames are cut or zero-padded to it; ``padding=
+    "feature_zero"`` (the JAX default) also zeroes the last 50 frames of a
+    cut spectrogram, ``"audio_zero"`` instead zero-pads (or cuts) the audio
+    to ``pad_to * hop`` samples first. The DFT runs in float64
+    (:func:`~whisper_tpu_torch.ops.log10_mel.log10_mel_plain`), the mel
+    projection and log10 in fp32."""
+    from .log10_mel import log10_mel_plain  # it imports this module's banks
+
+    audio = torch.as_tensor(audio)
+    if audio.dim() == 1:
+        audio = audio[None]
+    if padding == "audio_zero" and pad_to is not None:
+        need = pad_to * hop
+        audio = F.pad(audio, (0, max(0, need - audio.shape[1])))[:, :need]
+    x = F.pad(audio.to(torch.float32)[:, None, :], (n_fft // 2, n_fft // 2),
+              mode="reflect")[:, 0]
+    n_frames = 1 + (x.shape[1] - n_fft) // hop
+    log_spec = log10_mel_plain(x, n_mels, n_fft, hop, n_frames)
+    feats = (torch.maximum(log_spec, log_spec.amax(dim=(1, 2))[:, None, None] - 8.0)
+             + 4.0) / 4.0
+    if pad_to is not None:
+        T = feats.shape[-1]
+        if T > pad_to:
+            feats = feats[..., :pad_to].clone()
+            if padding == "feature_zero":
+                feats[..., pad_to - ZERO_TAIL_FRAMES:] = 0.0
+        elif T < pad_to:
+            feats = F.pad(feats, (0, pad_to - T))
+    return feats

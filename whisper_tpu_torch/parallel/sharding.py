@@ -1,5 +1,5 @@
-"""Tensor-parallel placement: a (data, model) mesh and the split of a model
-over its MODEL axis.
+"""Placement on a (data, model) mesh: the split of a model over its MODEL
+axis, one copy of that split per DATA row.
 
 Port of ``whisper_tpu/parallel/sharding.py``. The JAX package places a
 parameter pytree onto a ``jax.sharding.Mesh`` and lets GSPMD insert the
@@ -10,7 +10,11 @@ into a :class:`~whisper_tpu_torch.models.model.ShardedWhisper`, one
 model code runs the ranks of each layer in turn and sums the row-parallel
 partial products in rank order (``models/model.py``). The sharded model
 carries its mesh, so the JAX package's process-wide ``set_active_mesh``
-(read by its kernel dispatch while tracing) has no counterpart here.
+(read by its kernel dispatch while tracing) has no counterpart here. On a
+mesh with more than one data row it returns a
+:class:`~whisper_tpu_torch.models.model.DataParallelWhisper`: one
+``ShardedWhisper`` per row, on that row's devices, and the model code
+splits every batch over the rows (``data_specs``: batch over DATA).
 
 The specs keep the JAX tree and its axis names, as tuples in place of
 ``PartitionSpec``: block leaves are stacked (L, ...) in the JAX tree, so
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from ..config import WhisperConfig
-from ..models.model import Decoder, Encoder, ShardedWhisper, Whisper
+from ..models.model import DataParallelWhisper, Decoder, Encoder, ShardedWhisper, Whisper
 from ..ops.quant import QTensor
 
 DATA_AXIS = "data"
@@ -171,32 +175,38 @@ def _dict(d: Dict[str, Any], specs: Dict[str, Spec], mesh, rank: int, device,
             for k, v in d.items()}
 
 
-def shard_params(model: Whisper, mesh) -> ShardedWhisper:
+def shard_params(model: Whisper, mesh):
     """Split ``model`` over the MODEL axis of ``mesh`` per
     :func:`param_specs`: column-parallel ``wq/bq/wk/wv/bv/w1/b1``,
     row-parallel ``wo/w2`` (``bo/b2`` replicated and added once after the
     sum), ``tok_emb`` and ``tok_emb_q8`` over the vocabulary where
-    :func:`_fit_spec` lets it divide, the rest replicated; QTensor payloads
-    and scales split like the weight they belong to. Each rank's weights
-    are copies on its device (``mesh.devices[0, r]``).
+    :func:`_fit_spec` lets it divide (and the MODEL axis has more than one
+    rank), the rest replicated; QTensor payloads and scales split like the
+    weight they belong to. Each rank's weights are copies on its device.
 
-    Data parallelism is done across engines, as in the JAX package, so a
-    mesh with ``n_data > 1`` is refused (ROADMAP item 1.12)."""
-    if mesh.shape[DATA_AXIS] != 1:
-        raise NotImplementedError(
-            "not ported to whisper_tpu_torch yet: a mesh with n_data > 1 (data parallelism "
-            "runs across engines behind the router, ROADMAP item 1.12)")
+    One data row (``n_data == 1``) gives a :class:`ShardedWhisper` on
+    ``mesh.devices[0, :]``; several give a :class:`DataParallelWhisper`
+    holding one such split per row, row d's on ``mesh.devices[d, :]``, as
+    the JAX ``shard_params`` replicates every parameter over DATA."""
     cfg = model.cfg
     tp = mesh.shape[MODEL_AXIS]
     for what, n_head in (("n_audio_head", cfg.n_audio_head), ("n_text_head", cfg.n_text_head)):
         if n_head % tp:
             raise ValueError(f"{what}={n_head} not divisible by TP={tp}")
+    rows = [_shard_row(model, mesh, list(mesh.devices[d])) for d in range(mesh.shape[DATA_AXIS])]
+    return rows[0] if len(rows) == 1 else DataParallelWhisper(cfg, rows, mesh)
+
+
+def _shard_row(model: Whisper, mesh, devices) -> ShardedWhisper:
+    """One data row's split of ``model``: rank r's weights on ``devices[r]``."""
+    cfg = model.cfg
     specs = param_specs(cfg)
     es, ds = specs["encoder"], specs["decoder"]
     enc, dec = model.encoder, model.decoder
-    vocab_split = MODEL_AXIS in _fit_spec(ds["tok_emb"], dec.tok_emb.shape, mesh)
+    vocab_split = (mesh.shape[MODEL_AXIS] > 1
+                   and MODEL_AXIS in _fit_spec(ds["tok_emb"], dec.tok_emb.shape, mesh))
     shards = []
-    for r, dev in enumerate(mesh.model_devices()):
+    for r, dev in enumerate(devices):
         encoder = Encoder(
             conv1=_dict(enc.conv1, es["conv1"], mesh, r, dev, False),
             conv2=_dict(enc.conv2, es["conv2"], mesh, r, dev, False),
@@ -214,3 +224,4 @@ def shard_params(model: Whisper, mesh) -> ShardedWhisper:
                         else _leaf(dec.tok_emb_q8, ds["tok_emb"], mesh, r, dev)))
         shards.append(Whisper(cfg, encoder, decoder))
     return ShardedWhisper(cfg, shards, mesh, vocab_split=vocab_split)
+

@@ -1,5 +1,6 @@
 """Server entry point: one continuous-batching engine behind the HTTP front
-end, the single-engine path of ``python -m whisper_tpu.serving``.
+end, or a data-parallel fleet of them behind the router, as
+``python -m whisper_tpu.serving``.
 
     python -m whisper_tpu_torch.serving --model_type turbo --port 8000
     python -m whisper_tpu_torch.serving --model_type turbo --tp 2 --port 8000
@@ -7,6 +8,15 @@ end, the single-engine path of ``python -m whisper_tpu.serving``.
         --length_penalty 1.0 --port 8000   # then POST /asr?beam=5
     python -m whisper_tpu_torch.serving --model_type test-nano --device cpu \\
         --dtype float32 --no-w8a8 --port 8000
+
+    # N data-parallel replicas behind one router on --port: worker i is a
+    # subprocess on port + 1 + i, pinned to cards i*tp .. i*tp + tp - 1
+    python -m whisper_tpu_torch.serving --dp 2 --model_type turbo --port 8000
+    # both replicas on one card: a CUDA_VISIBLE_DEVICES set by the caller wins
+    CUDA_VISIBLE_DEVICES=0 python -m whisper_tpu_torch.serving --dp 2 --port 8000
+
+    # the router alone, in front of workers started elsewhere
+    python -m whisper_tpu_torch.serving --backends http://h0:8001,http://h1:8001
 
 The zero-flag defaults are the JAX server's benched configuration: 8 slots,
 32 steps per sync, a 224-token budget, W8A8 + int8 cross- and self-KV,
@@ -25,14 +35,20 @@ rounds at 1, 2 or 4 times ``--steps_per_sync``, and ``--router_overlap_s``
 is the overlap of the windows a request over 30 s is split into (the JAX
 server passes it to its engines and its router). ``--max_beam_size`` caps a
 request's ``beam`` (above it: a 400) and ``--length_penalty`` is the beams'
-GoogleNMT alpha (default: mean log-prob). Flags of features not
-ported yet (``--dp`` > 1, ``--backends``) exit non-zero and name the
-feature; so does a checkpoint that cannot be read.
+GoogleNMT alpha (default: mean log-prob). A checkpoint that cannot be read
+exits non-zero. ``--dp N`` starts N workers and the router
+(``serving/router.py``), which splits a request over 30 s across them
+unless ``--no_router_split``; ``--backends`` runs the router alone. The
+fleet waits ``--worker_startup_timeout`` seconds for each worker's
+``/health``, and on SIGTERM terminates, then kills, every worker.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import signal
+import subprocess
 import sys
 import time
 
@@ -68,10 +84,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree: split weights/KV over this many CUDA "
                         "cards (heads + MLP over the model mesh axis)")
-    p.add_argument("--dp", type=int, default=1, help="not ported yet (1 only)")
-    p.add_argument("--backends", default=None, help="not ported yet")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel replicas: spawn this many single-engine workers "
+                        "(subprocesses) behind a router")
+    p.add_argument("--backends", default=None,
+                   help="router-only mode: comma-separated worker URLs")
+    p.add_argument("--worker_startup_timeout", type=float, default=900.0,
+                   help="seconds a --dp worker may take to answer /health")
+    p.add_argument("--no_router_split", action="store_true",
+                   help="disable the router's fan-out of requests over 30 s "
+                        "(windows then decode on one backend)")
     p.add_argument("--router_overlap_s", type=float, default=2.0,
-                   help="overlap of the windows a request over 30 s is split into")
+                   help="overlap of the windows a request over 30 s is split into "
+                        "(by the engine and by the router)")
     p.add_argument("--timeout", type=float, default=300.0)
     p.add_argument("--no_speech_threshold", type=float, default=0.6,
                    help="silence gate: P(<|nospeech|>) above this (and not "
@@ -99,10 +124,129 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def unported_flags(args: argparse.Namespace):
-    asked = {"--dp > 1 (data-parallel replicas)": args.dp > 1,
-             "--backends (router)": bool(args.backends)}
-    return [name for name, on in asked.items() if on]
+def _wait_healthy(url: str, timeout_s: float = 120.0, alive=lambda: True) -> bool:
+    """Poll ``url``'s ``/health`` until it answers 200 (True), ``timeout_s``
+    passes or ``alive()`` turns false (False)."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    u = urlsplit(url)
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline and alive():
+        try:
+            c = http.client.HTTPConnection(u.hostname, u.port, timeout=2)
+            c.request("GET", "/health")
+            if c.getresponse().status == 200:
+                return True
+        except OSError:
+            pass
+        time.sleep(0.25)
+    return False
+
+
+def worker_command(args: argparse.Namespace, port: int) -> list:
+    """The command line of one ``--dp`` worker: a single-engine server on
+    127.0.0.1:``port`` with every engine flag of ``args``."""
+    cmd = [sys.executable, "-m", "whisper_tpu_torch.serving",
+           "--host", "127.0.0.1", "--port", str(port),
+           "--model_type", args.model_type, "--device", args.device,
+           "--slots", str(args.slots), "--dtype", args.dtype,
+           "--steps_per_sync", str(args.steps_per_sync),
+           "--tp", str(args.tp), "--timeout", str(args.timeout),
+           "--max_tokens", str(args.max_tokens),
+           # attached values: argparse reads "-1e+20" after a space as a flag
+           f"--no_speech_threshold={args.no_speech_threshold}",
+           f"--logprob_threshold={args.logprob_threshold}",
+           f"--compression_ratio_threshold={args.compression_ratio_threshold}",
+           "--encoder_attention", args.encoder_attention,
+           "--cross_decode", args.cross_decode,
+           "--router_overlap_s", str(args.router_overlap_s),
+           "--max_beam_size", str(args.max_beam_size),
+           "--beam_batch_max", str(args.beam_batch_max),
+           "--temperature_fallback", args.temperature_fallback]
+    if args.checkpoint:
+        cmd += ["--checkpoint", args.checkpoint]
+    if args.admit_chunk:
+        cmd += ["--admit_chunk", str(args.admit_chunk)]
+    if args.encode_chunks > 1:
+        cmd += ["--encode_chunks", str(args.encode_chunks)]
+    if args.length_penalty is not None:
+        cmd.append(f"--length_penalty={args.length_penalty}")
+    if args.timestamps:
+        cmd.append("--timestamps")
+    for flag in ("kv_quant", "self_kv_quant", "w8a8", "adaptive_sync"):
+        cmd.append(f"--{flag}" if getattr(args, flag) else f"--no-{flag}")
+    return cmd
+
+
+def _run_dp(args: argparse.Namespace) -> int:
+    """One single-engine worker subprocess per data replica, fronted by the
+    router on ``args.port``. Replica i gets the cards i*tp .. i*tp + tp - 1
+    (``CUDA_VISIBLE_DEVICES``, unless the caller set it: then every replica
+    shares the caller's cards)."""
+    from .router import make_router
+
+    # SIGTERM must tear the fleet down with us: the default action would end
+    # this process at once, skip the `finally` and leak every worker
+    def _sigterm(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    ports = [args.port + 1 + i for i in range(args.dp)]
+    workers = []
+    try:
+        for i, port in enumerate(ports):
+            env = dict(os.environ)
+            env.setdefault("CUDA_VISIBLE_DEVICES",
+                           ",".join(str(i * args.tp + j) for j in range(args.tp)))
+            workers.append(subprocess.Popen(worker_command(args, port), env=env))
+        urls = [f"http://127.0.0.1:{p}" for p in ports]
+        t0 = time.perf_counter()
+        for u, w in zip(urls, workers):
+            if not _wait_healthy(u, args.worker_startup_timeout,
+                                 alive=lambda w=w: w.poll() is None):
+                print(f"whisper_tpu_torch.serving: worker {u} failed to come up",
+                      file=sys.stderr, flush=True)
+                return 1
+        srv = make_router(urls, args.host, args.port,
+                          split_longform=not args.no_router_split,
+                          longform_overlap_s=args.router_overlap_s)
+        print(f"whisper_tpu_torch router on {args.host}:{args.port} -> {args.dp} replicas "
+              f"{urls} (workers up in {time.perf_counter() - t0:.1f}s; pids "
+              f"{[w.pid for w in workers]})", file=sys.stderr, flush=True)
+        try:
+            srv.serve_forever()
+        finally:
+            srv.server_close()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        for w in workers:
+            w.terminate()
+        for w in workers:
+            try:
+                w.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                w.kill()
+                w.wait()
+    return 0
+
+
+def _run_router(args: argparse.Namespace) -> int:
+    from .router import make_router
+
+    urls = [u if "//" in u else f"http://{u}" for u in args.backends.split(",") if u]
+    srv = make_router(urls, args.host, args.port, split_longform=not args.no_router_split,
+                      longform_overlap_s=args.router_overlap_s)
+    print(f"whisper_tpu_torch router on {args.host}:{srv.server_address[1]} -> {urls}",
+          file=sys.stderr, flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+    return 0
 
 
 def build_engine(args: argparse.Namespace, mesh=None):
@@ -174,10 +318,10 @@ def build_engine(args: argparse.Namespace, mesh=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    asked = unported_flags(args)
-    if asked:
-        print(f"whisper_tpu_torch.serving: not ported yet: {', '.join(asked)}", file=sys.stderr)
-        return 2
+    if args.backends:
+        return _run_router(args)
+    if args.dp > 1:
+        return _run_dp(args)
     from .server import make_server
 
     try:

@@ -53,8 +53,12 @@ temperature, from the slots or from the aux worker itself.
 Under a ``mesh`` (tensor parallelism over its MODEL axis) the weights are
 split per rank (``parallel.sharding.shard_params``) and the slot caches and
 cross-KV are kept per rank over its local heads; slot bookkeeping is one
-copy on the lead device. Data parallelism runs across engines, so a mesh
-with ``n_data > 1`` is refused.
+copy on the lead device. A mesh with ``n_data > 1`` is taken as the JAX
+engine takes it: there every data row holds the slots and their
+bookkeeping replicated and computes the same thing, so here the engine
+runs on data row 0 alone (``mesh.devices[0, :]``) and gives the same
+outputs. Data parallelism proper runs across engines behind the router
+(``serving/router.py``, ``--dp``).
 
 ``language="auto"`` detects a request's language from its cross-KV with one
 ``[sot]`` decoder step (``decode.detect_language_kv``): on the slot path
@@ -363,11 +367,11 @@ class ContinuousBatchingEngine:
         if mesh is not None:
             # tensor-parallel placement: weights split per rank, the slot
             # KV/cross caches over each rank's local heads; slot bookkeeping
-            # one copy. DP is done ACROSS engines (one per data replica), so
-            # shard_params refuses n_data > 1.
-            from ..parallel.sharding import shard_params
+            # one copy. Data rows past the first would only repeat row 0's
+            # work (JAX replicates the slots over DATA): row 0 runs it
+            from ..parallel.sharding import Mesh, shard_params
 
-            model = shard_params(model, mesh)
+            model = shard_params(model, Mesh(mesh.devices[:1], mesh.axis_names))
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.dt = compute_dtype

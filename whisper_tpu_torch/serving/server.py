@@ -9,7 +9,9 @@ Port of ``whisper_tpu/serving/server.py``. Both reference wire protocols on
   checked — the C++ reference server (cpp/src/WhisperHTTPServer.hpp);
 - any other content type: a bare WAV body.
 
-``GET /health`` and ``GET /metrics`` (engine stats); JSON responses with CORS
+``GET /health`` and ``GET /metrics`` (engine stats, and under
+``kernel_launches`` each hand-written kernel's launches in this process, so
+a fleet's workers can be counted from outside); JSON responses with CORS
 headers. Request options come from the query string, ``X-`` headers
 (``X-Initial-Prompt`` is read as UTF-8) or multipart fields:
 ``beam`` (1 to the engine's ``max_beam_size``; above 1 the engine's aux
@@ -45,6 +47,22 @@ from .wire import parse_multipart
 _TRUE = ("1", "true", "yes", "on")
 _OPTIONS = ("language", "task", "beam", "temperature", "word_timestamps", "initial_prompt",
             "condition_on_previous", "format", "stream")
+
+
+def kernel_launches() -> dict:
+    """Launches of every kernel wrapper in this process, by its name (each
+    counts only where it launches its CUDA kernel)."""
+    from ..ops import decode_attention as da
+    from ..ops import flash_attention as fa
+    from ..ops.int8_gemm import int8_gemm
+    from ..ops.log10_mel import log10_mel
+    from ..ops.quantize_rows import quantize_rows
+
+    wrappers = (log10_mel, fa.flash_attention_btd, fa.flash_attention_btd_sharded,
+                fa.flash_attention, int8_gemm, quantize_rows, da.cross_attention_decode_fd,
+                da.cross_attention_decode, da.cross_attention_decode_dense,
+                da.self_attention_decode, da.self_attention_decode_int8)
+    return {fn.__name__: fn.launches for fn in wrappers}
 
 
 class WhisperHandler(BaseHTTPRequestHandler):
@@ -118,7 +136,8 @@ class WhisperHandler(BaseHTTPRequestHandler):
         if self.path == "/health":
             self._send(200, {"status": "healthy"})
         elif self.path == "/metrics":
-            self._send(200, self.engine.stats.snapshot())
+            self._send(200, {**self.engine.stats.snapshot(),
+                             "kernel_launches": kernel_launches()})
         else:
             self._fail(404, "not found")
 
