@@ -84,7 +84,17 @@ drives each path while counting kernel launches:
   path with its model at (2, 1) beside the unsharded one);
 - the utils: ``StageTimer`` around the offline run's stages,
   ``profiler_trace`` around a decode step, the native IO library where
-  cmake can build it.
+  cmake can build it;
+- the engine's knobs: the turbo server's engine warmed (``warmup()``,
+  what its default ``--warm_start`` runs: launches exact, the slot
+  bookkeeping and cross-KV bit-equal across it) and then the 24-clip burst
+  with no warm request and no cold key; two fresh server processes, with
+  and without ``--no-warm_start``, timed from spawn to ``/health`` and over
+  their first and second 30 s clip; 8 clips to an engine with
+  ``apply_filters=False`` and 12 to one with ``prefill_buckets=(1, 8)``
+  (its admissions at those buckets); and the weights-day dry run
+  (``python -m whisper_tpu_torch.weights_day --dry-run --device cuda``,
+  tiny, its ``--dp 2`` fleet on this card).
 
 Then it checks small fp32 runs of the paths on the card against the CPU
 (the offline one under each selection, the TP engine against the one-rank
@@ -92,8 +102,10 @@ engine on the CPU, a sampled decode with the same noise on both, language
 detection, the engine's ``language=auto`` replies, prompted rows,
 timestamps and a long clip through the engine, beam search, the alignment
 matrix and words of teacher-forced text and the same pass on a mesh,
-speculative decodes and a verify window across the cache's end, and a
-``--dp 2`` fleet of tiny fp32 workers against the single-engine server). Prints
+speculative decodes and a verify window across the cache's end, a
+``--dp 2`` fleet of tiny fp32 workers against the single-engine server,
+and engines with ``apply_filters=False``; the TP engine warmed on each
+rank first). Prints
 JSON lines; the last is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero without it. Needs a CUDA card: without one it exits 1 and prints
 no result. ``chip_tp.py`` runs the tensor-parallel phases over distinct
@@ -1428,26 +1440,34 @@ def _ask(url: str, clip: np.ndarray, query=None, headers=None, multipart: bool =
         return e.code, {"error": e.read().decode()}, time.perf_counter() - t0
 
 
-def _started(flags, mesh=None):
+def _started(flags, mesh=None, built=None, warm_request: bool = True):
     """The turbo server of ``python -m whisper_tpu_torch.serving`` with
-    ``flags`` (on ``mesh`` if given), started in-process on 127.0.0.1 and
-    warmed by one request (cuBLAS, the allocator): (engine, base URL, args,
-    server, its thread, startup phases, startup seconds)."""
+    ``flags`` (on ``mesh`` if given), started in-process on 127.0.0.1 (its
+    engine's warm start on, as the server's default) and warmed by one
+    request (cuBLAS, the allocator) unless not ``warm_request``; ``built``
+    is an (engine, startup phases) the caller built and warmed from the
+    same flags: (engine, base URL, args, server, its thread, startup
+    phases, startup seconds)."""
     from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
     from whisper_tpu_torch.serving.server import make_server
 
     args = parse_args(["--model_type", "turbo", "--host", "127.0.0.1", "--port", "0", *flags])
     t0 = time.perf_counter()
-    engine, phases = build_engine(args, mesh=mesh)
-    engine.start()
+    if built is None:
+        engine, phases = build_engine(args, mesh=mesh)
+        engine.start()
+    else:
+        engine, phases = built
+        engine.start(warm=False)
     srv = make_server(engine, args.host, args.port, request_timeout_s=900)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{srv.server_address[1]}"
-    warm = np.random.default_rng(9).standard_normal(16000 * 3).astype(np.float32) * 0.1
-    code, reply, _ = _ask(f"{base}/asr", warm)
-    if code != 200:
-        raise AssertionError(f"warm request answered {code}: {reply}")
+    if warm_request:
+        warm = np.random.default_rng(9).standard_normal(16000 * 3).astype(np.float32) * 0.1
+        code, reply, _ = _ask(f"{base}/asr", warm)
+        if code != 200:
+            raise AssertionError(f"warm request answered {code}: {reply}")
     return engine, base, args, srv, thread, phases, time.perf_counter() - t0
 
 
@@ -1468,7 +1488,8 @@ GREEDY = ("--temperature_fallback", "")
 
 
 def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="serving",
-            keep_engine: bool = False, language: str = ""):
+            keep_engine: bool = False, language: str = "", built=None,
+            warm_request: bool = True):
     """The serving path: ``python -m whisper_tpu_torch.serving``'s engine
     under the server's zero-flag defaults plus ``flags`` (on ``mesh`` if
     given), in-process on 127.0.0.1, one warm request, then ``n_requests``
@@ -1476,8 +1497,10 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
     multipart WAV, the rest as f32 PCM), each with ``?language=`` the given
     one if any (the server's default otherwise). Counts slot and aux
     (ladder) launches alike, detection steps included. Returns the record,
-    and with ``keep_engine`` also the stopped engine and the clips."""
-    engine, base, args, srv, thread, phases, startup_s = _started(flags, mesh)
+    and with ``keep_engine`` also the stopped engine and the clips.
+    ``built`` and ``warm_request`` go to :func:`_started`."""
+    engine, base, args, srv, thread, phases, startup_s = _started(flags, mesh, built,
+                                                                  warm_request)
     url = f"{base}/asr"
     try:
         rng = np.random.default_rng(2)
@@ -1514,7 +1537,7 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
            "mesh": None if mesh is None else repr(mesh),
            "requests": n_requests, "multipart": len(range(0, n_requests, 6)),
            "answered_200": n_requests - len(bad), "startup_s": startup_s,
-           "startup_phases": phases, "kernel_build_s": engine.stats.warmup_seconds,
+           "startup_phases": phases, "warmup_s": engine.stats.warmup_seconds,
            "wall_s": wall, "requests_per_s": n_requests / wall,
            "latency_p50_s": float(np.percentile(lat, 50)),
            "latency_p95_s": float(np.percentile(lat, 95)),
@@ -1675,8 +1698,15 @@ def tp_reference_check(devices=("cuda:0", "cuda:0"), model: str = "tiny") -> dic
     mesh of ``devices`` (by default two ranks on the card, 3 local heads of
     tiny's 6 each), rounds driven one tick at a time through the kernels on
     each rank's local heads, must give the one-rank engine's tokens on the
-    CPU (plain versions) for the same clips."""
+    CPU (plain versions) for the same clips. Before the clips the card's
+    engine is warmed (``warmup()``): every rank's shard runs the round and
+    each bucket's encode and detection step (the launches held exact), and
+    the slot bookkeeping and cross-KV stay bit-equal."""
     from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.ops.decode_attention import (
+        cross_attention_decode_fd, self_attention_decode, self_attention_decode_int8)
+    from whisper_tpu_torch.ops.flash_attention import flash_attention_btd
+    from whisper_tpu_torch.ops.log10_mel import log10_mel
     from whisper_tpu_torch.params import init_params
     from whisper_tpu_torch.parallel.sharding import make_mesh
     from whisper_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
@@ -1701,6 +1731,25 @@ def tp_reference_check(devices=("cuda:0", "cuda:0"), model: str = "tiny") -> dic
             params, IdText(), max_slots=4, compute_dtype=torch.float32, steps_per_sync=4,
             max_tokens=12, kv_quant=True, self_kv_quant=True, no_speech_threshold=None,
             logprob_threshold=None, compression_ratio_threshold=None, mesh=mesh)
+        if mesh is not None:
+            kernels = (flash_attention_btd, log10_mel, cross_attention_decode_fd,
+                       self_attention_decode_int8, self_attention_decode)
+            before = _slot_state(engine)
+            kv0 = [t.clone() for t in _cache_parts(engine.kv)]
+            cross0 = [t.clone() for t in _cache_parts(engine.cross)]
+            for fn in kernels:
+                fn.launches = 0
+            engine.warmup()
+            warm = _warm_diff(engine, before, kv0, cross0)
+            cfg, tp, nb, steps = engine.cfg, len(devices), len(engine.prefill_buckets), 4
+            want = {"flash_attention_btd": cfg.n_audio_layer * nb * tp, "log10_mel": nb,
+                    "cross_attention_decode_fd": cfg.n_text_layer * (steps + nb) * tp,
+                    "self_attention_decode_int8": cfg.n_text_layer * steps * tp,
+                    "self_attention_decode": cfg.n_text_layer * nb * tp}
+            warm["warmup_launches"] = _launches(kernels)
+            if warm["warmup_launches"] != want:
+                raise AssertionError(f"tp warmup launches {warm['warmup_launches']}, "
+                                     f"expected {want}")
         futs = [engine.submit(Request(audio=c)) for c in clips]
         for _ in range(50):
             if all(f.done() for f in futs):
@@ -1712,7 +1761,8 @@ def tp_reference_check(devices=("cuda:0", "cuda:0"), model: str = "tiny") -> dic
                              f"on the CPU: {out}")
     return {"phase": "tp_reference", "model": model, "dtype": "float32",
             "mesh": f"(1, {len(devices)}) on {list(devices)}",
-            "texts_equal_cpu_tp1": True, "tokens": [t.split() for t in out["cpu_tp1"]]}
+            "texts_equal_cpu_tp1": True, "tokens": [t.split() for t in out["cpu_tp1"]],
+            "warmup": warm}
 
 
 def ladder_reference_check() -> dict:
@@ -3435,6 +3485,7 @@ class _Served:
             env=dict(os.environ, CUDA_VISIBLE_DEVICES=card), stdout=subprocess.DEVNULL,
             stderr=subprocess.PIPE, text=True, start_new_session=True)
         threading.Thread(target=self._read, daemon=True).start()
+        self.t0 = t0  # the spawn
         ready = "router on" if workers else "server on"
         while not any(ready in line for line in self.lines):
             if self.proc.poll() is not None or time.perf_counter() - t0 > timeout_s:
@@ -3476,16 +3527,21 @@ def _fleet_counts(m0: dict, m1: dict, cfg, path: str) -> dict:
     returns the launches summed over the fleet."""
     total = {}
     for b0, b1 in zip(m0["backends"], m1["backends"]):
-        launches = {k: n - b0["kernel_launches"][k] for k, n in b1["kernel_launches"].items()}
-        d = {k: b1[k] - b0[k] for k in ("encode_batches_total", "aux_batches_total",
-                                        "steps_total", "aux_steps_total",
-                                        "detect_batches_total")}
-        _expect(f"{path} {b1['url']} ({d})", launches, cfg,
-                d["encode_batches_total"] + d["aux_batches_total"],
-                d["steps_total"] + d["aux_steps_total"], detects=d["detect_batches_total"])
-        for k, n in launches.items():
+        for k, n in _worker_counts(b0, b1, cfg, f"{path} {b1['url']}").items():
             total[k] = total.get(k, 0) + n
     return total
+
+
+def _worker_counts(b0: dict, b1: dict, cfg, path: str) -> dict:
+    """One server process's kernel launches between its ``/metrics`` reads
+    ``b0`` and ``b1``, held to exactly what its encodes, steps and
+    detection steps launch (``_expect``; no aux work)."""
+    launches = {k: n - b0["kernel_launches"][k] for k, n in b1["kernel_launches"].items()}
+    d = {k: b1[k] - b0[k] for k in ("encode_batches_total", "aux_batches_total", "steps_total",
+                                    "aux_steps_total", "detect_batches_total")}
+    _expect(f"{path} ({d})", launches, cfg, d["encode_batches_total"] + d["aux_batches_total"],
+            d["steps_total"] + d["aux_steps_total"], detects=d["detect_batches_total"])
+    return launches
 
 
 def dp_router(counters) -> dict:
@@ -3821,6 +3877,357 @@ def utils_phase(pipe, clips) -> dict:
     return rec
 
 
+# ------------------------------------- the engine's knobs and weights day
+N_FILTER_REQUESTS = 8
+N_BUCKET_REQUESTS = 12
+BUCKETS = (1, 8)  # the buckets phase's prefill_buckets
+COLD_CLIP_S = 30  # cold_start's clips
+# the slot bookkeeping warmup() must leave bit-equal
+BOOKKEEPING = ("tokens", "offsets", "active", "done", "limit", "fstate", "nsp", "pads")
+WEIGHTS_DAY_KEYS = ("dry_run", "sizes", "device", "fetch", "golden", "quant_gate", "wer",
+                    "silence_gate", "longform", "merge_sweep", "serving_golden",
+                    "serving_spots", "wall_seconds")
+
+
+def _slot_state(engine) -> dict:
+    """Copies of an engine's slot bookkeeping, its rule state included."""
+    state = {name: getattr(engine, name).clone() for name in BOOKKEEPING}
+    state.update({f"rs.{k}": v.clone() for k, v in engine.rs._asdict().items()})
+    return state
+
+
+def _cache_parts(x) -> list:
+    from whisper_tpu_torch.models.model import shard_values
+
+    return [t for part in shard_values(x) for t in part]
+
+
+def _warm_diff(engine, before: dict, kv0: list, cross0: list) -> dict:
+    """What a warm changed: the bookkeeping must be bit-equal and the
+    cross-KV too; of the self-KV, the bytes at each slot's step position
+    ``clamp(offset - 1, 0)`` (rewritten by the step of an empty slot, and
+    overwritten whole by admission before a slot reads them) are counted,
+    and any other byte fails."""
+    after = _slot_state(engine)
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    if changed:
+        raise AssertionError(f"warmup() changed the slot bookkeeping: {changed}")
+    if not all(torch.equal(a, b) for a, b in zip(cross0, _cache_parts(engine.cross))):
+        raise AssertionError("warmup() wrote the cross-KV")
+    pos = torch.clamp(before["offsets"] - 1, min=0)
+    at_pos = elsewhere = 0
+    for a, b in zip(kv0, _cache_parts(engine.kv)):
+        a, b = a.movedim(-1, 2), b.movedim(-1, 2)  # (L, slot, position, ...)
+        mask = torch.zeros(a.shape[1:3], dtype=torch.bool, device=a.device)
+        mask[torch.arange(a.shape[1], device=a.device), pos.to(a.device)] = True
+        diff = a != b
+        at_pos += int(diff[:, mask].sum()) * a.element_size()
+        elsewhere += int(diff[:, ~mask].sum()) * a.element_size()
+    if elsewhere:
+        raise AssertionError(f"warmup() wrote {elsewhere} self-KV bytes off the step positions")
+    return {"bookkeeping_bit_equal": True, "cross_kv_bit_equal": True,
+            "self_kv_bytes_written_at_step_position": at_pos,
+            "self_kv_step_positions": sorted(set(pos.tolist()))}
+
+
+def serving_warm(counters) -> dict:
+    """The turbo server's engine at its defaults (ladder off) and its warm
+    start (``warmup()``, what ``start()`` runs under ``--warm_start``):
+    its seconds, the keys it ran and its launches (held exact: one encode
+    and one detection step a bucket, one round of ``steps_per_sync``
+    steps); the slot bookkeeping and the cross-KV bit-equal across it;
+    then the 24-clip burst of ``serving`` with no warm request, during
+    which ``cold_compiles_total`` must not move, its launches exact."""
+    from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
+
+    args = parse_args(["--model_type", "turbo", *GREEDY])
+    t0 = time.perf_counter()
+    engine, phases = build_engine(args)
+    before = _slot_state(engine)
+    kv0 = [t.clone() for t in _cache_parts(engine.kv)]
+    cross0 = [t.clone() for t in _cache_parts(engine.cross)]
+    for fn in counters:
+        fn.launches = 0
+    engine.warmup()
+    warm_launches = _launches(counters)
+    build_warm_s = time.perf_counter() - t0
+    _expect("serving_warm warmup()", warm_launches, engine.cfg, len(engine.prefill_buckets),
+            engine.steps_per_sync, detects=len(engine.prefill_buckets))
+    state = _warm_diff(engine, before, kv0, cross0)
+    cold0, keys = engine.stats.cold_compiles_total, sorted(engine._warm_keys)
+    rec = serving(counters, GREEDY, phase="serving_warm", built=(engine, phases),
+                  warm_request=False)
+    if engine.stats.cold_compiles_total != cold0:
+        raise AssertionError(f"the burst ran cold keys: {sorted(engine._warm_keys - set(keys))}")
+    rec.update({"build_and_warm_s": build_warm_s, "warm_keys": [list(k) for k in keys],
+                "cold_compiles_total": cold0, "cold_compiles_in_burst": 0,
+                "warmup_launches": warm_launches, **state})
+    return rec
+
+
+def _health_s(url: str, t0: float, timeout_s: float = 600) -> float:
+    """Seconds from ``t0`` to the first ``/health`` 200 of ``url``."""
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        try:
+            with urllib.request.urlopen(f"{url}/health", timeout=5) as r:
+                if r.status == 200:
+                    return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.05)
+    raise AssertionError(f"{url} never answered /health")
+
+
+def cold_start(counters) -> dict:
+    """Two fresh ``python -m whisper_tpu_torch.serving`` processes at turbo
+    (the server's defaults, ladder off), one with the default warm start and
+    one with ``--no-warm_start``, one after the other: the seconds from
+    spawn to the first ``/health`` 200, then the latency of a first and a
+    second 30 s clip, each server's launches over the two held exact (from
+    its ``/metrics``), then SIGTERM, after which no process may be left."""
+    from whisper_tpu_torch.config import get_config
+
+    for fn in counters:
+        fn.launches = 0
+    rng = np.random.default_rng(17)
+    clips = [(rng.standard_normal(16000 * COLD_CLIP_S) * 0.1).astype(np.float32)
+             for _ in range(2)]
+    cfg = get_config("turbo")
+    out = {"phase": "cold_start", "model": "turbo",
+           "flags": "server defaults, --temperature_fallback ''", "clip_s": COLD_CLIP_S}
+    total = {}
+    for name, extra in (("warm_start", ()), ("no_warm_start", ("--no-warm_start",))):
+        srv = _Served(("--model_type", "turbo", *GREEDY, *extra))
+        try:
+            health_s = _health_s(srv.url, srv.t0)
+            m0 = srv.metrics()
+            replies = [_ask(f"{srv.url}/asr", c) for c in clips]
+            m1 = srv.metrics()
+            if any(code != 200 or not r.get("success") for code, r, _ in replies):
+                raise AssertionError(f"cold_start {name}: {[r for _, r, _ in replies]}")
+            launches = _worker_counts(m0, m1, cfg, f"cold_start {name}")
+        except BaseException:
+            srv.kill()
+            raise
+        pid = srv.proc.pid
+        rc = srv.terminate()
+        alive = _alive(pid)
+        srv.kill()  # nothing should be left in its group: a no-op then
+        if rc not in (0, -signal.SIGTERM) or alive:
+            raise AssertionError(f"cold_start {name} after SIGTERM: exit {rc}, alive {alive}")
+        up = next(x for x in srv.lines if "server on" in x)
+        out[name] = {"health_s": health_s, "ready_line_s": srv.startup_s,
+                     "warmup_s": float(re.search(r"warmup ([\d.]+)s", up).group(1)),
+                     "first_clip_s": replies[0][2], "second_clip_s": replies[1][2],
+                     "tokens": [r["tokens"] for _, r, _ in replies],
+                     "cold_compiles_before_clips": m0["cold_compiles_total"],
+                     "cold_compiles_during_clips": m1["cold_compiles_total"]
+                     - m0["cold_compiles_total"],
+                     "sigterm_exit": rc, "alive_after": alive, "launches": launches}
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    if any(fn.launches for fn in counters):
+        raise AssertionError("the servers' kernels ran in this process")
+    if out["warm_start"]["cold_compiles_during_clips"]:
+        raise AssertionError(f"the warmed server ran cold keys: {out['warm_start']}")
+    out["launches"] = total
+    return out
+
+
+def _engine_burst(counters, engine, args, clips, path: str, wrap_encode: bool = False):
+    """``clips`` submitted at once to ``engine`` (language default; an
+    engine not started yet is started without its warm after the last
+    submit, so the first admission takes what the queue holds), their
+    replies, the engine counters' change and launches held exact
+    (``_served_counts``), then the engine stopped. With ``wrap_encode``,
+    also the (rows, bucket) of every admission encode."""
+    from whisper_tpu_torch.serving.engine import Request
+
+    encodes = []
+    if wrap_encode:
+        real = engine._encode
+
+        def encode(reqs, bucket):
+            encodes.append((len(reqs), bucket))
+            return real(reqs, bucket)
+
+        engine._encode = encode
+    try:
+        st0 = engine.stats.snapshot()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        futs = [engine.submit(Request(audio=c)) for c in clips]
+        if engine._thread is None:
+            engine.start(warm=False)
+        replies = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = _launches(counters)
+        st1 = engine.stats.snapshot()
+    finally:
+        engine.stop()
+    bad = [r for r in replies if not r.get("success") or not 0 <= r["tokens"] <= args.max_tokens]
+    if bad:
+        raise AssertionError(f"{path}: {len(bad)} of {len(clips)} replies failed: {bad[:3]}")
+    delta = _served_counts(engine, args, st0, st1, launches, path)
+    return replies, delta, launches, wall, encodes
+
+
+def _burst_clips(seed: int, n: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
+            for s in rng.uniform(2.0, 30.0, n)]
+
+
+def filters_off(counters) -> dict:
+    """The turbo server's engine (defaults, ladder off) built with
+    ``apply_filters=False`` (no suppress set) answers 8 clips: its steps
+    launch what ``_expect`` predicts (the rules launch no kernel)."""
+    from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
+
+    args = parse_args(["--model_type", "turbo", *GREEDY])
+    engine, _ = build_engine(args, apply_filters=False)
+    if engine._suppress is not None or engine._use_rules:
+        raise AssertionError("apply_filters=False left the rules on")
+    engine.start()
+    replies, delta, launches, wall, _ = _engine_burst(
+        counters, engine, args, _burst_clips(18, N_FILTER_REQUESTS), "filters_off")
+    return {"phase": "filters_off", "model": "turbo", "requests": N_FILTER_REQUESTS,
+            "flags": "server defaults, --temperature_fallback '', apply_filters=False",
+            "wall_s": wall, "tokens": [r["tokens"] for r in replies],
+            "steps": delta["steps_total"], "admission_batches": delta["encode_batches_total"],
+            "launches": launches}
+
+
+def buckets_phase(counters) -> dict:
+    """The turbo server's engine (defaults, ladder off) built with
+    ``prefill_buckets=(1, 8)``, warmed, answers 12 clips queued before its
+    threads start: every admission encode runs at bucket 1 or 8 (the first
+    a full 8), one K7 launch each, as many as ``encode_batches_total``
+    counts, and every clip is encoded once."""
+    from whisper_tpu_torch.serving.__main__ import build_engine, parse_args
+
+    args = parse_args(["--model_type", "turbo", *GREEDY])
+    engine, _ = build_engine(args, prefill_buckets=BUCKETS)
+    engine.warmup()
+    replies, delta, launches, wall, encodes = _engine_burst(
+        counters, engine, args, _burst_clips(19, N_BUCKET_REQUESTS), "buckets",
+        wrap_encode=True)
+    batches = delta["encode_batches_total"]
+    if ({b for _, b in encodes} - set(BUCKETS) or len(encodes) != batches
+            or encodes[0] != (8, 8) or launches["log10_mel"] != batches
+            or sum(n for n, _ in encodes) != N_BUCKET_REQUESTS):
+        raise AssertionError(f"admissions {encodes}, {batches} batches, "
+                             f"{launches['log10_mel']} K7 launches")
+    prepared = sorted({k[1] for k in engine._warm_keys if k[0] == "prepare"})
+    if prepared != list(BUCKETS):
+        raise AssertionError(f"prepare keys at buckets {prepared}")
+    return {"phase": "buckets", "model": "turbo", "prefill_buckets": list(BUCKETS),
+            "requests": N_BUCKET_REQUESTS, "wall_s": wall,
+            "admissions": [list(e) for e in encodes], "admission_batches": batches,
+            "tokens": [r["tokens"] for r in replies], "launches": launches}
+
+
+def filters_reference_check() -> dict:
+    """tiny fp32 engines (kvq + skvq) built with ``apply_filters=False``,
+    without and with ``timestamps`` (the grammar on, no suppress set), on
+    the card and on the CPU, rounds driven one tick at a time: the tokens
+    must be equal; a row that differs fails with its first divergence and
+    the CPU's top-2 logit margin there."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.decode import encode_cross_kv
+    from whisper_tpu_torch.models.model import KVCache, decoder_forward
+    from whisper_tpu_torch.ops.mel import log_mel_batch
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.serving.engine import ContinuousBatchingEngine, Request
+
+    class IdText:
+        non_speech_tokens = ()
+
+        def decode(self, ids):
+            return " ".join(str(int(t)) for t in ids)
+
+        decode_with_timestamps = decode
+
+    cfg = get_config("tiny")
+    rng = np.random.default_rng(20)
+    clips = [(rng.standard_normal(16000 * s) * 0.1).astype(np.float32) for s in (5, 11, 3)]
+    out = {}
+    for timestamps in (False, True):
+        got = {}
+        for device in ("cuda", "cpu"):
+            model = init_params(cfg, seed=3, device="cpu")  # the same draws on both
+            engine = ContinuousBatchingEngine(
+                model.to_device(device), IdText(), max_slots=4, compute_dtype=torch.float32,
+                steps_per_sync=4, max_tokens=12, kv_quant=True, self_kv_quant=True,
+                no_speech_threshold=None, logprob_threshold=None,
+                compression_ratio_threshold=None, apply_filters=False, timestamps=timestamps,
+                warm_start=False)
+            futs = [engine.submit(Request(audio=c)) for c in clips]
+            for _ in range(50):
+                if all(f.done() for f in futs):
+                    break
+                engine._tick()
+            got[device] = [[int(t) for t in f.result(0)["text"].split()] for f in futs]
+        for i, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
+            if a == b:
+                continue
+            t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            audio = np.zeros((1, 480000), np.float32)
+            audio[0, : len(clips[i])] = clips[i]
+            mel = log_mel_batch(torch.from_numpy(audio), torch.tensor([len(clips[i])]),
+                                n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
+            prefix = list(cfg.sot_sequence("zh", "transcribe"))[: 3 if timestamps else 4] + b[:t]
+            logits, _ = decoder_forward(model, torch.tensor([prefix]), 0,
+                                        KVCache.create(cfg, 1, device="cpu"),
+                                        encode_cross_kv(model, mel))
+            top2 = torch.topk(logits[0, -1], 2).values
+            raise AssertionError(
+                f"apply_filters=False, timestamps={timestamps}: clip {i} on the card differs "
+                f"from the CPU at token {t} ({a[t:t + 1]} vs {b[t:t + 1]}); the CPU's top-2 "
+                f"margin there {float(top2[0] - top2[1]):.3g}")
+        out[f"timestamps_{timestamps}".lower()] = got["cpu"]
+    return {"phase": "filters_reference", "model": "tiny", "dtype": "float32",
+            "apply_filters": False, "tokens_equal_cpu": True, "tokens": out}
+
+
+def weights_day_phase(counters) -> dict:
+    """``python -m whisper_tpu_torch.weights_day --dry-run --device cuda``
+    (its default ``--serving_dp 2``, both workers on this card): its
+    report's keys (those ``tests/test_weights_day.py`` holds of the JAX
+    script's), the served golden decode's success, and its wall."""
+    for fn in counters:
+        fn.launches = 0
+    card = (os.environ.get("CUDA_VISIBLE_DEVICES") or "0").split(",")[0]
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "whisper_tpu_torch.weights_day", "--dry-run", "--device",
+             "cuda", "--workdir", work], env=dict(os.environ, CUDA_VISIBLE_DEVICES=card),
+            capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"weights_day exited {proc.returncode}: "
+                                 f"{proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+        with open(os.path.join(work, "weights_day_report.json"), encoding="utf-8") as f:
+            report = json.load(f)
+        with open(os.path.join(work, "weights_day_report.md"), encoding="utf-8") as f:
+            md = f.read()
+    missing = [k for k in WEIGHTS_DAY_KEYS if k not in report]
+    if missing or report["serving_golden"].get("success") is not True or "DRY-RUN" not in md:
+        raise AssertionError(f"weights_day report: missing {missing}, "
+                             f"serving_golden {report.get('serving_golden')}")
+    if any(fn.launches for fn in counters):
+        raise AssertionError("the weights day's kernels ran in this process")
+    return {"phase": "weights_day", "flags": "--dry-run --device cuda (--serving_dp 2)",
+            "wall_s": wall, "report_wall_s": report["wall_seconds"], "keys": sorted(report),
+            "wer": report["wer"], "quant_gate_rc": report["quant_gate"]["rc"],
+            "golden_rtf": report["golden"]["rtf"],
+            "serving_golden_success": report["serving_golden"]["success"],
+            "serving_spots": len(report["serving_spots"])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3935,6 +4342,18 @@ def main() -> int:
     emit(utils_phase(pipe, clips))
     del pipe
     torch.cuda.empty_cache()
+    warmed = serving_warm(counters)
+    emit(warmed)
+    torch.cuda.empty_cache()
+    cold = cold_start(counters)
+    emit(cold)
+    unfiltered = filters_off(counters)
+    emit(unfiltered)
+    torch.cuda.empty_cache()
+    bucketed = buckets_phase(counters)
+    emit(bucketed)
+    torch.cuda.empty_cache()
+    emit(weights_day_phase(counters))
     emit(reference_check())
     emit(serving_reference_check())
     emit(longform_reference_check())
@@ -3947,6 +4366,7 @@ def main() -> int:
     emit(words_reference_check())
     emit(spec_reference_check())
     emit(router_reference_check())
+    emit(filters_reference_check())
     emit({"phase": "profiler", **PROFILER_MISSES})
 
     # each kernel's counts from the runs of the path that selects it; the
@@ -3971,7 +4391,9 @@ def main() -> int:
                           ("serving_paced", paced), ("beam", beams),
                           ("serving_beam", served_beams), ("words", worded),
                           ("serving_words", served_words), ("spec", speculative),
-                          ("dp_router", fleet), ("data_mesh", meshed)):
+                          ("dp_router", fleet), ("data_mesh", meshed),
+                          ("serving_warm", warmed), ("cold_start", cold),
+                          ("filters_off", unfiltered), ("buckets", bucketed)):
             k[f"{path}_launches"] = rec["launches"][name]
         if name == "self_attention_decode_int8":  # K3's float variant: the detection step
             k["float_launches"] = {path: rec["launches"]["self_attention_decode"]
@@ -3981,7 +4403,9 @@ def main() -> int:
             "checkpoint_launches", "serving_auto_launches", "serving_options_launches",
             "serving_timestamps_launches", "serving_paced_launches", "beam_launches",
             "serving_beam_launches", "words_launches", "serving_words_launches",
-            "spec_launches", "dp_router_launches", "data_mesh_launches", "float_launches",
+            "spec_launches", "dp_router_launches", "data_mesh_launches",
+            "serving_warm_launches", "cold_start_launches", "filters_off_launches",
+            "buckets_launches", "float_launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}),

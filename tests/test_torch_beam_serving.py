@@ -269,7 +269,7 @@ def test_beams_on_a_cpu_mesh_equal_tp1(weights):
 def server(weights):
     model = from_jax_params(_tree(weights[0]), PCFG, device="cpu")
     eng = ContinuousBatchingEngine(model, IdTok(), compute_dtype=torch.float32,
-                                   **ENGINE).start()
+                                   **ENGINE).start(warm=False)
     srv = make_server(eng, "127.0.0.1", 0, request_timeout_s=120)
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()

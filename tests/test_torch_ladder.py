@@ -334,7 +334,7 @@ def test_server_default_ladder_equals_jax(monkeypatch):
 def test_http_temperature_request_answers_200(jax_params):
     """``temperature`` is served over HTTP: a started engine (aux thread on)
     answers a sampled request with 200, at its temperature."""
-    eng = _port_engine(jax_params, temperature_fallback=()).start()
+    eng = _port_engine(jax_params, temperature_fallback=()).start(warm=False)
     srv = make_server(eng, "127.0.0.1", 0, request_timeout_s=60)
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()

@@ -260,7 +260,7 @@ def _wav(pcm: bytes) -> bytes:
 def test_http_language_auto_answers_200(jax_params):
     """``language=auto`` over HTTP reaches the engine: 200 and a detected
     code, equal to the engine's own for the same PCM."""
-    eng = _engine(jax_params).start()
+    eng = _engine(jax_params).start(warm=False)
     srv = make_server(eng, "127.0.0.1", 0, request_timeout_s=60)
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()

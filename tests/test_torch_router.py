@@ -152,7 +152,7 @@ def _engine():
         init_params(CFG, seed=0, device="cpu"), get_tokenizer(num_languages=CFG.num_languages),
         max_slots=2, compute_dtype=torch.float32, steps_per_sync=2, max_tokens=8,
         no_speech_threshold=None, logprob_threshold=None,
-        compression_ratio_threshold=None).start()
+        compression_ratio_threshold=None).start(warm=False)
 
 
 def _serve(server):

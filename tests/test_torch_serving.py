@@ -278,7 +278,7 @@ def _wav_bytes(x: np.ndarray) -> bytes:
 
 @pytest.fixture(scope="module")
 def http_server(jax_params):
-    eng = _engine(jax_params, max_slots=4, steps_per_sync=4).start()
+    eng = _engine(jax_params, max_slots=4, steps_per_sync=4).start(warm=False)
     srv = make_server(eng, "127.0.0.1", 0, request_timeout_s=60)
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()
@@ -452,7 +452,7 @@ def test_main_serves_on_the_cpu():
     finally:
         proc.terminate()
         proc.wait(timeout=20)
-    proc, url = _serve("--timestamps", "--encode_chunks", "2")
+    proc, url = _serve("--timestamps", "--encode_chunks", "2", "--no-warm_start")
     try:
         code, res = _post(f"{url}/asr?language=en", pcm,
                           {"Content-Type": "application/octet-stream"})

@@ -207,7 +207,7 @@ def test_longform_refuses_what_the_queue_cannot_hold(jax_params):
 # ---------------------------------------------------------------- HTTP
 @pytest.fixture(scope="module")
 def server(jax_params):
-    eng = _port(jax_params, steps_per_sync=1).start()
+    eng = _port(jax_params, steps_per_sync=1).start(warm=False)
     srv = make_server(eng, "127.0.0.1", 0, request_timeout_s=120)
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()

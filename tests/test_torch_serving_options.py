@@ -437,7 +437,7 @@ def test_decode_advances_during_newcomer_encode(nano):
         return real(newcomers)
 
     eng._prepare_batch = slow
-    eng.start()
+    eng.start(warm=False)  # the warm would call the held _prepare_batch
     try:
         assert eng._encode_thread is not None and eng._encode_thread.is_alive()
         a = eng.submit(Request(audio=_clips(43, (0.5,))[0], language="zh"))
@@ -472,7 +472,7 @@ def test_encode_thread_burst_equals_pipeline(nano):
     clips = _clips(45, (0.4, 1.1, 2.3, 0.7, 1.9, 0.5, 2.8, 1.3))
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
-    eng.start()
+    eng.start(warm=False)
     try:
         with_results = [None] * len(clips)
 

@@ -335,7 +335,7 @@ def test_http_words_and_subtitles_equal_jax(jax_params):
     the JAX writer's rendering of that reply; /metrics serves the align
     counters."""
     port, jeng = _engines(jax_params)
-    port.start()
+    port.start(warm=False)
     srv = make_server(port, "127.0.0.1", 0, request_timeout_s=120)
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()

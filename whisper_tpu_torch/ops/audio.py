@@ -81,6 +81,16 @@ def parse_wav(data: bytes) -> Tuple[np.ndarray, int]:
     return np.ascontiguousarray(x), rate
 
 
+def write_wav(path: str, samples: np.ndarray, rate: int = SAMPLE_RATE) -> None:
+    """Write mono float32 samples as 16-bit PCM WAV."""
+    samples = np.asarray(samples, dtype=np.float32).reshape(-1)
+    pcm = np.clip(samples * 32767.0, -32768, 32767).astype("<i2").tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, rate, rate * 2, 2, 16))
+        f.write(b"data" + struct.pack("<I", len(pcm)) + pcm)
+
+
 def to_mono(x: np.ndarray) -> np.ndarray:
     """(channels, n) -> (n,) mean downmix (cpp/src/api/ax_whisper_api.cpp:109-113)."""
     if x.ndim == 1:

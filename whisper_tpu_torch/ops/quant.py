@@ -31,6 +31,13 @@ class QTensor:
     def to(self, device) -> "QTensor":
         return QTensor(self.q.to(device), self.s.to(device))
 
+    @property
+    def shape(self) -> torch.Size:
+        return self.q.shape
+
+    def dequant(self, dtype=torch.float32) -> torch.Tensor:
+        return self.q.to(dtype) * self.s.to(dtype)
+
     def k_major(self) -> torch.Tensor:
         """The (d_in, d_out) payload stored column-major (the transpose of a
         contiguous (d_out, d_in)). The first call lays ``q`` out so, in
@@ -84,3 +91,20 @@ def quantize_logits_emb(model):
     returns the model."""
     model.decoder.tok_emb_q8 = quantize_weight(model.decoder.tok_emb, axis=0)
     return model
+
+
+def quantized_bytes(model) -> int:
+    """Parameter bytes of ``model`` as the JAX package counts them: a
+    QTensor's int8 payload and fp32 scales, every other parameter or buffer
+    its elements times their size. The layout :meth:`QTensor.k_major` gives
+    a payload replaces it in place, so nothing is counted twice."""
+    leaves = [val for _, _, val in model.leaves()]
+    if model.decoder.tok_emb_q8 is not None:
+        leaves.append(model.decoder.tok_emb_q8)
+    total = 0
+    for leaf in leaves:
+        if isinstance(leaf, QTensor):
+            total += leaf.q.numel() + leaf.s.numel() * 4
+        else:
+            total += leaf.numel() * leaf.element_size()
+    return total

@@ -35,7 +35,9 @@ rounds at 1, 2 or 4 times ``--steps_per_sync``, and ``--router_overlap_s``
 is the overlap of the windows a request over 30 s is split into (the JAX
 server passes it to its engines and its router). ``--max_beam_size`` caps a
 request's ``beam`` (above it: a 400) and ``--length_penalty`` is the beams'
-GoogleNMT alpha (default: mean log-prob). A checkpoint that cannot be read
+GoogleNMT alpha (default: mean log-prob). ``--no-warm_start`` skips the
+engine's warmup before the server answers (``--warm_start``, the default,
+runs every slot-path program once per shape first). A checkpoint that cannot be read
 exits non-zero. ``--dp N`` starts N workers and the router
 (``serving/router.py``), which splits a request over 30 s across them
 unless ``--no_router_split``; ``--backends`` runs the router alone. The
@@ -121,6 +123,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--length_penalty", type=float, default=None,
                    help="GoogleNMT length-penalty alpha for beam scoring "
                         "(default: mean logprob)")
+    p.add_argument("--warm_start", action=argparse.BooleanOptionalAction, default=True,
+                   help="run every slot-path program once per shape before serving "
+                        "(engine.warmup); --no-warm_start builds kernels at first use")
     return p.parse_args(argv)
 
 
@@ -174,7 +179,7 @@ def worker_command(args: argparse.Namespace, port: int) -> list:
         cmd.append(f"--length_penalty={args.length_penalty}")
     if args.timestamps:
         cmd.append("--timestamps")
-    for flag in ("kv_quant", "self_kv_quant", "w8a8", "adaptive_sync"):
+    for flag in ("kv_quant", "self_kv_quant", "w8a8", "adaptive_sync", "warm_start"):
         cmd.append(f"--{flag}" if getattr(args, flag) else f"--no-{flag}")
     return cmd
 
@@ -249,11 +254,12 @@ def _run_router(args: argparse.Namespace) -> int:
     return 0
 
 
-def build_engine(args: argparse.Namespace, mesh=None):
+def build_engine(args: argparse.Namespace, mesh=None, **engine_kw):
     """The engine the flags describe, on ``args.device``, not started;
     ``--tp N`` > 1 places it on ``make_mesh(1, N)`` (the first N CUDA
-    cards), unless ``mesh`` is given. Returns (engine, startup phase
-    seconds)."""
+    cards), unless ``mesh`` is given. ``engine_kw`` are further constructor
+    keywords (the knobs without a flag, as ``apply_filters`` and
+    ``prefill_buckets``). Returns (engine, startup phase seconds)."""
     import torch
 
     from ..config import get_config
@@ -311,6 +317,8 @@ def build_engine(args: argparse.Namespace, mesh=None):
         beam_batch_max=args.beam_batch_max,
         max_beam_size=args.max_beam_size,
         length_penalty=args.length_penalty,
+        warm_start=args.warm_start,
+        **engine_kw,
     )
     return engine, {"load_s": t_load, "quantize_s": t_quant,
                     "place_s": time.perf_counter() - t0}

@@ -80,10 +80,20 @@ slot's cross-KV before freeing it. Replies of the aux worker (beams, sampled
 decodes, ladder retries) are aligned the same way, and a request over 30 s
 gets its windows' words merged. A failed alignment answers ``words: None``
 with ``align_error``; the worker keeps serving.
+
+:meth:`warmup` (run by :meth:`start` unless ``warm_start=False``) builds the
+kernels and runs, while no slot is active, every program of the slot path
+once at each shape it takes: the step round at each round size, the harvest
+pack, and prepare (mel, encoder, cross-KV, detection, prefill) and admit for
+every prefill bucket. Each (program, shape) key's first run counts in
+``EngineStats.cold_compiles_total``; after a warm start a greedy burst
+moves it no more.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import functools
 import queue
 import threading
@@ -215,7 +225,12 @@ class EngineStats:
     encode_seconds_total: float = 0.0
     encode_batches_total: int = 0
     prepared_depth: int = 0       # requests encoded+prefilled awaiting a slot
-    warmup_seconds: float = 0.0   # start(): the kernels' build, the encode groups' timing
+    warmup_seconds: float = 0.0   # warmup(): the kernels' build and the warm runs
+    # first runs of a (program, shape) key (see _first_run): the port
+    # compiles no XLA, so what a cold key costs is the first launch on the
+    # card (lazy module load, cuBLAS heuristics, the allocator's growth);
+    # unchanged by a greedy burst after warmup()
+    cold_compiles_total: int = 0
     # decode rounds by their size in steps (adaptive_sync: base, 2x, 4x)
     round_sizes: Dict[str, int] = field(default_factory=dict)
     partials_total: int = 0       # on_partial calls made
@@ -330,7 +345,14 @@ class ContinuousBatchingEngine:
     timestamp tokens; ``encode_chunks`` splits the admission encoder into
     that many layer groups; ``adaptive_sync`` sizes rounds at 1, 2 or 4
     times ``steps_per_sync``; ``longform_overlap_s`` is the overlap of the
-    windows a request over 30 s is split into."""
+    windows a request over 30 s is split into. ``prefill_buckets`` are the
+    admission batch sizes (those above ``max_slots`` dropped);
+    ``apply_filters=False`` drops the suppress rules (the timestamp grammar
+    stays with ``timestamps``); ``warm_start`` (None: ``WARM_START_DEFAULT``)
+    makes :meth:`start` run :meth:`warmup`."""
+
+    # start()'s warm default when the constructor's warm_start is None
+    WARM_START_DEFAULT = True
 
     def __init__(
         self,
@@ -360,6 +382,9 @@ class ContinuousBatchingEngine:
         max_beam_size: int = 8,
         length_penalty: Optional[float] = None,
         align_batch_max: int = 8,
+        prefill_buckets: Sequence[int] = PREFILL_BUCKETS,
+        apply_filters: bool = True,
+        warm_start: Optional[bool] = None,
     ):
         check_selections(encoder_attention, cross_decode)
         cfg = model.cfg
@@ -382,7 +407,11 @@ class ContinuousBatchingEngine:
         # still needs that many tokens (off by default, as in JAX)
         self.adaptive_sync = adaptive_sync
         self.timestamps = timestamps
-        self.prefill_buckets = tuple(b for b in PREFILL_BUCKETS if b <= max_slots) or (max_slots,)
+        self.prefill_buckets = tuple(b for b in prefill_buckets if b <= max_slots) or (max_slots,)
+        self.apply_filters = apply_filters
+        # the rules run where the JAX engine's use_rules runs them
+        self._use_rules = apply_filters or timestamps
+        self.warm_start = self.WARM_START_DEFAULT if warm_start is None else warm_start
         self.max_tokens = max_tokens
         self.kv_quant = kv_quant
         self.self_kv_quant = self_kv_quant
@@ -411,8 +440,8 @@ class ContinuousBatchingEngine:
         # requests over 30 s split into windows this many samples apart
         self.longform_overlap = int(longform_overlap_s * 16000)
         self.model = cast_floating(model, compute_dtype)
-        self._suppress = torch.as_tensor(build_suppress_ids(cfg, tokenizer), dtype=torch.int64,
-                                         device=self.device)
+        self._suppress = (torch.as_tensor(build_suppress_ids(cfg, tokenizer), dtype=torch.int64,
+                                          device=self.device) if apply_filters else None)
 
         T = cfg.n_text_ctx
         dev = self.device
@@ -486,6 +515,7 @@ class ContinuousBatchingEngine:
         # the last round; resolved at the start of the next tick
         self._inflight_harvest = None
         self.stats = EngineStats()
+        self._warm_keys: set = set()  # (program, shape) keys run at least once
         # the decode thread and the aux worker both bump the gate, retry,
         # request and busy counters: read-modify-writes under this lock
         self._stats_lock = threading.Lock()
@@ -724,21 +754,83 @@ class ContinuousBatchingEngine:
             self._aux_cv.notify()
         return req.future
 
-    def start(self):
-        """Build the CUDA kernels (so no request pays for nvcc), time the
-        segmented encode's layer groups at every bucket (``encode_chunks >
-        1``: as JAX's warmup does, while no slot is active), then start the
-        decode thread, the encode thread and the aux worker."""
+    def _first_run(self, key: tuple) -> None:
+        """Count the first run of a (program, shape) key (the JAX engine's
+        ``_traced_call`` keys: ``("step", n)``, ``("pack",)``, ``("prepare",
+        bucket, context width)``, ``("admit", bucket, P)``, the aux worker's
+        ``("aux_encode", bucket)``, ``("aux_detect", bucket)``,
+        ``("aux_sampled", bucket, t, width)``, ``("aux_beam", bucket, K,
+        width)`` and ``("align", batch, S)``)."""
+        if key in self._warm_keys:
+            return
+        with self._stats_lock:
+            if key not in self._warm_keys:
+                self._warm_keys.add(key)
+                self.stats.cold_compiles_total += 1
+
+    def warmup(self, buckets: Optional[Sequence[int]] = None):
+        """Run the slot path's programs once at every shape the slots reach,
+        on the calling thread, while no slot is active: build the kernels
+        (on the card), run the step round at each round size
+        (``steps_per_sync``, and 2x and 4x under ``adaptive_sync``), the
+        harvest pack and its copy to the host, and prepare (on dummy
+        requests: ``language="auto"`` and ``"en"`` in turn on a multilingual
+        model, so detection runs) and admit for each bucket of ``buckets``
+        (default ``prefill_buckets``); with ``encode_chunks > 1`` a second
+        encode of each bucket, past first-use costs, times its layer
+        groups.
+
+        The slot bookkeeping is left bit-equal (tokens, offsets, active,
+        done, limit, rule state, fstate, nsp, pads): an inactive slot's step
+        keeps its state (``step_ok`` is false), and the admit copies zero
+        rows, so it writes nothing and clips no index. The one write is the
+        step's self-KV at ``clamp(offset - 1, 0)`` of every empty slot;
+        admission overwrites a slot's whole self-KV and cross-KV row before
+        it is read. Every counter but ``warmup_seconds`` and
+        ``cold_compiles_total`` is restored. The aux worker's programs (a
+        caller-chosen beam size or temperature) still run cold."""
+        if any(r is not None for r in self._slot_req):
+            raise RuntimeError("warmup() runs only while no slot is active")
         t0 = time.perf_counter()
+        counters = copy.deepcopy(self.stats)
         if self.device.type == "cuda":
             _build.build_all()
-        if self.encode_chunks > 1:
-            for b in self.prefill_buckets:
-                silence = [Request(audio=np.zeros(1600, np.float32))] * b
-                for _ in range(2):  # the second pass, past first-use costs, is kept
-                    self._encode_seg_est.pop(b, None)
-                    self._encode(silence, b)
+        sizes = [self.steps_per_sync]
+        if self.adaptive_sync:
+            sizes += [2 * self.steps_per_sync, 4 * self.steps_per_sync]
+        for n in sizes:
+            self._steps(n)
+        pending = self._inflight_harvest  # an idle engine's last pack: harvested next tick
+        self._start_harvest_copy()
+        _, event, _ = self._inflight_harvest
+        if event is not None:
+            event.synchronize()
+        self._inflight_harvest = pending
+        for b in buckets or self.prefill_buckets:
+            dummies = [Request(audio=np.zeros(1600, np.float32),
+                               language="auto" if i % 2 == 0 and self.cfg.is_multilingual
+                               else "en") for i in range(b)]
+            batch = self._prepare_batch(dummies)
+            self._scatter_rows(batch, [], [])
+            if self.encode_chunks > 1:
+                bucket = batch.first.shape[0]
+                self._encode_seg_est.pop(bucket, None)
+                self._encode(dummies, bucket)
+        for shard in model_shards(self.model):
+            if shard.device.type == "cuda":
+                torch.cuda.synchronize(shard.device)
+        for f in dataclasses.fields(EngineStats):
+            if f.name not in ("cold_compiles_total", "warmup_seconds"):
+                setattr(self.stats, f.name, getattr(counters, f.name))
         self.stats.warmup_seconds = time.perf_counter() - t0
+        return self
+
+    def start(self, warm: Optional[bool] = None):
+        """Run :meth:`warmup` (when ``warm``, default ``warm_start``; without
+        it the kernels build at first use), then start the decode thread,
+        the encode thread and the aux worker."""
+        if self.warm_start if warm is None else warm:
+            self.warmup()
         for name, target, tag in (("_thread", self._run, "cb-engine"),
                                   ("_encode_thread", self._prepare_run, "cb-encode"),
                                   ("_aux_thread", self._aux_run, "cb-aux")):
@@ -973,11 +1065,14 @@ class ContinuousBatchingEngine:
                                      cross_decode=self.cross_decode)
         # OpenAI-style no-speech probability: softmax at the sot position
         nsp = torch.softmax(logits[:, sot_index].to(torch.float32), dim=-1)[:, cfg.no_speech]
-        last = apply_rules(logits[:, -1], RuleState.create(bucket, device=self.device), cfg,
-                           suppress_ids=self._suppress, timestamps=self.timestamps)
+        last = logits[:, -1]
+        if self._use_rules:
+            last = apply_rules(last, RuleState.create(bucket, device=self.device), cfg,
+                               suppress_ids=self._suppress, timestamps=self.timestamps)
         lp0 = torch.log_softmax(last.to(torch.float32), dim=-1)
         first = torch.argmax(last, dim=-1)
         first_lp = torch.gather(lp0, 1, first[:, None])[:, 0]
+        self._first_run(("prepare", bucket, prev_w))
         return _PreparedBatch(reqs=newcomers, kv=kv, cross=cross, first=first,
                               first_lp=first_lp, nsp=nsp, prompts=prompts_dev,
                               prompt_len=prompts.shape[1], pads=pads)
@@ -1083,6 +1178,7 @@ class ContinuousBatchingEngine:
         first_lp = batch.first_lp.index_select(0, src)
         self.fstate.index_copy_(0, dst, torch.stack([first_lp, torch.ones_like(first_lp)], 1))
         self.nsp.index_copy_(0, dst, batch.nsp.index_select(0, src))
+        self._first_run(("admit", int(batch.first.shape[0]), P))
 
         for j, (i, r) in enumerate(zip(slots, takers)):
             self._slot_req[i] = r
@@ -1139,8 +1235,9 @@ class ContinuousBatchingEngine:
             cur = torch.gather(tokens, 1, pos[:, None])[:, 0]
             logits, _ = decoder_step_multipos(self.model, cur, pos, self.kv, self.cross, self.dt,
                                               pads=self.pads, cross_decode=self.cross_decode)
-            logits = apply_rules(logits, rs, cfg, suppress_ids=self._suppress,
-                                 timestamps=self.timestamps)
+            if self._use_rules:
+                logits = apply_rules(logits, rs, cfg, suppress_ids=self._suppress,
+                                     timestamps=self.timestamps)
             lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
             nxt = torch.argmax(logits, dim=-1)
             step_ok = active & ~done
@@ -1157,6 +1254,7 @@ class ContinuousBatchingEngine:
             done = done | (step_ok & ((nxt == eot) | (offsets + 1 >= limit)))
             offsets = torch.where(step_ok, offsets + 1, offsets)
         self.tokens, self.offsets, self.done, self.rs, self.fstate = tokens, offsets, done, rs, fstate
+        self._first_run(("step", n_steps))
         self.stats.steps_total += n_steps
         key = str(n_steps)
         self.stats.round_sizes[key] = self.stats.round_sizes.get(key, 0) + 1
@@ -1195,6 +1293,7 @@ class ContinuousBatchingEngine:
         WITHOUT waiting on it; the next tick resolves it, so the transfer
         overlaps the card's work on the round just enqueued."""
         buf = self._pack_harvest_fn()
+        self._first_run(("pack",))
         if buf.is_cuda:
             host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
             host.copy_(buf, non_blocking=True)
@@ -1427,6 +1526,7 @@ class ContinuousBatchingEngine:
                                            dequantize_cross_kv(cross), self._align_mask,
                                            self._to_dev(row_mask), self._to_dev(frames), self.dt)
             matrix, tlp = matrix.cpu().numpy(), tlp.cpu().numpy()
+            self._first_run(("align", Bb, S))
         except Exception as e:  # noqa: BLE001 — words are best-effort
             for req, reply, *_ in jobs:
                 reply["words"] = None
@@ -1560,16 +1660,21 @@ class ContinuousBatchingEngine:
                          | {self.beam_batch_max})
         bucket = _bucket(len(reqs), buckets)
         cross = self._encode(reqs, bucket)
+        self._first_run(("aux_encode", bucket))
         auto = [i for i, r in enumerate(reqs) if _auto(r)]
-        # a host read is fine here: the aux worker is off the decode thread
-        idx = self._detect(cross).cpu().numpy() if auto and cfg.is_multilingual else None
+        idx = None
+        if auto and cfg.is_multilingual:
+            # a host read is fine here: the aux worker is off the decode thread
+            idx = self._detect(cross).cpu().numpy()
+            self._first_run(("aux_detect", bucket))
         for i in auto:
             reqs[i].language_resolved = "en" if idx is None else list(LANGUAGES)[int(idx[i])]
         langs = [self._effective_language(r) for r in reqs]
         prev_w = self._prev_width([len(self._context_ids(r)) for r in reqs])
         prompts, pads, sot_index = self._prompt_rows(reqs, langs, prev_w, bucket)
         P = prompts.shape[1]
-        kw = dict(max_tokens=self.max_tokens, suppress_ids=self._suppress, apply_filters=True,
+        kw = dict(max_tokens=self.max_tokens, suppress_ids=self._suppress,
+                  apply_filters=self.apply_filters,
                   self_kv_quant=self.self_kv_quant, timestamps=self.timestamps,
                   prompt_pad=self._to_dev(pads) if prev_w else None, sot_index=sot_index)
         if temp > 0:
@@ -1579,6 +1684,8 @@ class ContinuousBatchingEngine:
         else:
             result = beam_search_kv(self.model, cross, self._to_dev(prompts), self.dt,
                                     beam_size=K, length_penalty=self.length_penalty, **kw)
+        self._first_run(("aux_sampled", bucket, round(float(temp), 6), prev_w) if temp > 0
+                        else ("aux_beam", bucket, K, prev_w))
         self.stats.aux_batches_total += 1
         self.stats.aux_steps_total += result.steps
         texts = extract_texts(result, P, self.tokenizer, timestamps=self.timestamps)

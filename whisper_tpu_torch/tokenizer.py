@@ -220,17 +220,35 @@ class Tokenizer:
     def timestamp_begin(self) -> int:
         return self._specials["<|0.00|>"]
 
+    @cached_property
+    def language_token(self) -> int:
+        if self.language is None:
+            raise ValueError("tokenizer has no language set")
+        return self.to_language_token(self.language)
+
     def to_language_token(self, language: str) -> int:
         return self._specials[f"<|{language}|>"]
+
+    @cached_property
+    def all_language_tokens(self) -> Tuple[int, ...]:
+        return tuple(self.to_language_token(code) for code in self.all_language_codes)
+
+    @cached_property
+    def all_language_codes(self) -> Tuple[str, ...]:
+        return tuple(list(LANGUAGES)[: self.num_languages])
 
     @cached_property
     def sot_sequence(self) -> Tuple[int, ...]:
         seq = [self.sot]
         if self.language is not None:
-            seq.append(self.to_language_token(self.language))
+            seq.append(self.language_token)
         if self.task is not None:
             seq.append(self.transcribe if self.task == "transcribe" else self.translate)
         return tuple(seq)
+
+    @cached_property
+    def sot_sequence_including_notimestamps(self) -> Tuple[int, ...]:
+        return (*self.sot_sequence, self.no_timestamps)
 
     @cached_property
     def non_speech_tokens(self) -> Tuple[int, ...]:
@@ -317,3 +335,16 @@ def get_tokenizer(
     ranks = _load_ranks(find_vocab_file(vocab_path))
     return Tokenizer(ranks=ranks, num_languages=num_languages,
                      language=language, task=task)
+
+
+def load_id2token(tokens_txt: str) -> Dict[int, bytes]:
+    """A reference-format ``{name}-tokens.txt`` (one base64 token, a space
+    and its id per line) as id -> token bytes."""
+    out: Dict[int, bytes] = {}
+    with open(tokens_txt, "r") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            tok, idx = line.split()
+            out[int(idx)] = base64.b64decode(tok)
+    return out
