@@ -17,6 +17,14 @@ drives each path while counting kernel launches:
 - the offline path, ``WhisperPipeline.transcribe_batch``: turbo at full
   width, batch 64, 64 new tokens, bf16, int8 weights + W8A8 encoder + int8
   cross- and self-KV, seeded random weights;
+- the decode loops as CUDA graphs (``decode_graph``): that path's greedy
+  decode under each ``cross_decode`` selection, replayed as graphs, held
+  bit for bit against the same rounds uncaptured and against the
+  step-by-step loop they replaced, with the host's launch calls, the
+  cross-KV copy, the capture seconds, the graph pool's bytes and the
+  round length swept in turns (every single-device greedy decode and
+  engine round below replays its graphs too, launches counted through
+  the replays);
 - the serving path: the port's HTTP server in-process on 127.0.0.1 under the
   server's zero-flag defaults (turbo, 8 slots, 32 steps per sync, 224-token
   budget, W8A8 + int8 cross- and self-KV, bf16), answering 24 seeded noise
@@ -1279,6 +1287,7 @@ def offline(counters, encoder_attention: str = "btd", cross_decode: str = "fd"):
     run once with the counts at 0 and checked. Returns (record, pipeline,
     clips)."""
     from whisper_tpu_torch.config import N_SAMPLES
+    from whisper_tpu_torch.decode import graph_stats
     from whisper_tpu_torch.pipeline import WhisperPipeline
 
     t0 = time.perf_counter()
@@ -1319,15 +1328,16 @@ def offline(counters, encoder_attention: str = "btd", cross_decode: str = "fd"):
         raise AssertionError("token ids out of the vocabulary")
     if not (torch.isfinite(dec.avg_logprob).all() and torch.isfinite(dec.no_speech_prob).all()):
         raise AssertionError("non-finite log-probabilities")
-    _expect(f"offline ({encoder_attention}, {cross_decode})", launches, cfg, 1, dec.steps,
-            encoder_attention, cross_decode)
+    _expect(f"offline ({encoder_attention}, {cross_decode})", launches, cfg, 1,
+            dec.device_steps, encoder_attention, cross_decode)
     audio_s = B * N_SAMPLES / 16000
     return {"model": "turbo", "batch": B, "max_tokens": N_TOKENS,
             "dtype": "bfloat16", "quant": "int8 weights + w8a8 encoder + kvq + skvq",
             "encoder_attention": encoder_attention, "cross_decode": cross_decode,
             "init_s": init_s, "warm_s": warm_s, "wall_s": wall, "rtf": wall / audio_s,
             "audio_s_per_s": audio_s / wall, "generated": (lens - P).tolist(),
-            "decode_steps": dec.steps, "host_syncs": dec.host_syncs,
+            "decode_steps": dec.steps, "device_steps": dec.device_steps,
+            "host_syncs": dec.host_syncs, "decode_graphs": graph_stats(pipe.model),
             "launches": launches,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}, pipe, clips
 
@@ -1335,7 +1345,7 @@ def offline(counters, encoder_attention: str = "btd", cross_decode: str = "fd"):
 def end_to_end(counters):
     """The main path under the default selections, and its breakdown."""
     rec, pipe, clips = offline(counters)
-    return {"phase": "end_to_end", **rec}, breakdown(pipe, clips, rec["decode_steps"])
+    return {"phase": "end_to_end", **rec}, breakdown(pipe, clips, rec["device_steps"])
 
 
 def variants(counters) -> list:
@@ -1348,6 +1358,229 @@ def variants(counters) -> list:
         out.append({"phase": "variant", **rec})
         del pipe
         torch.cuda.empty_cache()
+    return out
+
+
+def _host_launches(prof, within: str | None = None) -> dict:
+    """The CUDA API calls that launch work (``cudaLaunchKernel``,
+    ``cudaLaunchKernelExC``, ``cudaGraphLaunch``, ``cuLaunchKernel``, ...)
+    the host made in a profile, by name, with ``within`` only those inside
+    the host span of that range."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = [(e.time_range.start, e.time_range.end) for e in events if e.name == within]
+    out = {}
+    for e in events:
+        if not (e.name.startswith("cu") and "Launch" in e.name):
+            continue
+        if within is None or any(lo <= e.time_range.start <= hi for lo, hi in spans):
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def _greedy_args(pipe, clips) -> tuple:
+    """(model, cross-KV, prompt, dtype, keywords) of the greedy decode that
+    ``pipe.transcribe_batch(clips)`` runs, caught at its call."""
+    import whisper_tpu_torch.pipeline as pipeline_module
+
+    real, seen = pipeline_module.greedy_decode_kv, []
+
+    def catch(model, cross_kv, prompt, dt, **kw):
+        seen.append((model, cross_kv, prompt, dt, kw))
+        return real(model, cross_kv, prompt, dt, **kw)
+
+    pipeline_module.greedy_decode_kv = catch
+    try:
+        pipe.transcribe_batch(clips)
+    finally:
+        pipeline_module.greedy_decode_kv = real
+    if len(seen) != 1:
+        raise AssertionError(f"transcribe_batch ran {len(seen)} greedy decodes, not 1")
+    return seen[0]
+
+
+def _stepwise_decode(model, cross_kv, prompt, dt, max_tokens=None, suppress_ids=None,
+                     apply_filters=False, self_kv_quant=False, gelu="erf", timestamps=False,
+                     prompt_pad=None, sot_index=0, cross_decode="fd", temperature=0.0):
+    """The greedy loop before its rounds: one ``decoder_forward`` of S=1 at
+    an int offset a step, the all-done flag read before each (the port's
+    earlier ``greedy_decode_kv`` at temperature 0). ``decode_graph`` holds
+    the rounds bit-equal to it."""
+    from whisper_tpu_torch.decode import GreedyResult
+    from whisper_tpu_torch.models.model import decoder_forward, new_kv_cache
+    from whisper_tpu_torch.sampling import RuleState, apply_rules
+
+    if temperature:
+        raise ValueError("the stepwise reference is greedy")
+    cfg, device = model.cfg, prompt.device
+    (B, P), T, eot, ts0 = prompt.shape, cfg.n_text_ctx, cfg.eot, cfg.timestamp_begin
+    limit = min(T, P + max_tokens) if max_tokens else T
+    use_rules = apply_filters or timestamps or suppress_ids is not None
+
+    def pick(logits, rs):
+        if use_rules:
+            logits = apply_rules(logits, rs, cfg, suppress_ids=suppress_ids,
+                                 timestamps=timestamps)
+        lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        tok = torch.argmax(lp, dim=-1)
+        return tok, torch.gather(lp, 1, tok[:, None])[:, 0]
+
+    kw = dict(pad=prompt_pad, gelu=gelu, cross_decode=cross_decode)
+    kv = new_kv_cache(model, B, dt, min(T, -(-limit // 128) * 128), quant=self_kv_quant)
+    tokens = torch.full((B, T), eot, dtype=torch.int64, device=device)
+    tokens[:, :P] = prompt
+    logits, kv = decoder_forward(model, prompt, 0, kv, cross_kv, dt, **kw)
+    nsp = torch.softmax(logits[:, sot_index], dim=-1)[:, cfg.no_speech]
+    rs = RuleState.create(B, device=device)
+    first, sum_lp = pick(logits[:, -1], rs)
+    rs = rs.advance(first, ts0)
+    tokens[:, P] = first
+    done = first == eot
+    n_lp = torch.ones((B,), dtype=torch.float32, device=device)
+    i, steps = P, 0
+    while i < limit - 1 and not bool(done.all()):
+        logits, kv = decoder_forward(model, tokens[:, i:i + 1], i, kv, cross_kv, dt, **kw)
+        nxt, lp = pick(logits[:, 0], rs)
+        nxt = torch.where(done, torch.full_like(nxt, eot), nxt)
+        alive = ~done
+        done = done | (nxt == eot)
+        sum_lp = sum_lp + torch.where(alive, lp, torch.zeros_like(lp))
+        n_lp = n_lp + alive.to(torch.float32)
+        tokens[:, i + 1] = nxt
+        if use_rules:
+            rs = rs.advance(nxt, ts0)
+        i += 1
+        steps += 1
+    pos = torch.arange(T, device=device)[None, :]
+    lengths = torch.where((tokens == eot) & (pos >= P), pos, torch.full_like(pos, T)).amin(1)
+    return GreedyResult(tokens=tokens, lengths=lengths, no_speech_prob=nsp,
+                        avg_logprob=sum_lp / torch.clamp(n_lp, min=1.0), steps=steps,
+                        host_syncs=steps + 1, device_steps=steps)
+
+
+def _walls(fn, reps: int) -> list:
+    """Host seconds of ``reps`` calls of ``fn``, each ended by a sync."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+GRAPH_SWEEP = (4, 8, 16, 16, 8, 4)  # ROUND_STEPS values decode_graph times, in turns
+DECODE_FIELDS = ("tokens", "lengths", "avg_logprob", "no_speech_prob")
+
+
+def decode_graph(counters, smi: str) -> dict:
+    """The offline configuration's greedy decode (turbo, B64, 64 tokens,
+    bf16, W8A8, int8 cross- and self-KV; its inputs caught from
+    ``transcribe_batch``) under each ``cross_decode`` selection, three ways
+    on the same cross-KV: the graphed ``greedy_decode_kv``, the same rounds
+    uncaptured (``decode._greedy_rounds(graphed=False)``) and the loop the
+    rounds replaced (:func:`_stepwise_decode`). Tokens, lengths,
+    avg_logprob and no_speech_prob bit-equal across all three; launches
+    exact for each (``_expect``, the graphed ones counted through
+    replays). Walls, rounds and host reads; the host's CUDA launch calls
+    during one graphed and one uncaptured decode under fd (torch.profiler;
+    the selections launch alike); the copy of the cross-KV
+    into the graph's buffer (CUDA events), the capture seconds per key and
+    the graph pool's bytes; the graphed wall at each ``GRAPH_SWEEP``
+    round length, in turns (fd)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch import decode
+    from whisper_tpu_torch.config import N_SAMPLES
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+
+    pipe = WhisperPipeline(model="turbo", device="cuda", compute_dtype="bfloat16",
+                           quantize=True, w8a8=True, kv_quant=True, self_kv_quant=True,
+                           max_tokens=N_TOKENS, seed=0)
+    rng = np.random.default_rng(0)
+    clips = list(rng.standard_normal((B, N_SAMPLES)).astype(np.float32) * 0.1)
+    model, cross, prompt, dt, kw = _greedy_args(pipe, clips)
+    cfg = model.cfg
+    args = (model, cross, prompt, dt, kw["max_tokens"], kw["suppress_ids"],
+            kw["apply_filters"], kw["self_kv_quant"], kw["gelu"], kw["timestamps"],
+            kw.get("prompt_pad"), kw["sot_index"])
+    out = {"phase": "decode_graph", "nvidia_smi": smi, "model": "turbo", "batch": B,
+           "max_tokens": N_TOKENS, "dtype": "bfloat16",
+           "quant": "int8 weights + w8a8 encoder + kvq + skvq", "round_steps": decode.ROUND_STEPS,
+           "selections": {}}
+    for sel in ("fd", "legacy", "dense"):
+        ways = {"graphed": lambda: decode.greedy_decode_kv(
+                    model, cross, prompt, dt, **{**kw, "cross_decode": sel}),
+                "uncaptured": lambda: decode._greedy_rounds(
+                    *args, sel, 0.0, 0, None, False),
+                "stepwise": lambda: _stepwise_decode(
+                    model, cross, prompt, dt, **{**kw, "cross_decode": sel})}
+        rec, results = {}, {}
+        for way, fn in ways.items():
+            t0 = time.perf_counter()
+            fn()  # warm: the graphed way captures its key here
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches(counters)
+            _expect(f"decode_graph {sel} {way}", launches, cfg, 0, res.device_steps,
+                    cross_decode=sel)
+            results[way] = res
+            again = 2 if sel == "fd" or way == "graphed" else 0  # the eager ways take 0.7 s
+            rec[way] = {"first_call_s": first_s, "wall_s": wall,
+                        "walls_s": [wall] + _walls(fn, again), "steps": res.steps,
+                        "device_steps": res.device_steps, "host_syncs": res.host_syncs,
+                        "launches": {k: n for k, n in launches.items() if n}}
+            if sel == "fd" and way != "stepwise":  # the selections launch alike
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                calls = _host_launches(prof)
+                rec[way].update(host_launch_calls=calls,
+                                host_launch_calls_total=sum(calls.values()))
+        for way in ("uncaptured", "stepwise"):
+            for name in DECODE_FIELDS:
+                a, b = getattr(results["graphed"], name), getattr(results[way], name)
+                if not torch.equal(a, b):
+                    rows = (a != b).reshape(B, -1).any(1).nonzero()[:, 0].tolist()
+                    raise AssertionError(f"decode_graph {sel}: graphed {name} differs from "
+                                         f"{way} on rows {rows}")
+            if results["graphed"].steps != results[way].steps:
+                raise AssertionError(f"decode_graph {sel}: {results['graphed'].steps} steps, "
+                                     f"{way} {results[way].steps}")
+        rec["bit_equal"] = {"uncaptured": list(DECODE_FIELDS), "stepwise": list(DECODE_FIELDS)}
+        out["selections"][sel] = rec
+        if sel == "fd":
+            fd_tokens = results["graphed"].tokens
+    bufs = [torch.empty_like(t) for t in cross]
+    out["cross_kv_bytes"] = sum(t.numel() * t.element_size() for t in cross)
+    out["cross_kv_copy_ms"] = cuda_ms(lambda: [d.copy_(t) for d, t in zip(bufs, cross)], 20)
+    del bufs
+    graphed = lambda: decode.greedy_decode_kv(model, cross, prompt, dt, **kw)  # noqa: E731
+    sweep = {}
+    try:
+        for r in GRAPH_SWEEP:
+            decode.ROUND_STEPS = r
+            res = graphed()  # its key's capture at the first visit
+            if not torch.equal(res.tokens, fd_tokens):
+                raise AssertionError(f"decode_graph: tokens at ROUND_STEPS {r} differ")
+            entry = sweep.setdefault(str(r), {"walls_s": [], "host_syncs": res.host_syncs,
+                                              "device_steps": res.device_steps})
+            entry["walls_s"] += _walls(graphed, 3)
+    finally:
+        decode.ROUND_STEPS = out["round_steps"]
+    for entry in sweep.values():
+        entry["median_s"] = float(np.median(entry["walls_s"]))
+    out["round_steps_sweep"] = sweep
+    out["graphs"] = decode.graph_stats(model)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
 
@@ -1366,6 +1599,7 @@ def breakdown(pipe, clips, steps: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     stages, spans, runs, kernels = {}, {}, [], {}
+    decode_calls = _host_launches(prof, "whisper.decode")
     for e in prof.events():
         on_card = e.device_type == DeviceType.CUDA
         if e.name.startswith("whisper."):
@@ -1394,6 +1628,7 @@ def breakdown(pipe, clips, steps: int) -> dict:
             "decode_device_ms_per_step": stages["whisper.decode"]["device_span_ms"] / (steps + 1),
             "device_busy_ms": busy, "device_busy_share": busy / 1e3 / wall,
             "kernel_launches": sum(n for _, n in kernels.values()),
+            "decode_host_launch_calls": decode_calls,
             "top_kernels_ms": [[name[:90], ms, n] for name, (ms, n) in top]}
 
 
@@ -1549,7 +1784,8 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
            "aux_batches": aux_batches, "aux_steps": aux_steps,
            "retries": delta["retries_total"], "detect_batches": delta["detect_batches_total"],
            "languages": [reply.get("language") for _, reply, _ in replies],
-           "round_sizes": delta["round_sizes"], "launches": launches, "metrics": metrics}
+           "round_sizes": delta["round_sizes"], "launches": launches, "metrics": metrics,
+           "step_graphs": None if engine._graphs is None else engine._graphs.stats()}
     if engine.encode_chunks > 1:
         rec["encode_group_s"] = {str(b): t for b, t in engine._encode_seg_est.items()}
     if keep_engine:
@@ -1652,8 +1888,9 @@ def tensor_parallel(counters, mesh=None, flags=(), phase: str = "tp") -> dict:
 
 def serving_reference_check() -> dict:
     """A small fp32 engine (tiny, kvq + skvq) on the card, rounds driven one
-    tick at a time through its kernels, must give the CPU pipeline's tokens
-    (plain versions) for the same clips."""
+    tick at a time through its kernels and replayed as CUDA graphs, must
+    give the CPU pipeline's tokens (plain versions, uncaptured rounds) for
+    the same clips."""
     from whisper_tpu_torch.config import get_config
     from whisper_tpu_torch.params import init_params
     from whisper_tpu_torch.pipeline import WhisperPipeline
@@ -1683,6 +1920,8 @@ def serving_reference_check() -> dict:
             break
         engine._tick()
     got = [[int(t) for t in f.result(0)["text"].split()] for f in futs]
+    if engine._graphs is None or ("step", 4) not in engine._graphs:
+        raise AssertionError("the card engine's round was not captured")
     pipe = WhisperPipeline(device="cpu", compute_dtype="float32", kv_quant=True,
                            self_kv_quant=True, max_tokens=12, params=params)
     want = [r.tokens.tolist() for r in pipe.transcribe_batch(clips)]
@@ -1797,9 +2036,11 @@ SELECTIONS = (("btd", "fd"), ("bhtd", "legacy"), ("bhtd", "dense"))
 
 def reference_check() -> dict:
     """A small fp32 transcription (tiny, kvq + skvq) on the card through the
-    kernels of each selection must give the CPU pipeline's tokens (plain
-    versions) under the same selection."""
+    kernels of each selection, its rounds replayed as CUDA graphs, must give
+    the CPU pipeline's tokens (plain versions, uncaptured rounds) under the
+    same selection."""
     from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.decode import graph_stats
     from whisper_tpu_torch.params import init_params
     from whisper_tpu_torch.pipeline import WhisperPipeline
 
@@ -1815,11 +2056,13 @@ def reference_check() -> dict:
                                    self_kv_quant=True, max_tokens=12, params=params,
                                    encoder_attention=enc, cross_decode=dec)
             toks[dev] = [r.tokens.tolist() for r in pipe.transcribe_batch(clips)]
+            if (graph_stats(pipe.model) is None) != (dev == "cpu"):
+                raise AssertionError(f"the {dev} decode's rounds: {graph_stats(pipe.model)}")
         if toks["cuda"] != toks["cpu"]:
             raise AssertionError(f"card and CPU tokens differ under ({enc}, {dec}): {toks}")
         out[f"{enc}+{dec}"] = toks["cuda"]
     return {"phase": "reference", "model": "tiny", "dtype": "float32",
-            "tokens_equal_cpu": True, "tokens": out}
+            "card_rounds": "graphed", "tokens_equal_cpu": True, "tokens": out}
 
 
 LONGFORM_ARGS = ["--model_type", "turbo", "--dtype", "bfloat16", "--quantize", "--w8a8",
@@ -1885,7 +2128,7 @@ def longform(counters) -> dict:
         past_end += sum(st > sec for st in starts)
         open_ends += sum(sg["end"] is None for sg in segs)
     cfg, stats, wall = report["pipeline"].cfg, report["pipeline"].last_seek, report["transcribe_s"]
-    _expect("longform", launches, cfg, stats["rounds"], stats["steps"])
+    _expect("longform", launches, cfg, stats["rounds"], stats["device_steps"])
     audio_s = sum(_n_samples(s) / 16000 for s in seconds)
     return {"phase": "longform", "entry": "whisper_tpu_torch.cli.main",
             "args": LONGFORM_ARGS + ["-o", "<tmp>"], "clips_s": seconds, "audio_s": audio_s,
@@ -2089,7 +2332,7 @@ def checkpoint_phase(counters, folder: str):
                              f"rows {rows}")
     del mem
     torch.cuda.empty_cache()
-    _expect("checkpoint", launches, pipe.cfg, 1, dec.steps, detects=1)
+    _expect("checkpoint", launches, pipe.cfg, 1, dec.device_steps, detects=1)
     snapshot = _snapshot_round_trip(pipe.model, folder)
     audio_s = B * N_SAMPLES / 16000
     rec = {"phase": "checkpoint", "model": cfg.name, "file": "OpenAI .pt, fp16, with dims",
@@ -2859,7 +3102,7 @@ def words_phase(counters) -> dict:
         pipeline_module.alignment_matrix, pipeline_module.row_words = real_pass, real_words
     launches = _launches(counters)
     dec = pipe.last_decode
-    _expect("words", launches, pipe.cfg, 1, dec.steps)
+    _expect("words", launches, pipe.cfg, 1, dec.device_steps)
     for i, r in enumerate(results):
         _check_words(r.words, r.audio_seconds, f"words row {i}")
     if [r.text for r in results] != [r.text for r in plain]:
@@ -3749,8 +3992,8 @@ def data_mesh(counters, device: str = "cuda") -> dict:
         walls[name] = time.perf_counter() - t0
         launches = _launches(counters)
         blocks = 2 if isinstance(model, DataParallelWhisper) else 1
-        _expect(f"data_mesh offline {name}", launches, pipe.cfg, 1, pipe.last_decode.steps,
-                tp=blocks)
+        _expect(f"data_mesh offline {name}", launches, pipe.cfg, 1,
+                pipe.last_decode.device_steps, tp=blocks)
         toks[name] = pipe.last_decode.tokens
         if blocks == 2:
             rec["launches"] = launches
@@ -3955,12 +4198,17 @@ def serving_warm(counters) -> dict:
             engine.steps_per_sync, detects=len(engine.prefill_buckets))
     state = _warm_diff(engine, before, kv0, cross0)
     cold0, keys = engine.stats.cold_compiles_total, sorted(engine._warm_keys)
+    if engine._graphs is None or ("step", engine.steps_per_sync) not in engine._graphs:
+        raise AssertionError("warmup() did not capture the step round")
+    graphs_warm = engine._graphs.stats()
     rec = serving(counters, GREEDY, phase="serving_warm", built=(engine, phases),
                   warm_request=False)
     if engine.stats.cold_compiles_total != cold0:
         raise AssertionError(f"the burst ran cold keys: {sorted(engine._warm_keys - set(keys))}")
     rec.update({"build_and_warm_s": build_warm_s, "warm_keys": [list(k) for k in keys],
                 "cold_compiles_total": cold0, "cold_compiles_in_burst": 0,
+                "step_graphs_after_warmup": graphs_warm,
+                "step_graphs_after_burst": engine._graphs.stats(),
                 "warmup_launches": warm_launches, **state})
     return rec
 
@@ -4021,6 +4269,7 @@ def cold_start(counters) -> dict:
                      "warmup_s": float(re.search(r"warmup ([\d.]+)s", up).group(1)),
                      "first_clip_s": replies[0][2], "second_clip_s": replies[1][2],
                      "tokens": [r["tokens"] for _, r, _ in replies],
+                     "texts": [r["text"] for _, r, _ in replies],
                      "cold_compiles_before_clips": m0["cold_compiles_total"],
                      "cold_compiles_during_clips": m1["cold_compiles_total"]
                      - m0["cold_compiles_total"],
@@ -4031,6 +4280,10 @@ def cold_start(counters) -> dict:
         raise AssertionError("the servers' kernels ran in this process")
     if out["warm_start"]["cold_compiles_during_clips"]:
         raise AssertionError(f"the warmed server ran cold keys: {out['warm_start']}")
+    # the cold server captures its step round at its first use, the encode
+    # thread live: the same replies
+    if any(out["warm_start"][k] != out["no_warm_start"][k] for k in ("tokens", "texts")):
+        raise AssertionError("the cold server's replies differ from the warmed server's")
     out["launches"] = total
     return out
 
@@ -4233,14 +4486,7 @@ def main() -> int:
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
     from whisper_tpu_torch.ops import _build
-    from whisper_tpu_torch.ops.decode_attention import (
-        cross_attention_decode, cross_attention_decode_dense, cross_attention_decode_fd,
-        self_attention_decode, self_attention_decode_int8)
-    from whisper_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_btd, flash_attention_btd_sharded)
-    from whisper_tpu_torch.ops.int8_gemm import int8_gemm
-    from whisper_tpu_torch.ops.log10_mel import log10_mel
-    from whisper_tpu_torch.ops.quantize_rows import quantize_rows
+    from whisper_tpu_torch.utils.graphs import kernel_wrappers
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 checks run in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -4272,13 +4518,12 @@ def main() -> int:
     emit(w8a8_chain(dev, gen))
     torch.cuda.empty_cache()
 
-    counters = (log10_mel, flash_attention_btd, int8_gemm, quantize_rows,
-                cross_attention_decode_fd, self_attention_decode_int8, self_attention_decode,
-                flash_attention, cross_attention_decode, cross_attention_decode_dense,
-                flash_attention_btd_sharded)
+    counters = kernel_wrappers()
     e2e, stages = end_to_end(counters)
     emit(e2e)
     emit(stages)
+    torch.cuda.empty_cache()
+    emit(decode_graph(counters, smi))
     torch.cuda.empty_cache()
     served = serving(counters, GREEDY)
     emit(served)

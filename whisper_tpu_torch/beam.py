@@ -46,6 +46,11 @@ class BeamResult(NamedTuple):
     steps: int = 0                # S=1 decoder steps run after the prefill
     host_syncs: int = 0           # device->host reads of the loop condition
 
+    @property
+    def device_steps(self) -> int:
+        """S=1 steps the device ran: the beam loop runs no masked step."""
+        return self.steps
+
 
 def _norm_score(raw: torch.Tensor, length: torch.Tensor, alpha: Optional[float]):
     """GoogleNMT length penalty for ``alpha``, else the mean log-prob; the

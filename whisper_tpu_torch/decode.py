@@ -1,19 +1,26 @@
 """Batched greedy and sampled decoding, and language detection.
 
 Port of ``whisper_tpu/decode.py``. The JAX package runs prefill and the whole
-token loop as one ``lax.while_loop``; here the loop is Python over eager
-PyTorch ops: one :func:`decoder_forward` prefill over the prompt, then one
-S=1 step per token, each followed by the rules (``sampling.apply_rules``),
-log_softmax and argmax (at ``temperature > 0``, a categorical draw). The
-all-done early exit reads one flag from the device per step; those host
-syncs are counted in the result. Every function takes a sharded model
-(``parallel.sharding.shard_params``, on a mesh of any (data, model) shape)
-wherever it takes a ``Whisper``: under data rows the model functions split
-each step's batch over the rows, and the loop reads one flag for them all.
+token loop as one jitted ``lax.while_loop``. Here one
+:func:`decoder_forward` prefill over the prompt is followed by rounds of
+``ROUND_STEPS`` S=1 steps (:func:`decoder_step_multipos` at a position held
+on the device, the rules of ``sampling.apply_rules``, log_softmax and
+argmax; at ``temperature > 0``, a categorical draw), none of which reads
+the device from the host: the host reads the all-done flag once a round,
+and those reads are counted in the result. On the card a greedy round of a
+single-device model is a CUDA graph (``utils.graphs``), captured once per
+shape and replayed, as the JAX loop is compiled once per shape. Every
+function takes a sharded model (``parallel.sharding.shard_params``, on a
+mesh of any (data, model) shape) wherever it takes a ``Whisper``: under
+data rows the model functions split each step's batch over the rows, and
+the loop reads one flag for them all; those rounds run uncaptured.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
+import weakref
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -21,15 +28,26 @@ from torch.profiler import record_function
 
 from .models.model import (
     DataRows,
+    QKVCache,
     Shards,
+    Whisper,
     compute_cross_kv,
     decoder_forward,
+    decoder_step_multipos,
     encoder_forward,
     new_kv_cache,
     quantize_cross_kv,
     shard_values,
 )
+from .ops.quant import QTensor
 from .sampling import RuleState, apply_rules
+from .utils.graphs import GraphSet
+
+
+ROUND_STEPS = 8  # S=1 steps a round: one graph replay and one host read of the loop's flags
+# the captured loops' buffer sets a model keeps, the latest shapes: each
+# holds a copy of its batch's cross-KV (983 MB at turbo B64, int8)
+LOOP_SHAPES = 2
 
 
 class GreedyResult(NamedTuple):
@@ -37,8 +55,11 @@ class GreedyResult(NamedTuple):
     lengths: torch.Tensor         # (B,) index of the first eot after the prompt
     no_speech_prob: torch.Tensor  # (B,) fp32: P(<|nospeech|>) at the sot position
     avg_logprob: torch.Tensor     # (B,) fp32: mean logprob of sampled tokens (incl. eot)
-    steps: int = 0                # S=1 decoder steps run after the prefill
-    host_syncs: int = 0           # device->host reads of the all-done flag
+    steps: int = 0                # the loop's trip count: S=1 steps run after the prefill
+    host_syncs: int = 0           # device->host reads of the loop's flags: one a round
+    # S=1 steps the device ran: whole rounds, masked steps included (each
+    # launches the step's kernels)
+    device_steps: int = 0
 
 
 def encode_cross_kv(model, mel: torch.Tensor, compute_dtype=torch.float32,
@@ -83,6 +104,14 @@ def gumbel_noise(seed: int, device) -> Callable[[int, tuple], torch.Tensor]:
     return draw
 
 
+def capturable(model, device, temperature: float = 0.0) -> bool:
+    """Whether a decode loop's rounds run as CUDA graphs: on the card, for
+    a single-device ``Whisper`` (a mesh's ranks run uncaptured), and
+    greedy (a sampled step draws its noise on the host)."""
+    return (torch.device(device).type == "cuda" and isinstance(model, Whisper)
+            and not (temperature and temperature > 0))
+
+
 def greedy_decode_kv(
     model,
     cross_kv,
@@ -108,6 +137,20 @@ def greedy_decode_kv(
     emitting eot; ``lengths`` is the first eot at or after the prompt. The
     self-KV cache is sized to the 128-rounded token budget.
 
+    The loop runs in rounds of ``ROUND_STEPS`` S=1 steps
+    (:func:`decoder_step_multipos` at a (B,) position tensor, the rules,
+    log_softmax and the token choice), which never read the device from
+    the host; a step once every stream is done, or past ``limit - 1``,
+    writes and counts nothing. The host reads the all-done flag and the
+    step count once a round. On the card, for a single-device ``Whisper``
+    at ``temperature == 0``, each round is a CUDA graph
+    (``utils.graphs``), captured once per shape and replayed: the caller's
+    cross-KV, pads and suppress ids are copied into the graph's own
+    buffers, the prefill runs eagerly into its self-KV cache, and the
+    returned tokens are a copy. On the CPU, for a sampled decode and for a
+    ``ShardedWhisper`` or ``DataParallelWhisper``, the same round runs
+    uncaptured.
+
     At ``temperature > 0`` each token is a categorical draw from the
     filtered distribution at that temperature, as ``jax.random.categorical``
     draws it: ``argmax(log_softmax(logits) / T + g)`` with standard Gumbel
@@ -116,7 +159,8 @@ def greedy_decode_kv(
     step 0 (the token after the prefill), 1, ... (tests hand in the JAX
     package's own, drawn from ``PRNGKey(seed)`` with its key splits);
     without it the draws come from :func:`gumbel_noise` of ``seed`` on the
-    logits' device.
+    logits' device. A step past the loop's most steps (the masked tail
+    of the last round) draws nothing.
     ``timestamps`` runs the timestamp grammar of ``sampling.apply_rules``.
     ``prompt_pad`` right-aligns prompts of differing lengths (e.g.
     ``[sot_prev, *prev, sot, lang, task]``): the first ``prompt_pad[b]``
@@ -126,84 +170,261 @@ def greedy_decode_kv(
     ``cross_decode`` selects the step's int8 cross-attention kernel
     (:func:`~whisper_tpu_torch.models.model.decoder_forward`).
     """
+    graphed = capturable(model, prompt.device, temperature)
+    return _greedy_rounds(model, cross_kv, prompt, compute_dtype, max_tokens, suppress_ids,
+                          apply_filters, self_kv_quant, gelu, timestamps, prompt_pad,
+                          sot_index, cross_decode, temperature, seed, noise, graphed)
+
+
+class _Loop:
+    """The token loop's device state, written in place by the prefill and
+    by every round: all that a captured round reads or writes besides the
+    weights. ``cross``, ``pad`` and ``suppress`` are the caller's tensors in
+    an uncaptured loop and the graph's own copies in a captured one."""
+
+    def __init__(self, model, batch: int, kv_ctx: int, dtype, self_kv_quant: bool, device):
+        i64 = dict(dtype=torch.int64, device=device)
+        self.kv = new_kv_cache(model, batch, dtype, kv_ctx, quant=self_kv_quant)
+        self.tokens = torch.empty((batch, model.cfg.n_text_ctx), **i64)
+        self.pos = torch.empty((batch,), **i64)   # every row's current token position
+        self.last = torch.empty((batch,), **i64)  # limit - 1: where the loop stops
+        self.done = torch.empty((batch,), dtype=torch.bool, device=device)
+        self.rs = RuleState.create(batch, device=device)
+        self.sum_lp = torch.empty((batch,), dtype=torch.float32, device=device)
+        self.n_lp = torch.empty((batch,), dtype=torch.float32, device=device)
+        self.steps = torch.empty((), **i64)
+        self.flags = torch.empty((2,), **i64)  # [all done, steps]: read once a round
+        self.cross = self.pad = self.suppress = None
+
+
+def _filter(logits, rs, loop: _Loop, cfg, use_rules: bool, timestamps: bool):
+    if not use_rules:
+        return logits
+    return apply_rules(logits, rs, cfg, suppress_ids=loop.suppress, timestamps=timestamps)
+
+
+def _sample(logits_f, temperature: float, noise, step: int):
+    """(token, its logprob): argmax of the log-probabilities, or at
+    ``temperature > 0`` of them over T plus ``noise(step, shape)``."""
+    lp = torch.log_softmax(logits_f.to(torch.float32), dim=-1)
+    if temperature and temperature > 0:
+        # a tensor divisor, so the card divides as the CPU does
+        tok = torch.argmax(lp / lp.new_full((), temperature) + noise(step, tuple(lp.shape)),
+                           dim=-1)
+    else:
+        tok = torch.argmax(lp, dim=-1)
+    return tok, torch.gather(lp, 1, tok[:, None])[:, 0]
+
+
+def _prefill(model, loop: _Loop, prompt: torch.Tensor, limit: int, sot_index: int, dt, gelu,
+             cross_decode, use_rules, timestamps, temperature, noise) -> torch.Tensor:
+    """The prompt through the decoder into ``loop.kv``, the first token and
+    the loop state reset around it; returns the no-speech probability."""
+    cfg = model.cfg
+    B, P = prompt.shape
+    loop.tokens.fill_(cfg.eot)
+    loop.tokens[:, :P] = prompt
+    logits, _ = decoder_forward(model, prompt, 0, loop.kv, loop.cross, dt, pad=loop.pad,
+                                gelu=gelu, cross_decode=cross_decode)
+    no_speech_prob = torch.softmax(logits[:, sot_index], dim=-1)[:, cfg.no_speech]
+    rs = RuleState.create(B, device=prompt.device)
+    first, first_lp = _sample(_filter(logits[:, -1], rs, loop, cfg, use_rules, timestamps),
+                              temperature, noise, 0)
+    for state, v in zip(loop.rs, rs.advance(first, cfg.timestamp_begin)):
+        state.copy_(v)
+    loop.tokens[:, P] = first
+    loop.done.copy_(first == cfg.eot)
+    loop.sum_lp.copy_(first_lp)
+    loop.n_lp.fill_(1.0)
+    loop.pos.fill_(P)
+    loop.last.fill_(limit - 1)
+    loop.steps.zero_()
+    return no_speech_prob
+
+
+def _decode_round(model, loop: _Loop, n_steps: int, dt, gelu, cross_decode, use_rules,
+                  timestamps, temperature: float = 0.0, noise=None, step0: int = 0,
+                  draws: int = 0) -> None:
+    """``n_steps`` S=1 steps of the token loop, in place on ``loop``, and
+    its flags for the host: no host read. A step runs while its position
+    is below ``loop.last`` and some stream is live (``go``); any other step
+    writes and counts nothing (its K/V rewrite the current position's
+    own). At ``temperature > 0`` step ``step0 + j + 1`` draws
+    ``noise(step0 + j + 1, shape)`` up to step ``draws``, the loop's most
+    steps; a step past those is masked and takes the greedy choice."""
+    cfg = model.cfg
+    eot, ts0, T = cfg.eot, cfg.timestamp_begin, cfg.n_text_ctx
+    for j in range(n_steps):
+        go = (loop.pos < loop.last) & ~loop.done.all()
+        cur = torch.gather(loop.tokens, 1, loop.pos[:, None])[:, 0]
+        logits, _ = decoder_step_multipos(model, cur, loop.pos, loop.kv, loop.cross, dt,
+                                          pads=loop.pad, gelu=gelu, cross_decode=cross_decode)
+        step = step0 + j + 1
+        nxt, lp = _sample(_filter(logits, loop.rs, loop, cfg, use_rules, timestamps),
+                          temperature if step <= draws else 0.0, noise, step)
+        nxt = torch.where(loop.done, torch.full_like(nxt, eot), nxt)
+        alive = go & ~loop.done
+        loop.sum_lp += torch.where(alive, lp, torch.zeros_like(lp))
+        loop.n_lp += alive.to(torch.float32)
+        loop.done |= go & (nxt == eot)
+        at = torch.clamp(loop.pos + 1, max=T - 1)[:, None]
+        loop.tokens.scatter_(1, at, torch.where(go[:, None], nxt[:, None],
+                                                torch.gather(loop.tokens, 1, at)))
+        if use_rules:
+            new = [torch.where(go, n, o) for n, o in zip(loop.rs.advance(nxt, ts0), loop.rs)]
+            for state, v in zip(loop.rs, new):
+                state.copy_(v)
+        loop.steps += go[0]
+        loop.pos += go
+    loop.flags[0] = loop.done.all()
+    loop.flags[1] = loop.steps
+
+
+class _DecodeGraphs:
+    """A model's captured rounds: the loops' buffers by shape (the
+    ``LOOP_SHAPES`` latest, least recent first), their graphs by key in one
+    :class:`~whisper_tpu_torch.utils.graphs.GraphSet`, and the decoder
+    weights' pointers they were captured against."""
+
+    def __init__(self, device, weights: tuple):
+        self.graphs = GraphSet(device)
+        self.loops = {}
+        self.weights = weights
+        self.lock = threading.Lock()
+
+
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  # Whisper -> _DecodeGraphs
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _decoder_pointers(model) -> tuple:
+    """Where every decoder weight lies: a graph reads them there."""
+    dec = model.decoder
+    leaves = [dec.tok_emb, dec.pos_emb, dec.tok_emb_q8, *dec.ln.values()]
+    for blk in dec.blocks:
+        for d in blk.sublayers().values():
+            leaves.extend(d.values())
+    ptrs = []
+    for t in leaves:
+        if isinstance(t, QTensor):
+            ptrs += [t.q.data_ptr(), t.s.data_ptr()]
+        elif t is not None:
+            ptrs.append(t.data_ptr())
+    return tuple(ptrs)
+
+
+def _decode_graphs(model) -> _DecodeGraphs:
+    """``model``'s captured rounds; all dropped when a decoder weight moved
+    (``cast_floating`` and ``to_device`` rebind them)."""
+    weights = _decoder_pointers(model)
+    with _GRAPHS_LOCK:
+        owner = _GRAPHS.get(model)
+        if owner is None or owner.weights != weights:
+            owner = _GRAPHS[model] = _DecodeGraphs(model.device, weights)
+    return owner
+
+
+def graph_stats(model) -> Optional[dict]:
+    """The captured rounds of ``model``'s greedy decodes (keys, replays,
+    capture seconds per key, the pool's bytes), or None before the first."""
+    owner = _GRAPHS.get(model)
+    return None if owner is None else owner.graphs.stats()
+
+
+def _static_loop(owner: _DecodeGraphs, model, cross_kv, prompt_pad, suppress_ids, kv_ctx: int,
+                 dt, self_kv_quant: bool) -> Tuple[_Loop, tuple]:
+    """The captured loop's buffers for this shape, loaded with the call's
+    cross-KV, pads and suppress ids, its self-KV cache as a new one's."""
+    B = cross_kv[0].shape[1]
+    key = (B, kv_ctx, dt, self_kv_quant, tuple((t.shape, t.dtype) for t in cross_kv),
+           prompt_pad is not None, None if suppress_ids is None else suppress_ids.numel())
+    loop = owner.loops.pop(key, None)
+    if loop is None:
+        if len(owner.loops) >= LOOP_SHAPES:  # the least recent shape goes, and its graphs
+            old = next(iter(owner.loops))
+            del owner.loops[old]
+            owner.graphs.forget(lambda k: k[:len(old)] == old)
+        loop = _Loop(model, B, kv_ctx, dt, self_kv_quant, model.device)
+        loop.cross = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                           for t in cross_kv)
+        if prompt_pad is not None:
+            loop.pad = torch.empty((B,), dtype=torch.int64, device=model.device)
+        if suppress_ids is not None:
+            loop.suppress = torch.empty((suppress_ids.numel(),), dtype=torch.int64,
+                                        device=model.device)
+    owner.loops[key] = loop  # the most recent last
+    for dst, src in zip(loop.cross, cross_kv):
+        dst.copy_(src)
+    if prompt_pad is not None:
+        loop.pad.copy_(prompt_pad)
+    if suppress_ids is not None:
+        loop.suppress.copy_(suppress_ids.reshape(-1))
+    loop.kv[0].zero_()
+    if isinstance(loop.kv, QKVCache):
+        loop.kv.s.fill_(1.0)
+    else:
+        loop.kv[1].zero_()
+    return loop, key
+
+
+def _greedy_rounds(model, cross_kv, prompt, compute_dtype, max_tokens, suppress_ids,
+                   apply_filters, self_kv_quant, gelu, timestamps, prompt_pad, sot_index,
+                   cross_decode, temperature, seed, noise, graphed: bool) -> GreedyResult:
+    """:func:`greedy_decode_kv` (its arguments in order) with the capture
+    chosen by the caller: ``graphed`` replays each round as a CUDA graph,
+    else the same round runs eagerly. The card's checks hold the one
+    against the other."""
     cfg = model.cfg
     device = prompt.device
-    B = prompt.shape[0]
-    P = prompt.shape[1]
+    B, P = prompt.shape
     T = cfg.n_text_ctx
     if P >= T:
         raise ValueError(f"prompt of {P} tokens leaves no room in n_text_ctx={T}")
     limit = min(T, P + max_tokens) if max_tokens else T
     kv_ctx = min(T, -(-limit // 128) * 128)
-    eot = cfg.eot
-    ts0 = cfg.timestamp_begin
     use_rules = apply_filters or timestamps or suppress_ids is not None
-
-    def filt(logits, state):
-        if not use_rules:
-            return logits
-        return apply_rules(logits, state, cfg, suppress_ids=suppress_ids,
-                           timestamps=timestamps)
-
     stochastic = bool(temperature and temperature > 0)
+    if graphed and stochastic:
+        raise ValueError("a sampled decode draws its noise on the host every step: "
+                         "it runs uncaptured")
     if stochastic and noise is None:
         noise = gumbel_noise(seed, device)
-
-    def sample(logits_f, step: int):
-        lp = torch.log_softmax(logits_f.to(torch.float32), dim=-1)
-        if stochastic:
-            # a tensor divisor, so the card divides as the CPU does
-            tok = torch.argmax(lp / lp.new_full((), temperature) + noise(step, tuple(lp.shape)),
-                               dim=-1)
-        else:
-            tok = torch.argmax(lp, dim=-1)
-        return tok, torch.gather(lp, 1, tok[:, None])[:, 0]
-
-    kv = new_kv_cache(model, B, compute_dtype, kv_ctx, quant=self_kv_quant)
-
     prompt = prompt.to(torch.int64)
-    tokens = torch.full((B, T), eot, dtype=torch.int64, device=device)
-    tokens[:, :prompt.shape[1]] = prompt
-
     if prompt_pad is not None:
         prompt_pad = prompt_pad.to(device=device, dtype=torch.int64)
-    logits, kv = decoder_forward(model, prompt, 0, kv, cross_kv, compute_dtype,
-                                 pad=prompt_pad, gelu=gelu, cross_decode=cross_decode)
-    no_speech_prob = torch.softmax(logits[:, sot_index], dim=-1)[:, cfg.no_speech]
-    rs = RuleState.create(B, device=device)
-    first, first_lp = sample(filt(logits[:, -1], rs), 0)
-    rs = rs.advance(first, ts0)
-    tokens[:, P] = first
-    done = first == eot
-    sum_lp = first_lp
-    n_lp = torch.ones((B,), dtype=torch.float32, device=device)
+    R = ROUND_STEPS
+    opts = (compute_dtype, gelu, cross_decode, use_rules, timestamps)
 
-    i, steps, syncs = P, 0, 0
-    while i < limit - 1:
-        syncs += 1
-        if bool(done.all()):
-            break
-        logits, kv = decoder_forward(model, tokens[:, i:i + 1], i, kv, cross_kv,
-                                     compute_dtype, pad=prompt_pad, gelu=gelu,
-                                     cross_decode=cross_decode)
-        nxt, lp = sample(filt(logits[:, 0], rs), steps + 1)
-        nxt = torch.where(done, torch.full_like(nxt, eot), nxt)
-        alive = ~done
-        done = done | (nxt == eot)
-        sum_lp = sum_lp + torch.where(alive, lp, torch.zeros_like(lp))
-        n_lp = n_lp + alive.to(torch.float32)
-        tokens[:, i + 1] = nxt
-        if use_rules:
-            rs = rs.advance(nxt, ts0)
-        i += 1
-        steps += 1
+    def drive(loop: _Loop, run_round) -> GreedyResult:
+        no_speech_prob = _prefill(model, loop, prompt, limit, sot_index, compute_dtype, gelu,
+                                  cross_decode, use_rules, timestamps, temperature, noise)
+        i, rounds, steps = P, 0, 0
+        while i < limit - 1:
+            run_round(rounds)
+            rounds += 1
+            i += R
+            all_done, steps = loop.flags.tolist()
+            if all_done:
+                break
+        tokens = loop.tokens.clone() if graphed else loop.tokens
+        pos = torch.arange(T, device=device)[None, :]
+        first_eot = torch.where((tokens == cfg.eot) & (pos >= P), pos,
+                                torch.full_like(pos, T)).amin(dim=1)
+        return GreedyResult(tokens=tokens, lengths=first_eot, no_speech_prob=no_speech_prob,
+                            avg_logprob=loop.sum_lp / torch.clamp(loop.n_lp, min=1.0),
+                            steps=steps, host_syncs=rounds, device_steps=rounds * R)
 
-    pos = torch.arange(T, device=device)[None, :]
-    first_eot = torch.where((tokens == eot) & (pos >= P), pos,
-                            torch.full_like(pos, T)).amin(dim=1)
-    return GreedyResult(tokens=tokens, lengths=first_eot, no_speech_prob=no_speech_prob,
-                        avg_logprob=sum_lp / torch.clamp(n_lp, min=1.0),
-                        steps=steps, host_syncs=syncs)
+    if not graphed:
+        loop = _Loop(model, B, kv_ctx, compute_dtype, self_kv_quant, device)
+        loop.cross, loop.pad, loop.suppress = cross_kv, prompt_pad, suppress_ids
+        return drive(loop, lambda r: _decode_round(model, loop, R, *opts, temperature, noise,
+                                                   r * R, limit - 1 - P))
+    owner = _decode_graphs(model)
+    with owner.lock:
+        loop, key = _static_loop(owner, model, cross_kv, prompt_pad, suppress_ids, kv_ctx,
+                                 compute_dtype, self_kv_quant)
+        round_fn = functools.partial(_decode_round, model, loop, R, *opts)
+        return drive(loop, lambda r: owner.graphs.run(key + (R, *opts), round_fn))
 
 
 def greedy_decode(model, mel: torch.Tensor, prompt: torch.Tensor,

@@ -264,7 +264,8 @@ def transcribe_seek(pipe, waves: Sequence[np.ndarray], language: str):
 
     ``pipe`` is a ``WhisperPipeline``. Returns per utterance
     (text, segments [(start_s, end_s or None, text)]). Counts its rounds,
-    windows and decoder steps into ``pipe.last_seek``.
+    windows and decoder steps (the loops' trip counts, and the steps the
+    device ran) into ``pipe.last_seek``.
     """
     from .beam import beam_search
     from .decode import extract_texts, greedy_decode
@@ -278,7 +279,7 @@ def transcribe_seek(pipe, waves: Sequence[np.ndarray], language: str):
     segments = [[] for _ in range(n)]
     texts = [[] for _ in range(n)]
     sot_seq = np.asarray(cfg.sot_sequence(language, pipe.task)[:-1], np.int64)  # no notimestamps
-    stats = {"rounds": 0, "windows": 0, "steps": 0}
+    stats = {"rounds": 0, "windows": 0, "steps": 0, "device_steps": 0}
 
     while not all(done):
         live = [i for i in range(n) if not done[i]]
@@ -308,6 +309,7 @@ def transcribe_seek(pipe, waves: Sequence[np.ndarray], language: str):
         stats["rounds"] += 1
         stats["windows"] += len(live)
         stats["steps"] += res.steps
+        stats["device_steps"] += res.device_steps
         win_texts = extract_texts(res, prompts.shape[1], pipe.tokenizer, timestamps=True)
         silent = silence_mask(res, pipe.no_speech_threshold, pipe.logprob_threshold)
         for j, i in enumerate(live):

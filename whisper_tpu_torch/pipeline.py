@@ -210,7 +210,8 @@ class WhisperPipeline:
         self.word_timestamps = word_timestamps
         self.alignment_heads = alignment_heads
         self.last_decode = None  # the GreedyResult or BeamResult of the last batch
-        self.last_seek: Optional[dict] = None  # rounds, windows, steps of transcribe_longform
+        # rounds, windows, steps, device_steps of transcribe_longform
+        self.last_seek: Optional[dict] = None
 
         if checkpoint is not None:
             params, _ = load_checkpoint(checkpoint, size=model, device=self.device)
@@ -490,7 +491,9 @@ class WhisperPipeline:
                                   no_speech_prob=result.no_speech_prob, avg_logprob=avg_lp,
                                   # a speculative result counts rounds, not steps
                                   steps=getattr(result, "steps", 0) + sub.steps,
-                                  host_syncs=result.host_syncs + sub.host_syncs)
+                                  host_syncs=result.host_syncs + sub.host_syncs,
+                                  device_steps=(getattr(result, "device_steps", 0)
+                                                + sub.device_steps))
         return result
 
     def transcribe(self, audio: Union[str, bytes, np.ndarray],

@@ -68,11 +68,13 @@ def apply_rules(
     vocab = torch.arange(V, device=logits.device)[None, :]
     ts0 = cfg.timestamp_begin
     eot = cfg.eot
-    neg = torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device)
+    # a fill on the device, never a copy from the host, which a CUDA graph's
+    # capture refuses: the scalar writes below take this tensor
+    neg = logits.new_full((), NEG_INF)
 
     logits = logits.clone()
     if suppress_ids is not None:
-        logits[:, suppress_ids] = NEG_INF
+        logits[:, suppress_ids] = neg
     logits[:, cfg.no_timestamps] = NEG_INF  # never a valid sample
 
     first = (state.n_sampled == 0)[:, None]

@@ -13,7 +13,10 @@ Port of ``whisper_tpu/serving/engine.py``. The engine keeps a fixed pool of
   ``adaptive_sync``, 2x or 4x that while every slot is far from its
   budget) with :func:`~whisper_tpu_torch.models.model.decoder_step_multipos`,
   each slot at its own cache offset behind its own masked left pad, without
-  reading the device from the host;
+  reading the device from the host; on the card a single-device engine
+  replays each round size as a CUDA graph (``utils.graphs``), the
+  counterpart of the JAX engine's jitted ``lax.scan``, so the slot state
+  is only ever written in place;
 - after a round, the slot state is packed into one int32 buffer whose copy
   to pinned host memory overlaps the next round; the next tick resolves it,
   streams partial transcripts (``on_partial``), detokenizes the finished
@@ -85,7 +88,8 @@ with ``align_error``; the worker keeps serving.
 kernels and runs, while no slot is active, every program of the slot path
 once at each shape it takes: the step round at each round size, the harvest
 pack, and prepare (mel, encoder, cross-KV, detection, prefill) and admit for
-every prefill bucket. Each (program, shape) key's first run counts in
+every prefill bucket; the step round's first run at a size captures its
+graph. Each (program, shape) key's first run counts in
 ``EngineStats.cold_compiles_total``; after a warm start a greedy burst
 moves it no more.
 """
@@ -109,7 +113,13 @@ import torch
 from ..align import alignment_head_mask, alignment_matrix, dequantize_cross_kv, row_words
 from ..beam import beam_search_kv
 from ..config import LANGUAGES, N_SAMPLES
-from ..decode import detect_language_kv, encode_cross_kv, extract_texts, greedy_decode_kv
+from ..decode import (
+    capturable,
+    detect_language_kv,
+    encode_cross_kv,
+    extract_texts,
+    greedy_decode_kv,
+)
 from ..longform import (
     _bucket_prev,
     compression_ratio,
@@ -138,6 +148,7 @@ from ..ops import _build
 from ..ops.mel import log_mel_batch
 from ..sampling import RuleState, apply_rules, build_suppress_ids
 from ..text import postprocess
+from ..utils.graphs import GraphSet
 
 
 @dataclass
@@ -479,6 +490,9 @@ class ContinuousBatchingEngine:
         # per-slot masked left pad: a prompt's context rides right-aligned,
         # its pad positions out of attention and positional indexing
         self.pads = torch.zeros((B,), dtype=torch.int64, device=dev)
+        # the step rounds' CUDA graphs, by size: they read and write the slot
+        # state above in place, so nothing may rebind it
+        self._graphs = GraphSet(dev) if capturable(self.model, dev) else None
 
         # host-side slot bookkeeping
         self._slot_req: List[Optional[Request]] = [None] * B
@@ -772,7 +786,8 @@ class ContinuousBatchingEngine:
         """Run the slot path's programs once at every shape the slots reach,
         on the calling thread, while no slot is active: build the kernels
         (on the card), run the step round at each round size
-        (``steps_per_sync``, and 2x and 4x under ``adaptive_sync``), the
+        (``steps_per_sync``, and 2x and 4x under ``adaptive_sync``; on the
+        card this run is a size's warm-up and graph capture), the
         harvest pack and its copy to the host, and prepare (on dummy
         requests: ``language="auto"`` and ``"en"`` in turn on a multilingual
         model, so detection runs) and admit for each bucket of ``buckets``
@@ -1215,15 +1230,31 @@ class ContinuousBatchingEngine:
         mask = np.zeros((self.B,), bool)
         mask[slots] = True
         keep = ~self._to_dev(mask)
-        self.active = self.active & keep
-        self.done = self.done & keep
+        self.active &= keep
+        self.done &= keep
         self.stats.active_slots = sum(r is not None for r in self._slot_req)
 
     # ------------------------------------------------------------- decode round
     def _steps(self, n_steps: int):
         """``n_steps`` greedy steps over every slot, all on the device: a slot
         steps only while active and not done (``step_ok``); the others
-        re-run their last position and keep their state. No host sync."""
+        re-run their last position and keep their state. No host sync. On
+        the card a single-device engine replays the round as a CUDA graph
+        (one per round size, captured at the size's first round, as the
+        JAX engine traces one ``_step_fn`` per size); under a mesh and on
+        the CPU the round runs uncaptured."""
+        if self._graphs is None:
+            self._round(n_steps)
+        else:
+            self._graphs.run(("step", n_steps), functools.partial(self._round, n_steps))
+        self._first_run(("step", n_steps))
+        self.stats.steps_total += n_steps
+        key = str(n_steps)
+        self.stats.round_sizes[key] = self.stats.round_sizes.get(key, 0) + 1
+
+    def _round(self, n_steps: int):
+        """The round's steps, writing the slot state in place (a graph of
+        the round reads and writes those very tensors)."""
         cfg = self.cfg
         eot, ts0 = cfg.eot, cfg.timestamp_begin
         tokens, offsets, done, rs, fstate = self.tokens, self.offsets, self.done, self.rs, self.fstate
@@ -1253,11 +1284,9 @@ class ContinuousBatchingEngine:
                                  nxt[:, None], tokens)
             done = done | (step_ok & ((nxt == eot) | (offsets + 1 >= limit)))
             offsets = torch.where(step_ok, offsets + 1, offsets)
-        self.tokens, self.offsets, self.done, self.rs, self.fstate = tokens, offsets, done, rs, fstate
-        self._first_run(("step", n_steps))
-        self.stats.steps_total += n_steps
-        key = str(n_steps)
-        self.stats.round_sizes[key] = self.stats.round_sizes.get(key, 0) + 1
+        for state, new in zip((self.tokens, self.offsets, self.done, self.fstate, *self.rs),
+                              (tokens, offsets, done, fstate, *rs)):
+            state.copy_(new)
 
     def _adaptive_steps(self) -> int:
         """This round's size: 1, 2 or 4 times steps_per_sync. From the
@@ -1566,8 +1595,8 @@ class ContinuousBatchingEngine:
         while self._pending:
             _safe_set_exception(self._pending.popleft().future, exc)
         self._inflight_harvest = None
-        self.active = torch.zeros_like(self.active)
-        self.done = torch.zeros_like(self.done)
+        self.active.zero_()
+        self.done.zero_()
         self.stats.active_slots = 0
         self.stats.queue_depth = 0
 
@@ -1687,7 +1716,7 @@ class ContinuousBatchingEngine:
         self._first_run(("aux_sampled", bucket, round(float(temp), 6), prev_w) if temp > 0
                         else ("aux_beam", bucket, K, prev_w))
         self.stats.aux_batches_total += 1
-        self.stats.aux_steps_total += result.steps
+        self.stats.aux_steps_total += result.device_steps
         texts = extract_texts(result, P, self.tokenizer, timestamps=self.timestamps)
         lens = result.lengths.cpu().numpy()
         nsp_h = result.no_speech_prob.cpu().numpy()

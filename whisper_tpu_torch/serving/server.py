@@ -51,18 +51,11 @@ _OPTIONS = ("language", "task", "beam", "temperature", "word_timestamps", "initi
 
 def kernel_launches() -> dict:
     """Launches of every kernel wrapper in this process, by its name (each
-    counts only where it launches its CUDA kernel)."""
-    from ..ops import decode_attention as da
-    from ..ops import flash_attention as fa
-    from ..ops.int8_gemm import int8_gemm
-    from ..ops.log10_mel import log10_mel
-    from ..ops.quantize_rows import quantize_rows
+    counts only where it launches its CUDA kernel, or where a graph replay
+    runs its launches)."""
+    from ..utils.graphs import kernel_wrappers
 
-    wrappers = (log10_mel, fa.flash_attention_btd, fa.flash_attention_btd_sharded,
-                fa.flash_attention, int8_gemm, quantize_rows, da.cross_attention_decode_fd,
-                da.cross_attention_decode, da.cross_attention_decode_dense,
-                da.self_attention_decode, da.self_attention_decode_int8)
-    return {fn.__name__: fn.launches for fn in wrappers}
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
 
 
 class WhisperHandler(BaseHTTPRequestHandler):
