@@ -22,9 +22,14 @@ drives each path while counting kernel launches:
   bit for bit against the same rounds uncaptured and against the
   step-by-step loop they replaced, with the host's launch calls, the
   cross-KV copy, the capture seconds, the graph pool's bytes and the
-  round length swept in turns (every single-device greedy decode and
-  engine round below replays its graphs too, launches counted through
-  the replays);
+  round length swept in turns; the same decode sampled at 0.6 (a ladder
+  rung) under each selection, graphed against its rounds uncaptured under
+  one seed's draws, with the noise fill of a round; and the pipeline with
+  its ladder on over three batches whose rungs re-decode shrinking subsets
+  of the rows, the main decode's graphs kept and replayed throughout (every
+  single-device greedy, sampled and beam decode and engine round below
+  replays its graphs too, the aux worker's included, launches counted
+  through the replays);
 - the serving path: the port's HTTP server in-process on 127.0.0.1 under the
   server's zero-flag defaults (turbo, 8 slots, 32 steps per sync, 224-token
   budget, W8A8 + int8 cross- and self-KV, bf16), answering 24 seeded noise
@@ -66,7 +71,9 @@ drives each path while counting kernel launches:
   bit-equal to the monolithic one);
 - beam search: ``WhisperPipeline(beam_size=5)`` over 16 seeded 30 s noise
   clips at the offline configuration (64 tokens, ladder off), its wall
-  beside greedy on the same clips, the step's reorder and top-k, and one
+  beside greedy on the same clips, its loop graphed against the same
+  rounds uncaptured and the per-step loop they replaced (bit for bit, with
+  the host's launch calls), the step's reorder and top-k, and one
   layer-step's folded cross-attention beside K2 on expanded cross-KV; then
   a burst of 24 clips to the turbo server (ladder off), 8 of them at
   ``beam=5`` (multipart field and ``X-Beam``), on its aux worker;
@@ -106,9 +113,10 @@ drives each path while counting kernel launches:
 
 Then it checks small fp32 runs of the paths on the card against the CPU
 (the offline one under each selection, the TP engine against the one-rank
-engine on the CPU, a sampled decode with the same noise on both, language
+engine on the CPU, a sampled decode with the same noise on both and beam
+searches, graphed on the card and uncaptured on the CPU, language
 detection, the engine's ``language=auto`` replies, prompted rows,
-timestamps and a long clip through the engine, beam search, the alignment
+timestamps and a long clip through the engine, the alignment
 matrix and words of teacher-forced text and the same pass on a mesh,
 speculative decodes and a verify window across the cache's end, a
 ``--dp 2`` fleet of tiny fp32 workers against the single-engine server,
@@ -1379,24 +1387,25 @@ def _host_launches(prof, within: str | None = None) -> dict:
     return out
 
 
-def _greedy_args(pipe, clips) -> tuple:
-    """(model, cross-KV, prompt, dtype, keywords) of the greedy decode that
-    ``pipe.transcribe_batch(clips)`` runs, caught at its call."""
+def _greedy_args(pipe, clips, entry: str = "greedy_decode_kv") -> tuple:
+    """(model, cross-KV, prompt, dtype, keywords) of the decode that
+    ``pipe.transcribe_batch(clips)`` runs through the pipeline's ``entry``
+    (``greedy_decode_kv`` or ``beam_search_kv``), caught at its call."""
     import whisper_tpu_torch.pipeline as pipeline_module
 
-    real, seen = pipeline_module.greedy_decode_kv, []
+    real, seen = getattr(pipeline_module, entry), []
 
     def catch(model, cross_kv, prompt, dt, **kw):
         seen.append((model, cross_kv, prompt, dt, kw))
         return real(model, cross_kv, prompt, dt, **kw)
 
-    pipeline_module.greedy_decode_kv = catch
+    setattr(pipeline_module, entry, catch)
     try:
         pipe.transcribe_batch(clips)
     finally:
-        pipeline_module.greedy_decode_kv = real
+        setattr(pipeline_module, entry, real)
     if len(seen) != 1:
-        raise AssertionError(f"transcribe_batch ran {len(seen)} greedy decodes, not 1")
+        raise AssertionError(f"transcribe_batch ran {len(seen)} calls of {entry}, not 1")
     return seen[0]
 
 
@@ -1459,6 +1468,106 @@ def _stepwise_decode(model, cross_kv, prompt, dt, max_tokens=None, suppress_ids=
                         host_syncs=steps + 1, device_steps=steps)
 
 
+def _stepwise_beam(model, cross_kv, prompt, dt, beam_size=5, max_tokens=None,
+                   suppress_ids=None, timestamps=False, apply_filters=True, length_penalty=None,
+                   prompt_pad=None, sot_index=0, self_kv_quant=False, gelu="erf"):
+    """The beam loop before its rounds: one ``decoder_forward(beam_k=K)`` of
+    S=1 at an int offset a step, the loop condition read before each, the
+    cache, tokens and rule state reordered into new tensors (the port's
+    earlier ``beam_search_kv``). ``beam_phase`` holds the rounds bit-equal
+    to it."""
+    from whisper_tpu_torch.beam import BeamResult, _map_cache, _norm_score, _top_k
+    from whisper_tpu_torch.models.model import decoder_forward, new_kv_cache
+    from whisper_tpu_torch.sampling import NEG_INF, RuleState, apply_rules
+
+    cfg, device = model.cfg, prompt.device
+    (B, P), K, T, V = prompt.shape, beam_size, cfg.n_text_ctx, cfg.n_vocab
+    N, eot, ts0, half = B * K, cfg.eot, cfg.timestamp_begin, NEG_INF / 2
+    limit = min(T, P + max_tokens) if max_tokens else T
+    use_rules = apply_filters or timestamps or suppress_ids is not None
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=device)
+
+    def filt(logits, state):
+        if not use_rules:
+            return logits
+        return apply_rules(logits, state, cfg, suppress_ids=suppress_ids, timestamps=timestamps)
+
+    kv = new_kv_cache(model, B, dt, min(T, -(-limit // 128) * 128), quant=self_kv_quant)
+    logits, kv = decoder_forward(model, prompt, 0, kv, cross_kv, dt, pad=prompt_pad, gelu=gelu)
+    nsp = torch.softmax(logits[:, sot_index].to(torch.float32), dim=-1)[:, cfg.no_speech]
+    kv = _map_cache(kv, lambda t: t.repeat_interleave(K, dim=1))
+    pad_n = None if prompt_pad is None else prompt_pad.repeat_interleave(K)
+    tokens = torch.full((N, T), eot, dtype=torch.int64, device=device)
+    tokens[:, :P] = prompt.repeat_interleave(K, dim=0)
+    rs = RuleState.create(N, device=device)
+    lp0 = torch.log_softmax(filt(logits[:, -1].repeat_interleave(K, dim=0), rs)
+                            .to(torch.float32), dim=-1)
+    beam0 = (torch.arange(N, device=device) % K == 0)[:, None]
+    scores, flat_idx = _top_k(torch.where(beam0, lp0, neg).reshape(B, K * V), K)
+    first = flat_idx % V
+    tokens[:, P] = first.reshape(N)
+    rs = rs.advance(first.reshape(N), ts0)
+    opened = first == eot
+    fin_scores = torch.where(opened, _norm_score(scores, torch.ones_like(scores),
+                                                 length_penalty), neg)
+    fin_tokens = tokens.reshape(B, K, T).clone()
+    fin_lens = torch.full((B, K), P, dtype=torch.int64, device=device)
+    scores = torch.where(opened, neg, scores)
+    n_gen = torch.ones((B, K), dtype=torch.int64, device=device)
+    parent_base = (torch.arange(B, device=device) * K)[:, None]
+    i, steps, syncs = P, 0, 0
+    while i < limit - 1:
+        syncs += 1
+        live = (scores > half).any(dim=1)
+        unfinished = (fin_scores <= half).any(dim=1)
+        if not bool((live & unfinished).any()):
+            break
+        logits, kv = decoder_forward(model, tokens[:, i:i + 1], i, kv, cross_kv, dt, pad=pad_n,
+                                     gelu=gelu, beam_k=K)
+        lp = torch.log_softmax(filt(logits[:, 0], rs).to(torch.float32), dim=-1)
+        cand = torch.where((scores.reshape(N) > half)[:, None], scores.reshape(N, 1) + lp, neg)
+        cand2k, idx2k = _top_k(cand.reshape(B, K * V), 2 * K)
+        tok2k, src2k = idx2k % V, idx2k // V
+        is_eot = tok2k == eot
+        ngen_src = torch.gather(n_gen, 1, src2k)
+        n_gen2k = ngen_src + 1
+        eot_norm = torch.where(is_eot, _norm_score(cand2k, n_gen2k, length_penalty), neg)
+        merged_tokens = torch.cat([fin_tokens, torch.gather(
+            tokens.reshape(B, K, T), 1, src2k[..., None].expand(B, 2 * K, T))], dim=1)
+        merged_lens = torch.cat([fin_lens, P + ngen_src], dim=1)
+        fin_scores, fin_idx = _top_k(torch.cat([fin_scores, eot_norm], dim=1), K)
+        fin_tokens = torch.gather(merged_tokens, 1, fin_idx[..., None].expand(B, K, T))
+        fin_lens = torch.gather(merged_lens, 1, fin_idx)
+        scores, pick = _top_k(torch.where(is_eot, neg, cand2k), K)
+        new_tok = torch.gather(tok2k, 1, pick).reshape(N)
+        n_gen = torch.gather(n_gen2k, 1, pick)
+        flat = (parent_base + torch.gather(src2k, 1, pick)).reshape(N)
+        tokens = tokens.index_select(0, flat)
+        tokens[:, i + 1] = new_tok
+        kv = _map_cache(kv, lambda t: t.index_select(1, flat))
+        rs = RuleState(*(f.index_select(0, flat) for f in rs)).advance(new_tok, ts0)
+        i += 1
+        steps += 1
+    run_norm = _norm_score(scores, n_gen, length_penalty)
+    no_fin = (fin_scores <= half).all(dim=1, keepdim=True)
+    rows = torch.arange(B, device=device)
+    best_run = torch.argmax(run_norm, dim=1)
+    fin_or_run = torch.where(no_fin, torch.gather(run_norm, 1, best_run[:, None]), fin_scores)
+    best = torch.argmax(fin_or_run, dim=1)
+    best_tokens = torch.where(no_fin, tokens.reshape(B, K, T)[rows, best_run],
+                              fin_tokens[rows, best])
+    best_lens = torch.where(no_fin[:, 0], torch.full_like(fin_lens[:, 0], i + 1),
+                            torch.gather(fin_lens, 1, best[:, None])[:, 0])
+    best_scores = torch.gather(fin_or_run, 1, best[:, None])[:, 0]
+    pos = torch.arange(T, device=device)[None, :]
+    best_tokens = torch.where(pos >= best_lens[:, None], torch.full_like(best_tokens, eot),
+                              best_tokens)
+    return BeamResult(tokens=best_tokens, lengths=best_lens, scores=best_scores,
+                      all_tokens=fin_tokens, all_scores=fin_scores, no_speech_prob=nsp,
+                      avg_logprob=best_scores, steps=steps, host_syncs=syncs,
+                      device_steps=steps)
+
+
 def _walls(fn, reps: int) -> list:
     """Host seconds of ``reps`` calls of ``fn``, each ended by a sync."""
     out = []
@@ -1473,6 +1582,67 @@ def _walls(fn, reps: int) -> list:
 
 GRAPH_SWEEP = (4, 8, 16, 16, 8, 4)  # ROUND_STEPS values decode_graph times, in turns
 DECODE_FIELDS = ("tokens", "lengths", "avg_logprob", "no_speech_prob")
+SAMPLED_T = 0.6  # decode_graph's sampled decode: a rung of the ladder
+SAMPLED_SEED = 600  # the pipeline's seed for that rung, int(t * 1000)
+LADDER_KEEP = 0.6  # the share of a rung's rows _shrinking_gate fails again
+LADDER_BATCHES = 3  # transcribe_batch calls of decode_graph's ladder
+LADDER_WALL_BATCHES = 5  # and of chip_walls.py --ladder, the first a warm-up
+
+
+def _bit_equal(what: str, a, b, fields) -> None:
+    """Every field of two decode results equal bit for bit, and their trip
+    counts."""
+    for name in fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if not torch.equal(x, y):
+            rows = (x != y).reshape(x.shape[0], -1).any(1).nonzero()[:, 0].tolist()
+            raise AssertionError(f"{what}: {name} differs on rows {rows}")
+    if a.steps != b.steps:
+        raise AssertionError(f"{what}: {a.steps} steps against {b.steps}")
+
+
+def _three_ways(what: str, ways: dict, counters, expect, profiled=(), again=None) -> tuple:
+    """The graphed way of one decode run once to warm (it captures its keys
+    here), then each way once timed with the counts at 0 (``expect(what,
+    launches, result)`` holds them) and ``again[way]`` more walls (2 for
+    the graphed way by default; an uncaptured way takes about a second a
+    run, so it runs once); the host's CUDA launch calls in one run of
+    each way in ``profiled`` (torch.profiler). Returns (records, results)
+    by way."""
+    again = {"graphed": 2} if again is None else again
+    from torch.profiler import ProfilerActivity, profile
+
+    rec, results = {}, {}
+    for way, fn in ways.items():
+        first_s = None
+        if way == "graphed":
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches(counters)
+        expect(f"{what} {way}", launches, res)
+        results[way] = res
+        rec[way] = {"first_call_s": first_s, "wall_s": wall,
+                    "walls_s": [wall] + _walls(fn, again.get(way, 0)),
+                    "steps": res.steps, "device_steps": res.device_steps,
+                    "host_syncs": res.host_syncs,
+                    "launches": {k: n for k, n in launches.items() if n}}
+        if way in profiled:
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            calls = _host_launches(prof)
+            rec[way].update(host_launch_calls=calls, host_launch_calls_total=sum(calls.values()),
+                            profile_s=time.perf_counter() - t0)
+    return rec, results
 
 
 def decode_graph(counters, smi: str) -> dict:
@@ -1489,9 +1659,14 @@ def decode_graph(counters, smi: str) -> dict:
     the selections launch alike); the copy of the cross-KV
     into the graph's buffer (CUDA events), the capture seconds per key and
     the graph pool's bytes; the graphed wall at each ``GRAPH_SWEEP``
-    round length, in turns (fd)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    round length, in turns (fd). Then the same decode sampled at
+    ``SAMPLED_T`` (a ladder rung) under each selection, graphed against
+    its rounds uncaptured under one hook's draws (``gumbel_noise`` of
+    ``SAMPLED_SEED``, made anew for each decode), bit-equal, launches
+    exact, the graphed way's host launch calls under fd (the uncaptured
+    greedy decode's above stand for the eager rounds), and the noise fill
+    of one round (CUDA events); and the pipeline with its ladder on, its
+    rungs at shrinking batches (:func:`_ladder_graphs`)."""
     from whisper_tpu_torch import decode
     from whisper_tpu_torch.config import N_SAMPLES
     from whisper_tpu_torch.pipeline import WhisperPipeline
@@ -1517,44 +1692,15 @@ def decode_graph(counters, smi: str) -> dict:
                     *args, sel, 0.0, 0, None, False),
                 "stepwise": lambda: _stepwise_decode(
                     model, cross, prompt, dt, **{**kw, "cross_decode": sel})}
-        rec, results = {}, {}
-        for way, fn in ways.items():
-            t0 = time.perf_counter()
-            fn()  # warm: the graphed way captures its key here
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            for c in counters:
-                c.launches = 0
-            t0 = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = _launches(counters)
-            _expect(f"decode_graph {sel} {way}", launches, cfg, 0, res.device_steps,
-                    cross_decode=sel)
-            results[way] = res
-            again = 2 if sel == "fd" or way == "graphed" else 0  # the eager ways take 0.7 s
-            rec[way] = {"first_call_s": first_s, "wall_s": wall,
-                        "walls_s": [wall] + _walls(fn, again), "steps": res.steps,
-                        "device_steps": res.device_steps, "host_syncs": res.host_syncs,
-                        "launches": {k: n for k, n in launches.items() if n}}
-            if sel == "fd" and way != "stepwise":  # the selections launch alike
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    fn()
-                    torch.cuda.synchronize()
-                calls = _host_launches(prof)
-                rec[way].update(host_launch_calls=calls,
-                                host_launch_calls_total=sum(calls.values()))
+        # the selections launch alike: the host's calls under fd
+        rec, results = _three_ways(
+            f"decode_graph {sel}", ways, counters,
+            lambda what, launches, res: _expect(what, launches, cfg, 0, res.device_steps,
+                                                cross_decode=sel),
+            profiled=("graphed", "uncaptured") if sel == "fd" else ())
         for way in ("uncaptured", "stepwise"):
-            for name in DECODE_FIELDS:
-                a, b = getattr(results["graphed"], name), getattr(results[way], name)
-                if not torch.equal(a, b):
-                    rows = (a != b).reshape(B, -1).any(1).nonzero()[:, 0].tolist()
-                    raise AssertionError(f"decode_graph {sel}: graphed {name} differs from "
-                                         f"{way} on rows {rows}")
-            if results["graphed"].steps != results[way].steps:
-                raise AssertionError(f"decode_graph {sel}: {results['graphed'].steps} steps, "
-                                     f"{way} {results[way].steps}")
+            _bit_equal(f"decode_graph {sel}: graphed against {way}", results["graphed"],
+                       results[way], DECODE_FIELDS)
         rec["bit_equal"] = {"uncaptured": list(DECODE_FIELDS), "stepwise": list(DECODE_FIELDS)}
         out["selections"][sel] = rec
         if sel == "fd":
@@ -1579,9 +1725,135 @@ def decode_graph(counters, smi: str) -> dict:
     for entry in sweep.values():
         entry["median_s"] = float(np.median(entry["walls_s"]))
     out["round_steps_sweep"] = sweep
+    out["sampled"] = _sampled_graphs(counters, model, cross, prompt, dt, kw, args)
+    out["ladder"] = _ladder_graphs(counters, pipe, clips)
     out["graphs"] = decode.graph_stats(model)
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
+
+
+def _sampled_graphs(counters, model, cross, prompt, dt, kw, args) -> dict:
+    """``decode_graph``'s sampled decodes (see there)."""
+    from types import SimpleNamespace
+
+    from whisper_tpu_torch import decode
+
+    cfg = model.cfg
+    rec = {"temperature": SAMPLED_T, "seed": SAMPLED_SEED, "selections": {}}
+    for sel in ("fd", "legacy", "dense"):
+        skw = {**kw, "cross_decode": sel, "temperature": SAMPLED_T, "seed": SAMPLED_SEED}
+        ways = {"graphed": lambda: decode.greedy_decode_kv(model, cross, prompt, dt, **skw),
+                "uncaptured": lambda: decode._greedy_rounds(
+                    *args, sel, SAMPLED_T, SAMPLED_SEED, None, False)}
+        srec, results = _three_ways(
+            f"decode_graph sampled {sel}", ways, counters,
+            lambda what, launches, res: _expect(what, launches, cfg, 0, res.device_steps,
+                                                cross_decode=sel),
+            profiled=("graphed",) if sel == "fd" else ())
+        _bit_equal(f"decode_graph sampled {sel}", results["graphed"], results["uncaptured"],
+                   DECODE_FIELDS)
+        srec["bit_equal"] = {"uncaptured": list(DECODE_FIELDS)}
+        rec["selections"][sel] = srec
+    R, V = decode.ROUND_STEPS, cfg.n_vocab
+    loop = SimpleNamespace(noise=torch.empty((R, B, V), dtype=torch.float32, device="cuda"))
+    hook = decode.gumbel_noise(SAMPLED_SEED, "cuda")
+    rec["noise_fill_ms"] = cuda_ms(lambda: decode._fill_noise(loop, hook, 0, R), reps=20)
+    rec["noise_fill_bytes"] = loop.noise.numel() * 4
+    rec["noise_fill"] = (f"one round's draws: {R} x gumbel_noise(step, ({B}, {V})) copied "
+                         "into the loop's buffer, CUDA events over 20 rounds")
+    return rec
+
+
+def _shrinking_gate(batch: int, n: int) -> tuple:
+    """(a ``_needs_retry`` for a pipeline of ``n`` rows, the failing rows
+    of each of its calls): each call fails a seeded ``LADDER_KEEP`` of the
+    rows the call before failed (all rows before the first), so each rung
+    re-decodes a smaller batch, as real audio makes it, at sizes that
+    differ from batch to batch."""
+    rng = np.random.default_rng(1000 + batch)
+    bad, sizes = np.ones(n, dtype=bool), []
+
+    def gate(result, prompts):
+        nonlocal bad
+        bad = bad & (rng.random(n) < LADDER_KEEP)
+        sizes.append(int(bad.sum()))
+        return bad.copy()
+
+    return gate, sizes
+
+
+def _ladder_graphs(counters, pipe, clips) -> dict:
+    """``decode_graph``'s pipeline ladder (see there): ``LADDER_BATCHES``
+    calls of ``transcribe_batch``, each through :func:`_shrinking_gate`
+    (its rungs at batches of their own); walls, launches exact (one
+    encode, the decodes' steps on the card), the graph counts of each
+    call, and the main decode's loop and graphs kept throughout: every
+    graph of the batch's shape stays the one captured before the first
+    call, and every round but a new key's first replays."""
+    from whisper_tpu_torch import decode
+
+    n = len(clips)
+    owner = decode._GRAPHS[pipe.model]
+    main = {k: g for k, g in owner.graphs._graphs.items() if k[0] == n}
+    pipe.temperature_fallback = True
+    rec = {"keep": LADDER_KEEP, "batches": []}
+    try:
+        for batch in range(LADDER_BATCHES):
+            pipe._needs_retry, sizes = _shrinking_gate(batch, n)
+            before = decode.graph_stats(pipe.model)
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            pipe.transcribe_batch(clips)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches(counters)
+            dec = pipe.last_decode
+            _expect(f"decode_graph ladder {batch}", launches, pipe.cfg, 1, dec.device_steps)
+            after = decode.graph_stats(pipe.model)
+            rec["batches"].append({
+                "wall_s": wall, "rung_rows": sizes, "steps": dec.steps,
+                "device_steps": dec.device_steps, "host_syncs": dec.host_syncs,
+                "captures": after["captures"] - before["captures"],
+                "replays": after["replays"] - before["replays"], "keys": after["keys"],
+                "loops": len(owner.loops),
+                "capture_s": sum(v for k, v in after["capture_s"].items()
+                                 if before["capture_s"].get(k) != v)})
+            kept = {k: g for k, g in owner.graphs._graphs.items() if k in main}
+            b = rec["batches"][-1]
+            if kept != main or b["replays"] != b["host_syncs"] - b["captures"]:
+                raise AssertionError(f"the ladder dropped or recaptured the main decode's "
+                                     f"graphs, or ran rounds uncaptured: {b}")
+    finally:
+        pipe.temperature_fallback = False
+        del pipe._needs_retry
+    return rec
+
+
+def shrinking_ladder_walls() -> dict:
+    """``chip_walls.py --ladder``: the offline configuration (as
+    ``decode_graph``) with its ladder on, ``LADDER_WALL_BATCHES`` calls of
+    ``transcribe_batch`` over the same clips, each through
+    :func:`_shrinking_gate`; the first call warms (the main decode's
+    capture), the walls of the others. Uses only what every checkout of
+    the port has."""
+    from whisper_tpu_torch.config import N_SAMPLES
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+
+    pipe = WhisperPipeline(model="turbo", device="cuda", compute_dtype="bfloat16",
+                           quantize=True, w8a8=True, kv_quant=True, self_kv_quant=True,
+                           max_tokens=N_TOKENS, seed=0, temperature_fallback=True)
+    rng = np.random.default_rng(0)
+    clips = list(rng.standard_normal((B, N_SAMPLES)).astype(np.float32) * 0.1)
+    walls, rows = [], []
+    for batch in range(LADDER_WALL_BATCHES):
+        pipe._needs_retry, sizes = _shrinking_gate(batch, B)
+        t0 = time.perf_counter()
+        pipe.transcribe_batch(clips)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        rows.append(sizes)
+    return {"walls_s": walls, "rung_rows": rows, "device_steps": pipe.last_decode.device_steps}
 
 
 def breakdown(pipe, clips, steps: int) -> dict:
@@ -1734,6 +2006,8 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
     (ladder) launches alike, detection steps included. Returns the record,
     and with ``keep_engine`` also the stopped engine and the clips.
     ``built`` and ``warm_request`` go to :func:`_started`."""
+    from whisper_tpu_torch.decode import graph_stats
+
     engine, base, args, srv, thread, phases, startup_s = _started(flags, mesh, built,
                                                                   warm_request)
     url = f"{base}/asr"
@@ -1785,7 +2059,8 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
            "retries": delta["retries_total"], "detect_batches": delta["detect_batches_total"],
            "languages": [reply.get("language") for _, reply, _ in replies],
            "round_sizes": delta["round_sizes"], "launches": launches, "metrics": metrics,
-           "step_graphs": None if engine._graphs is None else engine._graphs.stats()}
+           "step_graphs": None if engine._graphs is None else engine._graphs.stats(),
+           "aux_graphs": graph_stats(engine.model)}
     if engine.encode_chunks > 1:
         rec["encode_group_s"] = {str(b): t for b, t in engine._encode_seg_est.items()}
     if keep_engine:
@@ -1822,7 +2097,8 @@ def serving_ladder(counters) -> dict:
     0.2 ... 1.0 on): with random weights every request fails the logprob
     gate and climbs every rung on the aux worker, so each resolves at its
     sixth attempt, at temperature 1.0. Reports the aux worker's share of
-    the kernels' launches."""
+    the kernels' launches; its sampled rounds replay CUDA graphs (the
+    model's, ``aux_graphs``: captures, keys and replays)."""
     rec = serving(counters, (), N_LADDER_REQUESTS, phase="serving_ladder")
     rungs = 5
     if rec["attempts"] != [rungs + 1] * N_LADDER_REQUESTS or set(rec["temperatures"]) != {1.0}:
@@ -1830,6 +2106,9 @@ def serving_ladder(counters) -> dict:
                              f"temperatures {rec['temperatures']}")
     if rec["retries"] != rungs * N_LADDER_REQUESTS:
         raise AssertionError(f"{rec['retries']} retries for {N_LADDER_REQUESTS} requests")
+    if not (rec["aux_graphs"] and rec["aux_graphs"]["replays"]):
+        raise AssertionError(f"the aux worker's sampled rounds replayed no graph: "
+                             f"{rec['aux_graphs']}")
     L_text = 4
     rec["aux_launches"] = {"log10_mel": rec["aux_batches"],
                            "flash_attention_btd": L_AUDIO * rec["aux_batches"],
@@ -2006,10 +2285,11 @@ def tp_reference_check(devices=("cuda:0", "cuda:0"), model: str = "tiny") -> dic
 
 def ladder_reference_check() -> dict:
     """A small fp32 sampled decode (tiny, kvq + skvq, temperature 0.6) on
-    the card against the CPU, the same Gumbel draws handed to both through
+    the card (its rounds replayed as CUDA graphs) against the CPU
+    (uncaptured), the same Gumbel draws handed to both through
     ``greedy_decode_kv``'s ``noise`` hook: equal tokens."""
     from whisper_tpu_torch.config import get_config
-    from whisper_tpu_torch.decode import greedy_decode
+    from whisper_tpu_torch.decode import graph_stats, greedy_decode
     from whisper_tpu_torch.params import init_params
 
     rng = np.random.default_rng(11)
@@ -2018,17 +2298,23 @@ def ladder_reference_check() -> dict:
     prompt = np.tile(np.asarray([cfg.sot_sequence("en")], np.int64), (3, 1))
     draws = [np.random.default_rng(100 + i).gumbel(size=(3, cfg.n_vocab)).astype(np.float32)
              for i in range(16)]
-    toks = {}
+    toks, graphs = {}, {}
     for dev in ("cuda", "cpu"):
         params = init_params(cfg, seed=3, device="cpu").to_device(dev)
-        res = greedy_decode(params, torch.from_numpy(mel).to(dev), torch.from_numpy(prompt).to(dev),
-                            kv_quant=True, self_kv_quant=True, max_tokens=12, temperature=0.6,
-                            noise=lambda step, shape, d=dev: torch.from_numpy(draws[step]).to(d))
-        toks[dev] = res.tokens.cpu().tolist()
+        for _ in range(2):  # the second decode replays the first's graphs
+            res = greedy_decode(params, torch.from_numpy(mel).to(dev),
+                                torch.from_numpy(prompt).to(dev), kv_quant=True,
+                                self_kv_quant=True, max_tokens=12, temperature=0.6,
+                                noise=lambda step, shape, d=dev: torch.from_numpy(
+                                    draws[step]).to(d))
+        toks[dev], graphs[dev] = res.tokens.cpu().tolist(), graph_stats(params)
     if toks["cuda"] != toks["cpu"]:
         raise AssertionError(f"sampled tokens on the card differ from the CPU: {toks}")
+    if graphs["cpu"] is not None or not (graphs["cuda"] and graphs["cuda"]["replays"]):
+        raise AssertionError(f"the card's sampled rounds replayed no graph: {graphs}")
     return {"phase": "ladder_reference", "model": "tiny", "dtype": "float32", "temperature": 0.6,
-            "tokens_equal_cpu": True, "tokens": [t[4:] for t in toks["cuda"]]}
+            "tokens_equal_cpu": True, "tokens": [t[4:] for t in toks["cuda"]],
+            "card_graphs": graphs["cuda"]}
 
 
 SELECTIONS = (("btd", "fd"), ("bhtd", "legacy"), ("bhtd", "dense"))
@@ -2784,9 +3070,10 @@ BEAM_PIPELINE = dict(model="turbo", device="cuda", compute_dtype="bfloat16", qua
 def _beam_step_parts(pipe, dev) -> dict:
     """The beam step's own work beside its kernels, each timed alone at the
     beam phase's shapes (CUDA events): the reorder (``_gather_cache``: the
-    int8 self-KV of 80 beams gathered at their parents, read and written
-    once: its bytes bound) and the step's three top-k sorts (16 rows of
-    5 x 51,866 candidates, then the finished and the running sets). Then
+    int8 self-KV of 80 beams gathered at their parents into the loop's
+    second cache, the cache read once and written once: its bytes bound)
+    and the step's three top-k sorts (16 rows of 5 x 51,866 candidates,
+    then the finished and the running sets). Then
     one layer-step's cross-attention two ways: the path's folded plain
     ``attention_int8kv`` (16 utterances x 5 query rows against the shared
     int8 cross-KV) and K2 over the same 80 query rows on cross-KV expanded
@@ -2806,13 +3093,14 @@ def _beam_step_parts(pipe, dev) -> dict:
     kv = new_kv_cache(pipe.model, N, pipe.compute_dtype, kv_ctx, quant=True)
     parents = torch.randint(0, K, (Bu, K), generator=gen, device=dev)
     flat = (torch.arange(Bu, device=dev)[:, None] * K + parents).reshape(N)
+    spare = type(kv)(*(torch.empty_like(t) for t in kv))
     kv_bytes = sum(t.numel() * t.element_size() for t in kv)
-    reorder_ms = cuda_ms(lambda: _gather_cache(kv, flat), reps=20)
+    reorder_ms = cuda_ms(lambda: _gather_cache(kv, spare, flat), reps=20)
     cand = torch.randn((Bu, K * cfg.n_vocab), generator=gen, device=dev)
     fin = torch.randn((Bu, 3 * K), generator=gen, device=dev)
     run = torch.randn((Bu, 2 * K), generator=gen, device=dev)
     topk_ms = cuda_ms(lambda: (_top_k(cand, 2 * K), _top_k(fin, K), _top_k(run, K)), reps=20)
-    del kv
+    del kv, spare
 
     k_q, k_s, v_q, v_s = _int8_cross_kv(dev, gen, Bu, H_TEXT)
     q = torch.randn((N, H_TEXT, 1, DH), generator=gen, device=dev).to(torch.bfloat16)
@@ -2845,8 +3133,9 @@ def beam_phase(counters) -> dict:
     ``WhisperPipeline(beam_size=5).transcribe_batch`` (``BEAM_PIPELINE``):
     built, warmed, run once with the counts at 0 and checked (exact
     launches: the encoder's as offline, the int8 K3 once a layer a beam
-    step, no cross-attention kernel), its wall beside the greedy wall of the
-    same clips in the same process, then :func:`_beam_step_parts`."""
+    step the card ran, no cross-attention kernel), its wall beside the
+    greedy wall of the same clips in the same process, then
+    :func:`_beam_loops` and :func:`_beam_step_parts`."""
     from whisper_tpu_torch.beam import BeamResult
     from whisper_tpu_torch.config import N_SAMPLES
     from whisper_tpu_torch.pipeline import WhisperPipeline
@@ -2881,7 +3170,7 @@ def beam_phase(counters) -> dict:
         raise AssertionError("beam token ids out of the vocabulary")
     if not (torch.isfinite(dec.scores).all() and torch.isfinite(dec.no_speech_prob).all()):
         raise AssertionError("non-finite beam scores")
-    _expect("beam", launches, cfg, 1, 0, beam_steps=dec.steps)
+    _expect("beam", launches, cfg, 1, 0, beam_steps=dec.device_steps)
 
     pipe.beam_size = 0  # greedy on the same clips, the same process
     pipe.transcribe_batch(clips)
@@ -2892,6 +3181,7 @@ def beam_phase(counters) -> dict:
     greedy_wall = time.perf_counter() - t0
     greedy = pipe.last_decode
     pipe.beam_size = BEAM_SIZE
+    loops = _beam_loops(counters, pipe, clips)
     parts = _beam_step_parts(pipe, pipe.device)
     finished = (dec.all_scores > -5e29).sum(dim=1).cpu().tolist()
     del pipe
@@ -2899,10 +3189,52 @@ def beam_phase(counters) -> dict:
             "max_tokens": N_TOKENS, "dtype": "bfloat16",
             "quant": "int8 weights + w8a8 encoder + kvq + skvq", "ladder": False,
             "init_s": init_s, "wall_s": wall, "steps": dec.steps, "host_syncs": dec.host_syncs,
+            "device_steps": dec.device_steps, "loops": loops,
             "greedy_wall_s": greedy_wall, "greedy_steps": greedy.steps,
             "beam_over_greedy": wall / greedy_wall, "generated": (lens - P).tolist(),
             "finished_per_clip": finished, "launches": launches, "peak_mem_gb": peak_gb,
             **parts}
+
+
+BEAM_FIELDS = ("tokens", "lengths", "scores", "all_tokens", "all_scores", "no_speech_prob")
+
+
+def _beam_loops(counters, pipe, clips) -> dict:
+    """The beam path's loop on its own (its inputs caught from
+    ``transcribe_batch``), three ways on the same cross-KV: the graphed
+    ``beam_search_kv``, the same rounds uncaptured (``beam._beam_rounds(
+    graphed=False)``) and the loop the rounds replaced
+    (:func:`_stepwise_beam`). Every result tensor bit-equal across the
+    three, the trip counts equal, launches exact (K3 once a layer a step
+    the card ran), walls, the host's CUDA launch calls of the graphed
+    decode (torch.profiler; profiling an uncaptured one costs 15-20 s
+    for ~38,000 calls), and the model's graphs (captures, replays)."""
+    from whisper_tpu_torch import beam
+    from whisper_tpu_torch.decode import graph_stats
+
+    model, cross, prompt, dt, kw = _greedy_args(pipe, clips, "beam_search_kv")
+    cfg = model.cfg
+    rounds_args = (model, cross, prompt, dt, kw["beam_size"], kw.get("max_tokens"),
+                   kw.get("suppress_ids"), kw.get("timestamps", False),
+                   kw.get("apply_filters", True), kw.get("length_penalty"),
+                   kw.get("prompt_pad"), kw.get("sot_index", 0), kw.get("self_kv_quant", False),
+                   kw.get("gelu", "erf"))
+    ways = {"graphed": lambda: beam.beam_search_kv(model, cross, prompt, dt, **kw),
+            "uncaptured": lambda: beam._beam_rounds(*rounds_args, False),
+            "stepwise": lambda: _stepwise_beam(model, cross, prompt, dt, **kw)}
+    rec, results = _three_ways(
+        "beam loop", ways, counters,
+        lambda what, launches, res: _expect(what, launches, cfg, 0, 0,
+                                            beam_steps=res.device_steps),
+        profiled=("graphed",))
+    for way in ("uncaptured", "stepwise"):
+        _bit_equal(f"beam loop: graphed against {way}", results["graphed"], results[way],
+                   BEAM_FIELDS)
+    rec["bit_equal"] = {"uncaptured": list(BEAM_FIELDS), "stepwise": list(BEAM_FIELDS)}
+    rec["graphs"] = graph_stats(model)
+    if not rec["graphs"]["replays"]:
+        raise AssertionError(f"the beam loop replayed no graph: {rec['graphs']}")
+    return rec
 
 
 def serving_beam(counters) -> dict:
@@ -2911,7 +3243,10 @@ def serving_beam(counters) -> dict:
     ``beam=5`` (half as a multipart field, half as ``X-Beam``) among 16
     greedy ones: every beam reply names ``beam_size`` 5 and no greedy one
     does, ``beam_requests_total`` grows by 8, and the launches are exact
-    (slot steps run K2 and K3, the aux worker's beam steps K3 alone)."""
+    (slot steps run K2 and K3, the aux worker's beam steps K3 alone); the
+    aux worker's beam rounds replay CUDA graphs (``aux_graphs``)."""
+    from whisper_tpu_torch.decode import graph_stats
+
     rng = np.random.default_rng(23)
     clips = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32)
              for s in rng.uniform(2.0, 30.0, N_REQUESTS)]
@@ -2946,6 +3281,9 @@ def serving_beam(counters) -> dict:
     if bad:
         raise AssertionError(f"{len(bad)} of {N_REQUESTS} replies failed: {bad[:3]}")
     delta = _served_counts(engine, args, st0, st1, launches, "serving_beam", aux_beams=True)
+    aux_graphs = graph_stats(engine.model)
+    if not (aux_graphs and aux_graphs["replays"]):
+        raise AssertionError(f"the aux worker's beam rounds replayed no graph: {aux_graphs}")
     if delta["beam_requests_total"] != N_BEAM_REQUESTS or delta["retries_total"]:
         raise AssertionError(f"beam_requests_total grew by {delta['beam_requests_total']}, "
                              f"{delta['retries_total']} retries")
@@ -2964,7 +3302,7 @@ def serving_beam(counters) -> dict:
             "ticks": delta["ticks_total"], "steps": delta["steps_total"],
             "admission_batches": delta["encode_batches_total"],
             "aux_batches": delta["aux_batches_total"], "aux_steps": delta["aux_steps_total"],
-            "launches": launches}
+            "launches": launches, "aux_graphs": aux_graphs}
 
 
 def beam_reference_check() -> dict:
@@ -2978,9 +3316,11 @@ def beam_reference_check() -> dict:
     scores by 5e-7. Each on the random weights, whose beams run to the cap
     (the fallback to the best running beam), and on weights leaning towards
     eot (the final LayerNorm's bias a seeded u, eot's embedding 0.03 u),
-    whose beams all finish (the finished set)."""
+    whose beams all finish (the finished set). The card's beam rounds
+    replay CUDA graphs; the CPU's run uncaptured."""
     from whisper_tpu_torch.beam import beam_search
     from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.decode import graph_stats
     from whisper_tpu_torch.params import init_params
     from whisper_tpu_torch.sampling import build_suppress_ids
 
@@ -2993,7 +3333,7 @@ def beam_reference_check() -> dict:
     rec = {"phase": "beam_reference", "model": "tiny", "dtype": "float32", "beam_size": 3}
     for quant in (False, True):
         for lean in (None, 0.03):
-            out = {}
+            out, graphs = {}, {}
             for dev in ("cuda", "cpu"):
                 params = init_params(cfg, seed=3, device="cpu")
                 if lean:
@@ -3005,7 +3345,10 @@ def beam_reference_check() -> dict:
                                        torch.from_numpy(prompt).to(dev), kv_quant=quant,
                                        self_kv_quant=quant, beam_size=3, max_tokens=12,
                                        suppress_ids=supp)
+                graphs[dev] = graph_stats(params)
             card, cpu = out["cuda"], out["cpu"]
+            if graphs["cpu"] is not None or not (graphs["cuda"] and graphs["cuda"]["keys"]):
+                raise AssertionError(f"the card's beam rounds were not captured: {graphs}")
             case = f"{'int8' if quant else 'float'} KV, {'eot-leaning' if lean else 'random'}"
             for field in ("tokens", "lengths", "all_tokens"):
                 if not torch.equal(getattr(card, field).cpu(), getattr(cpu, field)):
@@ -3019,6 +3362,7 @@ def beam_reference_check() -> dict:
             rec[case] = {
                 "tokens_equal_cpu": True, "scores_max_abs_err": err,
                 "scores_tol": None if quant else 1e-4, "steps": card.steps,
+                "device_steps": card.device_steps, "card_graphs": graphs["cuda"],
                 "finished": (card.all_scores > -5e29).sum(dim=1).cpu().tolist(),
                 "tokens": [t[4:int(n)] for t, n in zip(card.tokens.cpu().tolist(),
                                                         card.lengths.cpu().tolist())]}
@@ -3172,7 +3516,10 @@ def serving_words(counters) -> dict:
     worker). No reply has ``align_error``, every reply asked for words has
     a list, the subtitle bodies parse, and the launches are exactly the
     decode's (the aux worker's beam steps K3 alone, its sampled steps K2
-    and K3; the align worker launches none)."""
+    and K3, counted through its graphs' replays; the align worker launches
+    none)."""
+    from whisper_tpu_torch.decode import graph_stats
+
     rng = np.random.default_rng(43)
 
     def noise(lo, hi):
@@ -3249,7 +3596,7 @@ def serving_words(counters) -> dict:
             "long_windows": by_kind["long"]["windows"], "ticks": delta["ticks_total"],
             "steps": delta["steps_total"], "admission_batches": delta["encode_batches_total"],
             "aux_batches": delta["aux_batches_total"], "aux_steps": aux_steps,
-            "launches": launches}
+            "launches": launches, "aux_graphs": graph_stats(engine.model)}
 
 
 def _dtw_parting(m_a: np.ndarray, m_b: np.ndarray) -> dict:

@@ -3,6 +3,8 @@ in turns, on one card.
 
     python3 chip_walls.py PARENT . . PARENT
     python3 chip_walls.py --phases kernel_k1,kernel_k6 PARENT . . PARENT
+    python3 chip_walls.py --paths serving_ladder,beam_phase,serving_beam PARENT . . PARENT
+    python3 chip_walls.py --ladder PARENT . . PARENT
 
 Each argument is the root of a checkout (a directory holding
 ``chip_smoke.py`` and ``whisper_tpu_torch/``, e.g. the parent commit
@@ -15,7 +17,14 @@ serving burst's wall and latencies. With ``--phases`` it runs the named
 kernel phases of the ``chip_smoke.py`` beside this script on that
 checkout's kernels instead (each checks its kernel against the plain
 version through the wrappers), so every checkout is timed by the same
-code, and prints their times. Comparing two
+code, and prints their times. With ``--paths`` it runs the named path
+phases of each checkout's own ``chip_smoke.py`` (each takes the kernel
+counters, checks its outputs and launches the checkout's way) and prints
+their walls and latencies. With ``--ladder`` it runs the ``chip_smoke.py``
+beside this script's ``shrinking_ladder_walls`` on that checkout (the
+offline configuration with its temperature ladder on, each rung
+re-decoding a seeded shrinking subset of the rows) and prints the walls of
+its batches. Comparing two
 commits in one call on one card, in turns, keeps other cards' power limits
 and other hosts' neighbours out of the difference. Needs a CUDA card; exits
 non-zero if a run fails.
@@ -82,10 +91,54 @@ print("RESULT " + json.dumps({"phases": out, **build}))
 """
 
 
+_PATHS = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from whisper_tpu_torch.ops import _build
+from whisper_tpu_torch.utils.graphs import kernel_wrappers
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+build = _build.build_all()
+counters = kernel_wrappers()
+keys = ("wall_s", "greedy_wall_s", "latency_p50_s", "latency_p95_s", "latency_beam_p50_s",
+        "latency_beam_p95_s", "latency_greedy_p50_s", "steps", "device_steps", "host_syncs",
+        "aux_batches", "aux_steps", "aux_graphs")
+out = {}
+for phase in sys.argv[2].split(","):
+    rec = getattr(cs, phase)(counters)
+    out[phase] = {k: rec[k] for k in keys if k in rec}
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps({"paths": out, **build}, default=str))
+"""
+
+
+_LADDER = r"""
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from whisper_tpu_torch.ops import _build
+
+torch.backends.cuda.matmul.allow_tf32 = False
+build = _build.build_all()
+print("RESULT " + json.dumps({"ladder": cs.shrinking_ladder_walls(), **build}))
+"""
+
+
 def main(argv) -> int:
-    phases = None
-    if argv[:1] == ["--phases"] and len(argv) > 1:
+    phases = paths = None
+    ladder = argv[:1] == ["--ladder"]
+    if ladder:
+        argv = argv[1:]
+    elif argv[:1] == ["--phases"] and len(argv) > 1:
         phases, argv = argv[1], argv[2:]
+    elif argv[:1] == ["--paths"] and len(argv) > 1:
+        paths, argv = argv[1], argv[2:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -93,8 +146,14 @@ def main(argv) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     for i, root in enumerate(argv):
         root = os.path.abspath(root)
-        cmd = [sys.executable, "-c", _RUN, root] if phases is None else \
-            [sys.executable, "-c", _PHASES, root, phases, SMOKE]
+        if ladder:
+            cmd = [sys.executable, "-c", _LADDER, root, SMOKE]
+        elif paths is not None:
+            cmd = [sys.executable, "-c", _PATHS, root, paths]
+        elif phases is not None:
+            cmd = [sys.executable, "-c", _PHASES, root, phases, SMOKE]
+        else:
+            cmd = [sys.executable, "-c", _RUN, root]
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
         if proc.returncode != 0 or not lines:

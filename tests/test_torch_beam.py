@@ -37,7 +37,7 @@ from whisper_tpu.sampling import build_suppress_ids as jax_suppress_ids
 from whisper_tpu.tokenizer import get_tokenizer as jax_tokenizer
 from whisper_tpu_torch.beam import BeamResult, _top_k, beam_search, beam_search_kv
 from whisper_tpu_torch.config import get_config as port_config
-from whisper_tpu_torch.decode import encode_cross_kv, greedy_decode, index_cross_kv
+from whisper_tpu_torch.decode import ROUND_STEPS, encode_cross_kv, greedy_decode, index_cross_kv
 from whisper_tpu_torch.models import model as tm
 from whisper_tpu_torch.params import from_jax_params
 from whisper_tpu_torch.sampling import RuleState, apply_rules
@@ -185,7 +185,9 @@ def test_beam_search_equals_jax(weights, case):
     got, want, cross = run_both(weights, mel, prompts, pads, sot_index, K=K, kvq=kvq, skvq=skvq,
                                 timestamps=ts, length_penalty=lp, entry=entry)
     assert isinstance(got, BeamResult) and got.all_tokens.shape == (b, K, CFG.n_text_ctx)
-    assert got.host_syncs >= got.steps > 0
+    # one flag read a round of ROUND_STEPS steps, whole rounds on the device
+    assert got.steps > 0 and got.host_syncs == max(1, -(-got.steps // ROUND_STEPS))
+    assert got.device_steps == got.host_syncs * ROUND_STEPS
     assert_equal_results(weights, cross, prompts, pads, got, want, kvq)
 
 

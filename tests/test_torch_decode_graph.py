@@ -12,6 +12,8 @@ caller's tensor, or slot state rebound instead of written in place,
 fails here as it would decode stale data on the card.
 """
 
+import inspect
+import threading
 from types import SimpleNamespace
 
 import jax
@@ -32,7 +34,9 @@ from whisper_tpu_torch import decode as td
 from whisper_tpu_torch.config import get_config as port_config
 from whisper_tpu_torch.decode import ROUND_STEPS, encode_cross_kv, greedy_decode_kv
 from whisper_tpu_torch.models.model import decoder_forward, new_kv_cache
+from whisper_tpu_torch.ops import _build
 from whisper_tpu_torch.ops import decode_attention as da
+from whisper_tpu_torch.ops.log10_mel import log10_mel
 from whisper_tpu_torch.params import from_jax_params
 from whisper_tpu_torch.sampling import RuleState, apply_rules
 from whisper_tpu_torch.parallel.sharding import make_mesh, shard_params
@@ -283,7 +287,8 @@ def test_captured_path_rehearsed(own_model, monkeypatch):
     two calls of one shape (one capture, then replays only) with other
     audio, pads and suppress ids each give what the uncaptured rounds
     give, bit for bit; the first result is a copy the second call leaves
-    alone; a sampled decode refuses to be captured."""
+    alone; a sampled decode is captured under a key of its own and equals
+    its uncaptured rounds under the same seed."""
     model = own_model
     monkeypatch.setattr(td, "GraphSet", _Replaying)
     P = 5
@@ -313,17 +318,21 @@ def test_captured_path_rehearsed(own_model, monkeypatch):
     stats = td.graph_stats(model)
     rounds = sum(r.host_syncs for r in outs[True])
     assert stats["keys"] == 1 and stats["replays"] == rounds - 1
-    with pytest.raises(ValueError, match="uncaptured"):
-        td._greedy_rounds(model, *args[0][:2], torch.float32, 13, None, False, True, "erf",
-                          False, None, 0, "fd", 0.5, 0, None, True)
+    sampled = [td._greedy_rounds(model, *args[0][:2], torch.float32, 13, None, False, True,
+                                 "erf", False, None, 0, "fd", 0.5, 0, None, graphed)
+               for graphed in (True, False)]
+    assert torch.equal(sampled[0].tokens, sampled[1].tokens)
+    assert td.graph_stats(model)["keys"] == 2
 
 
 def test_loop_buffers_bounded(own_model, monkeypatch):
     """A model keeps the buffers of its LOOP_SHAPES latest batch shapes:
     a third shape drops the least recent one and its graph, which a return
-    to that shape captures again; every decode equals the uncaptured one."""
+    to that shape captures again; every decode equals the uncaptured one.
+    (LOOP_SHAPES 2 here, so that three shapes overflow it.)"""
     model = own_model
     monkeypatch.setattr(td, "GraphSet", _Replaying)
+    monkeypatch.setattr(td, "LOOP_SHAPES", 2)
     cross = encode_cross_kv(model, torch.from_numpy(_mel(23, b=4)), kv_quant=True)
     prompt = torch.tensor([CFG.sot_sequence("en")] * 4)
 
@@ -451,17 +460,18 @@ class _Counting(graphs.GraphSet):
 
 def test_replay_accounting(monkeypatch):
     """The first run counts its own launches once (the warm run is real
-    work), the capture's are taken back, each replay adds the captured
-    counts; a second key keeps its own; a capture that raises stores
-    nothing and raises."""
+    work), the capture's go to its tally and not to the counts, each
+    replay adds the captured counts; a second key keeps its own; a capture
+    that raises stores nothing and raises. The fake rounds count as the
+    wrappers do (``_build.count``)."""
     for fn in graphs.kernel_wrappers():
         monkeypatch.setattr(fn, "launches", 0)
     k2, k3 = da.cross_attention_decode_fd, da.self_attention_decode_int8
 
     def round_of(n):
         def run():
-            k2.launches += 2 * n
-            k3.launches += 3 * n
+            _build.count(k2, 2 * n)
+            _build.count(k3, 3 * n)
         return run
 
     gs = _Counting("cpu")
@@ -477,7 +487,7 @@ def test_replay_accounting(monkeypatch):
     assert all(fn.launches == 0 for fn in graphs.kernel_wrappers() if fn not in (k2, k3))
 
     def broken():
-        k2.launches += 1
+        _build.count(k2)
         raise RuntimeError("capture refused")
 
     class _Failing(_Counting):
@@ -488,6 +498,29 @@ def test_replay_accounting(monkeypatch):
     with pytest.raises(RuntimeError, match="capture refused"):
         bad.run("k", broken)
     assert "k" not in bad and bad.stats()["keys"] == 0 and k2.launches == 18
+
+
+def test_capture_keeps_other_threads_launches(monkeypatch):
+    """A thread that launches while another captures (the engine's encode
+    thread during an aux worker's capture) keeps its launch on the counts,
+    and the capture's replays add only the captured round's."""
+    for fn in graphs.kernel_wrappers():
+        monkeypatch.setattr(fn, "launches", 0)
+    k2, k7 = da.cross_attention_decode_fd, log10_mel
+
+    def round_with_a_neighbour():
+        _build.count(k2, 4)
+        other = threading.Thread(target=_build.count, args=(k7,))
+        other.start()
+        other.join()
+
+    gs = _Counting("cpu")
+    # the warm run counts both; during the capture only the neighbour counts
+    gs.run("round", round_with_a_neighbour)
+    assert (k2.launches, k7.launches) == (4, 2)
+    gs.run("round", round_with_a_neighbour)  # a replay: the captured k2 only
+    assert (k2.launches, k7.launches) == (8, 2)
+    assert gs._graphs["round"][1] == [(k2, 4)]
 
 
 def test_kernel_wrappers_cover_every_counter():
@@ -501,14 +534,16 @@ def test_kernel_wrappers_cover_every_counter():
 
 
 def test_capture_choice(bridged):
-    """Rounds are captured on the card for a single-device Whisper at
-    temperature 0 only: not on the CPU, not sampled, not under a mesh
-    (the choice reads the device object; no card is needed)."""
+    """Rounds are captured on the card for a single-device Whisper, greedy,
+    sampled and beam alike (a sampled round reads its draws from a buffer
+    filled before it, so the choice takes no temperature): not on the CPU,
+    not under a mesh (the choice reads the device object; no card is
+    needed)."""
     _, model = bridged
     cuda = torch.device("cuda", 0)
-    assert td.capturable(model, cuda) and td.capturable(model, "cuda", 0.0)
+    assert td.capturable(model, cuda) and td.capturable(model, "cuda")
     assert not td.capturable(model, "cpu")
-    assert not td.capturable(model, cuda, 0.4)
+    assert list(inspect.signature(td.capturable).parameters) == ["model", "device"]
     mesh = shard_params(model, make_mesh(1, 2, devices=["cpu", "cpu"]))
     assert not td.capturable(mesh, cuda)
     assert not td.capturable(shard_params(model, make_mesh(2, 1, devices=["cpu", "cpu"])), cuda)

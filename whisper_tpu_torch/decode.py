@@ -5,11 +5,13 @@ token loop as one jitted ``lax.while_loop``. Here one
 :func:`decoder_forward` prefill over the prompt is followed by rounds of
 ``ROUND_STEPS`` S=1 steps (:func:`decoder_step_multipos` at a position held
 on the device, the rules of ``sampling.apply_rules``, log_softmax and
-argmax; at ``temperature > 0``, a categorical draw), none of which reads
-the device from the host: the host reads the all-done flag once a round,
-and those reads are counted in the result. On the card a greedy round of a
-single-device model is a CUDA graph (``utils.graphs``), captured once per
-shape and replayed, as the JAX loop is compiled once per shape. Every
+argmax; at ``temperature > 0``, a categorical draw against noise the host
+put in a buffer before the round), none of which reads the device from the
+host: the host reads the all-done flag once a round, and those reads are
+counted in the result. On the card a round of a single-device model is a
+CUDA graph (``utils.graphs``), captured once per shape and temperature and
+replayed, as the JAX loop is compiled once per shape and static
+temperature. ``beam.beam_search_kv`` runs its loop the same way. Every
 function takes a sharded model (``parallel.sharding.shard_params``, on a
 mesh of any (data, model) shape) wherever it takes a ``Whisper``: under
 data rows the model functions split each step's batch over the rows, and
@@ -45,9 +47,13 @@ from .utils.graphs import GraphSet
 
 
 ROUND_STEPS = 8  # S=1 steps a round: one graph replay and one host read of the loop's flags
-# the captured loops' buffer sets a model keeps, the latest shapes: each
-# holds a copy of its batch's cross-KV (983 MB at turbo B64, int8)
-LOOP_SHAPES = 2
+# the captured loops' buffer sets a model keeps, the least recently used
+# dropped first: a batch's main decode and the five rungs of its
+# temperature ladder, each rung re-decoding only the rows that failed the
+# one before (a smaller batch, a shape of its own), so the next batch's
+# main decode still finds its loop. Each holds a copy of its batch's
+# cross-KV (983 MB at turbo B64, int8; a rung's rows' share of that).
+LOOP_SHAPES = 6
 
 
 class GreedyResult(NamedTuple):
@@ -101,15 +107,23 @@ def gumbel_noise(seed: int, device) -> Callable[[int, tuple], torch.Tensor]:
         u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
         return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
+    def into(step: int, out: torch.Tensor) -> None:
+        """``draw(step, out.shape)`` written in place into ``out``: the same
+        values, with no tensor of its own to copy."""
+        torch.rand(out.shape, generator=gen, out=out)
+        out.clamp_(min=tiny).log_().neg_().log_().neg_()
+
+    draw.into = into
     return draw
 
 
-def capturable(model, device, temperature: float = 0.0) -> bool:
-    """Whether a decode loop's rounds run as CUDA graphs: on the card, for
-    a single-device ``Whisper`` (a mesh's ranks run uncaptured), and
-    greedy (a sampled step draws its noise on the host)."""
-    return (torch.device(device).type == "cuda" and isinstance(model, Whisper)
-            and not (temperature and temperature > 0))
+def capturable(model, device) -> bool:
+    """Whether a decode loop's rounds (greedy, sampled at any
+    ``temperature``, or beam) run as CUDA graphs: on the card, for a
+    single-device ``Whisper``; a mesh's ranks run the same rounds
+    uncaptured. A sampled round reads its draws from a buffer the host
+    fills before it, so the temperature does not decide."""
+    return torch.device(device).type == "cuda" and isinstance(model, Whisper)
 
 
 def greedy_decode_kv(
@@ -142,14 +156,13 @@ def greedy_decode_kv(
     log_softmax and the token choice), which never read the device from
     the host; a step once every stream is done, or past ``limit - 1``,
     writes and counts nothing. The host reads the all-done flag and the
-    step count once a round. On the card, for a single-device ``Whisper``
-    at ``temperature == 0``, each round is a CUDA graph
-    (``utils.graphs``), captured once per shape and replayed: the caller's
-    cross-KV, pads and suppress ids are copied into the graph's own
-    buffers, the prefill runs eagerly into its self-KV cache, and the
-    returned tokens are a copy. On the CPU, for a sampled decode and for a
-    ``ShardedWhisper`` or ``DataParallelWhisper``, the same round runs
-    uncaptured.
+    step count once a round. On the card, for a single-device ``Whisper``,
+    each round is a CUDA graph (``utils.graphs``), captured once per shape
+    and temperature and replayed: the caller's cross-KV, pads and suppress
+    ids are copied into the graph's own buffers, the prefill runs eagerly
+    into its self-KV cache, and the returned tokens are a copy. On the CPU
+    and for a ``ShardedWhisper`` or ``DataParallelWhisper`` the same round
+    runs uncaptured.
 
     At ``temperature > 0`` each token is a categorical draw from the
     filtered distribution at that temperature, as ``jax.random.categorical``
@@ -159,8 +172,10 @@ def greedy_decode_kv(
     step 0 (the token after the prefill), 1, ... (tests hand in the JAX
     package's own, drawn from ``PRNGKey(seed)`` with its key splits);
     without it the draws come from :func:`gumbel_noise` of ``seed`` on the
-    logits' device. A step past the loop's most steps (the masked tail
-    of the last round) draws nothing.
+    logits' device. Before each round the host asks the hook for that
+    round's steps, in order, into the loop's noise buffer (ROUND_STEPS, B,
+    V); a step past the loop's most steps (the masked tail of the last
+    round) draws nothing and reads a row of zeros.
     ``timestamps`` runs the timestamp grammar of ``sampling.apply_rules``.
     ``prompt_pad`` right-aligns prompts of differing lengths (e.g.
     ``[sot_prev, *prev, sot, lang, task]``): the first ``prompt_pad[b]``
@@ -170,7 +185,7 @@ def greedy_decode_kv(
     ``cross_decode`` selects the step's int8 cross-attention kernel
     (:func:`~whisper_tpu_torch.models.model.decoder_forward`).
     """
-    graphed = capturable(model, prompt.device, temperature)
+    graphed = capturable(model, prompt.device)
     return _greedy_rounds(model, cross_kv, prompt, compute_dtype, max_tokens, suppress_ids,
                           apply_filters, self_kv_quant, gelu, timestamps, prompt_pad,
                           sot_index, cross_decode, temperature, seed, noise, graphed)
@@ -194,6 +209,7 @@ class _Loop:
         self.n_lp = torch.empty((batch,), dtype=torch.float32, device=device)
         self.steps = torch.empty((), **i64)
         self.flags = torch.empty((2,), **i64)  # [all done, steps]: read once a round
+        self.noise = None  # a sampled round's draws, (ROUND_STEPS, B, V) fp32: _fill_noise
         self.cross = self.pad = self.suppress = None
 
 
@@ -203,14 +219,13 @@ def _filter(logits, rs, loop: _Loop, cfg, use_rules: bool, timestamps: bool):
     return apply_rules(logits, rs, cfg, suppress_ids=loop.suppress, timestamps=timestamps)
 
 
-def _sample(logits_f, temperature: float, noise, step: int):
+def _sample(logits_f, temperature: float, gumbel: Optional[torch.Tensor]):
     """(token, its logprob): argmax of the log-probabilities, or at
-    ``temperature > 0`` of them over T plus ``noise(step, shape)``."""
+    ``temperature > 0`` of them over T plus the draws ``gumbel``."""
     lp = torch.log_softmax(logits_f.to(torch.float32), dim=-1)
     if temperature and temperature > 0:
         # a tensor divisor, so the card divides as the CPU does
-        tok = torch.argmax(lp / lp.new_full((), temperature) + noise(step, tuple(lp.shape)),
-                           dim=-1)
+        tok = torch.argmax(lp / lp.new_full((), temperature) + gumbel, dim=-1)
     else:
         tok = torch.argmax(lp, dim=-1)
     return tok, torch.gather(lp, 1, tok[:, None])[:, 0]
@@ -228,8 +243,9 @@ def _prefill(model, loop: _Loop, prompt: torch.Tensor, limit: int, sot_index: in
                                 gelu=gelu, cross_decode=cross_decode)
     no_speech_prob = torch.softmax(logits[:, sot_index], dim=-1)[:, cfg.no_speech]
     rs = RuleState.create(B, device=prompt.device)
-    first, first_lp = _sample(_filter(logits[:, -1], rs, loop, cfg, use_rules, timestamps),
-                              temperature, noise, 0)
+    last = logits[:, -1]
+    first, first_lp = _sample(_filter(last, rs, loop, cfg, use_rules, timestamps), temperature,
+                              noise(0, tuple(last.shape)) if noise is not None else None)
     for state, v in zip(loop.rs, rs.advance(first, cfg.timestamp_begin)):
         state.copy_(v)
     loop.tokens[:, P] = first
@@ -242,16 +258,31 @@ def _prefill(model, loop: _Loop, prompt: torch.Tensor, limit: int, sot_index: in
     return no_speech_prob
 
 
+def _fill_noise(loop: _Loop, noise, step0: int, draws: int) -> None:
+    """A sampled round's draws, on the host and outside any capture: row j
+    of ``loop.noise`` takes ``noise(step0 + j + 1, (B, V))`` up to step
+    ``draws``, the loop's most steps, in order, once each; the rows past
+    it are zeros (their steps are masked and write nothing). The port's
+    own :func:`gumbel_noise` draws straight into the row."""
+    n = max(0, min(loop.noise.shape[0], draws - step0))
+    shape = tuple(loop.noise.shape[1:])
+    into = getattr(noise, "into", None)
+    for j in range(n):
+        if into is not None:
+            into(step0 + j + 1, loop.noise[j])
+        else:
+            loop.noise[j].copy_(noise(step0 + j + 1, shape))
+    loop.noise[n:].zero_()
+
+
 def _decode_round(model, loop: _Loop, n_steps: int, dt, gelu, cross_decode, use_rules,
-                  timestamps, temperature: float = 0.0, noise=None, step0: int = 0,
-                  draws: int = 0) -> None:
+                  timestamps, temperature: float = 0.0) -> None:
     """``n_steps`` S=1 steps of the token loop, in place on ``loop``, and
     its flags for the host: no host read. A step runs while its position
     is below ``loop.last`` and some stream is live (``go``); any other step
     writes and counts nothing (its K/V rewrite the current position's
-    own). At ``temperature > 0`` step ``step0 + j + 1`` draws
-    ``noise(step0 + j + 1, shape)`` up to step ``draws``, the loop's most
-    steps; a step past those is masked and takes the greedy choice."""
+    own). At ``temperature > 0`` step j of the round samples against row j
+    of ``loop.noise`` (:func:`_fill_noise`)."""
     cfg = model.cfg
     eot, ts0, T = cfg.eot, cfg.timestamp_begin, cfg.n_text_ctx
     for j in range(n_steps):
@@ -259,9 +290,8 @@ def _decode_round(model, loop: _Loop, n_steps: int, dt, gelu, cross_decode, use_
         cur = torch.gather(loop.tokens, 1, loop.pos[:, None])[:, 0]
         logits, _ = decoder_step_multipos(model, cur, loop.pos, loop.kv, loop.cross, dt,
                                           pads=loop.pad, gelu=gelu, cross_decode=cross_decode)
-        step = step0 + j + 1
         nxt, lp = _sample(_filter(logits, loop.rs, loop, cfg, use_rules, timestamps),
-                          temperature if step <= draws else 0.0, noise, step)
+                          temperature, loop.noise[j] if temperature > 0 else None)
         nxt = torch.where(loop.done, torch.full_like(nxt, eot), nxt)
         alive = go & ~loop.done
         loop.sum_lp += torch.where(alive, lp, torch.zeros_like(lp))
@@ -281,10 +311,13 @@ def _decode_round(model, loop: _Loop, n_steps: int, dt, gelu, cross_decode, use_
 
 
 class _DecodeGraphs:
-    """A model's captured rounds: the loops' buffers by shape (the
-    ``LOOP_SHAPES`` latest, least recent first), their graphs by key in one
-    :class:`~whisper_tpu_torch.utils.graphs.GraphSet`, and the decoder
-    weights' pointers they were captured against."""
+    """A model's captured rounds, greedy, sampled and beam alike: the
+    loops' buffers by shape (the ``LOOP_SHAPES`` latest of any kind, least
+    recent first), their graphs by key in one
+    :class:`~whisper_tpu_torch.utils.graphs.GraphSet` (one pool), and the
+    decoder weights' pointers they were captured against. ``lock``
+    serializes the loops of one model across threads (the engine's aux
+    worker and a pipeline may share it)."""
 
     def __init__(self, device, weights: tuple):
         self.graphs = GraphSet(device)
@@ -325,40 +358,59 @@ def _decode_graphs(model) -> _DecodeGraphs:
 
 
 def graph_stats(model) -> Optional[dict]:
-    """The captured rounds of ``model``'s greedy decodes (keys, replays,
-    capture seconds per key, the pool's bytes), or None before the first."""
+    """The captured rounds of ``model``'s greedy, sampled and beam decodes
+    (keys, replays, capture seconds per key, the pool's bytes), or None
+    before the first."""
     owner = _GRAPHS.get(model)
     return None if owner is None else owner.graphs.stats()
 
 
-def _static_loop(owner: _DecodeGraphs, model, cross_kv, prompt_pad, suppress_ids, kv_ctx: int,
-                 dt, self_kv_quant: bool) -> Tuple[_Loop, tuple]:
-    """The captured loop's buffers for this shape, loaded with the call's
-    cross-KV, pads and suppress ids, its self-KV cache as a new one's."""
-    B = cross_kv[0].shape[1]
-    key = (B, kv_ctx, dt, self_kv_quant, tuple((t.shape, t.dtype) for t in cross_kv),
-           prompt_pad is not None, None if suppress_ids is None else suppress_ids.numel())
+def _shape_key(cross_kv, prompt_pad, suppress_ids, kv_ctx: int, dt,
+               self_kv_quant: bool) -> tuple:
+    """What a captured loop's buffers are shaped by, besides its kind."""
+    return (cross_kv[0].shape[1], kv_ctx, dt, self_kv_quant,
+            tuple((t.shape, t.dtype) for t in cross_kv), prompt_pad is not None,
+            None if suppress_ids is None else suppress_ids.numel())
+
+
+def _loop_buffers(owner: _DecodeGraphs, key: tuple, make: Callable, cross_kv, pad,
+                  suppress_ids):
+    """The captured loop of ``key`` (``make()`` at its first use), loaded
+    with the call's cross-KV, pads (one a stream) and suppress ids copied
+    into its own buffers. A new shape beyond ``LOOP_SHAPES`` drops the
+    least recent one and its graphs."""
     loop = owner.loops.pop(key, None)
     if loop is None:
-        if len(owner.loops) >= LOOP_SHAPES:  # the least recent shape goes, and its graphs
+        if len(owner.loops) >= LOOP_SHAPES:
             old = next(iter(owner.loops))
             del owner.loops[old]
             owner.graphs.forget(lambda k: k[:len(old)] == old)
-        loop = _Loop(model, B, kv_ctx, dt, self_kv_quant, model.device)
+        loop = make()
         loop.cross = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
                            for t in cross_kv)
-        if prompt_pad is not None:
-            loop.pad = torch.empty((B,), dtype=torch.int64, device=model.device)
+        if pad is not None:
+            loop.pad = torch.empty(pad.shape, dtype=torch.int64, device=pad.device)
         if suppress_ids is not None:
             loop.suppress = torch.empty((suppress_ids.numel(),), dtype=torch.int64,
-                                        device=model.device)
+                                        device=suppress_ids.device)
     owner.loops[key] = loop  # the most recent last
     for dst, src in zip(loop.cross, cross_kv):
         dst.copy_(src)
-    if prompt_pad is not None:
-        loop.pad.copy_(prompt_pad)
+    if pad is not None:
+        loop.pad.copy_(pad)
     if suppress_ids is not None:
         loop.suppress.copy_(suppress_ids.reshape(-1))
+    return loop
+
+
+def _static_loop(owner: _DecodeGraphs, model, cross_kv, prompt_pad, suppress_ids, kv_ctx: int,
+                 dt, self_kv_quant: bool) -> Tuple[_Loop, tuple]:
+    """The captured greedy loop's buffers for this shape, loaded with the
+    call's inputs, its self-KV cache as a new one's."""
+    key = _shape_key(cross_kv, prompt_pad, suppress_ids, kv_ctx, dt, self_kv_quant)
+    loop = _loop_buffers(owner, key, lambda: _Loop(model, key[0], kv_ctx, dt, self_kv_quant,
+                                                  model.device),
+                        cross_kv, prompt_pad, suppress_ids)
     loop.kv[0].zero_()
     if isinstance(loop.kv, QKVCache):
         loop.kv.s.fill_(1.0)
@@ -384,23 +436,31 @@ def _greedy_rounds(model, cross_kv, prompt, compute_dtype, max_tokens, suppress_
     kv_ctx = min(T, -(-limit // 128) * 128)
     use_rules = apply_filters or timestamps or suppress_ids is not None
     stochastic = bool(temperature and temperature > 0)
-    if graphed and stochastic:
-        raise ValueError("a sampled decode draws its noise on the host every step: "
-                         "it runs uncaptured")
     if stochastic and noise is None:
         noise = gumbel_noise(seed, device)
     prompt = prompt.to(torch.int64)
     if prompt_pad is not None:
         prompt_pad = prompt_pad.to(device=device, dtype=torch.int64)
     R = ROUND_STEPS
-    opts = (compute_dtype, gelu, cross_decode, use_rules, timestamps)
+    # the graph's key: one program per static temperature, as JAX jits it
+    opts = (compute_dtype, gelu, cross_decode, use_rules, timestamps,
+            float(temperature) if stochastic else 0.0)
+
+    def noise_buffer(loop: _Loop) -> bool:
+        """Give a sampled loop its round's noise buffer; True if it is new."""
+        if not stochastic or (loop.noise is not None and loop.noise.shape[0] == R):
+            return False
+        loop.noise = torch.empty((R, B, cfg.n_vocab), dtype=torch.float32, device=device)
+        return True
 
     def drive(loop: _Loop, run_round) -> GreedyResult:
         no_speech_prob = _prefill(model, loop, prompt, limit, sot_index, compute_dtype, gelu,
                                   cross_decode, use_rules, timestamps, temperature, noise)
         i, rounds, steps = P, 0, 0
         while i < limit - 1:
-            run_round(rounds)
+            if stochastic:
+                _fill_noise(loop, noise, rounds * R, limit - 1 - P)
+            run_round()
             rounds += 1
             i += R
             all_done, steps = loop.flags.tolist()
@@ -417,14 +477,16 @@ def _greedy_rounds(model, cross_kv, prompt, compute_dtype, max_tokens, suppress_
     if not graphed:
         loop = _Loop(model, B, kv_ctx, compute_dtype, self_kv_quant, device)
         loop.cross, loop.pad, loop.suppress = cross_kv, prompt_pad, suppress_ids
-        return drive(loop, lambda r: _decode_round(model, loop, R, *opts, temperature, noise,
-                                                   r * R, limit - 1 - P))
+        noise_buffer(loop)
+        return drive(loop, lambda: _decode_round(model, loop, R, *opts))
     owner = _decode_graphs(model)
     with owner.lock:
         loop, key = _static_loop(owner, model, cross_kv, prompt_pad, suppress_ids, kv_ctx,
                                  compute_dtype, self_kv_quant)
+        if noise_buffer(loop):  # the loop's sampled graphs read the buffer it replaces
+            owner.graphs.forget(lambda k: k[:len(key)] == key and k[-1] > 0)
         round_fn = functools.partial(_decode_round, model, loop, R, *opts)
-        return drive(loop, lambda r: owner.graphs.run(key + (R, *opts), round_fn))
+        return drive(loop, lambda: owner.graphs.run(key + (R, *opts), round_fn))
 
 
 def greedy_decode(model, mel: torch.Tensor, prompt: torch.Tensor,

@@ -951,14 +951,27 @@ def decoder_step_multipos(
     (logits (B, n_vocab) fp32, kv). Nothing here reads the device from the
     host.
     """
+    return _step_multipos(model, tokens, offsets, kv, cross_kv, compute_dtype, pads, gelu,
+                          cross_decode)
+
+
+def _step_multipos(model, tokens, offsets, kv, cross_kv, compute_dtype, pads, gelu: str,
+                   cross_decode: str, beam_k: Optional[int] = None):
+    """:func:`decoder_step_multipos`, and with ``beam_k`` the beam loop's
+    step at a position held on the device: the K beams of an utterance
+    fold into the query axis of one cross-attention against the
+    UNEXPANDED cross-KV (batch B // beam_k), the plain product, never a
+    decode kernel, as in :func:`decoder_forward`; under data rows each
+    row's block holds whole utterances' beams."""
     check_selections(cross_decode=cross_decode)
     if isinstance(model, DataParallelWhisper):
-        outs = [decoder_step_multipos(m, t, o, c, x, compute_dtype, p, gelu, cross_decode)
-                for m, t, o, c, x, p in zip(model.rows, _row_blocks(model, tokens),
-                                            _row_blocks(model, offsets),
+        unit = beam_k or 1
+        outs = [_step_multipos(m, t, o, c, x, compute_dtype, p, gelu, cross_decode, beam_k)
+                for m, t, o, c, x, p in zip(model.rows, _row_blocks(model, tokens, unit),
+                                            _row_blocks(model, offsets, unit),
                                             _row_values(model, kv, "kv"),
                                             _row_values(model, cross_kv, "cross_kv"),
-                                            _row_blocks(model, pads))]
+                                            _row_blocks(model, pads, unit))]
         return _gather(model, [o[0] for o in outs]), DataRows(o[1] for o in outs)
     cfg = model.cfg
     shards = model_shards(model)
@@ -1008,7 +1021,8 @@ def decoder_step_multipos(
                 o = self_attention_decode(qh, c.k[layer], c.v[layer], offsets_r, pads_r)
             outs.append(_merge_heads(o))
         x = x + _row_parallel(outs, [blk.attn["wo"] for blk in blks], b0.attn["bo"], dt)
-        x = _cross_and_mlp(x, blks, layer, crosses, kv_quant, n_head, dt, gelu, cross_decode)
+        x = _cross_and_mlp(x, blks, layer, crosses, kv_quant and beam_k is None, n_head, dt,
+                           gelu, cross_decode, beam_k)
 
     x = layer_norm(x, dec.ln["g"], dec.ln["b"])
     return _model_logits(model, x, dt)[:, 0], kv

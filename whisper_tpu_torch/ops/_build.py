@@ -112,6 +112,36 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_counting = threading.Lock()
+_tally = threading.local()
+
+
+def count(wrapper, n: int = 1) -> None:
+    """Count ``n`` launches of ``wrapper``'s kernel on its ``.launches``,
+    or, while this thread captures a CUDA graph (:func:`tally`), on the
+    capture's tally: a capture launches nothing, each replay adds the
+    tally, and other threads launching meanwhile count on their own."""
+    counts = getattr(_tally, "counts", None)
+    if counts is not None:
+        counts[wrapper] = counts.get(wrapper, 0) + n
+        return
+    with _counting:
+        wrapper.launches += n
+
+
+class tally:
+    """The launches :func:`count` sees in this thread while the block runs
+    (a graph's capture), as ``.counts`` {wrapper: n}, none of them on the
+    wrappers' ``.launches``."""
+
+    def __enter__(self):
+        self.counts = _tally.counts = {}
+        return self
+
+    def __exit__(self, *exc):
+        _tally.counts = None
+
+
 def launch(fn, device: torch.device, *args) -> int:
     """Call a kernel's C launch function as ``fn(*args, device index,
     stream)`` on ``device``'s current stream, and return its error code.

@@ -130,7 +130,7 @@ def cross_attention_decode_fd(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Ten
                         T, 64 ** -0.5)
     if err:
         raise RuntimeError(f"cross_attention_decode_fd launch failed: cudaError {err}")
-    cross_attention_decode_fd.launches += 1
+    _build.count(cross_attention_decode_fd)
     return out
 
 
@@ -189,7 +189,7 @@ def cross_attention_decode(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor
                         T, 64 ** -0.5, int(bool(use_vpu)))
     if err:
         raise RuntimeError(f"cross_attention_decode launch failed: cudaError {err}")
-    cross_attention_decode.launches += 1
+    _build.count(cross_attention_decode)
     return out
 
 
@@ -253,7 +253,7 @@ def cross_attention_decode_dense(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.
                         T, 64 ** -0.5)
     if err:
         raise RuntimeError(f"cross_attention_decode_dense launch failed: cudaError {err}")
-    cross_attention_decode_dense.launches += 1
+    _build.count(cross_attention_decode_dense)
     return out
 
 
@@ -362,7 +362,7 @@ def self_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"k and v must have q's dtype {q.dtype}, got {k.dtype}, {v.dtype}")
     out = _launch_self("self_attention_decode", q, (k, v), T, offsets, pads)
-    self_attention_decode.launches += 1
+    _build.count(self_attention_decode)
     return out
 
 
@@ -388,7 +388,7 @@ def self_attention_decode_int8(q: torch.Tensor, kv_q: torch.Tensor, kv_s: torch.
     if kv_s.shape != (B, H, 2, T) or kv_s.dtype != torch.float32:
         raise ValueError("kv_s must be (B, H, 2, T) fp32")
     out = _launch_self("self_attention_decode_int8", q, (kv_q, kv_s), T, offsets, pads)
-    self_attention_decode_int8.launches += 1
+    _build.count(self_attention_decode_int8)
     return out
 
 

@@ -101,7 +101,7 @@ def flash_attention_btd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _build.launch(_kernel(q.dtype), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), B, T, D, n_head, (D // n_head) ** -0.5)
     _check_launch("flash_attention_btd", err)
-    flash_attention_btd.launches += 1
+    _build.count(flash_attention_btd)
     return out
 
 
@@ -126,7 +126,7 @@ def flash_attention_btd_local(qs, ks, vs, n_head: int, sharded: Optional[bool] =
     for q, k, v in zip(qs, ks, vs):
         outs.append(flash_attention_btd(q, k, v, n_head // tp))
         if sharded and q.device.type == "cuda":
-            flash_attention_btd_sharded.launches += 1
+            _build.count(flash_attention_btd_sharded)
     return outs
 
 
@@ -220,7 +220,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     err = _build.launch(_split_kernel(q.dtype), q.device, q.data_ptr(), k.data_ptr(),
                         v.data_ptr(), out.data_ptr(), B * H, Tq, Tk, dh ** -0.5)
     _check_launch("flash_attention", err)
-    flash_attention.launches += 1
+    _build.count(flash_attention)
     return out
 
 

@@ -87,7 +87,7 @@ def _launch(a, b, out, sx=None, ws=None, bias=None) -> torch.Tensor:
     if err:
         raise RuntimeError(f"int8_gemm launch failed: error {err} (a cudaError_t, or "
                            f"minus a CUresult of the tensor-map encode)")
-    int8_gemm.launches += 1
+    _build.count(int8_gemm)
     return out
 
 

@@ -85,7 +85,7 @@ def quantize_rows(x: torch.Tensor, sx: Optional[torch.Tensor] = None
                         int(x.dtype == torch.bfloat16))
     if err:
         raise RuntimeError(f"quantize_rows launch failed: cudaError {err}")
-    quantize_rows.launches += 1
+    _build.count(quantize_rows)
     return q, out_sx
 
 

@@ -48,7 +48,10 @@ beam size, temperature and context width gets a bucketed encode through the
 engine's own encode function, then ``beam.beam_search_kv`` (t = 0, K > 1,
 with ``length_penalty``) or a sampled ``greedy_decode_kv`` (t > 0: beams
 only at t = 0, as in OpenAI's decoder, so a retried beam request samples
-one beam), with its own caches. ``max_beam_size`` caps a request's K.
+one beam), with its own caches; on the card their rounds replay the
+model's CUDA graphs (``decode.capturable``), captured at each key's first
+use on the aux thread while the decode thread replays the step rounds.
+``max_beam_size`` caps a request's K.
 OpenAI's temperature ladder (``temperature_fallback``) sends a result that
 fails the compression-ratio or logprob gate there again at the next
 temperature, from the slots or from the aux worker itself.
@@ -1680,8 +1683,10 @@ class ContinuousBatchingEngine:
         cross-KV and the mesh apply), then, on the slots' right-aligned
         prompts with its own caches, ``beam_search_kv`` at the batch's beam
         size (t = 0) or ``greedy_decode_kv`` at its temperature (seed 0, as
-        the JAX engine's); results pass the same quality gate as the slots'
-        and may climb the ladder again (sampling one beam)."""
+        the JAX engine's), each in captured rounds on the card for a
+        single-device model (``aux_steps_total`` counts the steps the card
+        ran: whole rounds); results pass the same quality gate as the
+        slots' and may climb the ladder again (sampling one beam)."""
         cfg = self.cfg
         temp = reqs[0].temperature
         K = reqs[0].beam_size if temp == 0 else 1

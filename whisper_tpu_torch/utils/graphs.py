@@ -5,8 +5,8 @@ The JAX package compiles each decode loop into one device program
 launches it once. The port captures a round of such a loop, a callable that
 never reads the device from the host, as a ``torch.cuda.CUDAGraph``, and
 replays it: one launch from the host for every kernel of the round.
-:class:`GraphSet` holds the graphs of one owner (a model's offline decoder,
-an engine's step rounds) by key, all in one memory pool.
+:class:`GraphSet` holds the graphs of one owner (a model's greedy, sampled
+and beam loops, an engine's step rounds) by key, all in one memory pool.
 
 The first run of a key is the warm-up that ``torch.cuda.graphs`` asks for:
 the callable runs eagerly on the set's side stream, and this run is its
@@ -17,10 +17,13 @@ neither break the capture nor are refused by it. Every later run of the key
 replays. A capture that fails raises; nothing falls back to eager.
 
 Launch accounting: every kernel wrapper counts ``.launches`` in Python
-where it launches its kernel, and a replay runs no Python. So the capture
-records each wrapper's count over the captured callable, takes it back (a
-capture launches nothing) and every replay adds it again: the counts stay
-what eager runs of the same rounds would give.
+where it launches its kernel (``ops._build.count``), and a replay runs no
+Python. So the capture counts the wrappers' launches on a tally of its own
+thread (``ops._build.tally``; a capture launches nothing, and other
+threads launching meanwhile, such as the engine's encode thread during an
+aux worker's capture, keep counting on ``.launches``) and every replay
+adds the tally: the counts stay what eager runs of the same rounds would
+give.
 
 A graph bakes in every pointer it reads, the current stream's kernel
 arguments included: a captured callable reads and writes only tensors that
@@ -35,6 +38,8 @@ import time
 from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
+
+from ..ops import _build
 
 # CUDA allows one capture at a time in a process
 _CAPTURE_LOCK = threading.Lock()
@@ -64,6 +69,7 @@ class GraphSet:
         self.device = torch.device(device)
         self._graphs: Dict[Hashable, Tuple[object, List[Tuple[Callable, int]]]] = {}
         self.capture_seconds: Dict[Hashable, float] = {}  # per key: the capture alone
+        self.captures = 0  # every capture, a key captured again after forget() included
         self.replays = 0
         self._pool = None
         self._stream = None
@@ -79,24 +85,16 @@ class GraphSet:
             graph, deltas = entry
             graph.replay()
             for wrapper, n in deltas:
-                wrapper.launches += n
+                _build.count(wrapper, n)
             self.replays += 1
             return
         self._warm(fn)
-        wrappers = kernel_wrappers()
-        before = [w.launches for w in wrappers]
-        deltas = []
         t0 = time.perf_counter()
-        try:
-            with _CAPTURE_LOCK:
-                graph = self._capture(fn)
-        finally:
-            for w, n0 in zip(wrappers, before):
-                if w.launches != n0:
-                    deltas.append((w, w.launches - n0))
-                    w.launches = n0  # the capture launched nothing
+        with _CAPTURE_LOCK, _build.tally() as launched:
+            graph = self._capture(fn)
         self.capture_seconds[key] = time.perf_counter() - t0
-        self._graphs[key] = (graph, deltas)
+        self.captures += 1
+        self._graphs[key] = (graph, list(launched.counts.items()))
 
     def forget(self, stale: Callable[[Hashable], bool]) -> None:
         """Drop the graphs whose key is ``stale`` (their pool's blocks go to
@@ -142,6 +140,6 @@ class GraphSet:
                    if tuple(s["segment_pool_id"]) == pool)
 
     def stats(self) -> dict:
-        return {"keys": len(self._graphs), "replays": self.replays,
+        return {"keys": len(self._graphs), "captures": self.captures, "replays": self.replays,
                 "capture_s": {str(k): s for k, s in self.capture_seconds.items()},
                 "pool_bytes": self.pool_bytes()}
