@@ -1263,15 +1263,16 @@ def _expect(path: str, launches: dict, cfg, encodes: int, steps: int,
     float K3 once a layer. A beam step runs the int8 K3 once a layer and no
     decode kernel (its cross-attention is the folded plain product, as the
     JAX package's einsum under ``beam_k``). ``draft`` = (the draft's
-    config, its 1-wide steps) adds a speculative draft: one encode of its
-    own (its log-mel only where its mel bank differs from ``cfg``'s) and
-    its steps, each the decode kernel and the int8 K3 once a draft layer;
-    the verify windows and both prefills are plain products."""
+    config, its 1-wide steps) adds a speculative draft: an encode of its
+    own with each of the target's (its log-mel only where its mel bank
+    differs from ``cfg``'s) and its steps, each the decode kernel and the
+    int8 K3 once a draft layer; the verify windows and both prefills are
+    plain products."""
     dcfg, dsteps = draft if draft else (None, 0)
-    d_layers = dcfg.n_audio_layer if dcfg else 0  # the draft's encoder layers
+    d_layers = dcfg.n_audio_layer * encodes if dcfg else 0  # the draft's encoder layers
     d_step_layers = dcfg.n_text_layer * dsteps if dcfg else 0
     enc_layers = cfg.n_audio_layer * encodes + d_layers
-    want = {"log10_mel": encodes + int(bool(dcfg) and dcfg.n_mels != cfg.n_mels),
+    want = {"log10_mel": encodes * (1 + int(bool(dcfg) and dcfg.n_mels != cfg.n_mels)),
             "int8_gemm": 6 * enc_layers * tp,  # q, k, v, o, mlp1, mlp2
             "quantize_rows": 4 * enc_layers * tp,  # qkv once, o, mlp1, mlp2
             "self_attention_decode_int8": (cfg.n_text_layer * (steps + beam_steps)
@@ -3722,20 +3723,65 @@ SPEC_PIPELINE = dict(model="turbo", device="cuda", compute_dtype="bfloat16", qua
                      apply_filters=False, spec_gamma=SPEC_GAMMA)
 
 
-def _break_even(step_ms: float, draft_ms: float, verify_ms: float, gamma: int) -> dict:
-    """``benchmarks/spec_bench.py``'s economics: a round costs ``gamma``
-    draft steps and one verify window and emits sum_{j<=gamma} alpha^j
-    tokens at acceptance alpha, each worth one target step; alpha* is the
-    least alpha on a grid of 2,001 at which the round pays (None: none
-    does)."""
-    round_ms = gamma * draft_ms + verify_ms
+SPEC_SWEEP = (4, 2, 1, 1, 2, 4)  # SPEC_ROUNDS values the spec phase times, in turns
+SPEC_FIELDS = DECODE_FIELDS + ("accepted", "drafted")
+
+
+def _alpha_star(step_ms: float, round_ms: float, gamma: int):
+    """The least acceptance alpha on a grid of 2,001 at which a round of
+    ``round_ms`` pays: it emits sum_{j<=gamma} alpha^j tokens, each worth
+    one target step of ``step_ms`` (None: none does)."""
     alphas = np.linspace(0, 1, 2001)
     ok = sum(alphas ** j for j in range(gamma + 1)) * step_ms >= round_ms
+    return float(alphas[ok][0]) if ok.any() else None
+
+
+def _break_even(step_ms: float, draft_ms: float, verify_ms: float, gamma: int) -> dict:
+    """``benchmarks/spec_bench.py``'s economics on the eager yardstick: a
+    round costs ``gamma`` draft steps and one verify window."""
+    round_ms = gamma * draft_ms + verify_ms
     return {"target_step_ms": step_ms, "draft_step_ms": draft_ms,
             f"verify_w{gamma + 1}_ms": verify_ms, "draft_over_step": draft_ms / step_ms,
             "verify_over_step": verify_ms / step_ms, "round_ms": round_ms,
             "tokens_per_round_needed": round_ms / step_ms,
-            "break_even_alpha": float(alphas[ok][0]) if ok.any() else None}
+            "break_even_alpha": _alpha_star(step_ms, round_ms, gamma)}
+
+
+def _graphed_break_even(greedy, greedy_s: float, spec, spec_s: float, gamma: int) -> dict:
+    """The economics on the graphed yardstick, from the same timed calls: a
+    graphed greedy decode's wall over its device steps, a graphed spec
+    decode's over its device rounds (each with its prefills)."""
+    step_ms = 1e3 * greedy_s / greedy.device_steps
+    round_ms = 1e3 * spec_s / spec.device_rounds
+    return {"greedy_step_ms": step_ms, "spec_round_ms": round_ms,
+            "round_over_step": round_ms / step_ms,
+            "break_even_alpha": _alpha_star(step_ms, round_ms, gamma)}
+
+
+def _spec_graphs(model) -> dict:
+    """``decode.graph_stats(model)`` with each key's capture seconds under a
+    short name: a speculative key holds its draft's decoder-weight pointers
+    (named here by their hash) and its group length."""
+    from whisper_tpu_torch import decode
+
+    stats = decode.graph_stats(model)
+    short = {}
+    for i, (k, sec) in enumerate(decode._GRAPHS[model].graphs.capture_seconds.items()):
+        name = (f"spec draft {hash(k[2]) & 0xffff:04x} rounds {k[-5]}" if k[0] == "spec"
+                else f"{k[0] if isinstance(k[0], str) else 'greedy'} {i}")
+        short[name] = sec
+    return {**stats, "capture_s": short}
+
+
+def _spec_equal(what: str, a, b, counts: bool = True) -> None:
+    """Two speculative results equal bit for bit, with their counts (with
+    ``counts``, the host's reads and the device's rounds too)."""
+    for name in SPEC_FIELDS:
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"{what}: {name} differs")
+    if (a[6:] if counts else a.rounds) != (b[6:] if counts else b.rounds):
+        raise AssertionError(f"{what}: rounds, host reads, device rounds {a[6:]} against "
+                             f"{b[6:]}")
 
 
 def _spec_costs(target, cross_t, draft, cross_d, gamma: int, dt) -> dict:
@@ -3793,15 +3839,26 @@ def spec_phase(counters) -> dict:
     ``WhisperPipeline(spec_draft="distil-large-v3").transcribe_batch``
     (``SPEC_PIPELINE``: turbo target, a random distil-large-v3 draft of
     seed 1, 64 tokens, gamma 4): built, warmed, run once with the counts at
-    0 and checked (exact launches: K7 once, both encoders' K1, K8 and K8q,
-    K2 and the int8 K3 for the draft's 2 layers x (gamma - 1) steps a
-    round, nothing for the windows and the prefills), its wall beside the
-    same pipeline without its draft (greedy) on the same clips, the tokens
-    against greedy's row by row (reported, not asserted: bf16 windows sum
-    in another order), then the target as its own draft (the alpha ~ 1
-    ceiling; at most ceil(63 / (gamma + 1)) + 1 rounds), the wall's split
-    (each encode and the decodes alone on one cross-KV) and the economics
-    at turbo and at a large-v3 target (its 32 decoder layers; steps only)."""
+    0 and checked (its rounds captured; exact launches: K7 once, both
+    encoders' K1, K8 and K8q, K2 and the int8 K3 for the draft's 2 layers
+    x (gamma - 1) steps a device round, nothing for the windows and the
+    prefills), its wall beside the same pipeline without its draft
+    (greedy) on the same clips, the tokens against greedy's row by row
+    (reported, not asserted: bf16 windows sum in another order). Then the
+    decode alone on one cross-KV of each model: graphed and uncaptured
+    (``spec_decode._spec_rounds``), bit-equal with every count, launches
+    exact through the replays, both walls and the host's CUDA launch calls
+    of one graphed decode (torch.profiler); the graphed wall at each
+    ``SPEC_SWEEP`` group length, in turns, with the random draft and the
+    self draft (bit-equal across lengths, masked rounds and all); the
+    target as its own draft (the alpha ~ 1 ceiling, graphed; at most
+    ceil(63 / (gamma + 1)) + 1 rounds); the wall's split (each encode and the decodes); the graph
+    stats; and the economics at turbo (the eager yardstick of
+    ``_spec_costs`` beside the graphed one of ``_graphed_break_even``) and
+    at a large-v3 target (its 32 decoder layers; eager steps only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch import spec_decode as sd
     from whisper_tpu_torch.config import N_SAMPLES, get_config
     from whisper_tpu_torch.decode import encode_cross_kv, greedy_decode_kv
     from whisper_tpu_torch.models.model import cast_floating
@@ -3817,7 +3874,7 @@ def spec_phase(counters) -> dict:
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(43)
     clips = list(rng.standard_normal((N_SPEC_CLIPS, N_SAMPLES)).astype(np.float32) * 0.1)
-    pipe.transcribe_batch(clips)  # warm
+    pipe.transcribe_batch(clips)  # warm: its rounds captured
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
@@ -3830,6 +3887,7 @@ def spec_phase(counters) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     spec, cfg, dcfg, dev = pipe.last_decode, pipe.cfg, pipe.draft.cfg, pipe.device
     stats = dict(pipe.last_spec_stats)
+    R = sd.SPEC_ROUNDS
     P = len(cfg.sot_sequence(pipe.language, pipe.task))
     lens, toks = spec.lengths.cpu().numpy(), spec.tokens.cpu().numpy()
     if not isinstance(spec, SpecResult) or len(results) != N_SPEC_CLIPS:
@@ -3840,9 +3898,13 @@ def spec_phase(counters) -> dict:
         raise AssertionError("spec token ids out of the vocabulary")
     if not (torch.isfinite(spec.avg_logprob).all() and torch.isfinite(spec.no_speech_prob).all()):
         raise AssertionError("non-finite spec log-probabilities")
-    if spec.host_syncs != spec.rounds + 1 or stats["drafted"] <= 0:
-        raise AssertionError(f"spec counts: {stats}, {spec.host_syncs} host syncs")
-    _expect("spec", launches, cfg, 1, 0, draft=(dcfg, (SPEC_GAMMA - 1) * spec.rounds))
+    if (spec.host_syncs != max(1, -(-spec.rounds // R))
+            or spec.device_rounds != spec.host_syncs * R or stats["drafted"] <= 0):
+        raise AssertionError(f"spec counts: {stats}")
+    pipe_graphs = _spec_graphs(pipe.model)
+    if not any(k.startswith("spec") for k in pipe_graphs["capture_s"]):
+        raise AssertionError(f"the pipeline's spec decode ran uncaptured: {pipe_graphs}")
+    _expect("spec", launches, cfg, 1, 0, draft=(dcfg, (SPEC_GAMMA - 1) * spec.device_rounds))
 
     draft, pipe.draft = pipe.draft, None  # greedy on the same clips, the same process
     pipe.transcribe_batch(clips)
@@ -3854,19 +3916,7 @@ def spec_phase(counters) -> dict:
     greedy = pipe.last_decode
     pipe.draft = draft
 
-    # the decodes alone on one cross-KV: greedy, and the target as its own draft
-    batch, lengths = pipe._prepare_batch(clips)
-    mel = log_mel_batch(batch, lengths, n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
-    cross = encode_cross_kv(pipe.model, mel, pipe.compute_dtype, kv_quant=True, w8a8=True)
-    prompt = torch.tensor([cfg.sot_sequence(pipe.language, pipe.task)] * N_SPEC_CLIPS,
-                          device=pipe.device)
-    rows = _first_divergences(pipe, cross, spec, greedy, P)
-    decode_kw = dict(compute_dtype=pipe.compute_dtype, max_tokens=N_TOKENS, self_kv_quant=True)
-
-    def self_draft():
-        return speculative_decode_kv(pipe.model, cross, pipe.model, cross, prompt,
-                                     gamma=SPEC_GAMMA, **decode_kw)
-
+    # the decodes alone on one cross-KV of each model
     def timed(fn):
         fn()
         torch.cuda.synchronize()
@@ -3875,6 +3925,77 @@ def spec_phase(counters) -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    batch, lengths = pipe._prepare_batch(clips)
+    mel = log_mel_batch(batch, lengths, n_mels=cfg.n_mels)[..., : 2 * cfg.n_audio_ctx]
+    cross, encode_s = timed(lambda: encode_cross_kv(pipe.model, mel, pipe.compute_dtype,
+                                                    kv_quant=True, w8a8=True))
+    cross_d, draft_encode_s = timed(lambda: pipe._draft_cross_kv(batch, lengths, mel))
+    prompt = torch.tensor([cfg.sot_sequence(pipe.language, pipe.task)] * N_SPEC_CLIPS,
+                          device=pipe.device)
+    rows = _first_divergences(pipe, cross, spec, greedy, P)
+    dt = pipe.compute_dtype
+    decode_kw = dict(compute_dtype=dt, max_tokens=N_TOKENS, self_kv_quant=True)
+
+    def rounds_of(graphed, d=draft, cd=cross_d):
+        return sd._spec_rounds(pipe.model, cross, d, cd, prompt, SPEC_GAMMA, dt, N_TOKENS,
+                               True, 0, pipe.gelu, pipe.cross_decode, graphed)
+
+    decodes, ways = {}, {}
+    for way, graphed in (("graphed", True), ("uncaptured", False)):
+        if graphed:
+            rounds_of(True)  # its capture
+            torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = rounds_of(graphed)
+        torch.cuda.synchronize()
+        w = time.perf_counter() - t0
+        got = _launches(counters)
+        _expect(f"spec decode {way}", got, cfg, 0, 0,
+                draft=(dcfg, (SPEC_GAMMA - 1) * res.device_rounds))
+        ways[way] = res
+        decodes[way] = {"wall_s": w, "rounds": res.rounds, "device_rounds": res.device_rounds,
+                        "host_syncs": res.host_syncs,
+                        "launches": {k: n for k, n in got.items() if n}}
+    _spec_equal("spec decode graphed against uncaptured", ways["graphed"], ways["uncaptured"])
+    decodes["bit_equal"] = list(SPEC_FIELDS) + ["rounds", "host_syncs", "device_rounds"]
+    decodes["graphed"]["walls_s"] = [decodes["graphed"]["wall_s"]] + _walls(
+        lambda: rounds_of(True), 2)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rounds_of(True)
+        torch.cuda.synchronize()
+    calls = _host_launches(prof)
+    decodes["graphed"].update(host_launch_calls=calls,
+                              host_launch_calls_total=sum(calls.values()),
+                              profile_s=time.perf_counter() - t0)
+    spec_decode_s = decodes["graphed"]["wall_s"]
+
+    def self_draft():
+        return speculative_decode_kv(pipe.model, cross, pipe.model, cross, prompt,
+                                     gamma=SPEC_GAMMA, **decode_kw)
+
+    # each group length on the random draft (acceptance 0) and the self
+    # draft (acceptance ~1: fewer rounds, so a masked tail weighs more)
+    sweep, refs = {}, {"random": ways["graphed"]}
+    try:
+        for r in SPEC_SWEEP:
+            sd.SPEC_ROUNDS = r
+            for name, fn in (("random", lambda: rounds_of(True)), ("self", self_draft)):
+                res = fn()  # its key's capture at the first visit
+                _spec_equal(f"{name} draft at SPEC_ROUNDS {r}", res, refs.setdefault(name, res),
+                            counts=False)
+                entry = sweep.setdefault(f"{name} {r}", {"walls_s": [],
+                                                         "host_syncs": res.host_syncs,
+                                                         "rounds": res.rounds,
+                                                         "device_rounds": res.device_rounds})
+                entry["walls_s"] += _walls(fn, 2)
+    finally:
+        sd.SPEC_ROUNDS = R
+    for entry in sweep.values():
+        entry["median_s"] = float(np.median(entry["walls_s"]))
+
     ceiling, self_s = timed(self_draft)
     plain, greedy_decode_s = timed(lambda: greedy_decode_kv(pipe.model, cross, prompt,
                                                              **decode_kw))
@@ -3882,14 +4003,10 @@ def spec_phase(counters) -> dict:
     if ceiling.rounds > max_rounds:
         raise AssertionError(f"the self-draft ran {ceiling.rounds} rounds, more than "
                              f"{max_rounds}")
-    # the wall's split: the target's encode (as greedy's), the draft's, the decode
-    _, encode_s = timed(lambda: encode_cross_kv(pipe.model, mel, pipe.compute_dtype,
-                                                kv_quant=True, w8a8=True))
-    cross_d, draft_encode_s = timed(lambda: pipe._draft_cross_kv(batch, lengths, mel))
-    _, spec_decode_s = timed(lambda: speculative_decode_kv(
-        pipe.model, cross, draft, cross_d, prompt, gamma=SPEC_GAMMA, **decode_kw))
-    economics = [_spec_costs(pipe.model, cross, draft, cross_d, SPEC_GAMMA,
-                             pipe.compute_dtype)]
+    graphs = _spec_graphs(pipe.model)
+    economics = [{**_spec_costs(pipe.model, cross, draft, cross_d, SPEC_GAMMA, dt),
+                  "graphed": _graphed_break_even(plain, greedy_decode_s, ways["graphed"],
+                                                 spec_decode_s, SPEC_GAMMA)}]
     del pipe, cross
     torch.cuda.empty_cache()
     # large-v3: turbo's encoder and 32 decoder layers, the target
@@ -3904,43 +4021,59 @@ def spec_phase(counters) -> dict:
     return {"phase": "spec", "model": "turbo", "draft": SPEC_DRAFT, "batch": N_SPEC_CLIPS,
             "gamma": SPEC_GAMMA, "max_tokens": N_TOKENS, "dtype": "bfloat16",
             "quant": "int8 weights + w8a8 encoders + kvq + skvq", "apply_filters": False,
-            "init_s": init_s, "wall_s": wall, "greedy_wall_s": greedy_wall,
+            "spec_rounds": R, "init_s": init_s, "wall_s": wall, "greedy_wall_s": greedy_wall,
             "spec_over_greedy": wall / greedy_wall, "rounds": spec.rounds,
-            "host_syncs": spec.host_syncs, "greedy_steps": greedy.steps, **stats,
+            "device_rounds": spec.device_rounds, "host_syncs": spec.host_syncs,
+            "greedy_steps": greedy.steps, **stats,
             "generated": (lens - P).tolist(), "rows_equal_greedy": equal,
             "rows": [r for r in rows if not r["equal"]],
+            "decode": decodes, "spec_rounds_sweep": sweep,
             "split_s": {"target_encode": encode_s, "draft_encode": draft_encode_s,
-                        "spec_decode": spec_decode_s, "greedy_decode": greedy_decode_s,
+                        "spec_decode": spec_decode_s,
+                        "spec_decode_uncaptured": decodes["uncaptured"]["wall_s"],
+                        "greedy_decode": greedy_decode_s,
                         "spec_decode_per_round_ms": 1e3 * spec_decode_s / spec.rounds},
-            "self_draft": {"rounds": ceiling.rounds, "max_rounds": max_rounds,
+            "self_draft": {"rounds": ceiling.rounds, "device_rounds": ceiling.device_rounds,
+                           "max_rounds": max_rounds,
                            "accepted": int(ceiling.accepted), "drafted": int(ceiling.drafted),
                            "acceptance": int(ceiling.accepted) / max(int(ceiling.drafted), 1),
                            "decode_s": self_s, "greedy_decode_s": greedy_decode_s,
                            "over_greedy": self_s / greedy_decode_s,
                            "rows_equal_greedy": int((ceiling.tokens == plain.tokens)
                                                     .all(dim=1).sum())},
+            "graphs": graphs, "pipeline_graphs": pipe_graphs,
             "economics": economics, "launches": launches, "peak_mem_gb": peak_gb,
-            "timing": "walls by the host clock around synchronized calls; the economics by "
-                      "CUDA events over 20 calls each"}
+            "timing": "walls by the host clock around synchronized calls; the eager "
+                      "economics by CUDA events over 20 calls each, the graphed from the "
+                      "decode walls"}
 
 
 def spec_reference_check(device: str = "cuda") -> dict:
     """Small fp32 speculative decodes (tiny, gamma 3, 12 tokens, a tiny
     draft of another seed and the target as its own draft; float caches and
-    int8 cross- and self-KV) on the card through its kernels against the
-    same runs on the CPU: tokens, lengths and the counts equal, and equal to
-    greedy's on each device; avg_logprob and no_speech_prob within 1e-5
-    with float caches (int8: reported, a value the card computes in another
-    order can round to the next int8 level). Then one window of 5 at
-    offsets 0, 60, 124 and 126 of a 128-position cache (the last two rows
-    cross its end) from the same seeded cache on both: logits and the float
-    cache within 1e-5, the dropped positions untouched. ``device`` is the
-    card's side."""
+    int8 cross- and self-KV) on the card, in captured rounds through its
+    kernels, against the same runs on the CPU (uncaptured): tokens, lengths
+    and the counts equal, and equal to greedy's on each device;
+    avg_logprob and no_speech_prob within 1e-5 with float caches (int8:
+    reported, a value the card computes in another order can round to the
+    next int8 level). Then the self draft with no token budget, so that its
+    windows cross the end of the 448-position caches (some row must reach
+    it): graphed on the card, bit-equal to its uncaptured rounds there and
+    equal to the CPU's. Then one window of 5 at offsets 0, 60, 124 and 126
+    of a 128-position cache (the last two rows cross its end) from the same
+    seeded cache on both: logits and the float cache within 1e-5, the
+    dropped positions untouched. ``device`` is the card's side."""
+    from whisper_tpu_torch import decode
     from whisper_tpu_torch.config import get_config
     from whisper_tpu_torch.decode import encode_cross_kv, greedy_decode_kv
     from whisper_tpu_torch.models.model import KVCache, decoder_window_multipos
     from whisper_tpu_torch.params import init_params
-    from whisper_tpu_torch.spec_decode import speculative_decode_kv
+    from whisper_tpu_torch.spec_decode import _spec_rounds, speculative_decode_kv
+
+    def spec_keys(model) -> int:
+        owner = decode._GRAPHS.get(model)
+        return 0 if owner is None else sum(
+            k[0] == "spec" for k in owner.graphs.capture_seconds)
 
     rng = np.random.default_rng(13)
     cfg = get_config("tiny")
@@ -3960,6 +4093,9 @@ def spec_reference_check(device: str = "cuda") -> dict:
                 cd = encode_cross_kv(draft, m, kv_quant=quant)
                 spec = speculative_decode_kv(target, ct, draft, cd, p, gamma=3, max_tokens=12,
                                              self_kv_quant=quant)
+                if spec_keys(target) != int(dev != "cpu"):
+                    raise AssertionError(f"the {dev} spec decode's rounds: "
+                                         f"{decode.graph_stats(target)}")
                 greedy = greedy_decode_kv(target, ct, p, max_tokens=12, self_kv_quant=quant)
                 if not torch.equal(spec.tokens, greedy.tokens):
                     raise AssertionError(f"spec tokens differ from greedy's on {dev}: "
@@ -3980,10 +4116,42 @@ def spec_reference_check(device: str = "cuda") -> dict:
             if not quant and max(errs.values()) > SPEC_TOL:
                 raise AssertionError(f"spec log-probs on the card differ from the CPU ({case}): "
                                      f"{errs}")
-            rec[case] = {"tokens_equal_cpu_and_greedy": True, "accepted_drafted_rounds":
-                         counts[device], **{f"{f}_max_abs_err": e for f, e in errs.items()},
+            rec[case] = {"tokens_equal_cpu_and_greedy": True, "graphed_on_card": True,
+                         "accepted_drafted_rounds": counts[device],
+                         **{f"{f}_max_abs_err": e for f, e in errs.items()},
                          "tokens": [t[4:int(n)] for t, n in zip(card.tokens.cpu().tolist(),
                                                                  card.lengths.cpu().tolist())]}
+
+    out = {}
+    for dev in (device, "cpu"):
+        target = init_params(cfg, seed=3, device="cpu").to_device(dev)
+        m, p = torch.from_numpy(mel).to(dev), torch.from_numpy(prompt).to(dev)
+        ct = encode_cross_kv(target, m)
+        out[dev] = speculative_decode_kv(target, ct, target, ct, p, gamma=3)
+        if dev != "cpu":
+            if spec_keys(target) != 1:
+                raise AssertionError(f"the card's decode to the end: {decode.graph_stats(target)}")
+            _spec_equal("spec to the context's end, graphed against uncaptured", out[dev],
+                        _spec_rounds(target, ct, target, ct, p, 3, torch.float32, None, False, 0,
+                                     "erf", "fd", False))
+    card, cpu = out[device], out["cpu"]
+    counts = {w: (int(r.accepted), int(r.drafted), r.rounds) for w, r in out.items()}
+    if (not torch.equal(card.tokens.cpu(), cpu.tokens)
+            or not torch.equal(card.lengths.cpu(), cpu.lengths)
+            or counts[device] != counts["cpu"]):
+        raise AssertionError(f"spec to the context's end differs on the card from the CPU: "
+                             f"{card.lengths.tolist()} vs {cpu.lengths.tolist()}, {counts}")
+    errs = {f: float((getattr(card, f).cpu() - getattr(cpu, f)).abs().max())
+            for f in ("avg_logprob", "no_speech_prob")}
+    if max(errs.values()) > SPEC_TOL:
+        raise AssertionError(f"spec log-probs to the context's end: {errs}")
+    reached = int((cpu.lengths == cfg.n_text_ctx).sum())
+    if not reached:
+        raise AssertionError(f"no row reached the context's end: {cpu.lengths.tolist()}")
+    rec["to the context's end, self draft"] = {
+        "graphed_bit_equal_uncaptured": True, "accepted_drafted_rounds": counts[device],
+        "device_rounds": card.device_rounds, "rows_at_the_end": reached,
+        **{f"{f}_max_abs_err": e for f, e in errs.items()}}
 
     offsets = np.array([0, 60, 124, 126])
     toks = rng.integers(0, 50000, (4, 5))

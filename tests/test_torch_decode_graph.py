@@ -12,6 +12,7 @@ caller's tensor, or slot state rebound instead of written in place,
 fails here as it would decode stale data on the card.
 """
 
+import gc
 import inspect
 import threading
 from types import SimpleNamespace
@@ -521,6 +522,39 @@ def test_capture_keeps_other_threads_launches(monkeypatch):
     gs.run("round", round_with_a_neighbour)  # a replay: the captured k2 only
     assert (k2.launches, k7.launches) == (8, 2)
     assert gs._graphs["round"][1] == [(k2, 4)]
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_capture_runs_without_the_collector(enabled):
+    """The cyclic garbage collector is off during a capture (a collection
+    there could destroy an earlier graph, which voids the capture) and
+    on during the warm run and replays; afterwards, and after a capture
+    that raises, it is as the caller left it."""
+    seen = []
+
+    def round_():
+        seen.append(gc.isenabled())
+
+    def broken():
+        seen.append(gc.isenabled())
+        raise RuntimeError("capture refused")
+
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        gs = _Counting("cpu")
+        gs.run("k", round_)  # the warm run, then the capture
+        gs.run("k", round_)  # a replay (the fake's runs nothing)
+        assert seen == [enabled, False] and gc.isenabled() == enabled
+        class _Cold(_Counting):
+            def _warm(self, fn):
+                pass
+
+        with pytest.raises(RuntimeError, match="capture refused"):
+            _Cold("cpu").run("bad", broken)
+        assert seen[2:] == [False] and gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
 
 
 def test_kernel_wrappers_cover_every_counter():

@@ -147,12 +147,21 @@ def test_parse_asr_request_equals_jax(same_native_route):
 
 
 # ---------------------------------------------------------------- live fleet
-def _engine():
+# one window at a time through every stage of an engine (one slot, so
+# encode and decode batches of one, and align batches of one): a window's
+# reply is then the same bits whatever reaches its engine beside it and
+# whichever replica takes it, so two posts of one split can be held equal.
+# With two slots, which windows share an encode or align batch follows the
+# timing of the router's threads, and avg_logprob moves in its last bits.
+SERIAL = dict(max_slots=1, align_batch_max=1)
+
+
+def _engine(max_slots: int = 2, **kw):
     return ContinuousBatchingEngine(
         init_params(CFG, seed=0, device="cpu"), get_tokenizer(num_languages=CFG.num_languages),
-        max_slots=2, compute_dtype=torch.float32, steps_per_sync=2, max_tokens=8,
+        max_slots=max_slots, compute_dtype=torch.float32, steps_per_sync=2, max_tokens=8,
         no_speech_threshold=None, logprob_threshold=None,
-        compression_ratio_threshold=None).start(warm=False)
+        compression_ratio_threshold=None, **kw).start(warm=False)
 
 
 def _serve(server):
@@ -164,7 +173,17 @@ def _serve(server):
 @pytest.fixture()
 def two_replicas():
     """Two port engines + servers on loopback, the port router in front."""
-    engines = [_engine() for _ in range(2)]
+    yield from _fleet()
+
+
+@pytest.fixture()
+def two_serial_replicas():
+    """``two_replicas`` whose engines take one window at a time (``SERIAL``)."""
+    yield from _fleet(**SERIAL)
+
+
+def _fleet(**engine_kw):
+    engines = [_engine(**engine_kw) for _ in range(2)]
     servers = [make_server(e, "127.0.0.1", 0, request_timeout_s=120) for e in engines]
     threads = [_serve(s) for s in servers]
     urls = [f"http://127.0.0.1:{s.server_address[1]}" for s in servers]
@@ -252,11 +271,13 @@ def test_router_failover_on_dead_backend(two_replicas):
     assert _get(port, "/metrics")[1]["backends"][0]["unreachable"] is True
 
 
-def test_router_splits_longform_across_backends_as_jax(two_replicas):
+def test_router_splits_longform_across_backends_as_jax(two_serial_replicas):
     """A 70 s request is split into 3 windows at the router and fanned out
-    over BOTH replicas; the merged reply (text, words, counts) equals the
-    JAX router's in front of the same engines."""
-    router_srv, _, engines, urls = two_replicas
+    over BOTH replicas; the merged reply (text, words, counts, log-probs)
+    equals the JAX router's in front of the same engines, bit for bit: the
+    engines take one window at a time, so the timing of either router's
+    threads changes no batch a window runs in."""
+    router_srv, _, engines, urls = two_serial_replicas
     port = router_srv.server_address[1]
     pcm = _pcm(7, 70)
     code, _, body = _post_pcm(port, pcm, "language=en&word_timestamps=1", timeout=300)
@@ -290,11 +311,11 @@ def test_router_splits_longform_across_backends_as_jax(two_replicas):
     assert code == 200 and ctype.startswith("application/x-subrip") and "-->" in srt
 
 
-def test_router_streaming_longform_split_as_jax(two_replicas):
+def test_router_streaming_longform_split_as_jax(two_serial_replicas):
     """A streamed 70 s request fans out AND keeps its NDJSON stream: window
     partials in window order, then the merged reply, whose text equals the
-    JAX router's."""
-    router_srv, _, engines, urls = two_replicas
+    JAX router's (engines of one window at a time, as the split above)."""
+    router_srv, _, engines, urls = two_serial_replicas
     port = router_srv.server_address[1]
     pcm = _pcm(8, 70)
 

@@ -34,7 +34,7 @@ from whisper_tpu_torch.config import WhisperConfig
 from whisper_tpu_torch.decode import encode_cross_kv, greedy_decode_kv
 from whisper_tpu_torch.models import model as tm
 from whisper_tpu_torch.params import from_jax_params
-from whisper_tpu_torch.spec_decode import SpecResult, speculative_decode_kv
+from whisper_tpu_torch.spec_decode import SPEC_ROUNDS, SpecResult, speculative_decode_kv
 
 torch.set_num_threads(2)
 
@@ -142,7 +142,9 @@ def test_spec_decode_matches_jax(models, mel, case):
     got = _port_run(models, mel, draft, gamma, budget, quant)
     assert got.tokens.dtype == torch.int64 and got.tokens.shape == (3, NANO.n_text_ctx)
     _assert_equal_results(got, ref, quant)
-    assert got.host_syncs == got.rounds + 1  # one all-done read a round, and the last
+    # one flag read a group of SPEC_ROUNDS rounds, whole groups on the device
+    assert got.host_syncs == max(1, -(-got.rounds // SPEC_ROUNDS))
+    assert got.device_rounds == got.host_syncs * SPEC_ROUNDS
     if draft == "random":
         assert int(got.accepted) == 0
     if draft == "self":

@@ -311,11 +311,12 @@ def _decode_round(model, loop: _Loop, n_steps: int, dt, gelu, cross_decode, use_
 
 
 class _DecodeGraphs:
-    """A model's captured rounds, greedy, sampled and beam alike: the
-    loops' buffers by shape (the ``LOOP_SHAPES`` latest of any kind, least
-    recent first), their graphs by key in one
+    """A model's captured rounds, greedy, sampled, beam and speculative
+    alike: the loops' buffers by shape (the ``LOOP_SHAPES`` latest of any
+    kind, least recent first), their graphs by key in one
     :class:`~whisper_tpu_torch.utils.graphs.GraphSet` (one pool), and the
-    decoder weights' pointers they were captured against. ``lock``
+    decoder weights' pointers they were captured against (a speculative
+    loop's key holds its draft's). ``lock``
     serializes the loops of one model across threads (the engine's aux
     worker and a pipeline may share it)."""
 
@@ -358,9 +359,9 @@ def _decode_graphs(model) -> _DecodeGraphs:
 
 
 def graph_stats(model) -> Optional[dict]:
-    """The captured rounds of ``model``'s greedy, sampled and beam decodes
-    (keys, replays, capture seconds per key, the pool's bytes), or None
-    before the first."""
+    """The captured rounds of ``model``'s greedy, sampled, beam and
+    speculative decodes (keys, replays, capture seconds per key, the pool's
+    bytes), or None before the first."""
     owner = _GRAPHS.get(model)
     return None if owner is None else owner.graphs.stats()
 
@@ -411,12 +412,18 @@ def _static_loop(owner: _DecodeGraphs, model, cross_kv, prompt_pad, suppress_ids
     loop = _loop_buffers(owner, key, lambda: _Loop(model, key[0], kv_ctx, dt, self_kv_quant,
                                                   model.device),
                         cross_kv, prompt_pad, suppress_ids)
-    loop.kv[0].zero_()
-    if isinstance(loop.kv, QKVCache):
-        loop.kv.s.fill_(1.0)
-    else:
-        loop.kv[1].zero_()
+    _reset_cache(loop.kv)
     return loop, key
+
+
+def _reset_cache(kv) -> None:
+    """A captured loop's self-KV cache, in place, as a new one's: zeros (an
+    int8 cache's scales ones)."""
+    kv[0].zero_()
+    if isinstance(kv, QKVCache):
+        kv.s.fill_(1.0)
+    else:
+        kv[1].zero_()
 
 
 def _greedy_rounds(model, cross_kv, prompt, compute_dtype, max_tokens, suppress_ids,

@@ -402,7 +402,9 @@ class WhisperPipeline:
                                    gelu=self.gelu, encoder_attention=self.encoder_attention)
 
     def _speculative(self, cross_kv, cross_d, prompt_t, sot_index: int):
-        """The speculative decode; records ``last_spec_stats``."""
+        """The speculative decode; records ``last_spec_stats`` (the JAX
+        package's counts, and the rounds the device ran and the host's
+        reads of the loop's flags)."""
         result = speculative_decode_kv(
             self.model, cross_kv, self.draft, cross_d, prompt_t, gamma=self.spec_gamma,
             compute_dtype=self.compute_dtype, max_tokens=self.max_tokens,
@@ -411,7 +413,9 @@ class WhisperPipeline:
         accepted, drafted = int(result.accepted), int(result.drafted)
         self.last_spec_stats = {"accepted": accepted, "drafted": drafted,
                                 "rounds": result.rounds,
-                                "acceptance": accepted / max(drafted, 1)}
+                                "acceptance": accepted / max(drafted, 1),
+                                "device_rounds": result.device_rounds,
+                                "host_syncs": result.host_syncs}
         return result
 
     def _align_words(self, cross_kv, toks: np.ndarray, lens: np.ndarray, prompt_len: int,

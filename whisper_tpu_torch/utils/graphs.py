@@ -16,6 +16,12 @@ launching on the card meanwhile (the engine's encode thread and aux worker)
 neither break the capture nor are refused by it. Every later run of the key
 replays. A capture that fails raises; nothing falls back to eager.
 
+Python's cyclic garbage collector is held off during a capture: a
+collection there can free a graph of an earlier owner caught in a reference
+cycle, and destroying a graph while another is being captured voids that
+capture with no error of its own (the error shows at the capture's next
+launch, as ``operation failed due to a previous error during capture``).
+
 Launch accounting: every kernel wrapper counts ``.launches`` in Python
 where it launches its kernel (``ops._build.count``), and a replay runs no
 Python. So the capture counts the wrappers' launches on a tally of its own
@@ -33,6 +39,7 @@ outlive its graph, and writes them in place.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Dict, Hashable, List, Optional, Tuple
@@ -58,6 +65,19 @@ def kernel_wrappers() -> tuple:
             fa.flash_attention, int8_gemm, quantize_rows, da.cross_attention_decode_fd,
             da.cross_attention_decode, da.cross_attention_decode_dense,
             da.self_attention_decode, da.self_attention_decode_int8)
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """The cyclic garbage collector off (and back on if it was on): no
+    graph is destroyed by a collection inside a capture."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
 
 
 class GraphSet:
@@ -90,7 +110,7 @@ class GraphSet:
             return
         self._warm(fn)
         t0 = time.perf_counter()
-        with _CAPTURE_LOCK, _build.tally() as launched:
+        with _CAPTURE_LOCK, _no_collection(), _build.tally() as launched:
             graph = self._capture(fn)
         self.capture_seconds[key] = time.perf_counter() - t0
         self.captures += 1
