@@ -1477,7 +1477,8 @@ def _stepwise_beam(model, cross_kv, prompt, dt, beam_size=5, max_tokens=None,
     cache, tokens and rule state reordered into new tensors (the port's
     earlier ``beam_search_kv``). ``beam_phase`` holds the rounds bit-equal
     to it."""
-    from whisper_tpu_torch.beam import BeamResult, _map_cache, _norm_score, _top_k
+    from whisper_tpu_torch.beam import BeamResult, _norm_score, _top_k
+    from whisper_tpu_torch.decode import _nested_map
     from whisper_tpu_torch.models.model import decoder_forward, new_kv_cache
     from whisper_tpu_torch.sampling import NEG_INF, RuleState, apply_rules
 
@@ -1496,7 +1497,7 @@ def _stepwise_beam(model, cross_kv, prompt, dt, beam_size=5, max_tokens=None,
     kv = new_kv_cache(model, B, dt, min(T, -(-limit // 128) * 128), quant=self_kv_quant)
     logits, kv = decoder_forward(model, prompt, 0, kv, cross_kv, dt, pad=prompt_pad, gelu=gelu)
     nsp = torch.softmax(logits[:, sot_index].to(torch.float32), dim=-1)[:, cfg.no_speech]
-    kv = _map_cache(kv, lambda t: t.repeat_interleave(K, dim=1))
+    kv = _nested_map(kv, lambda t: t.repeat_interleave(K, dim=1))
     pad_n = None if prompt_pad is None else prompt_pad.repeat_interleave(K)
     tokens = torch.full((N, T), eot, dtype=torch.int64, device=device)
     tokens[:, :P] = prompt.repeat_interleave(K, dim=0)
@@ -1545,7 +1546,7 @@ def _stepwise_beam(model, cross_kv, prompt, dt, beam_size=5, max_tokens=None,
         flat = (parent_base + torch.gather(src2k, 1, pick)).reshape(N)
         tokens = tokens.index_select(0, flat)
         tokens[:, i + 1] = new_tok
-        kv = _map_cache(kv, lambda t: t.index_select(1, flat))
+        kv = _nested_map(kv, lambda t: t.index_select(1, flat))
         rs = RuleState(*(f.index_select(0, flat) for f in rs)).advance(new_tok, ts0)
         i += 1
         steps += 1
@@ -1656,16 +1657,17 @@ def decode_graph(counters, smi: str) -> dict:
     avg_logprob and no_speech_prob bit-equal across all three; launches
     exact for each (``_expect``, the graphed ones counted through
     replays). Walls, rounds and host reads; the host's CUDA launch calls
-    during one graphed and one uncaptured decode under fd (torch.profiler;
-    the selections launch alike); the copy of the cross-KV
-    into the graph's buffer (CUDA events), the capture seconds per key and
+    during one graphed decode under fd (torch.profiler; the selections
+    launch alike; an uncaptured decode's profile took 13-20 s of the
+    smoke on an H100 and counted the same 31,892 calls in six runs, so it
+    is no longer taken); the copy of the cross-KV into the graph's buffer
+    (CUDA events), the capture seconds per key and
     the graph pool's bytes; the graphed wall at each ``GRAPH_SWEEP``
     round length, in turns (fd). Then the same decode sampled at
     ``SAMPLED_T`` (a ladder rung) under each selection, graphed against
     its rounds uncaptured under one hook's draws (``gumbel_noise`` of
     ``SAMPLED_SEED``, made anew for each decode), bit-equal, launches
-    exact, the graphed way's host launch calls under fd (the uncaptured
-    greedy decode's above stand for the eager rounds), and the noise fill
+    exact, the graphed way's host launch calls under fd, and the noise fill
     of one round (CUDA events); and the pipeline with its ladder on, its
     rungs at shrinking batches (:func:`_ladder_graphs`)."""
     from whisper_tpu_torch import decode
@@ -1698,7 +1700,7 @@ def decode_graph(counters, smi: str) -> dict:
             f"decode_graph {sel}", ways, counters,
             lambda what, launches, res: _expect(what, launches, cfg, 0, res.device_steps,
                                                 cross_decode=sel),
-            profiled=("graphed", "uncaptured") if sel == "fd" else ())
+            profiled=("graphed",) if sel == "fd" else ())
         for way in ("uncaptured", "stepwise"):
             _bit_equal(f"decode_graph {sel}: graphed against {way}", results["graphed"],
                        results[way], DECODE_FIELDS)
@@ -2056,6 +2058,7 @@ def serving(counters, flags=(), n_requests: int = N_REQUESTS, mesh=None, phase="
            "attempts": [reply["attempts"] for _, reply, _ in replies],
            "temperatures": [reply["temperature"] for _, reply, _ in replies],
            "ticks": delta["ticks_total"], "steps": steps, "admission_batches": batches,
+           "step_seconds": delta["step_seconds_total"],
            "aux_batches": aux_batches, "aux_steps": aux_steps,
            "retries": delta["retries_total"], "detect_batches": delta["detect_batches_total"],
            "languages": [reply.get("language") for _, reply, _ in replies],
@@ -2080,7 +2083,7 @@ def _served_counts(engine, args, st0: dict, st1: dict, launches: dict, path: str
     delta = {key: st1[key] - st0[key] for key in (
         "steps_total", "encode_batches_total", "aux_batches_total", "aux_steps_total",
         "retries_total", "ticks_total", "detect_batches_total", "partials_total",
-        "beam_requests_total")}
+        "beam_requests_total", "step_seconds_total")}
     delta["round_sizes"] = {k: n - st0["round_sizes"].get(k, 0)
                             for k, n in st1["round_sizes"].items()
                             if n > st0["round_sizes"].get(k, 0)}
@@ -2125,10 +2128,16 @@ def tensor_parallel(counters, mesh=None, flags=(), phase: str = "tp") -> dict:
     over ``mesh`` (by default (1, 2) with both ranks on the card) or, with
     ``flags`` ``--tp N``, over N distinct cards as the server's flag places
     it; 8 clips over HTTP (exact launch counts: every rank launches K1 per
-    layer, K8 per product, K2 and K3 per layer-step). Then the W8A8 encoder
-    output of one admission batch (the 8 clips' mel) against the one-rank
-    engine's on the first card, which must be bit-equal, and the texts
-    beside the one-rank engine's for the same clips."""
+    layer, K8 per product, K2 and K3 per layer-step). On one card the step
+    rounds replay CUDA graphs (``step_graphs`` holds their captures and
+    replays, and must); the same burst then runs on an engine of the same
+    flags whose rounds are uncaptured (``_graphs`` None, warmed by
+    ``warmup()``, no warm request), its wall and the burst's step seconds
+    beside the graphed ones. Then the W8A8 encoder output of one admission
+    batch (the 8 clips' mel) against the one-rank engine's on the first
+    card, which must be bit-equal, and the texts beside the one-rank
+    engine's for the same clips."""
+    from whisper_tpu_torch.decode import capturable
     from whisper_tpu_torch.models.model import encoder_forward
     from whisper_tpu_torch.ops.mel import log_mel_batch
     from whisper_tpu_torch.parallel.sharding import make_mesh
@@ -2140,6 +2149,31 @@ def tensor_parallel(counters, mesh=None, flags=(), phase: str = "tp") -> dict:
         mesh = make_mesh(1, 2, devices=[dev, dev])
     rec, eng2, clips, replies = serving(counters, GREEDY + tuple(flags), N_TP_REQUESTS,
                                         mesh=mesh, phase=phase, keep_engine=True)
+    if capturable(eng2.model, eng2.device):
+        graphs = rec["step_graphs"]
+        if not graphs or not graphs["captures"] or not graphs["replays"]:
+            raise AssertionError(f"{phase}: the one-card mesh's step rounds were not "
+                                 f"replayed: {graphs}")
+        args = parse_args(["--model_type", "turbo", *GREEDY, *flags])
+        t0 = time.perf_counter()
+        eager, phases = build_engine(args, mesh=mesh)
+        eager._graphs = None
+        eager.warmup()
+        phases = {**phases, "build_and_warm_s": time.perf_counter() - t0}
+        plain, _, _, plain_replies = serving(counters, GREEDY + tuple(flags), N_TP_REQUESTS,
+                                             mesh=mesh, phase=f"{phase} uncaptured",
+                                             keep_engine=True, built=(eager, phases),
+                                             warm_request=False)
+        if plain["step_graphs"] is not None:
+            raise AssertionError(f"{phase}: the uncaptured engine captured its rounds")
+        rec["uncaptured"] = {key: plain[key] for key in (
+            "wall_s", "latency_p50_s", "latency_p95_s", "audio_s_per_s", "ticks", "steps",
+            "step_seconds", "round_sizes", "launches", "tokens")}
+        rec["uncaptured"]["texts_equal_graphed"] = int(sum(
+            a["text"] == b["text"] for a, b in zip(replies, plain_replies)))
+        rec["wall_ratio_uncaptured"] = plain["wall_s"] / rec["wall_s"]
+        rec["step_seconds_ratio_uncaptured"] = plain["step_seconds"] / rec["step_seconds"]
+        del eager
     eng1, _ = build_engine(parse_args(["--model_type", "turbo", *GREEDY]))
     eng1.start()
     try:
@@ -2220,7 +2254,10 @@ def tp_reference_check(devices=("cuda:0", "cuda:0"), model: str = "tiny") -> dic
     CPU (plain versions) for the same clips. Before the clips the card's
     engine is warmed (``warmup()``): every rank's shard runs the round and
     each bucket's encode and detection step (the launches held exact), and
-    the slot bookkeeping and cross-KV stay bit-equal."""
+    the slot bookkeeping and cross-KV stay bit-equal. Where every rank is
+    on one card the rounds replay a CUDA graph (the warm captures it), and
+    the same engine with its rounds uncaptured must give the same
+    tokens."""
     from whisper_tpu_torch.config import get_config
     from whisper_tpu_torch.ops.decode_attention import (
         cross_attention_decode_fd, self_attention_decode, self_attention_decode_int8)
@@ -2239,9 +2276,12 @@ def tp_reference_check(devices=("cuda:0", "cuda:0"), model: str = "tiny") -> dic
 
     rng = np.random.default_rng(10)
     clips = [(rng.standard_normal(16000 * s) * 0.1).astype(np.float32) for s in (4, 9, 2)]
-    out = {}
-    for where, mesh in (("cuda_tp", make_mesh(1, len(devices), devices=list(devices))),
-                        ("cpu_tp1", None)):
+    one_card = len({torch.device(d) for d in devices}) == 1
+    out, graphs = {}, None
+    runs = [("cuda_tp", make_mesh(1, len(devices), devices=list(devices))), ("cpu_tp1", None)]
+    if one_card:
+        runs.insert(1, ("cuda_tp_uncaptured", runs[0][1]))
+    for where, mesh in runs:
         # the same CPU-drawn weights on both sides (CPU and CUDA generators differ)
         params = init_params(get_config(model), seed=3, device="cpu")
         if mesh is not None:
@@ -2250,7 +2290,9 @@ def tp_reference_check(devices=("cuda:0", "cuda:0"), model: str = "tiny") -> dic
             params, IdText(), max_slots=4, compute_dtype=torch.float32, steps_per_sync=4,
             max_tokens=12, kv_quant=True, self_kv_quant=True, no_speech_threshold=None,
             logprob_threshold=None, compression_ratio_threshold=None, mesh=mesh)
-        if mesh is not None:
+        if where == "cuda_tp_uncaptured":
+            engine._graphs = None
+        elif mesh is not None:
             kernels = (flash_attention_btd, log10_mel, cross_attention_decode_fd,
                        self_attention_decode_int8, self_attention_decode)
             before = _slot_state(engine)
@@ -2275,13 +2317,20 @@ def tp_reference_check(devices=("cuda:0", "cuda:0"), model: str = "tiny") -> dic
                 break
             engine._tick()
         out[where] = [f.result(0)["text"] for f in futs]
-    if out["cuda_tp"] != out["cpu_tp1"]:
-        raise AssertionError(f"the tp {len(devices)} engine on {devices} differs from tp 1 "
-                             f"on the CPU: {out}")
+        if where == "cuda_tp":
+            graphs = None if engine._graphs is None else engine._graphs.stats()
+            if one_card and not (graphs and graphs["captures"] and graphs["replays"]):
+                raise AssertionError(f"the one-card tp engine's rounds were not replayed: "
+                                     f"{graphs}")
+    for where in out:
+        if out[where] != out["cpu_tp1"]:
+            raise AssertionError(f"the tp {len(devices)} engine on {devices} ({where}) "
+                                 f"differs from tp 1 on the CPU: {out}")
     return {"phase": "tp_reference", "model": model, "dtype": "float32",
             "mesh": f"(1, {len(devices)}) on {list(devices)}",
-            "texts_equal_cpu_tp1": True, "tokens": [t.split() for t in out["cpu_tp1"]],
-            "warmup": warm}
+            "texts_equal_cpu_tp1": [w for w in out if w != "cpu_tp1"],
+            "step_graphs": graphs,
+            "tokens": [t.split() for t in out["cpu_tp1"]], "warmup": warm}
 
 
 def ladder_reference_check() -> dict:
@@ -4434,18 +4483,41 @@ def router_reference_check() -> dict:
             "router_requests": per, "texts": texts["fleet"]}
 
 
+def _replayed(what: str, model, results) -> dict:
+    """The captured rounds of ``model`` (``decode.graph_stats``) after its
+    decodes ``results``, each of a key of its own: every round a replay but
+    each key's first, which captured it."""
+    from whisper_tpu_torch.decode import graph_stats
+
+    stats = graph_stats(model)
+    syncs = sum(r.host_syncs for r in results)
+    if not stats or stats["captures"] != len(results) or \
+            stats["replays"] != syncs - len(results):
+        raise AssertionError(f"{what}: {len(results)} decodes of {syncs} rounds left the "
+                             f"graphs {stats}")
+    return {"captures": stats["captures"], "replays": stats["replays"],
+            "capture_s": sum(stats["capture_s"].values()), "pool_bytes": stats["pool_bytes"]}
+
+
 def data_mesh(counters, device: str = "cuda") -> dict:
     """Meshes with data rows on the card (every block of a mesh on it):
     tiny fp32 greedy (int8 cross- and self-KV) at (2, 1), (2, 2) and
     (4, 1), beam 2 and the self-draft speculative decode (gamma 2) at
-    (2, 2), each equal to the unsharded model's tokens; the turbo W8A8
-    encoder at (2, 1) and (2, 2) bit-equal to the unsharded one; then the
-    offline path (turbo B64 / 64 tokens / kvq+skvq+w8a8 / bf16,
-    ``transcribe_batch``) with its model placed at (2, 1), timed beside the
-    unsharded model in the same process, its launches exact (every block a
-    K1 launch a layer, each also K1s's: 32 layers x 2 data rows x 1 rank).
-    Returns the record and the unsharded offline pipeline and clips.
-    ``device`` (and ``MESH_PIPELINE``) let it rehearse on the CPU."""
+    (2, 2), each equal to the unsharded model's tokens and, on the card,
+    replayed as CUDA graphs (every round but a key's first); the turbo
+    W8A8 encoder at (2, 1) and (2, 2) bit-equal to the unsharded one; then
+    the offline path (turbo B64 / 64 tokens / kvq+skvq+w8a8 / bf16,
+    ``transcribe_batch``) with its model placed at (2, 1), its rounds
+    captured, timed beside the unsharded model and beside the same
+    placement with its rounds uncaptured (``decode.capturable`` off) in
+    the same process, its launches exact (every block a K1 launch a layer,
+    each also K1s's: 32 layers x 2 data rows x 1 rank); and its decode, on
+    the inputs ``transcribe_batch`` gave it, graphed against its rounds
+    uncaptured (``_three_ways``): bit-equal, launches exact, the graphed
+    decode's capture seconds and pool bytes. Returns the record and the
+    unsharded offline pipeline and clips. ``device`` (and
+    ``MESH_PIPELINE``) let it rehearse on the CPU."""
+    from whisper_tpu_torch import decode
     from whisper_tpu_torch.beam import beam_search
     from whisper_tpu_torch.config import N_SAMPLES, get_config
     from whisper_tpu_torch.decode import encode_cross_kv, greedy_decode
@@ -4469,24 +4541,35 @@ def data_mesh(counters, device: str = "cuda") -> dict:
         np.float32)).to(dev)
     prompt = torch.tensor([cfg.sot_sequence("en")] * 4, device=dev)
     kw = dict(max_tokens=12, kv_quant=True, self_kv_quant=True)
+    graphed = decode.capturable(tiny, dev)
     ref = greedy_decode(tiny, mel, prompt, **kw).tokens
+    rec["tiny_graphs"] = {}
     for shape in DATA_MESHES:
-        got = greedy_decode(shard_params(tiny, mesh(*shape)), mel, prompt, **kw).tokens
-        if not torch.equal(got, ref):
+        m = shard_params(tiny, mesh(*shape))
+        got = greedy_decode(m, mel, prompt, **kw)
+        if not torch.equal(got.tokens, ref):
             raise AssertionError(f"tiny greedy at {shape} differs from unsharded")
+        if graphed:
+            rec["tiny_graphs"][f"greedy {shape}"] = _replayed(f"tiny greedy at {shape}", m,
+                                                              [got])
     m22 = shard_params(tiny, mesh(2, 2))
-    beams = [beam_search(m, mel, prompt, beam_size=2, **kw).tokens for m in (tiny, m22)]
-    if not torch.equal(*beams):
+    beams = [beam_search(m, mel, prompt, beam_size=2, **kw) for m in (tiny, m22)]
+    if not torch.equal(beams[0].tokens, beams[1].tokens):
         raise AssertionError("tiny beam 2 at (2, 2) differs from unsharded")
     spec = []
     for m in (tiny, m22):
         cross = encode_cross_kv(m, mel, kv_quant=True)
         spec.append(speculative_decode_kv(m, cross, m, cross, prompt, gamma=2, max_tokens=12,
-                                          self_kv_quant=True).tokens)
-    if not torch.equal(*spec):
+                                          self_kv_quant=True))
+    if not torch.equal(spec[0].tokens, spec[1].tokens):
         raise AssertionError("tiny self-draft spec at (2, 2) differs from unsharded")
+    if graphed:
+        rec["tiny_graphs"]["beam and spec (2, 2)"] = _replayed(
+            "tiny beam and spec at (2, 2)", m22, [beams[1], spec[1]])
+        if not sum(g["replays"] for g in rec["tiny_graphs"].values()):
+            raise AssertionError("no tiny mesh decode replayed a round")
     rec.update({"tiny_greedy_equal": True, "tiny_beam_equal": True, "tiny_spec_equal": True,
-                "tiny_spec_equals_greedy": bool(torch.equal(spec[0], ref))})
+                "tiny_spec_equals_greedy": bool(torch.equal(spec[0].tokens, ref))})
     del tiny, m22
 
     # the offline path, unsharded then at (2, 1), in turns of warm + timed
@@ -4494,35 +4577,65 @@ def data_mesh(counters, device: str = "cuda") -> dict:
     audio = np.random.default_rng(0).standard_normal((B, N_SAMPLES)).astype(np.float32) * 0.1
     clips = list(audio)
     one = pipe.model
+    m21 = shard_params(one, mesh(2, 1))
     walls, toks = {}, {}
-    for name, model in (("unsharded", one), ("(2, 1)", shard_params(one, mesh(2, 1)))):
+    for name, model, captured in (("unsharded", one, True), ("(2, 1)", m21, True),
+                                  ("(2, 1) uncaptured", m21, False)):
         pipe.model = model
-        pipe.transcribe_batch(clips)  # warm
+        if name == "(2, 1)":  # its warm call gives the decode's inputs
+            caught = _greedy_args(pipe, clips)
+        elif captured:
+            pipe.transcribe_batch(clips)  # warm
         torch.cuda.synchronize()
-        for fn in counters:
-            fn.launches = 0
-        t0 = time.perf_counter()
-        pipe.transcribe_batch(clips)
-        torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
+        real = decode.capturable
+        decode.capturable = real if captured else (lambda model, device: False)
+        try:
+            for fn in counters:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            pipe.transcribe_batch(clips)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        finally:
+            decode.capturable = real
         launches = _launches(counters)
         blocks = 2 if isinstance(model, DataParallelWhisper) else 1
         _expect(f"data_mesh offline {name}", launches, pipe.cfg, 1,
                 pipe.last_decode.device_steps, tp=blocks)
         toks[name] = pipe.last_decode.tokens
-        if blocks == 2:
+        if name == "(2, 1)":
             rec["launches"] = launches
             if launches["flash_attention_btd_sharded"] != pipe.cfg.n_audio_layer * 2:
                 raise AssertionError(f"K1s ran {launches['flash_attention_btd_sharded']} times")
-        del model
     pipe.model = one
+    if not torch.equal(toks["(2, 1)"], toks["(2, 1) uncaptured"]):
+        raise AssertionError("data_mesh offline (2, 1): graphed and uncaptured tokens differ")
     rec.update({"offline": f"{pipe.cfg.name} B{B} / {N_TOKENS} tokens / kvq+skvq+w8a8 / "
                            f"{MESH_PIPELINE['compute_dtype']}, transcribe_batch",
                 "wall_s": walls["(2, 1)"], "unsharded_wall_s": walls["unsharded"],
+                "uncaptured_wall_s": walls["(2, 1) uncaptured"],
                 "wall_ratio": walls["(2, 1)"] / walls["unsharded"],
+                "uncaptured_wall_ratio": walls["(2, 1) uncaptured"] / walls["unsharded"],
                 "tokens_equal_unsharded_rows": int((toks["(2, 1)"] == toks["unsharded"])
                                                    .all(dim=1).sum()),
                 "k1s_launches": rec["launches"]["flash_attention_btd_sharded"]})
+    # the (2, 1) decode alone: graphed against its rounds uncaptured
+    model, cross, prompt, dt, kw = caught
+    args = (model, cross, prompt, dt, kw["max_tokens"], kw["suppress_ids"],
+            kw["apply_filters"], kw["self_kv_quant"], kw["gelu"], kw["timestamps"],
+            kw.get("prompt_pad"), kw["sot_index"], kw.get("cross_decode", "fd"))
+    ways = {"graphed": lambda: decode.greedy_decode_kv(model, cross, prompt, dt, **kw),
+            "uncaptured": lambda: decode._greedy_rounds(*args, 0.0, 0, None, False)}
+    loops, results = _three_ways(
+        "data_mesh (2, 1) decode", ways, counters,
+        lambda what, launches, res: _expect(what, launches, pipe.cfg, 0, res.device_steps,
+                                            tp=2))
+    _bit_equal("data_mesh (2, 1) decode: graphed against uncaptured", results["graphed"],
+               results["uncaptured"], DECODE_FIELDS)
+    loops["bit_equal"] = list(DECODE_FIELDS)
+    loops["graphs"] = decode.graph_stats(m21) if decode.capturable(m21, dev) else None
+    rec["decode_2x1"] = loops
+    del model, cross, caught, m21
     # the W8A8 encoder over 4 clips' mel, bit for bit
     enc_clips = np.zeros((4, N_SAMPLES), np.float32)
     enc_clips[:] = audio[:4]

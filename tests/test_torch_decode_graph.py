@@ -23,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
 from whisper_tpu.config import get_config
 from whisper_tpu.decode import greedy_decode_kv as jax_greedy_decode_kv
@@ -34,7 +33,12 @@ from whisper_tpu.tokenizer import get_tokenizer as jax_tokenizer
 from whisper_tpu_torch import decode as td
 from whisper_tpu_torch.config import get_config as port_config
 from whisper_tpu_torch.decode import ROUND_STEPS, encode_cross_kv, greedy_decode_kv
-from whisper_tpu_torch.models.model import decoder_forward, new_kv_cache
+from whisper_tpu_torch.models.model import (
+    DataParallelWhisper,
+    ShardedWhisper,
+    decoder_forward,
+    new_kv_cache,
+)
 from whisper_tpu_torch.ops import _build
 from whisper_tpu_torch.ops import decode_attention as da
 from whisper_tpu_torch.ops.log10_mel import log10_mel
@@ -236,6 +240,20 @@ def test_early_exit_counts(seed, kv_quant, monkeypatch):
 
 
 # ------------------------------------------------- the captured path, rehearsed
+def _tensor_leaves(x, out: list) -> list:
+    """The tensors of an op's arguments or outputs, in order, appended to
+    ``out`` (an op nests them only in lists, tuples and dicts)."""
+    if isinstance(x, torch.Tensor):
+        out.append(x)
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            _tensor_leaves(y, out)
+    elif isinstance(x, dict):
+        for y in x.values():
+            _tensor_leaves(y, out)
+    return out
+
+
 class _Reads(TorchDispatchMode):
     """The storages a callable's ops read that none of its ops made, in
     order: what a CUDA graph of it bakes in. 0-d tensors that no op made
@@ -248,11 +266,11 @@ class _Reads(TorchDispatchMode):
         self.made, self.held, self.reads = set(), [], []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        for t in tree_leaves((args, kwargs)):
-            if isinstance(t, torch.Tensor) and t.dim() and id(t) not in self.made:
+        for t in _tensor_leaves((args, kwargs), []):
+            if t.dim() and id(t) not in self.made:
                 self.reads.append(t.untyped_storage().data_ptr())
         out = func(*args, **(kwargs or {}))
-        made = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        made = _tensor_leaves(out, [])
         self.held += made
         self.made.update(map(id, made))
         return out
@@ -571,8 +589,11 @@ def test_capture_choice(bridged):
     """Rounds are captured on the card for a single-device Whisper, greedy,
     sampled and beam alike (a sampled round reads its draws from a buffer
     filled before it, so the choice takes no temperature): not on the CPU,
-    not under a mesh (the choice reads the device object; no card is
-    needed)."""
+    and under a mesh only where every rank of every data row lies on the
+    card asked for (``cuda`` read as card 0, as a tensor's device names it);
+    a mesh over two cards, or of CPU ranks, is not captured. The choice
+    reads the device objects: stand-in ranks on the cards, no card
+    needed."""
     _, model = bridged
     cuda = torch.device("cuda", 0)
     assert td.capturable(model, cuda) and td.capturable(model, "cuda")
@@ -582,3 +603,17 @@ def test_capture_choice(bridged):
     assert not td.capturable(mesh, cuda)
     assert not td.capturable(shard_params(model, make_mesh(2, 1, devices=["cpu", "cpu"])), cuda)
     assert _engine(model, graphed=False)._graphs is None
+
+    def ranks(*cards):  # a data row of stand-in ranks on the given cards
+        return ShardedWhisper(PCFG, [SimpleNamespace(device=torch.device("cuda", c))
+                                     for c in cards])
+
+    one_card = ranks(0, 0)
+    for m in (one_card, DataParallelWhisper(PCFG, [ranks(0, 0), ranks(0, 0)], None),
+              DataParallelWhisper(PCFG, [ranks(0), ranks(0)], None)):
+        assert td.capturable(m, cuda) and td.capturable(m, "cuda")
+        assert not td.capturable(m, "cpu") and not td.capturable(m, torch.device("cuda", 1))
+    for m in (ranks(0, 1), DataParallelWhisper(PCFG, [ranks(0), ranks(1)], None),
+              DataParallelWhisper(PCFG, [ranks(0, 0), ranks(0, 1)], None)):
+        assert not td.capturable(m, cuda) and not td.capturable(m, torch.device("cuda", 1))
+    assert td.capturable(ranks(1, 1), torch.device("cuda", 1))

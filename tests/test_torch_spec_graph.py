@@ -41,6 +41,7 @@ from whisper_tpu.models import model as jm
 from whisper_tpu_torch import decode as td
 from whisper_tpu_torch import spec_decode as ts
 from whisper_tpu_torch.decode import encode_cross_kv
+from whisper_tpu_torch.models.model import DataParallelWhisper, ShardedWhisper
 from whisper_tpu_torch.params import from_jax_params
 from whisper_tpu_torch.parallel.sharding import make_mesh, shard_params
 from whisper_tpu_torch.spec_decode import speculative_decode_kv
@@ -223,3 +224,24 @@ def test_cpu_spec_decodes_capture_nothing(trees, monkeypatch):
     for draft in (dmodel, sharded):
         speculative_decode_kv(model, None, draft, None, on_card)
     assert seen == [True, False]
+
+
+def test_spec_capture_choice_one_card_mesh(monkeypatch):
+    """A target and a draft under meshes whose ranks all lie on the card
+    are captured; a draft with a rank on another card, or a target whose
+    ranks are not on the prompt's card, keeps the rounds uncaptured.
+    Stand-in ranks on the cards: the choice reads their devices, no card
+    is needed."""
+    def ranks(*cards):
+        return ShardedWhisper(PNANO, [types.SimpleNamespace(device=torch.device("cuda", c))
+                                      for c in cards])
+
+    seen = []
+    monkeypatch.setattr(ts, "_spec_rounds", lambda *a: seen.append(a[-1]))
+    on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    rows = DataParallelWhisper(PNANO, [ranks(0, 0), ranks(0, 0)], None)
+    for target, draft in ((ranks(0, 0), ranks(0, 0)), (rows, ranks(0)), (ranks(0, 0), rows),
+                          (ranks(0, 0), ranks(0, 1)), (ranks(1, 1), ranks(0, 0)),
+                          (rows, DataParallelWhisper(PNANO, [ranks(0), ranks(1)], None))):
+        speculative_decode_kv(target, None, draft, None, on_card)
+    assert seen == [True, True, True, False, False, False]

@@ -9,9 +9,10 @@ from the host: each step computes JAX's ``cond`` on the device (the position
 below ``limit - 1`` and some utterance with a running beam and a finished set
 not yet full) and gates every write by it, so a step past the loop's end
 changes nothing; the host reads the loop's flags once a round (counted in
-``host_syncs``). On the card a round of a single-device ``Whisper`` is a CUDA
-graph (``utils.graphs``), captured once per shape and replayed; on the CPU
-and under a mesh the same round runs uncaptured.
+``host_syncs``). On the card a round of a single-device ``Whisper``, or of a
+mesh whose ranks all lie on the card, is a CUDA graph (``utils.graphs``),
+captured once per shape and replayed; on the CPU and under a mesh over
+distinct cards the same round runs uncaptured.
 
 The prompt is prefilled once per utterance and the self-KV cache tiled to
 the B*K beams. Each step is one S=1 decoder step over the beams at the
@@ -45,7 +46,6 @@ from . import decode
 from .decode import capturable, encode_cross_kv
 from .models.model import (
     DataRows,
-    Shards,
     _step_multipos,
     decoder_forward,
     new_kv_cache,
@@ -86,14 +86,6 @@ def _top_k(x: torch.Tensor, k: int):
     toward the lower index (``jax.lax.top_k``'s order)."""
     values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], idx[..., :k]
-
-
-def _map_cache(kv, fn):
-    """``fn`` on every tensor of a self-KV cache (each rank's of each data
-    row's, under a mesh), into a cache of the same kind."""
-    if isinstance(kv, (Shards, DataRows)):
-        return type(kv)(_map_cache(c, fn) for c in kv)
-    return type(kv)(*(fn(t) for t in kv))
 
 
 def _gather_cache(src, dst, flat: torch.Tensor) -> None:
@@ -168,14 +160,14 @@ def _first_expansion(model, loop: _BeamLoop, prompt: torch.Tensor, prompt_pad, l
     logits, kv = decoder_forward(model, prompt, 0, kv, loop.cross, dt, pad=prompt_pad, gelu=gelu)
     no_speech_prob = torch.softmax(logits[:, sot_index].to(torch.float32),
                                    dim=-1)[:, cfg.no_speech]
-    tiled = _map_cache(kv, lambda t: t.repeat_interleave(K, dim=1))
+    tiled = decode._nested_map(kv, lambda t: t.repeat_interleave(K, dim=1))
     if loop.kv is None:
         loop.kv = tiled
-    else:
-        for dst, src in zip(loop.kv, tiled):
+    else:  # every rank's and data row's cache, in place
+        for dst, src in zip(decode._nested_leaves(loop.kv), decode._nested_leaves(tiled)):
             dst.copy_(src)
     if loop.spare is None:
-        loop.spare = _map_cache(loop.kv, torch.empty_like)
+        loop.spare = decode._nested_map(loop.kv, torch.empty_like)
     loop.tokens.fill_(cfg.eot)
     loop.tokens[:, :P] = prompt.repeat_interleave(K, dim=0)
     rs = RuleState.create(N, device=prompt.device)
@@ -365,7 +357,7 @@ def _beam_rounds(model, cross_kv, prompt, compute_dtype, beam_size, max_tokens, 
         return drive(loop, lambda: _beam_round(model, loop, R, *opts))
     owner = decode._decode_graphs(model)
     with owner.lock:
-        key = ("beam", K) + decode._shape_key(cross_kv, prompt_pad, suppress_ids, kv_ctx,
+        key = ("beam", K) + decode._shape_key(B, cross_kv, prompt_pad, suppress_ids, kv_ctx,
                                              compute_dtype, self_kv_quant)
         loop = decode._loop_buffers(
             owner, key, lambda: _BeamLoop(B, K, T, device, new_kv_cache(

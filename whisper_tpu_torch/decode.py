@@ -15,7 +15,11 @@ temperature. ``beam.beam_search_kv`` runs its loop the same way. Every
 function takes a sharded model (``parallel.sharding.shard_params``, on a
 mesh of any (data, model) shape) wherever it takes a ``Whisper``: under
 data rows the model functions split each step's batch over the rows, and
-the loop reads one flag for them all; those rounds run uncaptured.
+the loop reads one flag for them all. A mesh whose every rank lies on the
+card replays its rounds as graphs too (one graph holds every rank's
+launches, as one jitted program holds every shard's under the JAX
+package's SPMD partitioner); a mesh over distinct cards runs them
+uncaptured.
 """
 
 from __future__ import annotations
@@ -29,14 +33,17 @@ import torch
 from torch.profiler import record_function
 
 from .models.model import (
+    DataParallelWhisper,
     DataRows,
     QKVCache,
+    ShardedWhisper,
     Shards,
     Whisper,
     compute_cross_kv,
     decoder_forward,
     decoder_step_multipos,
     encoder_forward,
+    model_shards,
     new_kv_cache,
     quantize_cross_kv,
     shard_values,
@@ -117,13 +124,40 @@ def gumbel_noise(seed: int, device) -> Callable[[int, tuple], torch.Tensor]:
     return draw
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with its index filled in: ``cuda`` is the current card
+    (card 0 where torch sees none), which a tensor's device never omits."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device()
+                            if torch.cuda.is_available() else 0)
+    return device
+
+
+def _ranks(model) -> tuple:
+    """Every rank of ``model``: each data row's shards in row order, a
+    ``ShardedWhisper``'s shards, or the ``Whisper`` itself."""
+    if isinstance(model, DataParallelWhisper):
+        return tuple(s for row in model.rows for s in model_shards(row))
+    return model_shards(model)
+
+
 def capturable(model, device) -> bool:
     """Whether a decode loop's rounds (greedy, sampled at any
-    ``temperature``, or beam) run as CUDA graphs: on the card, for a
-    single-device ``Whisper``; a mesh's ranks run the same rounds
-    uncaptured. A sampled round reads its draws from a buffer the host
-    fills before it, so the temperature does not decide."""
-    return torch.device(device).type == "cuda" and isinstance(model, Whisper)
+    ``temperature``, beam or speculative) run as CUDA graphs on
+    ``device``: on the card, for a single-device ``Whisper``, and for a
+    ``ShardedWhisper`` or ``DataParallelWhisper`` whose every rank lies on
+    that card (one side stream and one pool hold every rank's launches).
+    A mesh over distinct cards, and anything on the CPU, runs the same
+    rounds uncaptured. A sampled round reads its draws from a buffer the
+    host fills before it, so the temperature does not decide."""
+    device = _indexed(device)
+    if device.type != "cuda":
+        return False
+    if isinstance(model, Whisper):
+        return True
+    return (isinstance(model, (ShardedWhisper, DataParallelWhisper))
+            and all(_indexed(r.device) == device for r in _ranks(model)))
 
 
 def greedy_decode_kv(
@@ -160,9 +194,10 @@ def greedy_decode_kv(
     each round is a CUDA graph (``utils.graphs``), captured once per shape
     and temperature and replayed: the caller's cross-KV, pads and suppress
     ids are copied into the graph's own buffers, the prefill runs eagerly
-    into its self-KV cache, and the returned tokens are a copy. On the CPU
-    and for a ``ShardedWhisper`` or ``DataParallelWhisper`` the same round
-    runs uncaptured.
+    into its self-KV cache, and the returned tokens are a copy. A
+    ``ShardedWhisper`` or ``DataParallelWhisper`` whose ranks all lie on
+    the card is captured the same way (:func:`capturable`); on the CPU and
+    for a mesh over distinct cards the same round runs uncaptured.
 
     At ``temperature > 0`` each token is a categorical draw from the
     filtered distribution at that temperature, as ``jax.random.categorical``
@@ -327,17 +362,21 @@ class _DecodeGraphs:
         self.lock = threading.Lock()
 
 
-_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  # Whisper -> _DecodeGraphs
+# a Whisper, ShardedWhisper or DataParallelWhisper -> its _DecodeGraphs
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _GRAPHS_LOCK = threading.Lock()
 
 
 def _decoder_pointers(model) -> tuple:
-    """Where every decoder weight lies: a graph reads them there."""
-    dec = model.decoder
-    leaves = [dec.tok_emb, dec.pos_emb, dec.tok_emb_q8, *dec.ln.values()]
-    for blk in dec.blocks:
-        for d in blk.sublayers().values():
-            leaves.extend(d.values())
+    """Where every decoder weight of every rank lies: a graph reads them
+    there."""
+    leaves = []
+    for rank in _ranks(model):
+        dec = rank.decoder
+        leaves += [dec.tok_emb, dec.pos_emb, dec.tok_emb_q8, *dec.ln.values()]
+        for blk in dec.blocks:
+            for d in blk.sublayers().values():
+                leaves.extend(d.values())
     ptrs = []
     for t in leaves:
         if isinstance(t, QTensor):
@@ -348,7 +387,8 @@ def _decoder_pointers(model) -> tuple:
 
 
 def _decode_graphs(model) -> _DecodeGraphs:
-    """``model``'s captured rounds; all dropped when a decoder weight moved
+    """``model``'s captured rounds (one set for a whole mesh, in one pool on
+    its card); all dropped when a decoder weight of any rank moved
     (``cast_floating`` and ``to_device`` rebind them)."""
     weights = _decoder_pointers(model)
     with _GRAPHS_LOCK:
@@ -366,20 +406,47 @@ def graph_stats(model) -> Optional[dict]:
     return None if owner is None else owner.graphs.stats()
 
 
-def _shape_key(cross_kv, prompt_pad, suppress_ids, kv_ctx: int, dt,
+def _nested_leaves(x) -> list:
+    """The tensors of a (possibly nested) value in order: a cross-KV or a
+    cache, flat or as :class:`Shards` / :class:`DataRows` of them."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for c in x for t in _nested_leaves(c)]
+
+
+def _nested_map(x, fn):
+    """``fn`` on every tensor of a (possibly nested) value, into a value of
+    the same structure: its ``Shards`` / ``DataRows`` (which the model
+    functions dispatch on), caches and tuples kept."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    items = [_nested_map(c, fn) for c in x]
+    return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+
+
+def _structure(x) -> tuple:
+    """What buffers of ``x``'s structure are shaped by: its nesting and its
+    leaves' shapes and dtypes."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype)
+    return (type(x).__name__, tuple(_structure(c) for c in x))
+
+
+def _shape_key(batch: int, cross_kv, prompt_pad, suppress_ids, kv_ctx: int, dt,
                self_kv_quant: bool) -> tuple:
-    """What a captured loop's buffers are shaped by, besides its kind."""
-    return (cross_kv[0].shape[1], kv_ctx, dt, self_kv_quant,
-            tuple((t.shape, t.dtype) for t in cross_kv), prompt_pad is not None,
+    """What a captured loop's buffers are shaped by, besides its kind:
+    ``batch`` first, and the cross-KV's whole structure (every rank's and
+    data row's leaves under a mesh)."""
+    return (batch, kv_ctx, dt, self_kv_quant, _structure(cross_kv), prompt_pad is not None,
             None if suppress_ids is None else suppress_ids.numel())
 
 
 def _loop_buffers(owner: _DecodeGraphs, key: tuple, make: Callable, cross_kv, pad,
                   suppress_ids):
     """The captured loop of ``key`` (``make()`` at its first use), loaded
-    with the call's cross-KV, pads (one a stream) and suppress ids copied
-    into its own buffers. A new shape beyond ``LOOP_SHAPES`` drops the
-    least recent one and its graphs."""
+    with the call's cross-KV (of any nesting, kept as it is), pads (one a
+    stream) and suppress ids copied into its own buffers. A new shape
+    beyond ``LOOP_SHAPES`` drops the least recent one and its graphs."""
     loop = owner.loops.pop(key, None)
     if loop is None:
         if len(owner.loops) >= LOOP_SHAPES:
@@ -387,15 +454,15 @@ def _loop_buffers(owner: _DecodeGraphs, key: tuple, make: Callable, cross_kv, pa
             del owner.loops[old]
             owner.graphs.forget(lambda k: k[:len(old)] == old)
         loop = make()
-        loop.cross = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                           for t in cross_kv)
+        loop.cross = _nested_map(cross_kv, lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                                  device=t.device))
         if pad is not None:
             loop.pad = torch.empty(pad.shape, dtype=torch.int64, device=pad.device)
         if suppress_ids is not None:
             loop.suppress = torch.empty((suppress_ids.numel(),), dtype=torch.int64,
                                         device=suppress_ids.device)
     owner.loops[key] = loop  # the most recent last
-    for dst, src in zip(loop.cross, cross_kv):
+    for dst, src in zip(_nested_leaves(loop.cross), _nested_leaves(cross_kv)):
         dst.copy_(src)
     if pad is not None:
         loop.pad.copy_(pad)
@@ -404,21 +471,25 @@ def _loop_buffers(owner: _DecodeGraphs, key: tuple, make: Callable, cross_kv, pa
     return loop
 
 
-def _static_loop(owner: _DecodeGraphs, model, cross_kv, prompt_pad, suppress_ids, kv_ctx: int,
-                 dt, self_kv_quant: bool) -> Tuple[_Loop, tuple]:
+def _static_loop(owner: _DecodeGraphs, model, batch: int, cross_kv, prompt_pad, suppress_ids,
+                 kv_ctx: int, dt, self_kv_quant: bool) -> Tuple[_Loop, tuple]:
     """The captured greedy loop's buffers for this shape, loaded with the
     call's inputs, its self-KV cache as a new one's."""
-    key = _shape_key(cross_kv, prompt_pad, suppress_ids, kv_ctx, dt, self_kv_quant)
-    loop = _loop_buffers(owner, key, lambda: _Loop(model, key[0], kv_ctx, dt, self_kv_quant,
+    key = _shape_key(batch, cross_kv, prompt_pad, suppress_ids, kv_ctx, dt, self_kv_quant)
+    loop = _loop_buffers(owner, key, lambda: _Loop(model, batch, kv_ctx, dt, self_kv_quant,
                                                   model.device),
-                        cross_kv, prompt_pad, suppress_ids)
+                         cross_kv, prompt_pad, suppress_ids)
     _reset_cache(loop.kv)
     return loop, key
 
 
 def _reset_cache(kv) -> None:
     """A captured loop's self-KV cache, in place, as a new one's: zeros (an
-    int8 cache's scales ones)."""
+    int8 cache's scales ones), every rank's and data row's under a mesh."""
+    if isinstance(kv, (Shards, DataRows)):
+        for c in kv:
+            _reset_cache(c)
+        return
     kv[0].zero_()
     if isinstance(kv, QKVCache):
         kv.s.fill_(1.0)
@@ -488,7 +559,7 @@ def _greedy_rounds(model, cross_kv, prompt, compute_dtype, max_tokens, suppress_
         return drive(loop, lambda: _decode_round(model, loop, R, *opts))
     owner = _decode_graphs(model)
     with owner.lock:
-        loop, key = _static_loop(owner, model, cross_kv, prompt_pad, suppress_ids, kv_ctx,
+        loop, key = _static_loop(owner, model, B, cross_kv, prompt_pad, suppress_ids, kv_ctx,
                                  compute_dtype, self_kv_quant)
         if noise_buffer(loop):  # the loop's sampled graphs read the buffer it replaces
             owner.graphs.forget(lambda k: k[:len(key)] == key and k[-1] > 0)

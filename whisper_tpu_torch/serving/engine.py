@@ -13,7 +13,8 @@ Port of ``whisper_tpu/serving/engine.py``. The engine keeps a fixed pool of
   ``adaptive_sync``, 2x or 4x that while every slot is far from its
   budget) with :func:`~whisper_tpu_torch.models.model.decoder_step_multipos`,
   each slot at its own cache offset behind its own masked left pad, without
-  reading the device from the host; on the card a single-device engine
+  reading the device from the host; on the card an engine whose ranks all
+  lie on it (one device, or a ``mesh`` whose ranks share the card)
   replays each round size as a CUDA graph (``utils.graphs``), the
   counterpart of the JAX engine's jitted ``lax.scan``, so the slot state
   is only ever written in place;
@@ -49,8 +50,9 @@ engine's own encode function, then ``beam.beam_search_kv`` (t = 0, K > 1,
 with ``length_penalty``) or a sampled ``greedy_decode_kv`` (t > 0: beams
 only at t = 0, as in OpenAI's decoder, so a retried beam request samples
 one beam), with its own caches; on the card their rounds replay the
-model's CUDA graphs (``decode.capturable``), captured at each key's first
-use on the aux thread while the decode thread replays the step rounds.
+model's CUDA graphs (``decode.capturable``: one device, or a mesh whose
+ranks all lie on the card), captured at each key's first use on the aux
+thread while the decode thread replays the step rounds.
 ``max_beam_size`` caps a request's K.
 OpenAI's temperature ladder (``temperature_fallback``) sends a result that
 fails the compression-ratio or logprob gate there again at the next
@@ -63,7 +65,9 @@ copy on the lead device. A mesh with ``n_data > 1`` is taken as the JAX
 engine takes it: there every data row holds the slots and their
 bookkeeping replicated and computes the same thing, so here the engine
 runs on data row 0 alone (``mesh.devices[0, :]``) and gives the same
-outputs. Data parallelism proper runs across engines behind the router
+outputs. Where every rank of that row lies on one card, the step rounds
+and the aux worker's loops are captured as on one device; over distinct
+cards they run uncaptured. Data parallelism proper runs across engines behind the router
 (``serving/router.py``, ``--dp``).
 
 ``language="auto"`` detects a request's language from its cross-KV with one
@@ -493,8 +497,10 @@ class ContinuousBatchingEngine:
         # per-slot masked left pad: a prompt's context rides right-aligned,
         # its pad positions out of attention and positional indexing
         self.pads = torch.zeros((B,), dtype=torch.int64, device=dev)
-        # the step rounds' CUDA graphs, by size: they read and write the slot
-        # state above in place, so nothing may rebind it
+        # the step rounds' CUDA graphs, by size (every rank's launches in one
+        # graph where the ranks share the card; None over distinct cards and
+        # on the CPU): they read and write the slot state above, and every
+        # rank's caches, in place, so nothing may rebind them
         self._graphs = GraphSet(dev) if capturable(self.model, dev) else None
 
         # host-side slot bookkeeping
@@ -1242,10 +1248,11 @@ class ContinuousBatchingEngine:
         """``n_steps`` greedy steps over every slot, all on the device: a slot
         steps only while active and not done (``step_ok``); the others
         re-run their last position and keep their state. No host sync. On
-        the card a single-device engine replays the round as a CUDA graph
-        (one per round size, captured at the size's first round, as the
-        JAX engine traces one ``_step_fn`` per size); under a mesh and on
-        the CPU the round runs uncaptured."""
+        the card an engine whose ranks all lie on it (one device, or a
+        ``--tp`` mesh whose ranks share the card) replays the round as a
+        CUDA graph (one per round size, captured at the size's first round,
+        as the JAX engine traces one ``_step_fn`` per size); under a mesh
+        over distinct cards and on the CPU the round runs uncaptured."""
         if self._graphs is None:
             self._round(n_steps)
         else:
@@ -1683,10 +1690,10 @@ class ContinuousBatchingEngine:
         cross-KV and the mesh apply), then, on the slots' right-aligned
         prompts with its own caches, ``beam_search_kv`` at the batch's beam
         size (t = 0) or ``greedy_decode_kv`` at its temperature (seed 0, as
-        the JAX engine's), each in captured rounds on the card for a
-        single-device model (``aux_steps_total`` counts the steps the card
-        ran: whole rounds); results pass the same quality gate as the
-        slots' and may climb the ladder again (sampling one beam)."""
+        the JAX engine's), each in captured rounds on the card where
+        ``decode.capturable`` holds (``aux_steps_total`` counts the steps
+        the card ran: whole rounds); results pass the same quality gate as
+        the slots' and may climb the ladder again (sampling one beam)."""
         cfg = self.cfg
         temp = reqs[0].temperature
         K = reqs[0].beam_size if temp == 0 else 1

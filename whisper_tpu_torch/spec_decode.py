@@ -7,11 +7,12 @@ groups of ``SPEC_ROUNDS`` accept/verify rounds (:func:`_spec_round`) that
 never read the device from the host: each round computes JAX's ``cond`` (some
 row not done) on the device, and a round after every row is done changes no
 result and counts no round. The host reads the all-done flag once a group
-(counted in ``host_syncs``). On the card, for a single-device target and
-draft on one device, each group is a CUDA graph (``utils.graphs``) of the
-target's captured loops, captured once per shape, draft and gamma and
-replayed, as the JAX loop is compiled once per static shape; on the CPU and
-under a mesh the same groups run uncaptured. Rows sit at their own offsets
+(counted in ``host_syncs``). On the card, for a target and a draft whose
+ranks all lie on one card (single-device models or meshes), each group is a
+CUDA graph (``utils.graphs``) of the target's captured loops, captured once
+per shape, draft and gamma and replayed, as the JAX loop is compiled once
+per static shape; on the CPU and under a mesh over distinct cards the same
+groups run uncaptured. Rows sit at their own offsets
 (:func:`~whisper_tpu_torch.models.model.decoder_window_multipos`), so a batch
 never waits in lock step on its slowest row's acceptance.
 
@@ -86,8 +87,8 @@ class _SpecLoop:
     prefills and by every group of rounds: all that a captured group reads
     or writes besides both models' weights. ``cross_t`` and ``cross_d`` are
     the caller's cross-KVs of target and draft in an uncaptured loop, and
-    in a captured one the graph's own copies (``cross``, the target's
-    leaves first)."""
+    in a captured one the graph's own copies (``cross``, the pair of
+    them, each nested as the caller's)."""
 
     def __init__(self, model, draft, batch: int, kv_ctx: int, gamma: int, dtype,
                  self_kv_quant: bool, device):
@@ -217,13 +218,15 @@ def speculative_decode_kv(
     prefill's argmax; no suppression rules (greedy argmax only).
     ``cross_decode`` selects the draft steps' int8 cross-attention kernel.
 
-    The rounds run in groups of ``SPEC_ROUNDS``; on the card, for a
-    single-device target and draft on one device, each group is a CUDA
-    graph kept with the target's captured loops (``decode.graph_stats``),
-    keyed by the draft's decoder-weight pointers among the rest: the
-    callers' cross-KVs are copied into the graph's own buffers, both
-    prefills run eagerly into its caches and the results are new
-    tensors."""
+    The rounds run in groups of ``SPEC_ROUNDS``; on the card, where target
+    and draft lie on one card and are both capturable there
+    (``decode.capturable``: single-device models, or meshes whose ranks
+    all lie on the card), each group is a CUDA graph kept with the
+    target's captured loops
+    (``decode.graph_stats``), keyed by the draft's decoder-weight pointers
+    (every rank's) among the rest: the callers' cross-KVs are copied into
+    the graph's own buffers, both prefills run eagerly into its caches and
+    the results are new tensors."""
     graphed = (capturable(model, prompt.device) and capturable(draft, prompt.device)
                and draft.device == model.device)
     return _spec_rounds(model, cross_kv, draft, draft_cross_kv, prompt, gamma, compute_dtype,
@@ -278,13 +281,13 @@ def _spec_rounds(model, cross_kv, draft, draft_cross_kv, prompt, gamma, compute_
         return drive(loop, lambda: _spec_round(model, draft, loop, R, *opts))
     owner = _decode_graphs(model)
     with owner.lock:
-        both = tuple(cross_kv) + tuple(draft_cross_kv)
+        both = (cross_kv, draft_cross_kv)
         key = ("spec", gamma, _decoder_pointers(draft)) + _shape_key(
-            both, None, None, kv_ctx, compute_dtype, self_kv_quant)
+            B, both, None, None, kv_ctx, compute_dtype, self_kv_quant)
         loop = _loop_buffers(owner, key, lambda: _SpecLoop(
             model, draft, B, kv_ctx, gamma, compute_dtype, self_kv_quant, model.device),
             both, None, None)
-        loop.cross_t, loop.cross_d = loop.cross[:len(cross_kv)], loop.cross[len(cross_kv):]
+        loop.cross_t, loop.cross_d = loop.cross
         _reset_cache(loop.kv_t)
         _reset_cache(loop.kv_d)
         group = functools.partial(_spec_round, model, draft, loop, R, *opts)
