@@ -41,6 +41,7 @@ import functools
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from . import decode
 from .decode import capturable, encode_cross_kv
@@ -341,7 +342,8 @@ def _beam_rounds(model, cross_kv, prompt, compute_dtype, beam_size, max_tokens, 
         while i < limit - 1:
             run_round()
             rounds += 1
-            going, i = loop.flags.tolist()
+            with record_function("whisper.decode.flags"):
+                going, i = loop.flags.tolist()
             if not going:
                 break
         best_tokens, best_lens, best_scores = _best(loop, length_penalty, cfg.eot)

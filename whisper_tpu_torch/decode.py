@@ -541,7 +541,8 @@ def _greedy_rounds(model, cross_kv, prompt, compute_dtype, max_tokens, suppress_
             run_round()
             rounds += 1
             i += R
-            all_done, steps = loop.flags.tolist()
+            with record_function("whisper.decode.flags"):  # the host waits for the round
+                all_done, steps = loop.flags.tolist()
             if all_done:
                 break
         tokens = loop.tokens.clone() if graphed else loop.tokens

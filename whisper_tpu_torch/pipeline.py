@@ -42,7 +42,9 @@ cross-attention kernels of every path (the JAX package's
 draft, ``whisper.decode``, ``whisper.texts``, ``whisper.align`` with word
 timestamps) so
 a profile of the real call splits its time by stage; outside a profile they
-cost a few microseconds each.
+cost a few microseconds each. Inside ``whisper.decode`` every round of the
+loop is a ``whisper.graph.replay`` (once captured) and a
+``whisper.decode.flags`` (the host's wait for the round).
 """
 
 from __future__ import annotations

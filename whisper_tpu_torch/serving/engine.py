@@ -116,6 +116,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..align import alignment_head_mask, alignment_matrix, dequantize_cross_kv, row_words
 from ..beam import beam_search_kv
@@ -174,6 +175,10 @@ class Request:
     _attempt: int = 0
     future: Future = field(default_factory=Future)
     enqueued_at: float = field(default_factory=time.perf_counter)
+    # on the same clock: when the encode thread took it into an admission
+    # batch, and when that batch's row was copied into a slot (None before)
+    taken_at: Optional[float] = None
+    admitted_at: Optional[float] = None
     # streaming: called with the partial transcript after each sync round
     on_partial: Optional[object] = None  # Callable[[str], None]
     # engine-enforced deadline (seconds from enqueue; None = no limit).
@@ -232,10 +237,12 @@ class EngineStats:
     detect_batches_total: int = 0
     # host-side phase breakdown of busy time: eager launches return before
     # the card finishes, so admit/step measure enqueue cost and the card's
-    # execution pools into harvest_seconds_total at its one sync per tick
+    # execution pools into harvest_seconds_total at its one sync per tick,
+    # which holds card_wait_seconds_total
     admit_seconds_total: float = 0.0
     step_seconds_total: float = 0.0
     harvest_seconds_total: float = 0.0
+    card_wait_seconds_total: float = 0.0  # the decode thread blocked on a round's copy
     ticks_total: int = 0          # sync rounds run
     steps_total: int = 0          # decode steps stepped over all slots
     # admission encode + prefill: on the encode thread after start(), so
@@ -252,6 +259,20 @@ class EngineStats:
     # decode rounds by their size in steps (adaptive_sync: base, 2x, 4x)
     round_sizes: Dict[str, int] = field(default_factory=dict)
     partials_total: int = 0       # on_partial calls made
+    # slot requests' lifecycle, each wait summed over the count after it:
+    # enqueue to being taken into an admission batch (over prepared_total),
+    # the batch being prepared to the request's copy into a slot (over
+    # admitted_total), enqueue to the first harvest that shows one of its
+    # tokens (over first_tokens_total)
+    queue_wait_seconds_total: float = 0.0
+    prepared_total: int = 0
+    ready_wait_seconds_total: float = 0.0
+    admitted_total: int = 0
+    first_token_seconds_total: float = 0.0
+    first_tokens_total: int = 0
+    # occupied slots x the round's steps, summed over rounds: the slots'
+    # occupancy is slot_steps_total / (steps_total x max_slots)
+    slot_steps_total: int = 0
 
     def snapshot(self) -> dict:
         d = dict(self.__dict__)
@@ -281,6 +302,7 @@ class _PreparedBatch:
     prompt_len: int
     pads: np.ndarray               # (bucket,) masked left pad of each row
     consumed: int = 0              # rows already copied into slots
+    ready_at: float = 0.0          # when it joined _ready (time.perf_counter)
 
 
 def _safe_set_result(fut: Future, result) -> None:
@@ -511,6 +533,9 @@ class ContinuousBatchingEngine:
         # at scatter) and the last resolved offsets (one round stale; -1 done)
         self._slot_limit_h = np.full((B,), self.kv_ctx, np.int64)
         self._last_offs_h: Optional[np.ndarray] = None
+        # slots admitted since their last harvest: the next one shows the
+        # request's first token
+        self._slot_unseen = np.zeros((B,), bool)
         # steps of the round in flight: the sizing discounts what was really
         # dispatched, not steps_per_sync
         self._last_round_steps = steps_per_sync
@@ -917,6 +942,7 @@ class ContinuousBatchingEngine:
                 _safe_set_exception(r.future, TimeoutError(
                     f"deadline {r.deadline_s}s expired in queue"))
                 continue
+            r.taken_at = now
             newcomers.append(r)
         self.stats.queue_depth = len(self._pending)
         if not newcomers:
@@ -928,6 +954,7 @@ class ContinuousBatchingEngine:
             for r in newcomers:
                 _safe_set_exception(r.future, e)
             return False
+        batch.ready_at = time.perf_counter()
         with self._ready_cv:
             self._ready.append(batch)
             self._prepared_reqs += len(newcomers)
@@ -935,6 +962,8 @@ class ContinuousBatchingEngine:
             self._ready_cv.notify_all()
         self.stats.encode_seconds_total += time.perf_counter() - t0
         self.stats.encode_batches_total += 1
+        self.stats.prepared_total += len(newcomers)
+        self.stats.queue_wait_seconds_total += sum(r.taken_at - r.enqueued_at for r in newcomers)
         return True
 
     def _prepare_run(self):
@@ -1059,47 +1088,48 @@ class ContinuousBatchingEngine:
         right-aligned prompts, then the no-speech probability at the shared
         sot column and the first token under the rules. Only enqueues work
         on the card: no host sync."""
-        cfg, dt = self.cfg, self.dt
-        bucket = _bucket(len(newcomers), self.prefill_buckets)
-        prev_w = self._prev_width([len(self._context_ids(r)) for r in newcomers])
-        cross = self._encode(newcomers, bucket)
+        with record_function("whisper.engine.prepare"):
+            cfg, dt = self.cfg, self.dt
+            bucket = _bucket(len(newcomers), self.prefill_buckets)
+            prev_w = self._prev_width([len(self._context_ids(r)) for r in newcomers])
+            cross = self._encode(newcomers, bucket)
 
-        auto = [i for i, r in enumerate(newcomers) if _auto(r)]
-        if not cfg.is_multilingual:
-            for i in auto:
-                newcomers[i].language_resolved = "en"
-            auto = []
-        # an auto row's language column holds a placeholder until the
-        # detected token is written over it below, on the device
-        langs = ["en" if _auto(r) else r.language for r in newcomers]
-        prompts, pads, sot_index = self._prompt_rows(newcomers, langs, prev_w, bucket)
-        prompts_dev = self._to_dev(prompts)
-        if auto:
-            idx = self._detect(cross)
-            mask = np.zeros((bucket,), bool)
-            mask[auto] = True
-            col = sot_index + 1  # the language token follows sot
-            prompts_dev[:, col] = torch.where(self._to_dev(mask), cfg.lang_token_start + idx,
-                                              prompts_dev[:, col])
-            holder = {"idx": idx}
-            for i in auto:
-                newcomers[i]._lang_holder, newcomers[i]._lang_row = holder, i
-        logits, kv = decoder_forward(self.model, prompts_dev, 0, self._new_cache(bucket), cross,
-                                     dt, pad=self._to_dev(pads) if prev_w else None,
-                                     cross_decode=self.cross_decode)
-        # OpenAI-style no-speech probability: softmax at the sot position
-        nsp = torch.softmax(logits[:, sot_index].to(torch.float32), dim=-1)[:, cfg.no_speech]
-        last = logits[:, -1]
-        if self._use_rules:
-            last = apply_rules(last, RuleState.create(bucket, device=self.device), cfg,
-                               suppress_ids=self._suppress, timestamps=self.timestamps)
-        lp0 = torch.log_softmax(last.to(torch.float32), dim=-1)
-        first = torch.argmax(last, dim=-1)
-        first_lp = torch.gather(lp0, 1, first[:, None])[:, 0]
-        self._first_run(("prepare", bucket, prev_w))
-        return _PreparedBatch(reqs=newcomers, kv=kv, cross=cross, first=first,
-                              first_lp=first_lp, nsp=nsp, prompts=prompts_dev,
-                              prompt_len=prompts.shape[1], pads=pads)
+            auto = [i for i, r in enumerate(newcomers) if _auto(r)]
+            if not cfg.is_multilingual:
+                for i in auto:
+                    newcomers[i].language_resolved = "en"
+                auto = []
+            # an auto row's language column holds a placeholder until the
+            # detected token is written over it below, on the device
+            langs = ["en" if _auto(r) else r.language for r in newcomers]
+            prompts, pads, sot_index = self._prompt_rows(newcomers, langs, prev_w, bucket)
+            prompts_dev = self._to_dev(prompts)
+            if auto:
+                idx = self._detect(cross)
+                mask = np.zeros((bucket,), bool)
+                mask[auto] = True
+                col = sot_index + 1  # the language token follows sot
+                prompts_dev[:, col] = torch.where(self._to_dev(mask), cfg.lang_token_start + idx,
+                                                  prompts_dev[:, col])
+                holder = {"idx": idx}
+                for i in auto:
+                    newcomers[i]._lang_holder, newcomers[i]._lang_row = holder, i
+            logits, kv = decoder_forward(self.model, prompts_dev, 0, self._new_cache(bucket), cross,
+                                         dt, pad=self._to_dev(pads) if prev_w else None,
+                                         cross_decode=self.cross_decode)
+            # OpenAI-style no-speech probability: softmax at the sot position
+            nsp = torch.softmax(logits[:, sot_index].to(torch.float32), dim=-1)[:, cfg.no_speech]
+            last = logits[:, -1]
+            if self._use_rules:
+                last = apply_rules(last, RuleState.create(bucket, device=self.device), cfg,
+                                   suppress_ids=self._suppress, timestamps=self.timestamps)
+            lp0 = torch.log_softmax(last.to(torch.float32), dim=-1)
+            first = torch.argmax(last, dim=-1)
+            first_lp = torch.gather(lp0, 1, first[:, None])[:, 0]
+            self._first_run(("prepare", bucket, prev_w))
+            return _PreparedBatch(reqs=newcomers, kv=kv, cross=cross, first=first,
+                                  first_lp=first_lp, nsp=nsp, prompts=prompts_dev,
+                                  prompt_len=prompts.shape[1], pads=pads)
 
     def _detect(self, cross) -> torch.Tensor:
         """Language indices (bucket,) of a batch's cross-KV, on the device."""
@@ -1204,14 +1234,19 @@ class ContinuousBatchingEngine:
         self.nsp.index_copy_(0, dst, batch.nsp.index_select(0, src))
         self._first_run(("admit", int(batch.first.shape[0]), P))
 
+        now = time.perf_counter()
         for j, (i, r) in enumerate(zip(slots, takers)):
             self._slot_req[i] = r
             self._slot_prompt_len[i] = P
             self._slot_pad[i] = int(pad_rows[j])
             self._slot_limit_h[i] = int(lim[j])
             self._slot_gen[i] += 1  # in-flight packed buffers go stale here
+            self._slot_unseen[i] = True
             if self._last_offs_h is not None:
                 self._last_offs_h[i] = P + 1  # a fresh slot starts after its prefill
+            r.admitted_at = now
+            self.stats.ready_wait_seconds_total += now - batch.ready_at
+        self.stats.admitted_total += k
         self.stats.active_slots = sum(r is not None for r in self._slot_req)
 
     def _free_slot(self, i: int):
@@ -1259,6 +1294,7 @@ class ContinuousBatchingEngine:
             self._graphs.run(("step", n_steps), functools.partial(self._round, n_steps))
         self._first_run(("step", n_steps))
         self.stats.steps_total += n_steps
+        self.stats.slot_steps_total += n_steps * sum(r is not None for r in self._slot_req)
         key = str(n_steps)
         self.stats.round_sizes[key] = self.stats.round_sizes.get(key, 0) + 1
 
@@ -1621,6 +1657,10 @@ class ContinuousBatchingEngine:
         3. resolve round N-1's copy (the card is busy with round N meanwhile),
            stream partials and free finished slots;
         4. expire/cancel; copy prepared admissions into free slots.
+
+        Steps 2-4 are the profiler ranges ``whisper.engine.step``,
+        ``whisper.engine.harvest`` and ``whisper.engine.admit``; a prepare
+        is ``whisper.engine.prepare`` on whichever thread runs it.
         """
         t0 = time.perf_counter()
         self.stats.ticks_total += 1
@@ -1629,34 +1669,51 @@ class ContinuousBatchingEngine:
         prev = self._inflight_harvest  # round N-1 copy, still in flight
         self._inflight_harvest = None
         if any(r is not None for r in self._slot_req):
-            n_steps = self._adaptive_steps() if self.adaptive_sync else self.steps_per_sync
-            self._last_round_steps = n_steps
-            self._steps(n_steps)
-            self._start_harvest_copy()
+            with record_function("whisper.engine.step"):
+                n_steps = self._adaptive_steps() if self.adaptive_sync else self.steps_per_sync
+                self._last_round_steps = n_steps
+                self._steps(n_steps)
+                self._start_harvest_copy()
         t1 = time.perf_counter()
         self.stats.step_seconds_total += t1 - t0
         if prev is not None:
-            host, event, prev_gen = prev
-            if event is not None:
-                event.synchronize()
-            h = host.numpy()
-            # a slot re-admitted since the pack carries the PREVIOUS
-            # request's row in this buffer: don't harvest it, don't stream
-            # its tokens, and don't let its offset size the next round
-            fresh = prev_gen == self._slot_gen
-            done_h, offs_h = h[:, 2] > 0, h[:, 0]
-            resolved = np.where(done_h, -1, offs_h)
-            self._last_offs_h = np.where(fresh, resolved, -1 if self._last_offs_h is None
-                                         else self._last_offs_h)
-            self._harvest_host(done_h & fresh, h[:, 1] > 0, offs_h, h[:, 6:],
-                               h[:, 3:5].view(np.float32), h[:, 5:6].view(np.float32)[:, 0],
-                               fresh)
+            with record_function("whisper.engine.harvest"):
+                host, event, prev_gen = prev
+                if event is not None:
+                    tw = time.perf_counter()
+                    event.synchronize()
+                    self.stats.card_wait_seconds_total += time.perf_counter() - tw
+                h = host.numpy()
+                # a slot re-admitted since the pack carries the PREVIOUS
+                # request's row in this buffer: don't harvest it, don't stream
+                # its tokens, and don't let its offset size the next round
+                fresh = prev_gen == self._slot_gen
+                done_h, offs_h = h[:, 2] > 0, h[:, 0]
+                resolved = np.where(done_h, -1, offs_h)
+                self._last_offs_h = np.where(fresh, resolved, -1 if self._last_offs_h is None
+                                             else self._last_offs_h)
+                self._note_first_tokens(fresh)
+                self._harvest_host(done_h & fresh, h[:, 1] > 0, offs_h, h[:, 6:],
+                                   h[:, 3:5].view(np.float32), h[:, 5:6].view(np.float32)[:, 0],
+                                   fresh)
         t2 = time.perf_counter()
         self.stats.harvest_seconds_total += t2 - t1
-        self._expire_slots()
-        self._admit_new()  # copied now, stepped in round N+1
+        with record_function("whisper.engine.admit"):
+            self._expire_slots()
+            self._admit_new()  # copied now, stepped in round N+1
         self.stats.admit_seconds_total += time.perf_counter() - t2
         self._add_busy(time.perf_counter() - t0)
+
+    def _note_first_tokens(self, fresh: np.ndarray):
+        """Count, at a harvest, the slots whose first packed round it
+        resolves: its buffer shows the request's first token."""
+        now = time.perf_counter()
+        for i in np.flatnonzero(fresh & self._slot_unseen):
+            req = self._slot_req[i]
+            self._slot_unseen[i] = False
+            if req is not None:
+                self.stats.first_token_seconds_total += now - req.enqueued_at
+                self.stats.first_tokens_total += 1
 
     # ------------------------------------------------------------- aux worker
     def _aux_collect(self) -> List[Request]:
@@ -1788,7 +1845,8 @@ class ContinuousBatchingEngine:
                     # idle: wait for the encode thread to prepare work
                     with self._ready_cv:
                         if not self._ready:
-                            self._ready_cv.wait(timeout=0.05)
+                            with record_function("whisper.engine.wait"):
+                                self._ready_cv.wait(timeout=0.05)
                             if not self._ready:
                                 continue
                 self._tick()

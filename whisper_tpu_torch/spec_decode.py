@@ -44,6 +44,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from .decode import (
     _decode_graphs,
@@ -259,7 +260,8 @@ def _spec_rounds(model, cross_kv, draft, draft_cross_kv, prompt, gamma, compute_
         while True:
             run_group()
             groups += 1
-            all_done, rounds = loop.flags.tolist()
+            with record_function("whisper.decode.flags"):
+                all_done, rounds = loop.flags.tolist()
             if all_done:
                 break
         # eot past each row's validated frontier, so the buffer reads as

@@ -45,6 +45,7 @@ import time
 from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..ops import _build
 
@@ -99,13 +100,15 @@ class GraphSet:
 
     def run(self, key: Hashable, fn: Callable[[], None]) -> None:
         """Replay ``key``'s graph; at the key's first run, run ``fn`` on the
-        side stream (its real work) and capture it."""
+        side stream (its real work) and capture it. A replay is the profiler
+        range ``whisper.graph.replay`` on the host; a capture has no range."""
         entry = self._graphs.get(key)
         if entry is not None:
             graph, deltas = entry
-            graph.replay()
-            for wrapper, n in deltas:
-                _build.count(wrapper, n)
+            with record_function("whisper.graph.replay"):
+                graph.replay()
+                for wrapper, n in deltas:
+                    _build.count(wrapper, n)
             self.replays += 1
             return
         self._warm(fn)

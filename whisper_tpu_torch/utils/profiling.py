@@ -87,12 +87,16 @@ class StageTimer:
 
 @contextlib.contextmanager
 def profiler_trace(logdir: Optional[str] = None) -> Iterator[str]:
-    """Profile the block with ``torch.profiler`` (the host, and the card's
-    kernels where CUDA is available) and write it, when the block ends, as
+    """Profile the block with ``torch.profiler`` (the host's ranges and
+    operations on every thread, so a started engine's decode, encode and aux
+    threads too, and the card's kernels where CUDA is available) and write
+    it, when the block ends, as
     ``<logdir>/<host>_<pid>.<ms>.pt.trace.json``: a Chrome trace that
     Perfetto opens and TensorBoard's profiler plugin finds in ``logdir``.
     Yields that path. ``logdir`` defaults to ``whisper_tpu_torch_trace``
-    under the temporary directory."""
+    under the temporary directory. A torch whose profiler cannot follow
+    every thread (``profile_all_threads``, torch 2.11 and later) profiles
+    the calling thread's host work alone, and the card's as before."""
     logdir = logdir or os.path.join(tempfile.gettempdir(), "whisper_tpu_torch_trace")
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, f"{socket.gethostname()}_{os.getpid()}."
@@ -100,6 +104,11 @@ def profiler_trace(logdir: Optional[str] = None) -> Iterator[str]:
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    try:
+        config = {"experimental_config":
+                  torch.profiler._ExperimentalConfig(profile_all_threads=True)}
+    except (AttributeError, TypeError):
+        config = {}
+    with torch.profiler.profile(activities=activities, **config) as prof:
         yield path
     prof.export_chrome_trace(path)
