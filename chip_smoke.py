@@ -1012,6 +1012,61 @@ def kernel_k8q(dev, gen) -> dict:
             "library": "none: no single PyTorch call computes it"}
 
 
+def kernel_k8n(dev, gen) -> dict:
+    """K8n at the offline batch's rows (M = 96,000, D), bf16 rows of
+    seeded noise with offsets and spreads that differ by row, seeded bf16
+    gains and bias: against its plain version (``layer_norm`` then
+    ``quantize_rows_plain``) on the card and on the CPU, int8 entries one
+    apart at most (the LayerNorm's row sums in another order can round an
+    output to the neighbouring bf16 value) and equal on 99.9%, scales equal
+    on 99% of rows; two launches bit-equal; timed beside the plain version
+    and beside ``unfused_ms``, the LayerNorm and K8q it replaces."""
+    from whisper_tpu_torch.ops.layer_norm_rows import (layer_norm, layer_norm_rows,
+                                                       layer_norm_rows_plain)
+    from whisper_tpu_torch.ops.quantize_rows import quantize_rows
+
+    M, D = T_AUDIO * B, D_AUDIO
+    x = (torch.randn((M, D), generator=gen, device=dev)
+         * (torch.rand((M, 1), generator=gen, device=dev) * 8 + 0.1)
+         + torch.rand((M, 1), generator=gen, device=dev) * 4 - 2).bfloat16()
+    g = (1 + 0.3 * torch.randn(D, generator=gen, device=dev)).bfloat16()
+    b = (0.2 * torch.randn(D, generator=gen, device=dev)).bfloat16()
+    q, sx = layer_norm_rows(x, g, b)
+    q2, sx2 = layer_norm_rows(x, g, b)
+    if not (torch.equal(q, q2) and torch.equal(sx, sx2)):
+        raise AssertionError("layer_norm_rows gave other bits on a second launch")
+    agree = {}
+    for where, (want_q, want_sx) in (
+            ("card", layer_norm_rows_plain(x, g, b)),
+            ("cpu", layer_norm_rows_plain(x.cpu(), g.cpu(), b.cpu()))):
+        diff = (q.cpu().int() - want_q.cpu().int()).abs()
+        agree[where] = {"max_int8_diff": int(diff.max()),
+                        "int8_equal_share": float((diff == 0).float().mean()),
+                        "scale_equal_share": float((sx.cpu() == want_sx.cpu()).float().mean()),
+                        "max_scale_rel_diff": float(((sx.cpu() - want_sx.cpu()).abs()
+                                                     / want_sx.cpu()).max())}
+        if (agree[where]["max_int8_diff"] > 1 or agree[where]["int8_equal_share"] < 0.999
+                or agree[where]["scale_equal_share"] < 0.99):
+            raise AssertionError(f"layer_norm_rows against its plain version on the {where}: "
+                                 f"{agree[where]}")
+    del q, q2, want_q
+    nbytes = 3.0 * M * D + 4.0 * M
+    rec = {"name": "layer_norm_rows", "route": "cuda",
+           "source": "whisper_tpu_torch/csrc/layer_norm_rows.cu",
+           "replaces": "none: the encoder block's LayerNorm and its output's quantization in "
+                       "_linear_a8 (whisper_tpu/models/model.py, lines 103-105) are XLA fusions",
+           "shape": f"x ({M}, {D}) bf16, g and b ({D},) bf16 -> int8 ({M}, {D}) + fp32 ({M}, 1)",
+           "ms": cuda_ms(lambda: layer_norm_rows(x, g, b), reps=20),
+           "plain_ms": cuda_ms(lambda: layer_norm_rows_plain(x, g, b), reps=3, warmup=1),
+           "unfused_ms": cuda_ms(lambda: quantize_rows(layer_norm(x, g, b)), reps=5, warmup=1),
+           "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes",
+           "bound_peaks": "3.35 TB/s", "agree": agree,
+           "max_abs_err": max(a["max_int8_diff"] for a in agree.values()),
+           "library_ms": None, "library": "none: no single PyTorch call computes it"}
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
 def w8a8_chain(dev, gen) -> dict:
     """A turbo layer's six W8A8 linears at the offline batch (M = 96,000,
     bf16, the biases of q, v, o, w1 and w2; k has none), two ways on the
@@ -1252,13 +1307,16 @@ DECODE_KERNEL = {"fd": "cross_attention_decode_fd", "legacy": "cross_attention_d
 
 def _expect(path: str, launches: dict, cfg, encodes: int, steps: int,
             encoder_attention: str = "btd", cross_decode: str = "fd", tp: int = 1,
-            detects: int = 0, beam_steps: int = 0, draft=None) -> None:
+            detects: int = 0, beam_steps: int = 0, draft=None, rows: int = 1) -> None:
     """Exact launch counts of a W8A8 + int8 cross- and self-KV path that ran
     ``encodes`` encoder passes (one log-mel each), ``steps`` decoder steps,
     ``detects`` language-detection steps and ``beam_steps`` beam steps on
-    ``tp`` ranks: the selected encoder and decode kernels once a layer on
-    every rank, the kernels of the other selections not at all; with tp > 1
-    every K1 launch is also the sharded entry's. A detection step is one S=1
+    ``tp`` ranks in all, ``rows`` data rows of them: the selected encoder and
+    decode kernels once a layer on every rank, the kernels of the other
+    selections not at all; with tp > 1 every K1 launch is also the sharded
+    entry's. K8n quantizes a layer's two LayerNorms once on each data row's
+    lead rank, K8q the inputs of wo and w2 on every rank (a checkout without
+    K8n quantizes all four with K8q). A detection step is one S=1
     decoder step over a float self-KV cache: the decode kernel and the
     float K3 once a layer. A beam step runs the int8 K3 once a layer and no
     decode kernel (its cross-attention is the folded plain product, as the
@@ -1274,12 +1332,16 @@ def _expect(path: str, launches: dict, cfg, encodes: int, steps: int,
     enc_layers = cfg.n_audio_layer * encodes + d_layers
     want = {"log10_mel": encodes * (1 + int(bool(dcfg) and dcfg.n_mels != cfg.n_mels)),
             "int8_gemm": 6 * enc_layers * tp,  # q, k, v, o, mlp1, mlp2
-            "quantize_rows": 4 * enc_layers * tp,  # qkv once, o, mlp1, mlp2
             "self_attention_decode_int8": (cfg.n_text_layer * (steps + beam_steps)
                                            + d_step_layers) * tp,
             "self_attention_decode": cfg.n_text_layer * detects * tp,
             "flash_attention_btd_sharded": (enc_layers * tp
                                             if tp > 1 and encoder_attention == "btd" else 0)}
+    if "layer_norm_rows" in launches:
+        want["layer_norm_rows"] = 2 * enc_layers * rows  # qkv once, mlp1
+        want["quantize_rows"] = 2 * enc_layers * tp  # o, mlp2
+    else:
+        want["quantize_rows"] = 4 * enc_layers * tp  # qkv once, o, mlp1, mlp2
     for sel, name in ENCODER_KERNEL.items():
         want[name] = enc_layers * tp if sel == encoder_attention else 0
     for sel, name in DECODE_KERNEL.items():
@@ -2117,7 +2179,8 @@ def serving_ladder(counters) -> dict:
     rec["aux_launches"] = {"log10_mel": rec["aux_batches"],
                            "flash_attention_btd": L_AUDIO * rec["aux_batches"],
                            "int8_gemm": 6 * L_AUDIO * rec["aux_batches"],
-                           "quantize_rows": 4 * L_AUDIO * rec["aux_batches"],
+                           "quantize_rows": 2 * L_AUDIO * rec["aux_batches"],
+                           "layer_norm_rows": 2 * L_AUDIO * rec["aux_batches"],
                            "cross_attention_decode_fd": L_text * rec["aux_steps"],
                            "self_attention_decode_int8": L_text * rec["aux_steps"]}
     return rec
@@ -4601,7 +4664,7 @@ def data_mesh(counters, device: str = "cuda") -> dict:
         launches = _launches(counters)
         blocks = 2 if isinstance(model, DataParallelWhisper) else 1
         _expect(f"data_mesh offline {name}", launches, pipe.cfg, 1,
-                pipe.last_decode.device_steps, tp=blocks)
+                pipe.last_decode.device_steps, tp=blocks, rows=blocks)
         toks[name] = pipe.last_decode.tokens
         if name == "(2, 1)":
             rec["launches"] = launches
@@ -5137,8 +5200,8 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels = []
-    for phase in (kernel_k1, kernel_k2, kernel_k3, kernel_k7, kernel_k8, kernel_k8q, kernel_k6,
-                  kernel_k4, kernel_k5, kernel_k1_sharded):
+    for phase in (kernel_k1, kernel_k2, kernel_k3, kernel_k7, kernel_k8, kernel_k8q, kernel_k8n,
+                  kernel_k6, kernel_k4, kernel_k5, kernel_k1_sharded):
         kernels.append(phase(dev, gen))
         emit({"phase": "kernel", **kernels[-1]})
         torch.cuda.empty_cache()

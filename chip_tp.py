@@ -36,14 +36,7 @@ def main() -> int:
         print(f"chip_tp: needs two or more CUDA cards, found {n}", file=sys.stderr)
         return 1
     from whisper_tpu_torch.ops import _build
-    from whisper_tpu_torch.ops.decode_attention import (
-        cross_attention_decode, cross_attention_decode_dense, cross_attention_decode_fd,
-        self_attention_decode, self_attention_decode_int8)
-    from whisper_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_btd, flash_attention_btd_sharded)
-    from whisper_tpu_torch.ops.int8_gemm import int8_gemm
-    from whisper_tpu_torch.ops.log10_mel import log10_mel
-    from whisper_tpu_torch.ops.quantize_rows import quantize_rows
+    from whisper_tpu_torch.utils.graphs import kernel_wrappers
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -52,10 +45,7 @@ def main() -> int:
                          check=True).stdout.strip()
     cs.emit({"phase": "device", "nvidia_smi": smi.splitlines(), "cards": n,
              "torch": torch.__version__, "cuda": torch.version.cuda, **_build.build_all()})
-    counters = (log10_mel, flash_attention_btd, int8_gemm, quantize_rows,
-                cross_attention_decode_fd, self_attention_decode_int8, self_attention_decode,
-                flash_attention, cross_attention_decode, cross_attention_decode_dense,
-                flash_attention_btd_sharded)
+    counters = kernel_wrappers()
     for tp in (2, 4):
         if tp > n:
             continue

@@ -55,6 +55,9 @@ counters = [getattr(m, n) for n in names for m in (decode_attention, flash_atten
 if importlib.util.find_spec("whisper_tpu_torch.ops.quantize_rows"):  # K8q, where it exists
     from whisper_tpu_torch.ops.quantize_rows import quantize_rows
     counters.append(quantize_rows)
+if importlib.util.find_spec("whisper_tpu_torch.ops.layer_norm_rows"):  # K8n, where it exists
+    from whisper_tpu_torch.ops.layer_norm_rows import layer_norm_rows
+    counters.append(layer_norm_rows)
 torch.backends.cuda.matmul.allow_tf32 = False
 build = _build.build_all()
 e2e, _ = cs.end_to_end(counters)

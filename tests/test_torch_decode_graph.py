@@ -578,9 +578,11 @@ def test_capture_runs_without_the_collector(enabled):
 def test_kernel_wrappers_cover_every_counter():
     """Every function of the ops modules that counts launches is one the
     graphs account for (a wrapper left out would lose its replays)."""
-    from whisper_tpu_torch.ops import flash_attention, int8_gemm, log10_mel, quantize_rows
+    from whisper_tpu_torch.ops import (flash_attention, int8_gemm, layer_norm_rows, log10_mel,
+                                       quantize_rows)
 
-    counted = {id(fn) for mod in (da, flash_attention, int8_gemm, log10_mel, quantize_rows)
+    counted = {id(fn) for mod in (da, flash_attention, int8_gemm, log10_mel, quantize_rows,
+                                  layer_norm_rows)
                for fn in vars(mod).values() if callable(fn) and hasattr(fn, "launches")}
     assert counted == {id(fn) for fn in graphs.kernel_wrappers()}
 

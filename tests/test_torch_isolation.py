@@ -41,6 +41,7 @@ assert not bad, bad
 
 @pytest.mark.parametrize("module", ["whisper_tpu_torch.ops.int8_gemm",
                                     "whisper_tpu_torch.ops.quantize_rows",
+                                    "whisper_tpu_torch.ops.layer_norm_rows",
                                     "whisper_tpu_torch.ops.log10_mel",
                                     "whisper_tpu_torch.formats", "whisper_tpu_torch.longform",
                                     "whisper_tpu_torch.ops.flash_attention",
@@ -192,4 +193,4 @@ def test_every_kernel_source_is_built():
     from whisper_tpu_torch.ops import _build
 
     assert sorted(_build.KERNELS) == sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
-    assert len(set(_build.KERNELS)) == len(_build.KERNELS) == 9
+    assert len(set(_build.KERNELS)) == len(_build.KERNELS) == 10

@@ -33,6 +33,7 @@ from whisper_tpu_torch.ops.flash_attention import (
 )
 from whisper_tpu_torch.ops.int8_gemm import (int8_gemm, int8_gemm_plain, int8_gemm_scaled,
                                              int8_gemm_scaled_plain)
+from whisper_tpu_torch.ops.layer_norm_rows import layer_norm_rows, layer_norm_rows_plain
 from whisper_tpu_torch.ops.log10_mel import log10_mel, log10_mel_plain
 from whisper_tpu_torch.ops.quant import quantize_weight
 from whisper_tpu_torch.ops.quantize_rows import quantize_rows, quantize_rows_plain
@@ -366,6 +367,82 @@ def test_quantize_rows_refuses_what_it_does_not_take(dev):
         int8_gemm_scaled(a8, w8, s4, torch.ones((1, 16), device=dev), None, torch.float32)
     with pytest.raises(ValueError):  # bf16 row scales
         int8_gemm_scaled(a8, w8, s4.bfloat16(), s8, None, torch.float32)
+
+
+def _assert_near_rows(q, sx, want_q, want_sx, dtype=torch.bfloat16):
+    """K8n against its plain version: its LayerNorm sums rows in another
+    order. A bf16 output can then round to the neighbouring bf16 value,
+    which flips an int8 entry by one or, at a row's maximum, moves the row's
+    scale by one bf16 ulp of that maximum over 127 (scales equal on 99% of
+    rows); an fp32 output (not rounded) moves by a few fp32 ulps, and its
+    scale with it (8 ulps)."""
+    diff = (q.int() - want_q.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+    if dtype == torch.bfloat16:
+        amax = want_sx * 127.0
+        ulp = torch.exp2(torch.floor(torch.log2(amax)) - 7)  # bf16: 8 significant bits
+        assert bool(((sx - want_sx).abs() * 127.0 <= ulp * 1.001).all())
+        assert float((sx == want_sx).float().mean()) >= 0.99
+    else:
+        assert float(((sx - want_sx).abs() / want_sx).max()) <= 2.0 ** -20
+
+
+@pytest.mark.parametrize("M,D", [(1, 384), (7, 384), (4500, 384), (1, 1280), (7, 1280),
+                                 (4500, 1280), (96000, 1280)])
+def test_layer_norm_rows_kernel_matches_plain(dev, M, D):
+    """K8n against ``layer_norm`` then ``quantize_rows_plain`` on bf16 rows
+    (with offsets and spreads that differ by row) and random bf16 gains and
+    bias, at tiny's and turbo's widths, the encoder's own M = 96,000
+    included: int8 entries one apart at most and equal on 99.9%, scales
+    within a bf16 ulp of the row maximum and equal on 99% of rows; one
+    launch a call, and a second launch gives the same bits."""
+    rng = np.random.default_rng(M + D)
+    x = (rng.standard_normal((M, D)) * rng.uniform(0.1, 8, (M, 1))
+         + rng.uniform(-2, 2, (M, 1)))
+    x = torch.from_numpy(x.astype(np.float32)).to(dev, torch.bfloat16)
+    g = torch.from_numpy(1 + 0.3 * rng.standard_normal(D).astype(np.float32)).to(dev,
+                                                                                torch.bfloat16)
+    b = torch.from_numpy(0.2 * rng.standard_normal(D).astype(np.float32)).to(dev, torch.bfloat16)
+    before = layer_norm_rows.launches
+    q, sx = layer_norm_rows(x, g, b)
+    torch.cuda.synchronize()
+    assert layer_norm_rows.launches == before + 1
+    assert q.dtype == torch.int8 and q.shape == (M, D) and sx.shape == (M, 1)
+    _assert_near_rows(q, sx, *layer_norm_rows_plain(x, g, b))
+    q2, sx2 = layer_norm_rows(x, g, b)
+    assert layer_norm_rows.launches == before + 2
+    assert torch.equal(q2, q) and torch.equal(sx2, sx)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("M,D", [(257, 16), (300, 2560), (64, 5120), (33, 8192)])
+def test_layer_norm_rows_kernel_other_widths(dev, dtype, M, D):
+    """bf16 rows, and fp32 rows (whose LayerNorm output is not rounded),
+    with gains and bias of their dtype, at a width below one warp's and at
+    the widest of two, four and eight warps a row."""
+    rng = np.random.default_rng(D)
+    x = torch.from_numpy(rng.standard_normal((M, D)).astype(np.float32) * 3).to(dev, dtype)
+    g = torch.from_numpy(rng.standard_normal(D).astype(np.float32)).to(dev, dtype)
+    b = torch.from_numpy(rng.standard_normal(D).astype(np.float32)).to(dev, dtype)
+    q, sx = layer_norm_rows(x, g, b)
+    _assert_near_rows(q, sx, *layer_norm_rows_plain(x, g, b), dtype=dtype)
+
+
+def test_layer_norm_rows_refuses_what_it_does_not_take(dev):
+    g = torch.ones(64, device=dev)
+    for bad in (torch.zeros((4, 24), device=dev),          # D % 16 != 0
+                torch.zeros((4, 8208), device=dev),        # D > 8192
+                torch.zeros((4, 128), device=dev)[:, :64],  # not contiguous
+                torch.zeros((4, 64), device=dev).half(),    # fp16
+                torch.zeros((2, 4, 64), device=dev)):      # not 2-D
+        with pytest.raises(ValueError):
+            layer_norm_rows(bad, torch.ones(bad.shape[-1], device=dev),
+                            torch.zeros(bad.shape[-1], device=dev))
+    x = torch.zeros((4, 64), device=dev)
+    for gb in ((g[:32], g[:32]), (g.half(), g.half()), (g, g.bfloat16()),
+               (g.bfloat16(), g.bfloat16()), (torch.ones(128, device=dev)[::2], g)):
+        with pytest.raises(ValueError):
+            layer_norm_rows(x, *gb)
 
 
 def _card_kernels(fn) -> list:
@@ -811,6 +888,7 @@ def test_launches_on_other_cards_leave_the_current_device(dev):
                                          torch.ones((64, 1), device=last),
                                          torch.ones((1, 64), device=last), None, torch.bfloat16),
                 lambda: quantize_rows(rand(64, 128)),
+                lambda: layer_norm_rows(rand(64, 128), rand(128), rand(128)),
                 lambda: log10_mel(rand(2, 160 * 101 + 400, dtype=torch.float32), 80, 400, 160,
                                   101)]
     for fn in launches:
@@ -900,7 +978,9 @@ def test_segmented_turbo_encode_is_bit_equal(dev):
     """The serving engine's admission encode at turbo's full width (32
     layers, D 1280, W8A8, bf16, int8 cross-KV) for one bucket of 4 clips:
     split into 4 paced layer groups (``encode_chunks=4``) it gives the
-    monolithic encode's cross-KV bit for bit, with the same launches."""
+    monolithic encode's cross-KV bit for bit, with the same launches. A
+    layer quantizes its two LayerNorms' rows with K8n and the inputs of wo
+    and w2 with K8q."""
     from whisper_tpu_torch.config import get_config
     from whisper_tpu_torch.ops.quant import quantize_params
     from whisper_tpu_torch.params import init_params
@@ -915,7 +995,7 @@ def test_segmented_turbo_encode_is_bit_equal(dev):
     rng = np.random.default_rng(61)
     reqs = [Request(audio=(rng.standard_normal(16000 * s) * 0.1).astype(np.float32))
             for s in (3, 11, 29, 17)]
-    counters = (flash_attention_btd, int8_gemm, quantize_rows, log10_mel)
+    counters = (flash_attention_btd, int8_gemm, quantize_rows, log10_mel, layer_norm_rows)
     runs = []
     for chunks in (4, 1):
         eng.encode_chunks = chunks
@@ -925,6 +1005,6 @@ def test_segmented_turbo_encode_is_bit_equal(dev):
         runs.append((cross, [fn.launches - b for fn, b in zip(counters, before)]))
     (seg, seg_launches), (mono, mono_launches) = runs
     assert len(eng._encode_seg_est[4]) == 4 and seg_launches == mono_launches
-    assert seg_launches == [32, 6 * 32, 4 * 32, 1]
+    assert seg_launches == [32, 6 * 32, 2 * 32, 1, 2 * 32]
     for a, b in zip(seg, mono):
         assert a.dtype == b.dtype and torch.equal(a, b)

@@ -11,6 +11,9 @@ from whisper_tpu.models import model as jm
 from whisper_tpu.ops.quant import quantize_params as jax_qparams
 from whisper_tpu_torch.config import get_config as port_config
 from whisper_tpu_torch.models import model as tm
+from whisper_tpu_torch.ops.layer_norm_rows import layer_norm_rows
+from whisper_tpu_torch.ops.quantize_rows import quantize_rows_plain
+from whisper_tpu_torch.parallel.sharding import make_mesh, shard_params
 from whisper_tpu_torch.params import from_jax_params
 
 torch.set_num_threads(2)
@@ -80,10 +83,16 @@ def test_encoder_forward_w8a8_matches_jax(params, monkeypatch):
         np.testing.assert_array_equal(got.numpy(), ref)
 
     quantize_rows, gemm_scaled, seen, products = tm.quantize_rows, tm.int8_gemm_scaled, [], []
+    norm_rows = tm.layer_norm_rows
 
     def recording_quantize_rows(x, sx=None):
         seen.append(x.detach().float().reshape(2, CFG.n_audio_ctx, -1))
         return quantize_rows(x, sx)
+
+    def recording_layer_norm_rows(x, g, b):
+        # the LayerNorm output these int8 rows quantize
+        seen.append(tm.layer_norm(x, g, b).detach().float().reshape(2, CFG.n_audio_ctx, -1))
+        return norm_rows(x, g, b)
 
     def counting_gemm_scaled(*args):
         products.append(args[1].shape)
@@ -91,6 +100,7 @@ def test_encoder_forward_w8a8_matches_jax(params, monkeypatch):
 
     monkeypatch.setattr(tm, "quantize_rows", recording_quantize_rows)
     monkeypatch.setattr(tm, "int8_gemm_scaled", counting_gemm_scaled)
+    monkeypatch.setattr(tm, "layer_norm_rows", recording_layer_norm_rows)
     jx = jm.encoder_stem(jp, jnp.asarray(mel), CFG)
     for l in range(CFG.n_audio_layer):
         x = torch.from_numpy(np.array(jx))
@@ -100,7 +110,9 @@ def test_encoder_forward_w8a8_matches_jax(params, monkeypatch):
         products.clear()
         got = tm.encoder_blocks(model, x, lo=l, hi=l + 1, w8a8=True).numpy()
         # q, k, v, o, mlp1, mlp2 all took the int8 x int8 path; q, k and v
-        # share one quantization of their LayerNorm output
+        # share one quantization of their LayerNorm output (the two
+        # LayerNorms' through layer_norm_rows, o's and mlp2's inputs through
+        # quantize_rows)
         assert len(products) == 6 and len(seen) == 4
         clean = ~_tie_rows(seen)
         assert clean.mean() > 0.5
@@ -167,6 +179,47 @@ def test_column_quantizes_once_for_q_k_v(params, monkeypatch, ranks):
         assert len(rank) == 3
         for g, w in zip(rank, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [64, 1280])
+def test_layer_norm_rows_on_the_cpu_is_the_plain_version(dtype, D):
+    """On the CPU the K8n wrapper is ``layer_norm`` then
+    ``quantize_rows_plain``, bit for bit, and launches nothing."""
+    rng = np.random.default_rng(D)
+    x, g, b = (torch.from_numpy(a.astype(np.float32)).to(dtype) for a in (
+        rng.standard_normal((7, D)) * 3 + 1, rng.standard_normal(D), rng.standard_normal(D)))
+    before = layer_norm_rows.launches
+    q, sx = layer_norm_rows(x, g, b)
+    want_q, want_sx = quantize_rows_plain(tm.layer_norm(x, g, b))
+    assert q.dtype == torch.int8 and torch.equal(q, want_q) and torch.equal(sx, want_sx)
+    assert layer_norm_rows.launches == before
+
+
+@pytest.mark.parametrize("w8a8", [True, False], ids=["w8a8", "weight_only"])
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_encoder_blocks_fuse_layer_norm_under_w8a8(params, monkeypatch, w8a8, ranks):
+    """``encoder_blocks`` under W8A8 calls the K8n wrapper twice a block on
+    all of the batch's rows, once for every rank of a mesh, and gives the
+    bits of the unfused encoder (``layer_norm`` then :func:`_column`, which
+    quantizes on every rank); without W8A8 it never calls it."""
+    _, model = params
+    if ranks > 1:
+        model = shard_params(model, make_mesh(1, ranks, devices=["cpu"] * ranks))
+    x = tm.encoder_stem(model, torch.from_numpy(_mel(4)))
+    calls = []
+
+    def spy(rows, g, b):
+        calls.append(tuple(rows.shape))
+        return layer_norm_rows(rows, g, b)
+
+    monkeypatch.setattr(tm, "layer_norm_rows", spy)
+    got = tm.encoder_blocks(model, x, w8a8=w8a8)
+    rows = (2 * CFG.n_audio_ctx, CFG.n_audio_state)
+    assert calls == ([rows] * 2 * CFG.n_audio_layer if w8a8 else [])
+    monkeypatch.setattr(tm, "_norm_column", lambda h, ln, per_rank, dtype, a8=False: tm._column(
+        tm.layer_norm(h, ln["g"], ln["b"]), per_rank, dtype, a8))
+    assert torch.equal(got, tm.encoder_blocks(model, x, w8a8=w8a8))
 
 
 def _cross_kv(params, seed=2):

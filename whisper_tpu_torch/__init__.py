@@ -6,7 +6,8 @@ whisper_tpu_torch.serving``) and seek-based long-form transcription with
 timestamps and subtitle files (``python -m whisper_tpu_torch.cli
 --longform``), with hand-written sm_90a kernels for the fused log10 mel
 (``ops.log10_mel``), the W8A8 encoder's row quantization
-(``ops.quantize_rows``) and int8 GEMM with its scale epilogue
+(``ops.quantize_rows``), its LayerNorm to int8 rows (``ops.layer_norm_rows``)
+and int8 GEMM with its scale epilogue
 (``ops.int8_gemm``), encoder self-attention (``ops.flash_attention``) and the decode step's int8
 cross-attention and self-attention (``ops.decode_attention``). The kernels
 build with nvcc at first use; on CPU tensors every kernel wrapper runs its

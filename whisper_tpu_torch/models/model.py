@@ -32,7 +32,10 @@ product, with no kernel selected. The W8A8 encoder's linears go
 through two kernels: the row quantization
 :func:`~whisper_tpu_torch.ops.quantize_rows.quantize_rows` (K8q) and the int8
 GEMM with the scale epilogue fused in,
-:func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm_scaled` (K8).
+:func:`~whisper_tpu_torch.ops.int8_gemm.int8_gemm_scaled` (K8). On the card
+the products that read a block's LayerNorm take its int8 rows from
+:func:`~whisper_tpu_torch.ops.layer_norm_rows.layer_norm_rows` (K8n), the
+LayerNorm and K8q in one launch.
 
 Tensor parallelism: every forward function also takes a
 :class:`ShardedWhisper` (``parallel.sharding.shard_params``), whose ranks
@@ -78,6 +81,7 @@ from ..ops.decode_attention import (
 )
 from ..ops.flash_attention import flash_attention, flash_attention_btd_local
 from ..ops.int8_gemm import int8_gemm, int8_gemm_scaled, scale_epilogue
+from ..ops.layer_norm_rows import layer_norm, layer_norm_rows
 from ..ops.quant import QTensor
 from ..ops.quantize_rows import quantize_rows, row_scale
 
@@ -324,16 +328,6 @@ def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.
     return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1).astype(np.float32)
 
 
-def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """fp32 LayerNorm island (biased variance); returns x's dtype."""
-    x32 = x.to(torch.float32)
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * g.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
-
-
 def _gelu(x: torch.Tensor, gelu: str = "erf") -> torch.Tensor:
     """Exact (erf) GELU, or the tanh approximation with ``gelu="tanh"``."""
     if gelu not in ("erf", "tanh"):
@@ -409,6 +403,25 @@ def _column(h: torch.Tensor, per_rank, dtype, a8: bool = False) -> list:
             lin = _linear_a8 if a8 else _linear
             out.append([lin(hs, w, b, dtype) for w, b in pairs])
     return out
+
+
+def _norm_column(x: torch.Tensor, ln: Dict, per_rank, dtype, a8: bool = False) -> list:
+    """:func:`_column` of ``layer_norm(x)`` with ``ln``'s gains and bias.
+    With ``a8`` and quantized weights the LayerNorm output is never written:
+    :func:`~whisper_tpu_torch.ops.layer_norm_rows.layer_norm_rows` (K8n on
+    the card, ``layer_norm`` then ``quantize_rows_plain`` on the CPU) gives
+    its int8 rows and row scales once, on ``x``'s (the lead) device, and
+    every rank's products read a copy on its device. Otherwise the
+    LayerNorm output goes to :func:`_column` as it is."""
+    if a8 and all(isinstance(w, QTensor) for pairs in per_rank for w, _ in pairs):
+        x8, sx = layer_norm_rows(x.reshape(-1, x.shape[-1]).contiguous(), ln["g"], ln["b"])
+        out = []
+        for pairs in per_rank:
+            dev = _weight_device(pairs[0][0])
+            hq = (_to(x8, dev), _to(sx, dev), x.shape[:-1])
+            out.append([_a8_scaled(hq, w, b, dtype) for w, b in pairs])
+        return out
+    return _column(layer_norm(x, ln["g"], ln["b"]), per_rank, dtype, a8)
 
 
 def _row_parallel(xs, ws, b: Optional[torch.Tensor], dtype, a8: bool = False) -> torch.Tensor:
@@ -530,10 +543,12 @@ def encoder_blocks(model, x: torch.Tensor, compute_dtype=torch.float32,
                    gelu: str = "erf", attn: str = "btd") -> torch.Tensor:
     """Transformer blocks [lo, hi) over the stem output. ``w8a8`` runs the
     projections and MLP as int8 x int8 products (attention, conv stem and
-    LayerNorm stay in the compute dtype). ``attn="btd"`` runs the attention
-    on the (B, T, D) projections as they are; ``"bhtd"`` splits heads into
-    contiguous (B, H, T, dh) copies, runs the split-head kernel and merges
-    back, as the JAX package does under ``WHISPER_TPU_FLASH=bhtd``.
+    LayerNorm stay in the compute dtype; K8n quantizes a LayerNorm's rows
+    as it computes them, :func:`_norm_column`).
+    ``attn="btd"`` runs the attention on the (B, T, D) projections as they
+    are; ``"bhtd"`` splits heads into contiguous (B, H, T, dh) copies, runs
+    the split-head kernel and merges back, as the JAX package does under
+    ``WHISPER_TPU_FLASH=bhtd``.
 
     Under a mesh (:class:`ShardedWhisper`) each rank projects its local
     heads, runs the attention kernel on them (``btd``: K1 per rank through
@@ -553,9 +568,9 @@ def encoder_blocks(model, x: torch.Tensor, compute_dtype=torch.float32,
         blks = [s.encoder.blocks[i] for s in shards]
         b0 = blks[0]
         # the LayerNorm outputs are not kept past their products (peak memory)
-        qkv = _column(layer_norm(x, b0.attn_ln["g"], b0.attn_ln["b"]),
-                      [[(blk.attn["wq"], blk.attn["bq"]), (blk.attn["wk"], None),
-                        (blk.attn["wv"], blk.attn["bv"])] for blk in blks], dt, w8a8)
+        qkv = _norm_column(x, b0.attn_ln,
+                           [[(blk.attn["wq"], blk.attn["bq"]), (blk.attn["wk"], None),
+                             (blk.attn["wv"], blk.attn["bv"])] for blk in blks], dt, w8a8)
         if attn == "btd":
             outs = flash_attention_btd_local(*zip(*qkv), model.cfg.n_audio_head,
                                              sharded=on_mesh)
@@ -563,9 +578,8 @@ def encoder_blocks(model, x: torch.Tensor, compute_dtype=torch.float32,
             outs = [_merge_heads(flash_attention(
                 *(_split_heads(t, n_local).contiguous() for t in p))) for p in qkv]
         x = x + _row_parallel(outs, [blk.attn["wo"] for blk in blks], b0.attn["bo"], dt, w8a8)
-        hs = [_gelu(y, gelu) for (y,) in _column(
-            layer_norm(x, b0.mlp_ln["g"], b0.mlp_ln["b"]),
-            [[(blk.mlp["w1"], blk.mlp["b1"])] for blk in blks], dt, w8a8)]
+        hs = [_gelu(y, gelu) for (y,) in _norm_column(
+            x, b0.mlp_ln, [[(blk.mlp["w1"], blk.mlp["b1"])] for blk in blks], dt, w8a8)]
         x = x + _row_parallel(hs, [blk.mlp["w2"] for blk in blks], b0.mlp["b2"], dt, w8a8)
     return x
 

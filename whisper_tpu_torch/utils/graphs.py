@@ -59,13 +59,14 @@ def kernel_wrappers() -> tuple:
     from ..ops import decode_attention as da
     from ..ops import flash_attention as fa
     from ..ops.int8_gemm import int8_gemm
+    from ..ops.layer_norm_rows import layer_norm_rows
     from ..ops.log10_mel import log10_mel
     from ..ops.quantize_rows import quantize_rows
 
     return (log10_mel, fa.flash_attention_btd, fa.flash_attention_btd_sharded,
             fa.flash_attention, int8_gemm, quantize_rows, da.cross_attention_decode_fd,
             da.cross_attention_decode, da.cross_attention_decode_dense,
-            da.self_attention_decode, da.self_attention_decode_int8)
+            da.self_attention_decode, da.self_attention_decode_int8, layer_norm_rows)
 
 
 @contextlib.contextmanager
