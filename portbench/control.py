@@ -1,10 +1,11 @@
 """The readings that set a cell's limits: for each seed, one short run of the
 cell's timed path (its driver, at the cell's own sizes and load), then the
 plain reference's readings of the served sample (the program's) and the
-control's (the reference in int4 where the configuration serves int8,
-``reference.Reference(quant="int4")``) at the same positions. Each side's
-numbers go through the harness's own checks and ``correct``
-(``harness.checks_of``, ``harness.is_correct``) against the cell's limits.
+control's (the family's ``CONTROL``; for Whisper the reference in int4
+where the configuration serves int8) at the same positions, both read by
+the cell's family's ``judge``. Each side's numbers go through the
+harness's own checks and ``correct`` (``harness.checks_of``,
+``harness.is_correct``) against the cell's limits.
 
     python3 portbench/control.py --workload <cell> --seeds 11,12,13 --seconds 5
 
@@ -35,9 +36,9 @@ def _number(x) -> float:
 def readings(cell, seeds, seconds: float, device, root: str) -> list:
     from portbench import generate, judge
     from portbench.harness import Context, checks_of, is_correct
-    from portbench.weights import Dims
 
-    dims = Dims.from_config(cell.config)
+    family = cell.family
+    dims = family.dims(cell.config)
     driver = importlib.import_module(f"portbench.drivers.{cell.traffic['kind']}")
     out = []
     for seed in seeds:
@@ -52,7 +53,7 @@ def readings(cell, seeds, seconds: float, device, root: str) -> list:
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        gaps = judge.judge(dims, ctx.weight_seed, picked, device, control="int4")
+        gaps = family.judge(dims, ctx.weight_seed, picked, device, control=family.CONTROL)
         program = checks_of(cell.limits, gaps.widest, gaps.logprob_error, missing)
         ctl = checks_of(cell.limits, _number(gaps.control), _number(gaps.control_logprob_error),
                         missing)

@@ -19,7 +19,7 @@ import numpy as np
 from .. import generate, tracing
 from ..harness import Context, Outcome
 from ..judge import Served
-from . import launches, port_model, synchronize
+from . import launches, synchronize
 
 
 def run(ctx: Context) -> Outcome:
@@ -29,7 +29,7 @@ def run(ctx: Context) -> Outcome:
     mix, prec = ctx.cell.traffic, ctx.cell.config["precision"]
     batches = generate.offline_batches(mix, ctx.seed, ctx.device)
     pipe = WhisperPipeline(
-        params=port_model(ctx.dims, ctx.cell.config["name"], ctx.weight_seed, ctx.device),
+        params=ctx.cell.family.port_model(ctx.dims, ctx.cell.config, ctx.weight_seed, ctx.device),
         language=mix["language"], max_tokens=mix["new_tokens"], temperature_fallback=False,
         device=ctx.device, **prec)
     for i in range(mix["warm_batches"]):

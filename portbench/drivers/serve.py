@@ -29,7 +29,7 @@ import torch
 from .. import generate, tracing
 from ..harness import Context, Outcome
 from ..judge import Served
-from . import launches, port_model
+from . import launches
 
 STATS = ("requests_total", "encode_seconds_total", "encode_batches_total", "busy_seconds_total",
          "ticks_total", "steps_total", "tokens_total")
@@ -74,7 +74,7 @@ def run(ctx: Context) -> Outcome:
             return super()._slot_text(i, offs_h, tokens_h)
 
     mix, prec = ctx.cell.traffic, dict(ctx.cell.config["precision"])
-    model = port_model(ctx.dims, ctx.cell.config["name"], ctx.weight_seed, ctx.device)
+    model = ctx.cell.family.port_model(ctx.dims, ctx.cell.config, ctx.weight_seed, ctx.device)
     if prec.pop("quantize"):
         quantize_params(model)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[prec.pop("compute_dtype")]

@@ -1,10 +1,11 @@
 """One run of one cell: set-up, the measured window, the judgement, the line.
 
 The cell's traffic mix names its driver (``drivers/<kind>.py``), which
-builds the port from this benchmark's weights, warms every shape the mix
-uses, runs the window and hands back what the window served. Once the
-window has closed and the peak memory is read, the program's state is
-freed and the plain reference judges a sample of the served requests
+builds the port's model from this benchmark's weights (the cell's family,
+``families/<model_type>.py``), warms every shape the mix uses, runs the
+window and hands back what the window served. Once the window has closed
+and the peak memory is read, the program's state is freed and the
+family's plain reference judges a sample of the served requests
 (``judge.py``) against the cell's limits (``limits/<cell>.json``).
 """
 
@@ -19,12 +20,11 @@ import subprocess
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 
 from . import drivers, generate, judge, spec
-from .weights import Dims
 
 NOT_FINITE = 1e30  # a gap that is not finite (a forbidden token, nothing judged), as a number
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "whisper_tpu"})  # whole top-level names
@@ -35,7 +35,7 @@ class Context:
     """What a driver is given."""
 
     cell: spec.Cell
-    dims: Dims
+    dims: Any  # the cell's family's ``dims(config)``
     seed: int
     seconds: float
     trace: bool
@@ -66,7 +66,7 @@ class Outcome:
 class Run:
     """What a per-layer reader reads."""
 
-    dims: Dims
+    dims: Any
     traffic: dict
     trace: object
     facts: dict
@@ -133,7 +133,7 @@ def main(argv, root: str, t0: float, device: Optional[torch.device] = None,
     # set-up, and so ``setup_s``, holds the build of any kernel the checkout
     # lacks; the line gives that build's seconds apart
     build = drivers.build() if on_card else {"kernels_built": 0, "build_s": 0.0}
-    dims = Dims.from_config(cell.config)
+    dims = cell.family.dims(cell.config)
     driver = importlib.import_module(f"portbench.drivers.{cell.traffic['kind']}")
     ctx = Context(cell=cell, dims=dims, seed=args.seed, seconds=args.seconds,
                   trace=bool(args.trace), device=device, t0=t0)
@@ -149,7 +149,7 @@ def main(argv, root: str, t0: float, device: Optional[torch.device] = None,
     if on_card:
         torch.cuda.empty_cache()
     t_judge = time.perf_counter()
-    gaps = judge.judge(dims, ctx.weight_seed, picked, device)
+    gaps = cell.family.judge(dims, ctx.weight_seed, picked, device)
     judge_s = time.perf_counter() - t_judge
 
     checks = checks_of(cell.limits, gaps.widest, gaps.logprob_error, out.failed)

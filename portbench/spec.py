@@ -1,13 +1,31 @@
 """Find a cell's data by name: its entry in ``BENCHMARK.json``, its
-configuration, its traffic mix, its limits and its per-layer metrics'
-readers. Nothing here knows any cell: adding one adds files and entries."""
+configuration, its model family, its traffic mix, its limits and its
+per-layer metrics' readers. Nothing here knows any cell or any model:
+adding one adds files and entries.
+
+A configuration's ``model_type`` names its family, ``families/<model_type>.py``,
+which gives the benchmark's layer that sizes, builds and judges the model:
+
+- ``dims(config)``: the sizes its own code uses (``Context.dims``, ``Run.dims``);
+- ``judge(dims, weight_seed, served, device, control=None) -> judge.Gaps``:
+  the plain reference's reading of what was served, with weights made from
+  the seed as it needs them (a block at a time where they outgrow the
+  card), and with ``control`` the control's beside it;
+- ``port_model(dims, config, seed, device)``: the port's model over the
+  same weights, the port imported inside the function;
+- ``CONTROL``: the name ``control.py`` hands its ``judge`` as ``control``.
+
+A family module imports nothing of the port when it is loaded.
+"""
 
 from __future__ import annotations
 
 import importlib.util
 import json
 import os
+import sys
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -28,6 +46,7 @@ class Cell:
     config: dict           # configs/<config>.json
     traffic: dict          # traffic/<mix>.json
     limits: dict           # limits/<cell>.json
+    family: ModuleType     # families/<config's model_type>.py
     end_to_end: List[Metric] = field(default_factory=list)
     per_layer: List[Metric] = field(default_factory=list)
 
@@ -56,7 +75,27 @@ def load_cell(root: str, name: str) -> Cell:
            if m.get("workloads") is None or name in m["workloads"]]
     per_layer = [_metric(m) for m in bench["per_layer"] if name in m["workloads"]]
     return Cell(name=name, chips=int(entry["chips"]), config=config, traffic=traffic,
-                limits=limits, end_to_end=e2e, per_layer=per_layer)
+                limits=limits, family=family(config["model_type"]), end_to_end=e2e,
+                per_layer=per_layer)
+
+
+def family(model_type: str) -> ModuleType:
+    """The module ``families/<model_type>.py``, loaded once a process;
+    FileNotFoundError, naming the path, where there is none."""
+    path = os.path.join(HERE, "families", model_type + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no family for model_type {model_type!r}: {path}")
+    name = f"portbench.families.{model_type}"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module  # a dataclass in it looks its module up there
+        try:
+            spec.loader.exec_module(module)
+        except BaseException:
+            del sys.modules[name]
+            raise
+    return sys.modules[name]
 
 
 def reader(metric: str) -> Callable:

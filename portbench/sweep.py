@@ -30,7 +30,6 @@ def main(argv=None) -> int:
     from portbench import generate, spec
     from portbench.drivers import serve
     from portbench.harness import Context
-    from portbench.weights import Dims
 
     p = argparse.ArgumentParser("portbench/sweep.py")
     p.add_argument("--workload", required=True)
@@ -39,7 +38,7 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=1)
     args = p.parse_args(argv)
     cell = spec.load_cell(root, args.workload)
-    dims = Dims.from_config(cell.config)
+    dims = cell.family.dims(cell.config)
     for rate in (float(r) for r in args.rates.split(",")):
         cell.traffic = dict(cell.traffic, rate_per_s=rate)
         ctx = Context(cell=cell, dims=dims, seed=args.seed, seconds=args.seconds, trace=False,

@@ -2,10 +2,14 @@
 whole top-level module name (the port's name begins with the JAX
 package's), and nothing reads the harness that measured the JAX package.
 The yardstick (reference, weights, judge, counts, trace reduction,
-generator) imports nothing of the port either."""
+generator) and every model family, as loaded, import nothing of the port
+either; the harness and the drivers know no family: they take sizes,
+reference, judge and the port's model from the cell's."""
 
 import ast
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -15,6 +19,12 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "whisper_tpu"}
 OLD_HARNESS = ("bench" + ".py", "benchmarks" + "/", "BENCH" + "_", "BASE" + "LINE.",
                "MULTI" + "CHIP_")
 YARDSTICK = ("reference", "weights", "judge", "roofline", "tracing", "generate", "spec")
+FAMILIES = sorted(os.path.basename(p)[:-3]
+                  for p in glob.glob(os.path.join(ROOT, "portbench", "families", "*.py")))
+GENERIC = ("harness.py", "spec.py", "control.py", "sweep.py", "drivers/*.py")
+# an import of Whisper's weights or reference, a Whisper key, its sizes' type
+WHISPER = re.compile(r"^\s*(from|import) .*\b(weights|reference)\b|d_model|encoder_layers"
+                     r"|decoder_layers|\bDims\b", re.M)
 
 
 def _sources():
@@ -54,5 +64,14 @@ def test_a_run_loads_no_jax():
 
 
 def test_the_yardstick_loads_nothing_of_the_port():
-    loaded = _modules_after("".join(f"import portbench.{m}\n" for m in YARDSTICK))
+    assert "whisper" in FAMILIES
+    loaded = _modules_after("".join(f"import portbench.{m}\n" for m in YARDSTICK) +
+                            "".join(f"portbench.spec.family({f!r})\n" for f in FAMILIES))
     assert not loaded & (FORBIDDEN | {"whisper_tpu_torch"})
+
+
+def test_the_harness_and_drivers_know_no_family():
+    paths = sorted(p for g in GENERIC for p in glob.glob(os.path.join(ROOT, "portbench", g)))
+    assert len(paths) >= 7
+    for path in paths:
+        assert not WHISPER.search(open(path).read()), path

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import reference
+from portbench import reference, spec
 from portbench.tests import tiny
 from portbench.weights import Dims, make_weights
 
@@ -40,12 +40,10 @@ def test_encoder_and_logits_are_the_ports():
     from whisper_tpu_torch.models.model import (compute_cross_kv, decoder_forward,
                                                 encoder_forward, new_kv_cache)
 
-    from portbench.drivers import port_model
-
     torch.manual_seed(0)
     mel = torch.randn(2, 80, 3000) * 0.5
     tokens = torch.randint(0, 50257, (2, 12))
-    port = port_model(DIMS, "tiny", 7, "cpu")
+    port = spec.family("whisper").port_model(DIMS, {"name": "tiny"}, 7, "cpu")
     ref = reference.Reference(DIMS, make_weights(DIMS, 7, "cpu"))
     with torch.no_grad():
         audio = encoder_forward(port, mel, torch.float32)

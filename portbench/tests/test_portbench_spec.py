@@ -1,5 +1,6 @@
 """BENCHMARK.json keeps to the contract, and the harness finds every cell,
-configuration, traffic mix, limit and per-layer metric by its name."""
+configuration, model family, traffic mix, limit and per-layer metric by
+its name."""
 
 import json
 import os
@@ -57,7 +58,7 @@ def test_cell_found_by_name(workload):
     e2e = {m.name for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
     assert all(m.moves in e2e for m in cell.per_layer)
-    assert cell.chips == 1
+    assert cell.chips in (1, 4)
     assert os.path.exists(os.path.join(ROOT, "portbench", "drivers",
                                        cell.traffic["kind"] + ".py"))
     assert cell.limits["max_logit_gap"]["limit"] > 0
@@ -66,8 +67,19 @@ def test_cell_found_by_name(workload):
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file(config):
     body = json.load(open(os.path.join(ROOT, config["file"])))
-    assert body["source"] == config["source"] and body["reduced"] == config["reduced"] == []
-    assert body["d_model"] == 1280 and body["encoder_layers"] == 32
+    assert body["source"] == config["source"] and body["reduced"] == config["reduced"]
+    assert os.path.isfile(os.path.join(ROOT, "portbench", "families", body["model_type"] + ".py"))
+    family = spec.family(body["model_type"])
+    assert all(callable(getattr(family, f)) for f in ("dims", "judge", "port_model"))
+    assert isinstance(family.CONTROL, str)
+    assert family.dims(body) is not None
+    if body["model_type"] == "whisper":
+        assert body["d_model"] == 1280 and body["encoder_layers"] == 32 and body["reduced"] == []
+
+
+def test_unknown_model_type_names_the_path_it_looked_for():
+    with pytest.raises(FileNotFoundError, match=r"families[/\\]no_such_family\.py"):
+        spec.family("no_such_family")
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
