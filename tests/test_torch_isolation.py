@@ -59,7 +59,9 @@ assert not bad, bad
                                     "whisper_tpu_torch.serving.router",
                                     "whisper_tpu_torch.utils.profiling",
                                     "whisper_tpu_torch.utils.logging",
-                                    "whisper_tpu_torch.utils.native"])
+                                    "whisper_tpu_torch.utils.native",
+                                    "whisper_tpu_torch.models.omni",
+                                    "whisper_tpu_torch.omni"])
 def test_new_modules_import_alone(module):
     """Each module of the long-form, kernel-selection, tensor-parallel and
     real-weights slices, imported alone, loads none of the forbidden modules (and no

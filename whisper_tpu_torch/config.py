@@ -267,3 +267,74 @@ def get_config(name: str, **overrides) -> WhisperConfig:
     kw = dict(PRESETS[name])
     kw.update(overrides)
     return WhisperConfig(name=name, **kw)
+
+
+@dataclass(frozen=True)
+class OmniConfig:
+    """Uni-MoE-2.0-Omni's speech-to-text path (``model_type``
+    ``grin_qwen2_vl``): a Whisper encoder (``audio``) pooled to ``n_query``
+    frames and projected into a decoder-only language model of ``n_layer``
+    blocks, each GQA self-attention (``n_head`` query heads over
+    ``n_kv_head`` KV heads of ``head_dim``, RoPE at ``rope_theta``) then a
+    mixture of experts: ``n_fixed`` fixed SwiGLU experts ``d_fixed`` wide
+    that every token uses, ``n_routed`` routed ones ``d_routed`` wide and
+    ``n_null`` null experts that add nothing, the routed and null ones
+    chosen by a top-p (``top_p``) rule capped at ``top_k``. The prompt is
+    ``n_prefix`` text ids, the audio tokens, ``n_suffix`` text ids; text ids
+    lie below ``n_text_ids`` and the decode stops at ``stop_id``."""
+
+    name: str = "uni-moe-2.0-omni"
+    audio: WhisperConfig = WhisperConfig()
+    n_query: int = 200
+    d_model: int = 3584
+    n_layer: int = 28
+    n_head: int = 28
+    n_kv_head: int = 4
+    head_dim: int = 128
+    n_vocab: int = 152064
+    rms_eps: float = 1e-6
+    rope_theta: float = 1e6
+    n_fixed: int = 2
+    d_fixed: int = 2368
+    n_routed: int = 4
+    d_routed: int = 18944
+    n_null: int = 1
+    top_p: float = 0.7
+    top_k: int = 2
+    n_prefix: int = 16
+    n_suffix: int = 16
+    n_text_ids: int = 151643
+    stop_id: int = 151645
+
+    @property
+    def prompt_len(self) -> int:
+        return self.n_prefix + self.n_query + self.n_suffix
+
+    @property
+    def n_experts(self) -> int:
+        """Entries of the router's softmax: the routed experts, then the null ones."""
+        return self.n_routed + self.n_null
+
+
+# Omni presets: the audio tower by its Whisper preset's name; the rest as
+# OmniConfig's fields. Uni-MoE-2.0-Omni at its published sizes
+# (https://huggingface.co/HIT-TMG/Uni-MoE-2.0-Omni/blob/main/config.json;
+# the encoder is Whisper-large-v3's), and a tiny one for the CPU tests that
+# keeps its ratios: 7 query heads a KV head, 4 routed experts, a null one and
+# 2 fixed ones 1/8 of the routed width, top-p 0.7 capped at 2.
+OMNI_PRESETS = {
+    "uni-moe-2.0-omni": _P(audio="large-v3"),
+    "test-omni": _P(audio="test-nano", n_query=8, d_model=112, n_layer=2, n_head=7,
+                    n_kv_head=1, head_dim=16, n_vocab=512, d_fixed=32, d_routed=256,
+                    n_prefix=4, n_suffix=4, n_text_ids=500, stop_id=511),
+}
+
+
+def get_omni_config(name: str, **overrides) -> OmniConfig:
+    if name not in OMNI_PRESETS:
+        raise ValueError(f"unknown omni model {name!r}; known: {sorted(OMNI_PRESETS)}")
+    kw = dict(OMNI_PRESETS[name])
+    kw.update(overrides)
+    if isinstance(kw["audio"], str):
+        kw["audio"] = get_config(kw["audio"])
+    return OmniConfig(name=name, **kw)
