@@ -234,6 +234,17 @@ K8_M = (T_AUDIO * B, 1500, 4500)
 # and w2 their rows), at the admission sizes
 K8_TP_KN = ((1280, 640), (640, 1280), (1280, 2560), (2560, 1280))
 K8_TP_M = (1500, 4500)
+# the omni decode's K8 products (K, N, the output dtype, a bias, launches a
+# step): q|k|v, o, the fixed experts' gate|up and down (once in each of 28
+# blocks), a routed expert's gate|up and down (four times a block), the
+# head (once); at the decode's batch of 64 rows, and at 1 and 128, the
+# split schedule's edges
+K8_DECODE = ((3584, 4608, torch.float32, True, 28), (3584, 3584, torch.float32, False, 28),
+             (3584, 9472, torch.bfloat16, False, 28), (4736, 3584, torch.float32, False, 28),
+             (3584, 37888, torch.bfloat16, False, 112), (18944, 3584, torch.float32, False, 112),
+             (3584, 152064, torch.float32, False, 1))
+K8_DECODE_M = (64, 1, 128)
+K8_DECODE_SEED = 37  # a generator of its own: the later phases' inputs stay as they were
 # K8q's rows: the inputs of q/k/v, o and w1 (D = 1280) and of w2 (4 D)
 K8Q_K = (D_AUDIO, 4 * D_AUDIO)
 L2_BYTES = 50e6
@@ -851,6 +862,84 @@ def _k8_bounds(M: int, K: int, N: int) -> dict:
     return out
 
 
+def _k8_decode(dev) -> dict:
+    """K8 at the omni decode's seven products (``K8_DECODE``) and rows
+    (``K8_DECODE_M``): every output mode (int32; fp32 and bf16, with and
+    without a bias) bit-equal to ``int8_gemm_plain`` and
+    ``int8_gemm_scaled_plain``, each call one launch, on the split schedule
+    (``int8_gemm.split_launches``) exactly where the rule gives a plan. At
+    64 rows the path's mode is timed (CUPTI, the weight rotated through
+    more than twice the L2) under the rule's schedule (``ms``) and the
+    persistent one (``persistent_ms``), beside its bytes bound; ``step_ms``
+    sums a decode step's 337 launches (28 blocks and the head)."""
+    from whisper_tpu_torch.ops import int8_gemm as k8
+
+    gen = torch.Generator(device=dev).manual_seed(K8_DECODE_SEED)
+
+    def rand8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def counts():
+        return k8.int8_gemm.launches, getattr(k8.int8_gemm, "split_launches", 0)
+
+    cases, step = {}, {"ms": 0.0, "persistent_ms": 0.0, "bound_ms": 0.0}
+    for K, N, out, has_bias, per_step in K8_DECODE:
+        b = rand8(N, K).t()  # K-major, as QTensor.k_major lays a weight out
+        ws = torch.rand((1, N), generator=gen, device=dev) * 1e-2
+        bias = torch.randn(N, generator=gen, device=dev)
+        for M in K8_DECODE_M:
+            a = rand8(M, K)
+            sx = torch.rand((M, 1), generator=gen, device=dev) * 1e-2
+            # a checkout without the split schedule keeps the persistent one
+            plan = k8._plan(M, K, N, dev.index or 0) if hasattr(k8, "_plan") else None
+            acc = k8.int8_gemm_plain(a, b)
+            calls = [(lambda: k8.int8_gemm(a, b), acc)] + [
+                (lambda dt=dt, bb=bb: k8.int8_gemm_scaled(a, b, sx, ws, bb, dt),
+                 k8.int8_gemm_scaled_plain(a, b, sx, ws, bb, dt))
+                for dt in (torch.float32, torch.bfloat16) for bb in (bias, None)]
+            for call, want in calls:
+                before = counts()
+                got = call()
+                after = counts()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"int8_gemm ({got.dtype}) differs from its plain version "
+                                         f"at M {M}, K {K}, N {N}, plan {plan}")
+                if after != (before[0] + 1, before[1] + (plan is not None)):
+                    raise AssertionError(f"int8_gemm counted {after} after {before} at M {M}, "
+                                         f"K {K}, N {N}, plan {plan}")
+            case = {"plan": None if plan is None else list(plan)}
+            if M == 64:
+                bb = bias.to(out) if has_bias else None
+                nbytes = (M * K + K * N + out.itemsize * M * N + 4 * (M + N)
+                          + (out.itemsize * N if has_bias else 0))
+                sets = [b] + [rand8(N, K).t()
+                              for _ in range(max(1, math.ceil(2 * L2_BYTES / (K * N))) - 1)]
+                fn = lambda: [k8.int8_gemm_scaled(a, w, sx, ws, bb, out) for w in sets]
+                case["ms"] = launch_ms(fn, 10, len(sets))
+                if plan is None:
+                    case["persistent_ms"] = case["ms"]
+                else:
+                    rule, k8._plan = k8._plan, lambda *shape: None
+                    try:
+                        case["persistent_ms"] = launch_ms(fn, 10, len(sets))
+                    finally:
+                        k8._plan = rule
+                case["bound_ms"] = max(1e3 * nbytes / PEAK_BYTES, 2e3 * M * K * N / PEAK_INT8)
+                case["bound_share"] = case["bound_ms"] / case["ms"]
+                for key in step:
+                    step[key] += per_step * case[key]
+                del sets
+            cases[f"decode/M{M}/K{K}/N{N}"] = case
+            del a
+        del b
+        torch.cuda.empty_cache()
+    return {"cases": cases, "exact_at_M": list(K8_DECODE_M),
+            "step_ms": step["ms"], "step_persistent_ms": step["persistent_ms"],
+            "step_bound_ms": step["bound_ms"], "step_bound_share": step["bound_ms"] / step["ms"],
+            "split_launches_a_step": sum(n for K, N, _, _, n in K8_DECODE
+                                         if cases[f"decode/M64/K{K}/N{N}"]["plan"])}
+
+
 def kernel_k8(dev, gen) -> dict:
     """K8 in both epilogues at every turbo encoder shape: the int32 product
     exact against its plain version, and the scaled epilogue (bf16 out with
@@ -861,7 +950,9 @@ def kernel_k8(dev, gen) -> dict:
     and the int32 mode (``int32_ms``, ``int32_bound_ms``) beside
     torch._int_mm, which computes the int32 product alone, with a
     column-major weight (the layout K8 reads; ``library_ms``) and with the
-    (K, N) row-major one (``library_rowmajor_ms``)."""
+    (K, N) row-major one (``library_rowmajor_ms``). Then the omni decode's
+    products at few rows, where the split-K schedule runs
+    (:func:`_k8_decode`, ``omni_decode``, its cases in ``cases``)."""
     from whisper_tpu_torch.ops.int8_gemm import (
         int8_gemm, int8_gemm_plain, int8_gemm_scaled, int8_gemm_scaled_plain)
 
@@ -920,6 +1011,8 @@ def kernel_k8(dev, gen) -> dict:
                 layer[key] += per_layer * case[key]
             del a
             torch.cuda.empty_cache()
+    decode = _k8_decode(dev)
+    cases.update(decode.pop("cases"))
     n = sum(p for _, _, p in K8_KN)
     per_launch = {key: v / n for key, v in layer.items()}
     return {"name": "int8_gemm", "route": "cuda", "source": "whisper_tpu_torch/csrc/int8_gemm.cu",
@@ -936,6 +1029,7 @@ def kernel_k8(dev, gen) -> dict:
             "int32_bound_share": per_launch["int32_bound_ms"] / per_launch["int32_ms"],
             "per_batch_ms": {k: L_AUDIO * v for k, v in layer.items()},
             "bound_peaks": "1,979 TOP/s int8, 3.35 TB/s", "cases": cases,
+            "omni_decode": decode,
             "library": "torch._int_mm(a, b) with b column-major: the int32 product alone (compare "
                        "with int32_ms; no PyTorch call computes the scaled epilogue); "
                        "library_rowmajor_ms with b (K, N) row-major, cuBLAS's path before K8"}

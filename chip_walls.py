@@ -5,6 +5,7 @@ in turns, on one card.
     python3 chip_walls.py --phases kernel_k1,kernel_k6 PARENT . . PARENT
     python3 chip_walls.py --paths serving_ladder,beam_phase,serving_beam PARENT . . PARENT
     python3 chip_walls.py --ladder PARENT . . PARENT
+    python3 chip_walls.py --omni_ids SEED PARENT . . PARENT
 
 Each argument is the root of a checkout (a directory holding
 ``chip_smoke.py`` and ``whisper_tpu_torch/``, e.g. the parent commit
@@ -24,7 +25,12 @@ their walls and latencies. With ``--ladder`` it runs the ``chip_smoke.py``
 beside this script's ``shrinking_ladder_walls`` on that checkout (the
 offline configuration with its temperature ladder on, each rung
 re-decoding a seeded shrinking subset of the rows) and prints the walls of
-its batches. Comparing two
+its batches. With ``--omni_ids SEED`` it builds the ``uni-moe-offline-b64``
+cell's pipeline as the benchmark does for ``--seed SEED`` (its weights,
+prompt and precision) on that checkout, decodes the cell's two batches and
+the first again, and prints a digest of the served ids, whether the
+repeat gave the first batch's ids, and whether the digest equals the first
+checkout's. Comparing two
 commits in one call on one card, in turns, keeps other cards' power limits
 and other hosts' neighbours out of the difference. Needs a CUDA card; exits
 non-zero if a run fails.
@@ -133,11 +139,42 @@ print("RESULT " + json.dumps({"ladder": cs.shrinking_ladder_walls(), **build}))
 """
 
 
+_OMNI_IDS = r"""
+import hashlib, json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from portbench import generate, spec
+from whisper_tpu_torch.omni import OmniPipeline
+from whisper_tpu_torch.ops import _build
+
+build = _build.build_all()
+cell, seed, dev = spec.load_cell(sys.argv[1], "uni-moe-offline-b64"), int(sys.argv[2]), torch.device("cuda")
+dims, mix = cell.family.dims(cell.config), cell.traffic
+weight_seed = generate.stream_seed(seed, generate.WEIGHTS)
+prefix, suffix = cell.family.prompt_ids(dims, weight_seed)
+pipe = OmniPipeline(params=cell.family.port_model(dims, cell.config, weight_seed, dev),
+                    prefix_ids=prefix, suffix_ids=suffix, max_tokens=mix["new_tokens"], device=dev,
+                    **cell.config["precision"])
+batches = generate.offline_batches(mix, seed, dev)
+served = [[r.tokens for r in pipe.transcribe_batch(clips)] for clips in batches + batches[:1]]
+digest = hashlib.sha256()
+for tokens in served[:-1]:
+    for t in tokens:
+        digest.update(np.asarray(t, dtype=np.int64).tobytes() + b"|")
+print("RESULT " + json.dumps({
+    "ids_sha256": digest.hexdigest(), "ids": sum(len(t) for b in served[:-1] for t in b),
+    "repeat_equal": all(np.array_equal(x, y) for x, y in zip(served[0], served[-1])), **build}))
+"""
+
+
 def main(argv) -> int:
-    phases = paths = None
+    phases = paths = omni_seed = None
     ladder = argv[:1] == ["--ladder"]
     if ladder:
         argv = argv[1:]
+    elif argv[:1] == ["--omni_ids"] and len(argv) > 1:
+        omni_seed, argv = argv[1], argv[2:]
     elif argv[:1] == ["--phases"] and len(argv) > 1:
         phases, argv = argv[1], argv[2:]
     elif argv[:1] == ["--paths"] and len(argv) > 1:
@@ -147,10 +184,13 @@ def main(argv) -> int:
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    first = None  # the first checkout's ids (--omni_ids)
     for i, root in enumerate(argv):
         root = os.path.abspath(root)
         if ladder:
             cmd = [sys.executable, "-c", _LADDER, root, SMOKE]
+        elif omni_seed is not None:
+            cmd = [sys.executable, "-c", _OMNI_IDS, root, omni_seed]
         elif paths is not None:
             cmd = [sys.executable, "-c", _PATHS, root, paths]
         elif phases is not None:
@@ -162,8 +202,11 @@ def main(argv) -> int:
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return 1
-        print(json.dumps({"turn": i, "checkout": argv[i], "card": smi,
-                          **json.loads(lines[-1][len("RESULT "):])}), flush=True)
+        rec = json.loads(lines[-1][len("RESULT "):])
+        if omni_seed is not None:
+            first = first or rec["ids_sha256"]
+            rec["equal_to_first"] = rec["ids_sha256"] == first
+        print(json.dumps({"turn": i, "checkout": argv[i], "card": smi, **rec}), flush=True)
     return 0
 
 

@@ -116,23 +116,26 @@ _counting = threading.Lock()
 _tally = threading.local()
 
 
-def count(wrapper, n: int = 1) -> None:
-    """Count ``n`` launches of ``wrapper``'s kernel on its ``.launches``,
-    or, while this thread captures a CUDA graph (:func:`tally`), on the
-    capture's tally: a capture launches nothing, each replay adds the
-    tally, and other threads launching meanwhile count on their own."""
+def count(wrapper, n: int = 1, attr: str = "launches") -> None:
+    """Count ``n`` launches of ``wrapper``'s kernel on its ``.launches``
+    (or on another of its counters, ``attr``), or, while this thread
+    captures a CUDA graph (:func:`tally`), on the capture's tally: a
+    capture launches nothing, each replay adds the tally, and other
+    threads launching meanwhile count on their own."""
     counts = getattr(_tally, "counts", None)
     if counts is not None:
-        counts[wrapper] = counts.get(wrapper, 0) + n
+        key = wrapper if attr == "launches" else (wrapper, attr)
+        counts[key] = counts.get(key, 0) + n
         return
     with _counting:
-        wrapper.launches += n
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
 
 
 class tally:
     """The launches :func:`count` sees in this thread while the block runs
-    (a graph's capture), as ``.counts`` {wrapper: n}, none of them on the
-    wrappers' ``.launches``."""
+    (a graph's capture), as ``.counts`` {wrapper: n} (a counter other than
+    ``.launches`` under (wrapper, its name)), none of them on the
+    wrappers' counters."""
 
     def __enter__(self):
         self.counts = _tally.counts = {}

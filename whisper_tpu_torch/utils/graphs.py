@@ -108,8 +108,9 @@ class GraphSet:
             graph, deltas = entry
             with record_function("whisper.graph.replay"):
                 graph.replay()
-                for wrapper, n in deltas:
-                    _build.count(wrapper, n)
+                for key, n in deltas:
+                    wrapper, attr = key if isinstance(key, tuple) else (key, "launches")
+                    _build.count(wrapper, n, attr)
             self.replays += 1
             return
         self._warm(fn)
